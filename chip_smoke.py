@@ -4,25 +4,43 @@
     python3 chip_smoke.py [--seed 0] [--accesses 1048576]
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card
-and ``nvcc``.  Phases, each printing one line:
+and ``nvcc``.  Phases, each printing one or more lines:
 
 1. probe: torch, CUDA, the card, its power limit, nvcc;
-2. build: the CUDA kernels, from the sources in the checkout;
+2. build: the CUDA kernels, one ``nvcc`` per source, all started together,
+   from the sources in the checkout, with each kernel's registers and spills;
 3. kernels: ``cache_sim`` and ``cache_sim_fused`` on the card, bit-equal to
    their plain PyTorch versions on the same inputs, at four shapes;
-4. main path: ``TraceDriver(make_device("cxl-ssd-cache"), engine="cuda")``
-   at the paper's Table I width (16 MB LRU cache = 1 set x 4096 ways, 16 GB
-   low-latency SSD, 32 outstanding) over a seeded trace of 2^20 accesses,
-   plus ``simulate_trace`` on the same trace; checked against
+4. main path (replay): ``TraceDriver(make_device("cxl-ssd-cache"),
+   engine="cuda")`` at the paper's Table I width (16 MB LRU cache = 1 set x
+   4096 ways, 16 GB low-latency SSD, 32 outstanding) over a seeded trace of
+   2^20 accesses, plus ``simulate_trace`` on the same trace; checked against
    ``run_cuda(validate=True)`` and, access by access, the host-side LRU
    policy object (decisions) and a plain-Python latency recurrence over
    that object's decisions (latencies and arrivals);
 5. golden: the pinned ``cxl-ssd-cache@direct`` kernel-lane latencies of
-   ``tests/golden/golden_traces.json``, reproduced on the card.
+   ``tests/golden/golden_traces.json``, reproduced on the card;
+6. decode kernels: ``flash_decode`` against its plain version at hd 120 /
+   128 / 64, G 4 / 1 and four fill levels; ``page_gather`` and
+   ``page_scatter`` against theirs over float32, bfloat16 and int32 pages
+   with a repeated slot (exact);
+7. main path (serve): ``repro_torch.launch.serve.serve`` of h2o-danube-3-4b
+   at full width (24 layers, d_model 3840, 32/8 heads of 120, seeded random
+   weights from a torch.Generator on the card), batch 4, context 512,
+   32 + 608 steps, LRU tiered KV store backed by a simulated CXL-SSD;
+   launches of all three serving kernels, the store's counters and clock
+   against values pinned from the JAX package's store, ``flash_decode``
+   against its plain version on the run's final caches of all 24 layers,
+   and the greedy tokens of a second run, which must be identical;
+8. profile: where a serving step's time goes on the card (the port's
+   kernels, matrix products, other kernels, copies, idle), by the profiler;
+9. scheduler: ``BatchScheduler`` at full width, 4 slots, 8 seeded requests,
+   all complete, twice with identical outputs.
 
-Then one JSON line per kernel (launches on the main path, error against the
-plain version, times, bounds) and, last, the result line.  Any failed check
-ends the run with a non-zero exit; without a CUDA device it exits at once.
+Then the card's name and power limit, one JSON line of every kernel
+(launches on its main path, error against the plain version, device times,
+bounds) and, last, the result line.  Any failed check ends the run with a
+non-zero exit; without a CUDA device it exits at once.
 """
 
 from __future__ import annotations
@@ -32,6 +50,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +59,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 units
 # integer operations of the set scan per way: the tag compare and the
 # first-match select (2), the validity compare and the key select (2),
@@ -55,6 +75,31 @@ CHECK_ACCESSES = 8192
 SOURCE = "src/repro_torch/kernels/csrc/cache_sim.cu"
 REPLACES = {"cache_sim": "src/repro/kernels/cache_sim.py:33",
             "cache_sim_fused": "src/repro/kernels/cache_sim.py:139"}
+# the serving main path: repro_torch.launch.serve at full width
+SERVE = dict(arch="h2o-danube-3-4b", batch=4, context=512, prompt_len=32,
+             gen=608, policy="lru", kv_page_tokens=16, seed=0)
+# the tiered store's counters and simulated CXL-SSD clock on that run,
+# from the JAX package's TieredStore on the same archive schedule and page
+# shape (tests/test_torch_tiered.py recomputes them)
+TIERED_PIN = {"reads": 74, "hits": 44, "misses": 28, "coalesced": 2,
+              "fills": 28, "writebacks": 0, "bytes_in": 165150720,
+              "bytes_out": 0, "sim_ticks": 25236186660}
+DECODE_SOURCES = {"flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+                  "page_gather": "src/repro_torch/kernels/csrc/page_gather.cu",
+                  "page_scatter": "src/repro_torch/kernels/csrc/page_gather.cu"}
+DECODE_REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:26",
+                   "page_gather": "src/repro/kernels/page_gather.py:24",
+                   "page_scatter": "src/repro/kernels/page_gather.py:50"}
+# the device-side name of each kernel, as the profiler reports it
+KERNEL_NAMES = {"flash_decode": "flash_decode_kernel",
+                "page_gather": "gather_kernel",
+                "page_scatter": "scatter_kernel"}
+DECODE_TOL = dict(out=2e-5, m=1e-5, l_rtol=1e-4)   # tests/test_kernels.py
+DECODE_CHECKS = [(hd, g, n) for hd in (120, 128, 64) for g in (4, 1)
+                 for n in (1, 31, 32, 512)]        # a tile is 32 rows
+SCHED_REQUESTS, SCHED_SLOTS, SCHED_NEW = 8, 4, 32
+PROFILE_STEPS = 16              # decode steps at a full ring, profiled
+TIMING_REPS = 24                # calls per device time, on rotating inputs
 
 
 def say(phase: str, **kw) -> None:
@@ -122,6 +167,391 @@ def latency_chain(hits, evicts, *, outstanding, issue_ns, hit_ns, miss_ns,
     return np.asarray(lat, np.int64), np.asarray(arr, np.int64)
 
 
+# ------------------------------------------------------------- serving path
+def device_ms(torch, fn, reps: int = TIMING_REPS,
+              match: str | None = None) -> float:
+    """Mean device time of one call ``fn(i)``, i < reps, from the
+    profiler's record of the card: the summed durations of every kernel,
+    copy and memset the calls ran, or of the kernels whose name holds
+    ``match`` only.  Host time between launches is not counted.  Callers
+    rotate the inputs with ``i`` over more than the 50 MB L2 cache, so each
+    call finds its data in device memory, as on the serving path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and (match is None or match in e.name)]
+    check(bool(acts), f"the profiler saw no device activity {match or ''}")
+    return sum(e.device_time_total for e in acts) / reps / 1e3
+
+
+def decode_err(got, want) -> dict:
+    """flash_decode against its plain version: max |out|, max |m| and max
+    relative l error."""
+    (o, m, l), (wo, wm, wl) = got, want
+    return {"out": float((o - wo).abs().max()),
+            "m": float((m - wm).abs().max()),
+            "l_rel": float(((l - wl).abs() / wl.abs()).max())}
+
+
+def decode_within(err: dict) -> bool:
+    return (err["out"] <= DECODE_TOL["out"] and err["m"] <= DECODE_TOL["m"]
+            and err["l_rel"] <= DECODE_TOL["l_rtol"])
+
+
+def worst_of(errs) -> dict:
+    errs = list(errs)
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def decode_kernel_checks(torch, dev, seed: int) -> dict:
+    """Phase 6: the serving kernels against their plain versions."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ops import page_gather_op, page_scatter_op
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, Skv, KV = 4, 512, 8
+    errs = []
+    for hd, g, n_valid in DECODE_CHECKS:
+        q = torch.randn(B, KV * g, hd, device=dev, generator=gen)
+        kc, vc = (torch.randn(B, Skv, KV, hd, device=dev, generator=gen)
+                  for _ in range(2))
+        errs.append(decode_err(fd.flash_decode(q, kc, vc, n_valid),
+                               fd.flash_decode_plain(q, kc, vc, n_valid)))
+    worst = worst_of(errs)
+    check(all(decode_within(e) for e in errs),
+          f"flash_decode disagrees with its plain version: {worst}")
+    say("decode", kernel="flash_decode", shapes=len(DECODE_CHECKS),
+        B=B, Skv=Skv, KV=KV, hd="120,128,64", G="4,1",
+        n_valid="1,31,32,512", max_out_err=f"{worst['out']:.3e}",
+        max_m_err=f"{worst['m']:.3e}", max_l_rel_err=f"{worst['l_rel']:.3e}",
+        tol=json.dumps(DECODE_TOL, separators=(",", ":")))
+
+    shape = (9, 24, 4, 16, 8, 120)   # pool slots x one KV page of the serve path
+    table = torch.tensor([7, 2, 7, 0], dtype=torch.int32)   # slot 7 twice
+    bad = []
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        pool = torch.randint(-1000, 1000, shape, device=dev,
+                             generator=gen).to(dtype)
+        pages = torch.randint(-1000, 1000, (4,) + shape[1:], device=dev,
+                              generator=gen).to(dtype)
+        if not torch.equal(page_gather_op(pool, table), pool[table.long()]):
+            bad.append(f"gather {dtype}")
+        got = page_scatter_op(pool.clone(), table, pages)
+        want = pool.clone()
+        for i, slot in enumerate(table.tolist()):
+            want[slot] = pages[i]
+        if not (torch.equal(got, want) and torch.equal(got[7], pages[2])):
+            bad.append(f"scatter {dtype}")
+    check(not bad, f"page kernels disagree with their plain versions: {bad}")
+    say("decode", kernel="page_gather,page_scatter",
+        dtypes="float32,bfloat16,int32", page_shape="x".join(map(str, shape[1:])),
+        table=table.tolist(), mismatches=0, last_writer_wins="yes")
+    return worst
+
+
+def serve_phase(torch, dev) -> dict:
+    """Phase 7: the serving main path at full width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import init_params
+
+    kw = dict(SERVE)
+    cfg = get_arch(kw.pop("arch"))
+    steps = kw["prompt_len"] + kw["gen"]
+    t0 = time.perf_counter()
+    params = init_params(cfg, kw["seed"], torch_device=dev)
+    torch.cuda.synchronize()
+    say("serve", arch=cfg.name, params=cfg.param_count(),
+        param_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+        init_s=f"{time.perf_counter() - t0:.2f}",
+        weights="'seeded torch.Generator on the card: not the JAX "
+                "package's PRNG draws, so not bit-equal to its weights'")
+
+    fd.reset_launches()
+    pg.reset_launches()
+    res = serve(params, cfg, **kw)
+    launches = {**fd.LAUNCHES, **pg.LAUNCHES}
+    check(all(v >= 1 for v in launches.values()),
+          f"serving main path missed a kernel: launches {launches}")
+    check(launches["flash_decode"] == steps * cfg.n_layers,
+          f"flash_decode launches {launches['flash_decode']} != "
+          f"{steps} steps x {cfg.n_layers} layers")
+    for line in res.report():
+        print(line, flush=True)
+    check(res.tokens.shape == (steps, kw["batch"])
+          and 0 <= res.tokens.min() and res.tokens.max() < cfg.vocab,
+          "greedy tokens out of shape or range")
+    check(all(bool(torch.isfinite(res.state[k]).all()) for k in "kv"),
+          "non-finite values in the final KV caches")
+    stats = dict(res.tiered.stats, sim_ticks=res.tiered.sim_ticks)
+    check(stats == TIERED_PIN,
+          f"tiered counters {stats} differ from the JAX pins {TIERED_PIN}")
+
+    # flash_decode on the run's own final caches, every layer
+    gen = torch.Generator(device=dev).manual_seed(kw["seed"] + 1)
+    n_valid = min(steps, res.state["k"].shape[2])
+    q = torch.randn(kw["batch"], cfg.n_heads, cfg.resolved_head_dim,
+                    device=dev, generator=gen)
+    errs = [decode_err(fd.flash_decode(q, res.state["k"][i],
+                                       res.state["v"][i], n_valid),
+                       fd.flash_decode_plain(q, res.state["k"][i],
+                                             res.state["v"][i], n_valid))
+            for i in range(cfg.n_layers)]
+    worst = worst_of(errs)
+    check(all(decode_within(e) for e in errs),
+          f"flash_decode disagrees with its plain version on the run's "
+          f"caches: {worst}")
+
+    again = serve(params, cfg, **kw)
+    check(np.array_equal(again.tokens, res.tokens),
+          "two greedy runs gave different tokens")
+    check(dict(again.tiered.stats, sim_ticks=again.tiered.sim_ticks) == stats,
+          "two runs gave different tiered counters")
+    say("serve", steps=steps, batch=kw["batch"],
+        tok_per_s=f"{kw['batch'] * steps / res.seconds:.1f}",
+        ms_per_step=f"{res.seconds / steps * 1e3:.3f}",
+        archive_ms_per_step=f"{res.archive_seconds / steps * 1e3:.3f}",
+        second_run_ms_per_step=f"{again.seconds / steps * 1e3:.3f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        tiered_vs_jax_pins="equal",
+        sim_cxl_ssd_us=f"{res.tiered.sim_time_us:.5f}",
+        full_width_check=f"{cfg.n_layers}_layers_n_valid_{n_valid}",
+        max_out_err=f"{worst['out']:.3e}", max_m_err=f"{worst['m']:.3e}",
+        max_l_rel_err=f"{worst['l_rel']:.3e}",
+        greedy_tokens_second_run="identical",
+        first_tokens=json.dumps(res.tokens[:4].tolist(),
+                                separators=(",", ":")))
+    del again
+    return dict(cfg=cfg, params=params, res=res, launches=launches,
+                worst=worst, q=q, n_valid=n_valid, steps=steps)
+
+
+def profile_phase(torch, run: dict) -> None:
+    """Phase 8: where a decode step's time goes at a full ring (n_valid
+    512): 16 steps that continue the main run, timed on the host clock,
+    then 16 more under the profiler for the device time by kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.step import make_serve_step
+
+    cfg, params, res = run["cfg"], run["params"], run["res"]
+    step = make_serve_step(cfg)
+    dev = params["embed"].device
+    carry = [res.state, torch.from_numpy(res.tokens[-1]).to(dev)]
+
+    def steps():
+        state, tokens = carry
+        for _ in range(PROFILE_STEPS):
+            logits, state = step(params, state, tokens)
+            tokens = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(
+                torch.int32)
+        torch.cuda.synchronize()
+        carry[:] = [state, tokens]
+
+    steps()                                               # warm
+    t0 = time.perf_counter()
+    steps()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps()
+    kinds = {"port_kernels": 0.0, "matmuls": 0.0, "other_kernels": 0.0,
+             "copies": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name
+        if any(k in name for k in KERNEL_NAMES.values()):
+            kind = "port_kernels"
+        elif name.startswith(("Memcpy", "Memset")):
+            kind = "copies"
+        elif any(k in name.lower() for k in ("gemm", "gemv", "splitk")):
+            kind = "matmuls"
+        else:
+            kind = "other_kernels"
+        kinds[kind] += e.device_time_total / 1e3 / PROFILE_STEPS   # ms/step
+    check(kinds["port_kernels"] > 0 and kinds["matmuls"] > 0,
+          f"the profile of the decode steps saw no kernels: {kinds}")
+    busy = sum(kinds.values())
+    main_ms = res.seconds * 1e3 / run["steps"]
+    say("profile", decode_steps=PROFILE_STEPS,
+        n_valid=min(res.state["cur"], res.state["k"].shape[2]),
+        wall_ms_per_step=f"{wall_ms:.3f}",
+        device_busy_ms_per_step=f"{busy:.3f}",
+        **{f"{k}_ms_per_step": f"{v:.4f}" for k, v in kinds.items()},
+        idle_share=f"{1 - busy / wall_ms:.4f}",
+        main_run_ms_per_step=f"{main_ms:.3f}")
+
+
+def scheduler_phase(torch, run: dict, seed: int) -> None:
+    """Phase 9: continuous batching at full width, twice."""
+    from repro_torch.distributed.step import make_serve_step
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.transformer import init_decode_state
+    from repro_torch.serving.scheduler import (BatchScheduler, Request,
+                                               SchedulerConfig)
+
+    cfg, params = run["cfg"], run["params"]
+    step = make_serve_step(cfg)
+
+    def once():
+        rng = np.random.default_rng(seed + 2)
+        sched = BatchScheduler(
+            lambda st, toks: step(params, st, toks),
+            lambda b: init_decode_state(params, cfg, b, SERVE["context"]),
+            SchedulerConfig(batch_slots=SCHED_SLOTS), cfg.vocab,
+            torch_device=params["embed"].device)
+        for rid in range(SCHED_REQUESTS):
+            prompt = rng.integers(0, cfg.vocab, rng.integers(16, 65))
+            sched.submit(Request(rid=rid, prompt=prompt.astype(np.int32),
+                                 max_new_tokens=SCHED_NEW))
+        t0 = time.perf_counter()
+        done = sched.run(max_ticks=4000)
+        return sched, {r: d.output for r, d in done.items()}, \
+            time.perf_counter() - t0
+
+    fd.reset_launches()
+    sched, outs, secs = once()
+    launches = fd.LAUNCHES["flash_decode"]
+    check(sorted(outs) == list(range(SCHED_REQUESTS))
+          and all(len(o) == SCHED_NEW for o in outs.values()),
+          f"scheduler left requests unfinished: {sorted(outs)}")
+    check(launches == sched.ticks * cfg.n_layers,
+          f"scheduler ran {launches} flash_decode launches in "
+          f"{sched.ticks} ticks")
+    _, outs2, secs2 = once()
+    check(outs2 == outs, "two scheduler runs gave different outputs")
+    say("scheduler", requests=SCHED_REQUESTS, slots=SCHED_SLOTS,
+        max_new_tokens=SCHED_NEW, ticks=sched.ticks,
+        seconds=f"{secs:.2f}", second_run_seconds=f"{secs2:.2f}",
+        ms_per_tick=f"{secs / sched.ticks * 1e3:.3f}",
+        flash_decode_launches=launches, outputs_second_run="identical",
+        first_outputs=json.dumps(outs[0][:8]))
+
+
+def serve_kernel_rows(torch, dev, run: dict, check_worst: dict) -> list:
+    """The serving kernels' rows of the kernels line: device times at the
+    main path's shapes, plain versions and library calls on the same
+    inputs, and bounds."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.kernels.ops import page_gather_op, page_scatter_op
+
+    res, q, n = run["res"], run["q"], run["n_valid"]
+    kc, vc = res.state["k"], res.state["v"]      # rotate over the 24 layers
+    layers = kc.shape[0]
+    B, H, hd = q.shape
+    KV = kc.shape[3]
+    ms = {"flash_decode": device_ms(
+        torch, lambda i: fd.flash_decode(q, kc[i % layers], vc[i % layers], n),
+        match=KERNEL_NAMES["flash_decode"])}
+    plain = {"flash_decode": device_ms(
+        torch, lambda i: fd.flash_decode_plain(q, kc[i % layers],
+                                               vc[i % layers], n))}
+    qs = q[:, :, None]
+    ks = [kc[i, :, :n].transpose(1, 2) for i in range(layers)]
+    vs = [vc[i, :, :n].transpose(1, 2) for i in range(layers)]
+    lib = {"flash_decode": device_ms(
+        torch, lambda i: F.scaled_dot_product_attention(
+            qs, ks[i % layers], vs[i % layers], enable_gqa=True))}
+    lib_err = float((F.scaled_dot_product_attention(
+        qs, ks[0], vs[0], enable_gqa=True)[:, :, 0]
+        - fd.flash_decode_plain(q, kc[0], vc[0], n)[0]).abs().max())
+    fd_bytes = 4 * (2 * B * n * KV * hd + 2 * B * H * hd + 2 * B * H)
+    fd_flops = 4 * B * H * n * hd
+
+    # two pages a call, rotating over the pool's 32 slots (189 MB)
+    pool = res.tiered.pool.clone()
+    slots = pool.shape[0]
+    tables = [torch.tensor([(2 * i) % slots, (2 * i + 1) % slots],
+                           dtype=torch.int32, device=dev)
+              for i in range(slots // 2)]
+    idxs = [t.long() for t in tables]
+    # source pages rotate too, over as many pairs again
+    sources = torch.randn((slots,) + tuple(pool.shape[1:]), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+    flat = pool.view(slots, -1)
+
+    def tb(i):
+        return tables[i % len(tables)]
+
+    def ix(i):
+        return idxs[i % len(idxs)]
+
+    ms["page_gather"] = device_ms(
+        torch, lambda i: page_gather_op(pool, tb(i)),
+        match=KERNEL_NAMES["page_gather"])
+    srcs = [sources[i] for i in idxs]              # its own 2 pages a call
+    ms["page_scatter"] = device_ms(
+        torch, lambda i: page_scatter_op(pool, tb(i), srcs[i % len(srcs)]),
+        match=KERNEL_NAMES["page_scatter"])
+    plain["page_gather"] = device_ms(
+        torch, lambda i: pg.page_gather_plain(flat, tb(i)))
+    plain["page_scatter"] = device_ms(
+        torch, lambda i: pg.page_scatter_plain(
+            flat, tb(i), srcs[i % len(srcs)].view(2, -1)))
+    lib["page_gather"] = device_ms(
+        torch, lambda i: torch.index_select(pool, 0, ix(i)))
+    lib["page_scatter"] = device_ms(
+        torch, lambda i: pool.index_copy_(0, ix(i), srcs[i % len(srcs)]))
+    page_bytes = res.tiered.page_bytes
+    copy_bytes = 2 * 2 * page_bytes + 2 * 4
+
+    steps, launches = run["steps"], run["launches"]
+    say("serve", device_ms_per_step_at_full_ring=json.dumps(
+        {k: round(ms[k] * launches[k] / steps, 6) for k in ms},
+        separators=(",", ":")),
+        flash_decode_us=f"{ms['flash_decode'] * 1e3:.2f}",
+        page_gather_us_2_pages=f"{ms['page_gather'] * 1e3:.2f}",
+        page_scatter_us_2_pages=f"{ms['page_scatter'] * 1e3:.2f}",
+        sdpa_vs_plain_max_err=f"{lib_err:.3e}")
+
+    rows = []
+    shapes = {"flash_decode": f"q {B}x{H}x{hd}, caches {B}x{kc.shape[2]}x"
+                              f"{KV}x{hd} (the run's, one layer a call), "
+                              f"n_valid {n}",
+              "page_gather": f"2 pages of {page_bytes} B a call from the "
+                             f"run's pool, rotating over its {slots} slots",
+              "page_scatter": f"2 pages of {page_bytes} B a call into the "
+                              f"run's pool, rotating over its {slots} slots"}
+    library = {"flash_decode": "F.scaled_dot_product_attention(enable_gqa)",
+               "page_gather": "torch.index_select",
+               "page_scatter": "Tensor.index_copy_"}
+    for name in ("flash_decode", "page_gather", "page_scatter"):
+        if name == "flash_decode":
+            t_bytes, t_ops = fd_bytes / HBM_BYTES_PER_S, \
+                fd_flops / FP32_FLOPS_PER_S
+            err = max(check_worst["out"], run["worst"]["out"])
+            tol = DECODE_TOL
+        else:
+            t_bytes, t_ops, err, tol = copy_bytes / HBM_BYTES_PER_S, 0.0, 0, 0
+        rows.append({
+            "name": name, "route": "cuda", "source": DECODE_SOURCES[name],
+            "replaces": DECODE_REPLACES[name],
+            "launches": launches[name], "max_abs_err": err,
+            "tolerance": tol, "ms": ms[name], "plain_ms": plain[name],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib[name], "library": library[name],
+            "shape": shapes[name],
+            "timing": "device time per call by torch.profiler",
+        })
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -160,10 +590,11 @@ def main() -> int:
 
     # 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    libs = [_build.build(name) for name in _build.SOURCES]
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:   # one nvcc each
+        libs = list(pool.map(_build.build, _build.SOURCES))
     for name in _build.SOURCES:
         _build.library(name)
-    ptxas = [ln.strip() for log in _build.build_log.values()
+    ptxas = [f"{name}: {ln.strip()}" for name, log in _build.build_log.items()
              for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         libraries=",".join(p.name for p in libs))
@@ -322,7 +753,14 @@ def main() -> int:
         first_latency_ticks=int(gres.latency_ticks[0]),
         elapsed_ticks=gres.elapsed_ticks, equal="all fields")
 
-    # 6. kernels line ------------------------------------------------------
+    # 6.-9. the serving path ---------------------------------------------
+    check_worst = decode_kernel_checks(torch, dev, args.seed)
+    run = serve_phase(torch, dev)
+    profile_phase(torch, run)
+    scheduler_phase(torch, run, args.seed)
+    serve_rows = serve_kernel_rows(torch, dev, run, check_worst)
+
+    # kernels line -------------------------------------------------------
     int32_ops_per_s = (torch.cuda.get_device_properties(0).multi_processor_count
                        * INT32_LANES_PER_SM * sm_clock_mhz * 1e6)
     rows = []
@@ -341,7 +779,8 @@ def main() -> int:
             "shapes": [f"{s}x{w}:{p}" for s, w, p in CHECK_SHAPES],
             "mismatches": mismatches[name],
         })
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows + serve_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,12 +21,14 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = {"cache_sim": CSRC / "cache_sim.cu"}
+SOURCES = {name: CSRC / f"{name}.cu"
+           for name in ("cache_sim", "flash_decode", "page_gather")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures, by library: {function: (restype, argtypes)}
 SIGNATURES = {
     "cache_sim": {
@@ -34,6 +36,16 @@ SIGNATURES = {
                              + [_P] * 6),
         "cache_sim_smem_optin": (_I, [_I, ctypes.POINTER(_I)]),
         "cache_sim_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_decode": {
+        "flash_decode_launch": (_I, [_P] * 6 + [_I] * 5 + [_L] * 6
+                                + [ctypes.c_float, _P]),
+        "flash_decode_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "page_gather": {
+        "page_gather_launch": (_I, [_P] * 3 + [_L, _I, _I, _P]),
+        "page_scatter_launch": (_I, [_P] * 3 + [_L, _I, _I, _P]),
+        "page_gather_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 

@@ -5,8 +5,11 @@ on the card with::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Outputs are integers and flags: the comparisons are exact.  This file
-imports no JAX, so it also runs where JAX is not installed.
+Cache replay outputs are integers and flags, and page copies are bytes:
+those comparisons are exact.  ``flash_decode`` sums in another order than
+its plain version: out within 2e-5, m within 1e-5, l within rtol 1e-4 (the
+tolerances of ``tests/test_kernels.py``).  This file imports no JAX, so it
+also runs where JAX is not installed.
 """
 
 import numpy as np
@@ -16,7 +19,14 @@ import torch
 from repro_torch.core.cache.dram_cache import DRAMCacheConfig
 from repro_torch.core.devices import make_device
 from repro_torch.core.replay.cuda_engine import run_cuda
+from repro_torch.configs import get_arch
 from repro_torch.kernels import cache_sim as ks
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import page_gather as pg
+from repro_torch.kernels.ops import page_gather_op, page_scatter_op
+from repro_torch.launch.serve import serve
+from repro_torch.models.transformer import init_params
+from repro_torch.tiered.store import TieredStore, TieredStoreConfig
 
 pytestmark = pytest.mark.cuda
 TIMING = dict(issue_ns=1, hit_ns=50, miss_ns=5000, miss_occ_ns=213, wb_ns=97)
@@ -84,3 +94,105 @@ def test_run_cuda_on_the_card_equals_the_cpu(card):
             np.testing.assert_array_equal(getattr(gpu, f), getattr(cpu, f))
         for f in ("elapsed_ticks", "sum_latency_ticks", "end_tick"):
             assert getattr(gpu, f) == getattr(cpu, f)
+
+
+def _decode_close(got, want):
+    out, m, l = got
+    wo, wm, wl = want
+    assert out.device.type == "cuda"
+    torch.testing.assert_close(out, wo, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(m, wm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_valid", [1, 31, 32, 512])
+@pytest.mark.parametrize("G", [4, 1])
+@pytest.mark.parametrize("hd", [120, 128, 64])
+def test_flash_decode_equals_plain(card, hd, G, n_valid):
+    gen = torch.Generator(device=card).manual_seed(hd * 100 + G)
+    B, Skv, KV = 4, 512, 8
+    q = torch.randn(B, KV * G, hd, device=card, generator=gen)
+    kc, vc = (torch.randn(B, Skv, KV, hd, device=card, generator=gen)
+              for _ in range(2))
+    before = fd.LAUNCHES["flash_decode"]
+    got = fd.flash_decode(q, kc, vc, n_valid)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == before + 1
+    _decode_close(got, fd.flash_decode_plain(q, kc, vc, n_valid))
+
+
+def test_flash_decode_reads_one_layer_of_the_stacked_state(card):
+    gen = torch.Generator(device=card).manual_seed(1)
+    k = torch.randn(3, 2, 64, 8, 120, device=card, generator=gen)
+    v = torch.randn(3, 2, 64, 8, 120, device=card, generator=gen)
+    q = torch.randn(2, 32, 120, device=card, generator=gen)
+    _decode_close(fd.flash_decode(q, k[1], v[1], 40),
+                  fd.flash_decode_plain(q, k[1], v[1], 40))
+    odd = torch.randn(2, 64, 2, 30, device=card, generator=gen)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fd.flash_decode(q[:, :4, :30], odd, odd, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32, torch.uint8])
+def test_page_ops_equal_plain_with_a_repeated_slot(card, dtype):
+    gen = torch.Generator(device=card).manual_seed(2)
+    shape = (9, 3, 7) if dtype == torch.uint8 else (9, 24, 4, 16, 8)
+    pool = torch.randint(0, 100, shape, device=card, generator=gen).to(dtype)
+    pages = torch.randint(0, 100, (4,) + shape[1:], device=card,
+                          generator=gen).to(dtype)
+    table = torch.tensor([7, 2, 7, 0], dtype=torch.int32)   # 7 twice
+    before = dict(pg.LAUNCHES)
+    assert torch.equal(page_gather_op(pool, table), pool[table.long()])
+    got = page_scatter_op(pool.clone(), table, pages)
+    want = pool.clone()
+    for i, slot in enumerate(table.tolist()):
+        want[slot] = pages[i]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got[7], pages[2])
+    assert pg.LAUNCHES == {k: v + 1 for k, v in before.items()}
+
+
+def test_tiered_store_on_the_card_equals_the_cpu(card):
+    rng = np.random.default_rng(4)
+    stores = [TieredStore(TieredStoreConfig(n_logical_pages=16,
+                                            page_shape=(4, 8), hbm_pages=3,
+                                            policy="2q"),
+                          backing=make_device("cxl-ssd"), torch_device=d)
+              for d in ("cuda", "cpu")]
+    for _ in range(60):
+        lpns = [int(x) for x in rng.integers(0, 16, rng.integers(1, 4))]
+        data = rng.standard_normal((4, 8)).astype(np.float32)
+        if rng.random() < 0.3:
+            for st in stores:
+                st.update_page(lpns[0], data)
+        else:
+            a, b = (st.read_pages(lpns) for st in stores)
+            assert torch.equal(a.cpu(), b)
+    for st in stores:
+        st.flush()
+    assert stores[0].stats == stores[1].stats
+    assert stores[0].sim_ticks == stores[1].sim_ticks
+    for lpn in range(16):
+        np.testing.assert_array_equal(stores[0].capacity_page(lpn),
+                                      stores[1].capacity_page(lpn))
+
+
+def test_serve_on_the_card_runs_the_kernels_and_matches_the_cpu(card):
+    cfg = get_arch("h2o-danube-3-4b").reduced()
+    params = init_params(cfg, 5, torch_device="cpu")
+    kw = dict(batch=2, prompt_len=8, gen=40, context=32, kv_page_tokens=4,
+              seed=5)
+    cpu = serve(params, cfg, keep_logits=True, **kw)
+    fd.reset_launches()
+    pg.reset_launches()
+    gpu = serve({k: (v.to(card) if torch.is_tensor(v) else
+                     {n: t.to(card) for n, t in v.items()})
+                 for k, v in params.items()}, cfg, forced=cpu.tokens,
+                keep_logits=True, **kw)
+    assert fd.LAUNCHES["flash_decode"] == 48 * cfg.n_layers
+    assert pg.LAUNCHES["page_gather"] > 0 and pg.LAUNCHES["page_scatter"] > 0
+    torch.testing.assert_close(torch.stack(gpu.logits).cpu(),
+                               torch.stack(cpu.logits), rtol=1e-4, atol=1e-4)
+    assert gpu.tiered.stats == cpu.tiered.stats
+    assert gpu.tiered.sim_ticks == cpu.tiered.sim_ticks

@@ -13,11 +13,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core.cache.dram_cache import DRAMCacheConfig
 from repro_torch.core.cache.trace_sim import simulate_trace
 from repro_torch.core.devices import make_device
 from repro_torch.core.replay.cuda_engine import run_cuda
 from repro_torch.core.workloads.driver import TraceDriver
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.ops import page_gather_op, page_scatter_op
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.models import transformer as T
+from repro_torch.serving.scheduler import BatchScheduler, SchedulerConfig
+from repro_torch.tiered.store import TieredStore, TieredStoreConfig
 from test_torch_reference import REPO
 
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -46,10 +53,19 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_package_has_the_reference_layout():
     for sub in ("core", "core/cache", "core/ssd", "core/cxl", "core/replay",
-                "core/workloads", "kernels"):
+                "core/workloads", "kernels", "configs", "models", "tiered",
+                "serving", "launch", "distributed"):
         assert (REPO / "src" / "repro_torch" / sub / "__init__.py").exists()
-    assert (REPO / "src" / "repro_torch" / "kernels" / "csrc"
-            / "cache_sim.cu").exists()
+        assert (REPO / "src" / "repro" / sub / "__init__.py").exists()
+    for name in ("cache_sim", "flash_decode", "page_gather"):
+        assert (REPO / "src" / "repro_torch" / "kernels" / "csrc"
+                / f"{name}.cu").exists()
+    for mod in ("models/layers.py", "models/transformer.py",
+                "kernels/flash_decode.py", "kernels/page_gather.py",
+                "kernels/ops.py", "tiered/store.py", "serving/scheduler.py",
+                "launch/serve.py", "distributed/step.py", "configs/base.py"):
+        assert (REPO / "src" / "repro_torch" / mod).exists(), mod
+        assert (REPO / "src" / "repro" / mod).exists(), mod
 
 
 def test_reference_alias_only_in_the_child_runner():
@@ -79,6 +95,46 @@ def test_run_cuda_defaults_to_the_card_and_refuses_without_one(no_card):
                        ways=4)
     # the CPU is used when asked for
     assert run_cuda(dev, addrs, writes, torch_device="cpu").accesses == 256
+
+
+def test_serving_entry_points_default_to_the_card_and_refuse_without_one(
+        no_card, capsys):
+    cfg = get_arch("h2o-danube-3-4b").reduced()
+    store_cfg = TieredStoreConfig(n_logical_pages=4, page_shape=(2, 3),
+                                  hbm_pages=2)
+    refusals = [
+        lambda: T.init_params(cfg, 0),
+        lambda: TieredStore(store_cfg),
+        lambda: BatchScheduler(None, None, SchedulerConfig(), cfg.vocab),
+        lambda: serve_main(["--arch", "h2o-danube-3-4b", "--reduced"]),
+    ]
+    for call in refusals:
+        with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+            call()
+    # the CPU is used when asked for
+    params = T.init_params(cfg, 0, torch_device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert TieredStore(store_cfg, torch_device="cpu").pool.device.type == "cpu"
+    serve_main(["--arch", "h2o-danube-3-4b", "--reduced", "--device", "cpu",
+                "--prompt-len", "2", "--gen", "2"])
+    assert capsys.readouterr().out.startswith("[serve] arch=")
+
+
+def test_kernel_wrappers_launch_or_raise_off_the_cpu(no_card):
+    """Only CPU tensors take the plain versions; any other device goes to
+    the kernel launch, which refuses what is not a CUDA tensor."""
+    q = torch.zeros(1, 4, 8, device="meta")
+    kv = torch.zeros(1, 16, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_decode(q, kv, kv, 4)
+    pool = torch.zeros(4, 2, 3, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        page_gather_op(pool, torch.tensor([1]))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        page_scatter_op(pool, torch.tensor([1]),
+                        torch.zeros(1, 2, 3, device="meta"))
+    cpu = torch.ones(4, 2, 3)
+    assert page_gather_op(cpu, torch.tensor([1, 1])).shape == (2, 2, 3)
 
 
 def test_python_lane_needs_no_card(no_card):

@@ -35,7 +35,17 @@ and ``nvcc``.  Phases, each printing one or more lines:
 8. profile: where a serving step's time goes on the card (the port's
    kernels, matrix products, other kernels, copies, idle), by the profiler;
 9. scheduler: ``BatchScheduler`` at full width, 4 slots, 8 seeded requests,
-   all complete, twice with identical outputs.
+   all complete, twice with identical outputs;
+10. prefill: ``flash_attention`` against its plain version over head dims
+   64 / 120 / 128, group sizes 1 / 4 / 5 / 8 / 16 and four masks (causal,
+   sliding window, cross lengths, a ragged S); then the main path
+   ``make_prefill_step(cfg)(params, {"tokens": ...})`` of h2o-danube-3-4b
+   at full width (the serve phase's weights), batch 2 x 8192 seeded
+   tokens: 24 kernel launches, finite logits, the kernel against its plain
+   version on layer 0's own q / k / v, the logits of the first 64
+   positions against 64 decode steps (equal greedy argmax), the host wall
+   time, the device time by kind, and the kernel's time beside its bound,
+   its plain version and ``F.scaled_dot_product_attention``.
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -97,6 +107,23 @@ KERNEL_NAMES = {"flash_decode": "flash_decode_kernel",
 DECODE_TOL = dict(out=2e-5, m=1e-5, l_rtol=1e-4)   # tests/test_kernels.py
 DECODE_CHECKS = [(hd, g, n) for hd in (120, 128, 64) for g in (4, 1)
                  for n in (1, 31, 32, 512)]        # a tile is 32 rows
+# the prefill main path: make_prefill_step at full width
+PREFILL = dict(batch=2, seq=8192)
+PREFILL_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+PREFILL_REPLACES = "src/repro/kernels/flash_attention.py:25"
+PREFILL_KERNEL = "flash_attention_kernel"
+PREFILL_TOL = dict(atol=2e-5, rtol=2e-5)   # tests/test_kernels.py, float32
+# (S, Skv, causal, window) of each mask the kernel is checked on; a block
+# is 64 query rows, a key tile 32 keys (64 at hd <= 64)
+PREFILL_MODES = {"causal": (256, 256, True, 0),
+                 "window": (320, 320, True, 100),
+                 "cross": (160, 200, False, 0),
+                 "ragged": (333, 333, True, 0)}
+PREFILL_CHECKS = [(hd, g, mode) for hd in (64, 120, 128)
+                  for g in (1, 4, 5, 8, 16) for mode in PREFILL_MODES]
+PARITY_TOKENS = 64             # decode steps held against the prefill
+PARITY_TOL = 2e-3              # tests/test_models_smoke.py prefill/decode
+PREFILL_TIMING_REPS = 8
 SCHED_REQUESTS, SCHED_SLOTS, SCHED_NEW = 8, 4, 32
 PROFILE_STEPS = 16              # decode steps at a full ring, profiled
 TIMING_REPS = 24                # calls per device time, on rotating inputs
@@ -169,13 +196,14 @@ def latency_chain(hits, evicts, *, outstanding, issue_ns, hit_ns, miss_ns,
 
 # ------------------------------------------------------------- serving path
 def device_ms(torch, fn, reps: int = TIMING_REPS,
-              match: str | None = None) -> float:
+              match: str | None = None, names: list | None = None) -> float:
     """Mean device time of one call ``fn(i)``, i < reps, from the
     profiler's record of the card: the summed durations of every kernel,
     copy and memset the calls ran, or of the kernels whose name holds
-    ``match`` only.  Host time between launches is not counted.  Callers
-    rotate the inputs with ``i`` over more than the 50 MB L2 cache, so each
-    call finds its data in device memory, as on the serving path."""
+    ``match`` only (their names are appended to ``names`` when given).
+    Host time between launches is not counted.  Callers rotate the inputs
+    with ``i`` over more than the 50 MB L2 cache, so each call finds its
+    data in device memory, as on the serving path."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -189,7 +217,12 @@ def device_ms(torch, fn, reps: int = TIMING_REPS,
     acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and (match is None or match in e.name)]
     check(bool(acts), f"the profiler saw no device activity {match or ''}")
-    return sum(e.device_time_total for e in acts) / reps / 1e3
+    if names is not None:
+        names.extend(sorted({e.name for e in acts}))
+    # a named kernel launches once a call: average over the launches the
+    # profiler recorded, so one it misses does not count as no time
+    calls = len(acts) if match else reps
+    return sum(e.device_time_total for e in acts) / calls / 1e3
 
 
 def decode_err(got, want) -> dict:
@@ -552,6 +585,202 @@ def serve_kernel_rows(torch, dev, run: dict, check_worst: dict) -> list:
     return rows
 
 
+# ------------------------------------------------------------ prefill path
+def close_err(torch, got, want, tol: dict) -> tuple[float, bool]:
+    """Max |got - want| and whether every element is within
+    ``atol + rtol * |want|``."""
+    diff = (got - want).abs()
+    ok = bool((diff <= tol["atol"] + tol["rtol"] * want.abs()).all())
+    return float(diff.max()), ok
+
+
+def prefill_kernel_checks(torch, dev, seed: int) -> float:
+    """Phase 10a: flash_attention against its plain version on the card."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    B, KV = 2, 2
+    worst, bad = 0.0, []
+    for hd, g, mode in PREFILL_CHECKS:
+        S, Skv, causal, window = PREFILL_MODES[mode]
+        q = torch.randn(B, S, KV * g, hd, device=dev, generator=gen)
+        k, v = (torch.randn(B, Skv, KV, hd, device=dev, generator=gen)
+                for _ in range(2))
+        err, ok = close_err(
+            torch, fa.flash_attention(q, k, v, causal=causal, window=window),
+            fa.flash_attention_plain(q, k, v, causal=causal, window=window),
+            PREFILL_TOL)
+        worst = max(worst, err)
+        if not ok:
+            bad.append((hd, g, mode, err))
+    check(not bad, f"flash_attention disagrees with its plain version: {bad}")
+    say("prefill", kernel="flash_attention", shapes=len(PREFILL_CHECKS),
+        B=B, KV=KV, hd="64,120,128", G="1,4,5,8,16",
+        masks=json.dumps({m: dict(zip(("S", "Skv", "causal", "window"), c))
+                          for m, c in PREFILL_MODES.items()},
+                         separators=(",", ":")),
+        max_abs_err=f"{worst:.3e}",
+        tol=json.dumps(PREFILL_TOL, separators=(",", ":")))
+    return worst
+
+
+def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
+    """Phase 10b: the prefill main path at full width, checked and
+    measured; returns the kernel's row of the kernels line."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.step import make_prefill_step, make_serve_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # float32, as the
+    torch.backends.cudnn.allow_tf32 = False          # reference computes
+    cfg, params = run["cfg"], run["params"]
+    dev = params["embed"].device
+    B, S = PREFILL["batch"], PREFILL["seq"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=dev, generator=gen,
+                           dtype=torch.int32)
+    step = make_prefill_step(cfg)
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    check(launches == cfg.n_layers,
+          f"prefill ran {launches} flash_attention launches, not one per "
+          f"layer ({cfg.n_layers})")
+    check(tuple(logits.shape) == (B, S, cfg.padded_vocab),
+          f"prefill logits of shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    head = logits[0, :PARITY_TOKENS].clone()
+    del logits
+
+    t0 = time.perf_counter()
+    step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    kinds = {"flash_attention": 0.0, "matmuls": 0.0, "other_kernels": 0.0,
+             "copies": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if PREFILL_KERNEL in e.name:
+            kind = "flash_attention"
+        elif e.name.startswith(("Memcpy", "Memset")):
+            kind = "copies"
+        elif any(k in e.name.lower() for k in ("gemm", "gemv", "splitk")):
+            kind = "matmuls"
+        else:
+            kind = "other_kernels"
+        kinds[kind] += e.device_time_total / 1e3
+    busy = sum(kinds.values())
+    check(kinds["flash_attention"] > 0 and kinds["matmuls"] > 0,
+          f"the profile of the prefill saw no kernels: {kinds}")
+
+    # the kernel on layer 0's own q / k / v, against its plain version
+    window = cfg.swa_window
+    positions = torch.arange(S, device=dev)[None, :]
+    with torch.no_grad():
+        blk = {k: params["blocks"][k][0] for k in T.BLOCK_KEYS}
+        h = L.rms_norm(L.embed_tokens(params["embed"], tokens.long()),
+                       blk["ln1"], cfg.norm_eps)
+        q, k, v = T.attention_inputs(h, blk, cfg, positions)
+        del h
+        layer_err, ok = close_err(
+            torch, fa.flash_attention(q, k, v, window=window),
+            fa.flash_attention_plain(q, k, v, window=window), PREFILL_TOL)
+    check(ok, f"flash_attention disagrees with its plain version on layer "
+              f"0 at the full shape: max error {layer_err:.3e}")
+
+    # prefill against decode: the first prompt's first tokens, one a step
+    serve = make_serve_step(cfg)
+    state = T.init_decode_state(params, cfg, 1, PARITY_TOKENS)
+    dec = []
+    for t in range(PARITY_TOKENS):
+        lg, state = serve(params, state, tokens[:1, t])
+        dec.append(lg[0])
+    dec = torch.stack(dec)
+    parity_err, ok = close_err(torch, dec, head,
+                               dict(atol=PARITY_TOL, rtol=PARITY_TOL))
+    check(ok, f"prefill logits differ from {PARITY_TOKENS} decode steps: "
+              f"max error {parity_err:.3e}")
+    check(torch.equal(dec[:, :cfg.vocab].argmax(-1),
+                      head[:, :cfg.vocab].argmax(-1)),
+          "prefill and decode disagree on the greedy tokens")
+    del state, dec
+
+    # device time of the kernel, its plain version and the library call
+    # on layer 0's inputs (0.38 GB a call, 7.6x the 50 MB L2)
+    reps = PREFILL_TIMING_REPS
+    ms = device_ms(torch, lambda i: fa.flash_attention(q, k, v, window=window),
+                   reps=reps, match=PREFILL_KERNEL)
+    events_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                          window=window),
+                        reps=reps)
+    plain_ms = device_ms(
+        torch, lambda i: fa.flash_attention_plain(q, k, v, window=window),
+        reps=2)
+    band = L._block_mask(positions[0], positions[0], window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_names = []
+    lib_ms = device_ms(
+        torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True),
+        reps=2, names=lib_names)
+    lib_err = float((F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, enable_gqa=True).transpose(1, 2)
+        - fa.flash_attention(q, k, v, window=window)).abs().max())
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    # (query, key) pairs the causal band keeps, for one batch row and head
+    pairs = int(np.minimum(np.arange(1, S + 1), window or S).sum())
+    flops = 4 * hd * pairs * B * H
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    say("prefill", arch=cfg.name, batch=B, seq=S, tokens=B * S,
+        first_wall_ms=f"{first_s * 1e3:.3f}", wall_ms=f"{wall_s * 1e3:.3f}",
+        tok_per_s=f"{B * S / wall_s:.1f}",
+        device_busy_ms=f"{busy:.3f}",
+        **{f"{k}_ms": f"{v:.4f}" for k, v in kinds.items()},
+        idle_share=f"{1 - busy / (wall_s * 1e3):.4f}",
+        launches=launches, max_logit=f"{float(head.abs().max()):.3f}",
+        layer0_max_abs_err=f"{layer_err:.3e}",
+        decode_parity_tokens=PARITY_TOKENS,
+        decode_parity_max_err=f"{parity_err:.3e}", greedy_argmax="equal",
+        tf32="off")
+    say("prefill", flash_attention_ms=f"{ms:.4f}",
+        flash_attention_cuda_events_ms=f"{events_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
+        bound_ms=f"{max(t_bytes, t_ops) * 1e3:.4f}",
+        live_pairs_per_head=pairs, gflop=f"{flops / 1e9:.1f}",
+        tflops=f"{flops / ms / 1e9:.2f}",
+        sdpa_vs_kernel_max_err=f"{lib_err:.3e}",
+        sdpa_kernels=repr(",".join(lib_names)[:200]))
+    return {
+        "name": "flash_attention", "route": "cuda", "source": PREFILL_SOURCE,
+        "replaces": PREFILL_REPLACES, "launches": launches,
+        "max_abs_err": max(check_worst, layer_err), "tolerance": PREFILL_TOL,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+        "library": "F.scaled_dot_product_attention(attn_mask=band, "
+                   "enable_gqa=True)",
+        "shape": f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{cfg.n_kv_heads}x{hd} "
+                 f"(layer 0 of the run), causal, window {window}",
+        "timing": "device time per call by torch.profiler",
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -760,6 +989,10 @@ def main() -> int:
     scheduler_phase(torch, run, args.seed)
     serve_rows = serve_kernel_rows(torch, dev, run, check_worst)
 
+    # 10. the prefill path ------------------------------------------------
+    prefill_row = prefill_phase(torch, run, args.seed,
+                                prefill_kernel_checks(torch, dev, args.seed))
+
     # kernels line -------------------------------------------------------
     int32_ops_per_s = (torch.cuda.get_device_properties(0).multi_processor_count
                        * INT32_LANES_PER_SM * sm_clock_mhz * 1e6)
@@ -780,7 +1013,8 @@ def main() -> int:
             "mismatches": mismatches[name],
         })
     print(card, flush=True)
-    print(json.dumps({"kernels": rows + serve_rows}), flush=True)
+    print(json.dumps({"kernels": rows + serve_rows + [prefill_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
-"""Step functions.  This slice has the single-device serve step."""
+"""Step functions.  This slice has the single-device prefill and serve
+steps."""
 
-from repro_torch.distributed.step import make_serve_step
+from repro_torch.distributed.step import make_prefill_step, make_serve_step
 
-__all__ = ["make_serve_step"]
+__all__ = ["make_prefill_step", "make_serve_step"]

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("cache_sim", "flash_decode", "page_gather")}
+           for name in ("cache_sim", "flash_attention", "flash_decode",
+                        "page_gather")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,6 +37,11 @@ SIGNATURES = {
                              + [_P] * 6),
         "cache_sim_smem_optin": (_I, [_I, ctypes.POINTER(_I)]),
         "cache_sim_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_attention": {
+        "flash_attention_launch": (_I, [_P] * 4 + [_I] * 6 + [_L] * 9
+                                   + [_I, _I, ctypes.c_float, _P]),
+        "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_decode": {
         "flash_decode_launch": (_I, [_P] * 6 + [_I] * 5 + [_L] * 6

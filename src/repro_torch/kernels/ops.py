@@ -1,9 +1,9 @@
-"""Public wrappers of the page kernels for pages of any shape.
+"""Public wrappers of the kernels, as the JAX package's ``kernels/ops.py``
+has them.
 
-The kernels address pages as ``(P, R, C)``; these wrappers flatten any
-trailing page shape onto that form and back, as the JAX package's
-``kernels/ops.py`` does.  The flattening is a view, so
-:func:`page_scatter_op` still writes the caller's pool in place.
+The page kernels address pages as ``(P, R, C)``; their wrappers flatten
+any trailing page shape onto that form and back.  The flattening is a
+view, so :func:`page_scatter_op` still writes the caller's pool in place.
 """
 
 from __future__ import annotations
@@ -12,7 +12,15 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.page_gather import page_gather, page_scatter
+
+
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Prefill attention; the JAX wrapper's ``bq`` / ``bk`` tile sizes are
+    the kernel's own here."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def _as3d(x: torch.Tensor):
@@ -41,4 +49,4 @@ def page_scatter_op(pool: torch.Tensor, table, pages: torch.Tensor
     return out.view(orig) if orig is not None else out
 
 
-__all__ = ["page_gather_op", "page_scatter_op"]
+__all__ = ["flash_attention_op", "page_gather_op", "page_scatter_op"]

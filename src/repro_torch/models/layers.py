@@ -1,13 +1,15 @@
-"""Transformer layers of the serving path in PyTorch: RMSNorm, split-half
-RoPE, SwiGLU, token embedding and single-token decode attention.
+"""Transformer layers of the serving and prefill paths in PyTorch: RMSNorm,
+split-half RoPE, SwiGLU, token embedding, full-sequence attention and
+single-token decode attention.
 
 Each function keeps the JAX package's layout and numerics (float32
 normalisation and softmax, frequencies ``theta ** (arange / hd)`` in
 float32, masking with ``NEG_INF = -1e30``), so the two agree to float32
-rounding.  :func:`decode_attention` is the plain version of the
-hand-written decode kernel (:mod:`repro_torch.kernels.flash_decode`), which
-is what the model calls.  Prefill attention (``flash_attention``) belongs
-to the next slice of the port.
+rounding.  :func:`attention_ref` and :func:`decode_attention` are the
+plain versions of the hand-written kernels
+(:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.flash_decode`); :func:`flash_attention` is the
+prefill path's call into its kernel.
 """
 
 from __future__ import annotations
@@ -47,6 +49,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------- attention
+def _block_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """(q_block, kv_block) causal (+ optional sliding-window) mask."""
+    causal = q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        causal &= q_pos[:, None] - k_pos[None, :] < window
+    return causal
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Prefill attention through the hand-written kernel (its plain version
+    for CPU tensors).  q: (B, S, H, hd); k, v: (B, Skv, KV, hd).  JAX's
+    ``q_block`` / ``kv_block`` / ``impl`` pick tilings of its jnp path and
+    do not change the function; the kernel has its own tiles."""
+    # imported here: the kernel module builds on this one
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    return kernel(q, k, v, causal=causal, window=window)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  q_start: int = 0) -> torch.Tensor:
+    """O(S * Skv)-memory reference attention.  q: (B, S, H, hd) holds the
+    rows at positions ``q_start ..`` of the sequence (a chunk of a longer
+    one); k, v: (B, Skv, KV, hd), any Skv when not ``causal``."""
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg.float(), k.float()) * hd ** -0.5
+    if causal:
+        q_pos = torch.arange(q_start, q_start + S, device=q.device)
+        mask = _block_mask(q_pos, torch.arange(Skv, device=q.device), window)
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqc,bckd->bqkgd", p, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len, *,
                      window: int = 0) -> torch.Tensor:

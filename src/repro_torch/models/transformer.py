@@ -1,5 +1,5 @@
-"""Dense decoder for serving: parameters, the ring-buffer decode state and
-one-token decode, in PyTorch.
+"""Dense decoder: parameters, the full-sequence forward (prefill), the
+ring-buffer decode state and one-token decode, in PyTorch.
 
 The layout is the JAX package's: layer parameters are stacked along a
 leading ``n_layers`` axis in a plain dict (``params["blocks"]["wq"]`` is
@@ -9,13 +9,14 @@ leading ``n_layers`` axis in a plain dict (``params["blocks"]["wq"]`` is
 Where JAX scans over the stacked layers, this module loops in Python, and
 where JAX returns new caches, :func:`decode_step` writes this token's K/V
 into the state's caches in place (one slot per layer, no copy).
-Attention goes through the hand-written decode kernel
-(:func:`repro_torch.kernels.flash_decode.flash_decode`).
+Attention goes through the hand-written kernels: prefill through
+:func:`repro_torch.kernels.flash_attention.flash_attention` (once per
+layer), decode through :func:`repro_torch.kernels.flash_decode.flash_decode`.
 
 This slice runs the dense family with a model-dtype KV cache on one
-device.  Other families (moe, ssm, hybrid, vlm, audio), ``kv_dtype="int8"``,
-cross-attention layers and a device mesh raise ``NotImplementedError``;
-prefill (the full-sequence ``forward``) comes with the next slice.
+device, for inference.  Other families (moe, ssm, hybrid, vlm, audio),
+``kv_dtype="int8"``, cross-attention layers, a device mesh and
+``remat=True`` (a training option) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -103,6 +104,75 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, torch_device="cuda",
     return params
 
 
+# -------------------------------------------------------------- forward
+def _embed(params, cfg: ArchConfig, tokens):
+    return L.embed_tokens(params["embed"], tokens)
+
+
+def _unembed(params, cfg: ArchConfig, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+def attention_inputs(x, blk, cfg: ArchConfig, positions):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) of one attention layer, with
+    RoPE applied to q and k.  x: (B, S, D), normalised."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ blk["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (x @ blk["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (x @ blk["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    return (L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn_forward(x, blk, cfg: ArchConfig, positions):
+    B, S, _ = x.shape
+    q, k, v = attention_inputs(x, blk, cfg, positions)
+    o = L.flash_attention(q, k, v, causal=True, window=cfg.swa_window)
+    return o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) @ blk["wo"]
+
+
+def _ffn_forward(x, blk, cfg: ArchConfig):
+    """The dense family's SwiGLU FFN.  Returns (y, aux)."""
+    return L.swiglu(x, blk["w_gate"], blk["w_up"], blk["w_down"]), 0.0
+
+
+def _block_forward(x, blk, cfg: ArchConfig, positions):
+    """One decoder block (self-attention + FFN).  Returns (x, aux)."""
+    h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
+    x = x + _attn_forward(h, blk, cfg, positions)
+    h2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
+    y, aux = _ffn_forward(h2, blk, cfg)
+    return x + y, aux
+
+
+def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            ctx=None, remat: bool = False):
+    """Full-sequence forward.  batch["tokens"]: (B, S) integer token ids on
+    the parameters' device.  Returns ``(logits (B, S, padded_vocab),
+    aux)``; ``aux`` (the MoE balance loss) is 0.0 for the dense family.
+    ``remat`` only matters for a backward pass, which is not ported."""
+    require_ported(cfg)
+    if ctx is not None:
+        raise NotImplementedError(
+            f"a forward on a device mesh is not ported yet ({ROADMAP_ITEM})")
+    if remat:
+        raise NotImplementedError(
+            f"remat=True is a training option and training is not ported "
+            f"yet ({ROADMAP_ITEM}); pass remat=False")
+    x = _embed(params, cfg, batch["tokens"].long())
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    blocks = params["blocks"]
+    aux = 0.0
+    for i in range(cfg.n_layers):
+        x, a = _block_forward(x, {k: blocks[k][i] for k in BLOCK_KEYS}, cfg,
+                              positions)
+        aux += a
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, x), aux
+
+
 # --------------------------------------------------------------- decode
 def kv_cache_len(cfg: ArchConfig, context_len: int) -> int:
     if cfg.swa_window:
@@ -141,15 +211,6 @@ def _attn_decode(x, blk, cfg: ArchConfig, k_cache, v_cache, cur: int):
     v_cache[:, slot] = v
     o, _, _ = flash_decode(q, k_cache, v_cache, min(cur + 1, Sc))
     return o.to(x.dtype).reshape(B, cfg.n_heads * hd) @ blk["wo"]
-
-
-def _embed(params, cfg: ArchConfig, tokens):
-    return L.embed_tokens(params["embed"], tokens)
-
-
-def _unembed(params, cfg: ArchConfig, x):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
 
 
 def decode_step(params, cfg: ArchConfig, state: Dict[str, Any],

@@ -8,8 +8,10 @@ on the card with::
 Cache replay outputs are integers and flags, and page copies are bytes:
 those comparisons are exact.  ``flash_decode`` sums in another order than
 its plain version: out within 2e-5, m within 1e-5, l within rtol 1e-4 (the
-tolerances of ``tests/test_kernels.py``).  This file imports no JAX, so it
-also runs where JAX is not installed.
+tolerances of ``tests/test_kernels.py``); so does ``flash_attention``:
+within 2e-5.  A reduced-width forward on the card matches the CPU's within
+1e-4 (float32 matmuls summed in another order).  This file imports no JAX,
+so it also runs where JAX is not installed.
 """
 
 import numpy as np
@@ -20,12 +22,14 @@ from repro_torch.core.cache.dram_cache import DRAMCacheConfig
 from repro_torch.core.devices import make_device
 from repro_torch.core.replay.cuda_engine import run_cuda
 from repro_torch.configs import get_arch
+from repro_torch.distributed.step import make_prefill_step
 from repro_torch.kernels import cache_sim as ks
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import page_gather as pg
 from repro_torch.kernels.ops import page_gather_op, page_scatter_op
 from repro_torch.launch.serve import serve
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import forward, init_params
 from repro_torch.tiered.store import TieredStore, TieredStoreConfig
 
 pytestmark = pytest.mark.cuda
@@ -196,3 +200,66 @@ def test_serve_on_the_card_runs_the_kernels_and_matches_the_cpu(card):
                                torch.stack(cpu.logits), rtol=1e-4, atol=1e-4)
     assert gpu.tiered.stats == cpu.tiered.stats
     assert gpu.tiered.sim_ticks == cpu.tiered.sim_ticks
+
+
+# (S, Skv, causal, window): a block is 64 query rows, a key tile 32 keys
+# (64 at hd <= 64)
+PREFILL_MODES = {"causal": (256, 256, True, 0), "window": (320, 320, True, 100),
+                 "cross": (160, 200, False, 0), "ragged": (333, 333, True, 0)}
+
+
+@pytest.mark.parametrize("mode", sorted(PREFILL_MODES))
+@pytest.mark.parametrize("G", [1, 4, 5, 8, 16])
+@pytest.mark.parametrize("hd", [64, 120, 128])
+def test_flash_attention_equals_plain(card, hd, G, mode):
+    S, Skv, causal, window = PREFILL_MODES[mode]
+    gen = torch.Generator(device=card).manual_seed(hd * 100 + G)
+    q = torch.randn(2, S, 2 * G, hd, device=card, generator=gen)
+    k, v = (torch.randn(2, Skv, 2, hd, device=card, generator=gen)
+            for _ in range(2))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(
+        got, fa.flash_attention_plain(q, k, v, causal=causal, window=window),
+        rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_reads_strided_views_in_place(card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    # q: every other head of a wider tensor; k, v: one layer of a stack,
+    # interleaved along the head axis
+    wide = torch.randn(2, 96, 64, 120, device=card, generator=gen)
+    kv = torch.randn(3, 2, 96, 8, 120, device=card, generator=gen)
+    q, k, v = wide[:, :, ::2], kv[1, :, :, ::2], kv[2, :, :, 1::2]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    got = fa.flash_attention(q, k, v, window=40)
+    torch.testing.assert_close(
+        got, fa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), window=40),
+        rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="16-byte"):      # 4-byte offset
+        fa.flash_attention(wide[..., 1:117], k[..., :116], v[..., :116])
+
+
+def test_forward_on_the_card_runs_the_kernel_and_matches_the_cpu(card):
+    full = get_arch("h2o-danube-3-4b")
+    cfg = full.reduced(n_layers=full.n_layers)     # full depth: 24 layers
+    params = init_params(cfg, 6, torch_device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab, (2, 96)))
+    cpu = make_prefill_step(cfg, torch_device="cpu")(params, {"tokens": tokens})
+    on_card = {k: (v.to(card) if torch.is_tensor(v) else
+                   {n: t.to(card) for n, t in v.items()})
+               for k, v in params.items()}
+    fa.reset_launches()
+    gpu = make_prefill_step(cfg)(on_card, {"tokens": tokens})
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers == 24
+    with torch.no_grad():
+        logits, aux = forward(on_card, cfg, {"tokens": tokens.to(card)})
+    assert fa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    assert aux == 0.0
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(logits, gpu, rtol=0, atol=0)

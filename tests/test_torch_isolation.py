@@ -19,6 +19,8 @@ from repro_torch.core.cache.trace_sim import simulate_trace
 from repro_torch.core.devices import make_device
 from repro_torch.core.replay.cuda_engine import run_cuda
 from repro_torch.core.workloads.driver import TraceDriver
+from repro_torch.distributed.step import make_prefill_step
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.ops import page_gather_op, page_scatter_op
 from repro_torch.launch.serve import main as serve_main
@@ -57,11 +59,13 @@ def test_port_package_has_the_reference_layout():
                 "serving", "launch", "distributed"):
         assert (REPO / "src" / "repro_torch" / sub / "__init__.py").exists()
         assert (REPO / "src" / "repro" / sub / "__init__.py").exists()
-    for name in ("cache_sim", "flash_decode", "page_gather"):
+    for name in ("cache_sim", "flash_attention", "flash_decode",
+                 "page_gather"):
         assert (REPO / "src" / "repro_torch" / "kernels" / "csrc"
                 / f"{name}.cu").exists()
     for mod in ("models/layers.py", "models/transformer.py",
-                "kernels/flash_decode.py", "kernels/page_gather.py",
+                "kernels/flash_attention.py", "kernels/flash_decode.py",
+                "kernels/page_gather.py",
                 "kernels/ops.py", "tiered/store.py", "serving/scheduler.py",
                 "launch/serve.py", "distributed/step.py", "configs/base.py"):
         assert (REPO / "src" / "repro_torch" / mod).exists(), mod
@@ -107,6 +111,7 @@ def test_serving_entry_points_default_to_the_card_and_refuse_without_one(
         lambda: TieredStore(store_cfg),
         lambda: BatchScheduler(None, None, SchedulerConfig(), cfg.vocab),
         lambda: serve_main(["--arch", "h2o-danube-3-4b", "--reduced"]),
+        lambda: make_prefill_step(cfg),
     ]
     for call in refusals:
         with pytest.raises(RuntimeError, match="torch_device='cpu'"):
@@ -115,6 +120,9 @@ def test_serving_entry_points_default_to_the_card_and_refuse_without_one(
     params = T.init_params(cfg, 0, torch_device="cpu")
     assert params["embed"].device.type == "cpu"
     assert TieredStore(store_cfg, torch_device="cpu").pool.device.type == "cpu"
+    logits = make_prefill_step(cfg, torch_device="cpu")(
+        params, {"tokens": np.zeros((1, 3), np.int32)})
+    assert logits.device.type == "cpu"
     serve_main(["--arch", "h2o-danube-3-4b", "--reduced", "--device", "cpu",
                 "--prompt-len", "2", "--gen", "2"])
     assert capsys.readouterr().out.startswith("[serve] arch=")
@@ -127,6 +135,8 @@ def test_kernel_wrappers_launch_or_raise_off_the_cpu(no_card):
     kv = torch.zeros(1, 16, 2, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_decode(q, kv, kv, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q[:, None], kv[:, :1], kv[:, :1])
     pool = torch.zeros(4, 2, 3, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         page_gather_op(pool, torch.tensor([1]))

@@ -8,16 +8,24 @@ and ``nvcc``.  Phases, each printing one or more lines:
 
 1. probe: torch, CUDA, the card, its power limit, nvcc;
 2. build: the CUDA kernels, one ``nvcc`` per source, all started together,
-   from the sources in the checkout, with each kernel's registers and spills;
+   from the sources in the checkout, with each kernel's registers and
+   spills, and beside them the probe ``tools/smem_latency.cu``;
 3. kernels: ``cache_sim`` and ``cache_sim_fused`` on the card, bit-equal to
-   their plain PyTorch versions on the same inputs, at four shapes;
+   their plain PyTorch versions on the same inputs, at nine shapes and
+   traces: Table I's 1 x 4096 (LRU, FIFO over two lanes, a trace whose
+   pages all hit after their first touch, one where every access
+   misses), direct-mapped 4096 x 1, 4096 x 8 (state in global scratch),
+   3 x 40 (sets not a power of two) and 1 x 64 over pages that are all
+   multiples of the kernel's hash-table size (one long probe cluster);
 4. main path (replay): ``TraceDriver(make_device("cxl-ssd-cache"),
    engine="cuda")`` at the paper's Table I width (16 MB LRU cache = 1 set x
    4096 ways, 16 GB low-latency SSD, 32 outstanding) over a seeded trace of
    2^20 accesses, plus ``simulate_trace`` on the same trace; checked against
    ``run_cuda(validate=True)`` and, access by access, the host-side LRU
    policy object (decisions) and a plain-Python latency recurrence over
-   that object's decisions (latencies and arrivals);
+   that object's decisions (latencies and arrivals); the kernels' serial
+   chain bound, a model: dependent shared-memory round trips x the card's
+   shared-memory latency, measured here by ``tools/smem_latency.cu``;
 5. golden: the pinned ``cxl-ssd-cache@direct`` kernel-lane latencies of
    ``tests/golden/golden_traces.json``, reproduced on the card;
 6. decode kernels: ``flash_decode`` against its plain version at hd 120 /
@@ -56,6 +64,7 @@ non-zero exit; without a CUDA device it exits at once.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -71,17 +80,35 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 units
-# integer operations of the set scan per way: the tag compare and the
-# first-match select (2), the validity compare and the key select (2),
-# packing (key, way) into one 64-bit word (2 halves), and the 64-bit min
-# (a compare and a select for each half, 4)
-OPS_PER_WAY = 10
+# integer operations of one access of the cache_sim kernel, a miss in a
+# full LRU set (its costliest case; a probe and a deletion of one step):
+# the look-ahead's input split, set, home slots, victim select and address
+# (12), the stamp (1), the probe's compares (2), hit, full and dirty-evict
+# tests (5), the touched frame and table slot selects (2), the deletion's
+# compares, home slot and distances (10), the list move, the frame record
+# and the set record (22), the outcome byte (3); the fused kernel adds the
+# latency chain (9) and the ring slot (3)
+OPS_PER_ACCESS = {"cache_sim": 57, "cache_sim_fused": 69}
+# dependent shared-memory round trips of one access on the kernel's serial
+# chain, a model: the thread issues in order, so every access waits on the
+# set's record, then on the victim's frame (its tag gives the victim's home
+# slot), both issued ahead by the previous access; a hit then reads its own
+# frame (3); a miss while the set fills needs nothing more (2); a miss in a
+# full set reads the victim's first probe slot, then the deletion's next
+# slot (4).  Longer probes and shifts are not counted.
+ROUND_TRIPS = {"hit": 3, "fill": 2, "evict": 4}
+SMEM_PROBE = ROOT / "tools" / "smem_latency.cu"
+SMEM_HOPS = 1 << 16            # dependent loads timed by the latency probe
 GOLDEN = "cxl-ssd-cache@direct"
 GOLDEN_CACHE = dict(capacity_bytes=16 * 4096, mshr_entries=4,
                     writeback_buffer=2)
-CHECK_SHAPES = [(1, 4096, "lru"), (1, 4096, "fifo"), (4096, 1, "direct"),
-                (4096, 8, "lru")]
-CHECK_ACCESSES = 8192
+# (num_sets, ways, policy, lanes, trace): the first is the main path's
+CHECK_SHAPES = [(1, 4096, "lru", 1, "uniform"), (1, 4096, "fifo", 1, "uniform"),
+                (4096, 1, "direct", 1, "uniform"), (4096, 8, "lru", 1, "uniform"),
+                (1, 64, "lru", 1, "collide"), (1, 4096, "fifo", 2, "uniform"),
+                (3, 40, "lru", 1, "uniform"), (1, 4096, "lru", 1, "all_hit"),
+                (1, 4096, "lru", 1, "all_miss")]
+CHECK_ACCESSES = 8192          # per lane
 SOURCE = "src/repro_torch/kernels/csrc/cache_sim.cu"
 REPLACES = {"cache_sim": "src/repro/kernels/cache_sim.py:33",
             "cache_sim_fused": "src/repro/kernels/cache_sim.py:139"}
@@ -127,6 +154,8 @@ PREFILL_TIMING_REPS = 8
 SCHED_REQUESTS, SCHED_SLOTS, SCHED_NEW = 8, 4, 32
 PROFILE_STEPS = 16              # decode steps at a full ring, profiled
 TIMING_REPS = 24                # calls per device time, on rotating inputs
+PROFILE_TRIES = 3               # profiler sessions before a timing gives up
+EVENT_TIMED: list = []          # timings taken by CUDA events instead
 
 
 def say(phase: str, **kw) -> None:
@@ -158,15 +187,40 @@ def cuda_ms(torch, fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(accesses: int, ways: int, io_bytes_per_access: int,
+def bound_ms(accesses: int, ops_per_access: int, io_bytes_per_access: int,
              state_bytes: int, int32_ops_per_s: float) -> tuple[float, str]:
     """Roofline bound: each input read once and each output written once
-    over the HBM rate, against the set scan's ``OPS_PER_WAY`` integer
-    operations per way of the accessed set over the card's INT32 rate."""
+    over the HBM rate, against ``ops_per_access`` integer operations per
+    access over the card's INT32 rate."""
     t_bytes = (accesses * io_bytes_per_access + state_bytes) / HBM_BYTES_PER_S
-    t_ops = accesses * ways * OPS_PER_WAY / int32_ops_per_s
+    t_ops = accesses * ops_per_access / int32_ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def build_smem_probe(build) -> Path:
+    """Build ``tools/smem_latency.cu`` with the kernels' ``nvcc`` flags."""
+    out = build.build_dir() / "libsmem_latency.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                           str(SMEM_PROBE)], capture_output=True, text=True)
+    check(proc.returncode == 0,
+          f"build of {SMEM_PROBE.name} failed:\n{proc.stdout}{proc.stderr}")
+    return out
+
+
+def smem_latency_cycles(torch, path: Path) -> float:
+    """SM clock cycles of one dependent shared-memory load on this card,
+    timed by ``tools/smem_latency.cu`` over ``SMEM_HOPS`` loads."""
+    lib = ctypes.CDLL(str(path))
+    lib.smem_latency.restype = ctypes.c_int
+    lib.smem_latency.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    err = lib.smem_latency(SMEM_HOPS, out.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"shared-memory latency probe launch failed: {err}")
+    return int(out[0]) / SMEM_HOPS
 
 
 def latency_chain(hits, evicts, *, outstanding, issue_ns, hit_ns, miss_ns,
@@ -195,34 +249,93 @@ def latency_chain(hits, evicts, *, outstanding, issue_ns, hit_ns, miss_ns,
 
 
 # ------------------------------------------------------------- serving path
+def device_events(torch, run, enough) -> list:
+    """The card's events (kernels, copies, memsets) that the profiler
+    recorded while ``run()`` ran, from the first of ``PROFILE_TRIES``
+    sessions whose events satisfy ``enough``; [] when none did.  On the
+    card's machine a whole session now and then comes back with no device
+    activity at all, so one empty session is not taken to mean that the
+    card did nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        acts = [e for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        if enough(acts):
+            return acts
+        say("timing", profiler_session="no device activity, again")
+    return []
+
+
 def device_ms(torch, fn, reps: int = TIMING_REPS,
               match: str | None = None, names: list | None = None) -> float:
     """Mean device time of one call ``fn(i)``, i < reps, from the
     profiler's record of the card: the summed durations of every kernel,
     copy and memset the calls ran, or of the kernels whose name holds
     ``match`` only (their names are appended to ``names`` when given).
-    Host time between launches is not counted.  Callers rotate the inputs
-    with ``i`` over more than the 50 MB L2 cache, so each call finds its
-    data in device memory, as on the serving path."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    Host time between launches is not counted.  Where the profiler
+    records nothing in ``PROFILE_TRIES`` sessions, the same calls are
+    timed by CUDA events instead, host gaps included, and a ``[timing]``
+    line says so.  Callers rotate the inputs with ``i`` over more than the
+    50 MB L2 cache, so each call finds its data in device memory, as on
+    the serving path."""
+    def run():
+        for i in range(reps):
+            fn(i)
+
+    def mine(acts):
+        return [e for e in acts if match is None or match in e.name]
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and (match is None or match in e.name)]
-    check(bool(acts), f"the profiler saw no device activity {match or ''}")
+    acts = mine(device_events(torch, run, lambda a: bool(mine(a))))
+    if not acts:
+        EVENT_TIMED.append(match or "all kernels of the call")
+        say("timing", fallback="CUDA events", what=match or "all kernels",
+            reason=f"the profiler recorded no device activity in "
+                   f"{PROFILE_TRIES} sessions")
+        return cuda_ms(torch, run) / reps
     if names is not None:
         names.extend(sorted({e.name for e in acts}))
     # a named kernel launches once a call: average over the launches the
     # profiler recorded, so one it misses does not count as no time
     calls = len(acts) if match else reps
     return sum(e.device_time_total for e in acts) / calls / 1e3
+
+
+def timing_note() -> str:
+    """The kernels line's ``timing`` entry: how its device times were
+    taken."""
+    note = "device time per call by torch.profiler"
+    if EVENT_TIMED:
+        note += (f"; by CUDA events, host gaps included, for "
+                 f"{len(EVENT_TIMED)} timings the profiler did not record "
+                 f"({', '.join(EVENT_TIMED)})")
+    return note
+
+
+def split_by_kind(acts, own: tuple, own_kind: str) -> dict:
+    """Device milliseconds of the profiler's events ``acts`` by kind: the
+    kernels whose name holds one of ``own`` (as ``own_kind``), matrix
+    products, other kernels, and copies and memsets."""
+    kinds = {own_kind: 0.0, "matmuls": 0.0, "other_kernels": 0.0,
+             "copies": 0.0}
+    for e in acts:
+        if any(k in e.name for k in own):
+            kind = own_kind
+        elif e.name.startswith(("Memcpy", "Memset")):
+            kind = "copies"
+        elif any(k in e.name.lower() for k in ("gemm", "gemv", "splitk")):
+            kind = "matmuls"
+        else:
+            kind = "other_kernels"
+        kinds[kind] += e.device_time_total / 1e3
+    return kinds
 
 
 def decode_err(got, want) -> dict:
@@ -373,9 +486,6 @@ def profile_phase(torch, run: dict) -> None:
     """Phase 8: where a decode step's time goes at a full ring (n_valid
     512): 16 steps that continue the main run, timed on the host clock,
     then 16 more under the profiler for the device time by kind."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.distributed.step import make_serve_step
 
     cfg, params, res = run["cfg"], run["params"], run["res"]
@@ -396,24 +506,15 @@ def profile_phase(torch, run: dict) -> None:
     t0 = time.perf_counter()
     steps()
     wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        steps()
-    kinds = {"port_kernels": 0.0, "matmuls": 0.0, "other_kernels": 0.0,
-             "copies": 0.0}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = e.name
-        if any(k in name for k in KERNEL_NAMES.values()):
-            kind = "port_kernels"
-        elif name.startswith(("Memcpy", "Memset")):
-            kind = "copies"
-        elif any(k in name.lower() for k in ("gemm", "gemv", "splitk")):
-            kind = "matmuls"
-        else:
-            kind = "other_kernels"
-        kinds[kind] += e.device_time_total / 1e3 / PROFILE_STEPS   # ms/step
+
+    def enough(acts):
+        kinds = split_by_kind(acts, tuple(KERNEL_NAMES.values()),
+                              "port_kernels")
+        return kinds["port_kernels"] > 0 and kinds["matmuls"] > 0
+
+    kinds = {k: v / PROFILE_STEPS for k, v in split_by_kind(   # ms/step
+        device_events(torch, steps, enough), tuple(KERNEL_NAMES.values()),
+        "port_kernels").items()}
     check(kinds["port_kernels"] > 0 and kinds["matmuls"] > 0,
           f"the profile of the decode steps saw no kernels: {kinds}")
     busy = sum(kinds.values())
@@ -580,7 +681,7 @@ def serve_kernel_rows(torch, dev, run: dict, check_worst: dict) -> list:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib[name], "library": library[name],
             "shape": shapes[name],
-            "timing": "device time per call by torch.profiler",
+            "timing": timing_note(),
         })
     return rows
 
@@ -628,8 +729,6 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
     """Phase 10b: the prefill main path at full width, checked and
     measured; returns the kernel's row of the kernels line."""
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.distributed.step import make_prefill_step, make_serve_step
     from repro_torch.kernels import flash_attention as fa
@@ -665,24 +764,13 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
     step(params, {"tokens": tokens})
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-    kinds = {"flash_attention": 0.0, "matmuls": 0.0, "other_kernels": 0.0,
-             "copies": 0.0}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if PREFILL_KERNEL in e.name:
-            kind = "flash_attention"
-        elif e.name.startswith(("Memcpy", "Memset")):
-            kind = "copies"
-        elif any(k in e.name.lower() for k in ("gemm", "gemv", "splitk")):
-            kind = "matmuls"
-        else:
-            kind = "other_kernels"
-        kinds[kind] += e.device_time_total / 1e3
+    def enough(acts):
+        kinds = split_by_kind(acts, (PREFILL_KERNEL,), "flash_attention")
+        return kinds["flash_attention"] > 0 and kinds["matmuls"] > 0
+
+    kinds = split_by_kind(
+        device_events(torch, lambda: step(params, {"tokens": tokens}),
+                      enough), (PREFILL_KERNEL,), "flash_attention")
     busy = sum(kinds.values())
     check(kinds["flash_attention"] > 0 and kinds["matmuls"] > 0,
           f"the profile of the prefill saw no kernels: {kinds}")
@@ -777,7 +865,7 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
                    "enable_gqa=True)",
         "shape": f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{cfg.n_kv_heads}x{hd} "
                  f"(layer 0 of the run), causal, window {window}",
-        "timing": "device time per call by torch.profiler",
+        "timing": timing_note(),
     }
 
 
@@ -819,8 +907,10 @@ def main() -> int:
 
     # 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:   # one nvcc each
+    with ThreadPoolExecutor(len(_build.SOURCES) + 1) as pool:   # one nvcc each
+        probe_lib = pool.submit(build_smem_probe, _build)
         libs = list(pool.map(_build.build, _build.SOURCES))
+        probe_lib = probe_lib.result()
     for name in _build.SOURCES:
         _build.library(name)
     ptxas = [f"{name}: {ln.strip()}" for name, log in _build.build_log.items()
@@ -834,16 +924,18 @@ def main() -> int:
     table1 = make_device("cxl-ssd-cache")
     timing = {k: v for k, v in cuda_params(table1, 0.5).items()
               if k.endswith("_ns")}
-    rng = np.random.default_rng(args.seed)
     mismatches = {"cache_sim": 0, "cache_sim_fused": 0}
     max_err = {"cache_sim": 0, "cache_sim_fused": 0}
     plain_ms = {}
     plain_kernel_ms = {}
-    for num_sets, ways, policy in CHECK_SHAPES:
-        frames = num_sets * ways
-        pages = torch.from_numpy(
-            rng.integers(0, 4 * frames, CHECK_ACCESSES).astype(np.int32)).to(dev)
-        writes = torch.from_numpy(rng.random(CHECK_ACCESSES) < 0.3).to(dev)
+    check(_build.library("cache_sim").cache_sim_hash_mul() == ks.HASH_MUL,
+          "the kernel's hash multiplier differs from the wrapper's HASH_MUL")
+    for index, case in enumerate(CHECK_SHAPES):
+        num_sets, ways, policy, lanes, trace_kind = case
+        shape = (CHECK_ACCESSES,) if lanes == 1 else (lanes, CHECK_ACCESSES)
+        pages, writes = ks.stress_trace(trace_kind, num_sets, ways, shape,
+                                        seed=args.seed + index)
+        pages, writes = pages.to(dev), writes.to(dev)
         geo = dict(num_sets=num_sets, ways=ways, policy=policy)
         fused_kw = dict(geo, outstanding=32, **timing)
 
@@ -866,12 +958,13 @@ def main() -> int:
             max_err[name] = max(max_err[name], err)
             ms = cuda_ms(torch, calls[name], reps=3)
             say("kernels", kernel=name, shape=f"{num_sets}x{ways}",
-                policy=policy, accesses=CHECK_ACCESSES, mismatches=bad,
-                max_abs_err=err, kernel_ms=f"{ms:.3f}",
+                policy=policy, lanes=lanes, trace=trace_kind,
+                accesses=CHECK_ACCESSES, mismatches=bad, max_abs_err=err,
+                kernel_ms=f"{ms:.3f}",
                 ns_per_access=f"{ms * 1e6 / CHECK_ACCESSES:.1f}")
-            if (num_sets, ways, policy) == CHECK_SHAPES[0]:
+            if case == CHECK_SHAPES[0]:
                 plain_kernel_ms[name] = ms
-        if (num_sets, ways, policy) == CHECK_SHAPES[0]:
+        if case == CHECK_SHAPES[0]:
             # main-path state shape: the plain versions on the same inputs
             plain_ms["cache_sim"] = cuda_ms(
                 torch, lambda: ks.cache_sim_plain(pages, writes, **geo))
@@ -955,6 +1048,15 @@ def main() -> int:
             torch, lambda: ks.cache_sim(pages_t, writes_t,
                                         return_state=True, **geo), reps=3),
     }
+    # the serial-chain bound, a model: dependent shared-memory round trips
+    # of this trace's accesses x the latency (one set: its first `frames`
+    # misses fill it)
+    smem_cycles = smem_latency_cycles(torch, probe_lib)
+    misses = n - res.hits
+    fills = min(misses, geo["num_sets"] * geo["ways"])
+    round_trips = (ROUND_TRIPS["hit"] * res.hits + ROUND_TRIPS["fill"] * fills
+                   + ROUND_TRIPS["evict"] * (misses - fills))
+    serial_ms = round_trips * smem_cycles / (sm_clock_mhz * 1e3)
     say("main", accesses=n, hit_rate=f"{res.hits / n:.6f}",
         dirty_evicts=int(res.evict_flags.sum()),
         avg_latency_ns=f"{res.avg_latency_ns:.3f}",
@@ -963,6 +1065,9 @@ def main() -> int:
         ns_per_access=f"{kernel_ms['cache_sim_fused'] * 1e6 / n:.1f}",
         decisions_kernel_ms=f"{kernel_ms['cache_sim']:.3f}",
         driver_wall_s=f"{t1 - t0:.3f}", simulate_trace_wall_s=f"{t2 - t1:.3f}",
+        smem_latency_cycles=f"{smem_cycles:.2f}",
+        round_trips_per_access=f"{round_trips / n:.4f}",
+        serial_chain_bound_ms=f"{serial_ms:.3f}",
         launches=json.dumps(launches, separators=(",", ":")),
         host_policy_check="pass", host_latency_check="pass",
         validate="pass")
@@ -999,7 +1104,8 @@ def main() -> int:
     rows = []
     for name, io in (("cache_sim", 7), ("cache_sim_fused", 15)):
         state = 12 * 4096 if name == "cache_sim" else 0
-        b_ms, b_by = bound_ms(n, 4096, io, state, int32_ops_per_s)
+        b_ms, b_by = bound_ms(n, OPS_PER_ACCESS[name], io, state,
+                              int32_ops_per_s)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
@@ -1009,7 +1115,8 @@ def main() -> int:
             "library_ms": None,
             "accesses": n, "plain_accesses": CHECK_ACCESSES,
             "kernel_ms_at_plain_accesses": plain_kernel_ms[name],
-            "shapes": [f"{s}x{w}:{p}" for s, w, p in CHECK_SHAPES],
+            "shapes": [f"{s}x{w}:{p}:{lanes}:{t}"
+                       for s, w, p, lanes, t in CHECK_SHAPES],
             "mismatches": mismatches[name],
         })
     print(card, flush=True)

@@ -33,8 +33,9 @@ _L = ctypes.c_longlong
 # C signatures, by library: {function: (restype, argtypes)}
 SIGNATURES = {
     "cache_sim": {
-        "cache_sim_launch": (_I, [_P, _P, ctypes.c_int64] + [_I] * 14
-                             + [_P] * 6),
+        "cache_sim_launch": (_I, [_P, _P, ctypes.c_int64] + [_I] * 5 + [_P]
+                             + [_I] * 8 + [_P] * 7),
+        "cache_sim_hash_mul": (ctypes.c_uint32, []),
         "cache_sim_smem_optin": (_I, [_I, ctypes.POINTER(_I)]),
         "cache_sim_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -14,6 +14,16 @@ loops over tensors) for CPU tensors; nothing falls back from one to the
 other.  A trace is ``(N,)`` or ``(lanes, N)``: lanes are independent
 replays, one CUDA block each.
 
+The kernel finds the hit way and the victim in O(1) instead of scanning
+the set.  Per lane it keeps an open-addressing hash table of ``(page,
+frame)`` int32 pairs (``2 ** table_bits(frames)`` slots, linear probing
+from :func:`home`, backward-shift deletion); per frame its tag, dirty flag
+and LRU list links (one int4) and its stamp; and per set its ``fill``
+count of misses and, under LRU, the ends of its recency list (one int4).
+:func:`layout` places them and :func:`placement` says whether in shared
+memory or in a global scratch; the kernel takes the layout as it is.  The
+trace streams through shared memory in chunks of ``CHUNK`` accesses.
+
 The ``LAUNCHES`` counters count kernel launches only, so a run can show
 that it went through the kernels.
 """
@@ -21,7 +31,9 @@ that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -29,9 +41,17 @@ NEG = -(2**31) + 1
 POLICIES = ("lru", "fifo", "direct")
 LAUNCHES = {"cache_sim": 0, "cache_sim_fused": 0}
 
-# shared memory the kernel needs besides the state and the ring: the block
-# reduction's per-warp slots (32 x int32 match + 32 x int64 key)
-RED_BYTES = 32 * 12
+# accesses staged in shared memory at a time (a multiple of 16, so that
+# the ring after them starts on 16 bytes), 13 bytes each: page and write
+# flag in one int32, latency and arrival (int32), hit and dirty-evict flags
+# in one byte
+CHUNK = 1024
+STAGING_BYTES = 13 * CHUNK
+# the kernel's hash multiplier, home(page) = (page * HASH_MUL) mod 2**bits:
+# an immediate in csrc/cache_sim.cu (kHashMul), which the library reports
+# (cache_sim_hash_mul) and the card tests hold equal to this
+HASH_MUL = 0x9E3779B1
+MAX_FRAMES = 2**27          # keeps every per-lane offset in int32
 
 
 def reset_launches() -> None:
@@ -124,27 +144,131 @@ def cache_sim_fused(pages: torch.Tensor, writes: torch.Tensor, *,
     return hits, evicts, lat, arr
 
 
+class Placement(NamedTuple):
+    """Where the kernel keeps a lane's structures (see :func:`placement`)."""
+
+    state_in_smem: bool
+    smem_bytes: int         # dynamic shared memory of a block
+    scratch_bytes: int      # global scratch of each lane (0 if in smem)
+
+
+class Layout(NamedTuple):
+    """Offsets, in int32 words, of everything the kernel keeps, passed to
+    it as they are (``struct Layout`` in ``csrc/cache_sim.cu``, field for
+    field).  Shared memory starts with the ``chunk`` staged inputs (page
+    and write flag in one word), then the staged latencies, arrivals and
+    outcome bytes, then the K-slot arrival ring, then the lane's structures
+    when they live there.  A lane's structures start with its hash table of
+    ``2 ** table_bits`` ``(page, frame)`` pairs, then an int4 ``(tag, dirty,
+    prev, next)`` per frame, an int4 ``(fill, head, tail, -)`` per set and
+    a stamp per frame.  The table, the frames and the stamps each have a
+    spare entry past their end, where the kernel sends the stores an access
+    does not need instead of branching around them (the table one more, so
+    that the frames start on 16 bytes).  Every int4 array starts on 16
+    bytes, and ``lane_words`` is a multiple of four so that the next lane's
+    table does too."""
+
+    chunk: int
+    lat: int
+    arr: int
+    out: int
+    ring: int
+    lane: int
+    lane_words: int
+    frames: int
+    sets: int
+    meta: int
+    table_bits: int
+
+
+def table_bits(frames: int) -> int:
+    """log2 of the hash table's slots: the least power of two of at least
+    ``2 * frames`` slots, and at least 4, so that a miss can insert its
+    page before it deletes the victim's and still leave a slot empty."""
+    return max(2, (2 * frames - 1).bit_length())
+
+
+def home(page: int, bits: int) -> int:
+    """The slot where the probe for ``page`` starts.  Pages congruent
+    modulo ``2 ** bits`` share it."""
+    return (page * HASH_MUL) & ((1 << bits) - 1)
+
+
+STRESS_TRACES = ("uniform", "collide", "all_hit", "all_miss")
+
+
+def stress_trace(kind: str, num_sets: int, ways: int, shape,
+                 seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A seeded CPU trace ``(pages, writes)`` of ``shape`` that drives one
+    case of the kernel, for its checks against the plain versions:
+    ``uniform``, pages over 4x the frames; ``collide``, such pages times
+    the hash table's size, so that all share one home slot and the
+    resident pages form one probe cluster; ``all_hit``, pages of the
+    frames' range, so that only first touches miss; ``all_miss``, each set
+    cycling through ``ways + 1`` pages.  30% of the accesses write."""
+    if kind not in STRESS_TRACES:
+        raise ValueError(f"trace kind must be one of {STRESS_TRACES}, "
+                         f"got {kind!r}")
+    g = torch.Generator().manual_seed(seed)
+    frames = num_sets * ways
+    if kind == "all_hit":
+        pages = torch.randint(0, frames, shape, generator=g)
+    elif kind == "all_miss":
+        n = math.prod(shape)
+        pages = (torch.arange(n) % (frames + num_sets)).reshape(shape)
+    else:
+        pages = torch.randint(0, 4 * frames, shape, generator=g)
+        if kind == "collide":
+            pages = pages << table_bits(frames)
+    writes = torch.rand(shape, generator=g) < 0.3
+    return pages.to(torch.int32), writes
+
+
+def _pad4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def layout(num_sets: int, ways: int, outstanding: int) -> Layout:
+    """The kernel's layout for a lane of ``num_sets x ways`` frames and a
+    ring of ``outstanding`` slots."""
+    frames = num_sets * ways
+    bits = table_bits(frames)
+    frames_at = 2 * ((1 << bits) + 2)
+    sets_at = frames_at + 4 * (frames + 1)
+    meta_at = sets_at + 4 * num_sets
+    ring = STAGING_BYTES // 4
+    return Layout(chunk=CHUNK, lat=CHUNK, arr=2 * CHUNK, out=3 * CHUNK,
+                  ring=ring, lane=ring + _pad4(outstanding),
+                  lane_words=_pad4(meta_at + frames + 1), frames=frames_at,
+                  sets=sets_at, meta=meta_at, table_bits=bits)
+
+
 def placement(num_sets: int, ways: int, outstanding: int,
-              smem_limit: int) -> tuple[bool, int]:
-    """Where the kernel keeps its state: ``(state_in_smem, dynamic
-    shared-memory bytes)``.  The reduction slots and the K-slot ring always
-    live in shared memory (a ring that does not fit raises ``ValueError``);
-    the ``12 * num_sets * ways`` bytes of tags, stamps and dirty flags go
-    there too if they fit, else in a global scratch."""
-    used = RED_BYTES + 4 * outstanding
+              smem_limit: int) -> Placement:
+    """Where the kernel keeps a lane's structures, given the dynamic shared
+    memory a block may use.
+
+    Shared memory always holds the ``STAGING_BYTES`` of the chunk being
+    walked and the K-slot arrival ring (padded to a multiple of four
+    words); a ring that does not fit raises ``ValueError``.  The lane's
+    structures (:func:`layout`) follow there when they fit, else they go
+    to a global scratch of ``scratch_bytes`` per lane.  Either way the
+    kernel writes the final ``(tags, meta, dirty)`` state out at the end."""
+    frames = num_sets * ways
+    if frames > MAX_FRAMES:
+        raise ValueError(f"{frames} frames exceed the kernel's "
+                         f"{MAX_FRAMES} per lane")
+    lay = layout(num_sets, ways, outstanding)
+    used = 4 * lay.lane
     if used > smem_limit:
         raise ValueError(
             f"outstanding={outstanding} needs a {4 * outstanding} B ring, "
-            f"more than the {smem_limit - RED_BYTES} B of shared memory a "
-            "block may use for it on this card")
-    state_bytes = 12 * num_sets * ways
-    state_in = used + state_bytes <= smem_limit
-    return state_in, used + (state_bytes if state_in else 0)
-
-
-def threads_for(ways: int) -> int:
-    """Threads per block: one per way, rounded up to a warp, at most 1024."""
-    return min(1024, -(-ways // 32) * 32)
+            f"more than the {smem_limit - STAGING_BYTES} B of shared memory "
+            "a block may use for it on this card")
+    lane = 4 * lay.lane_words
+    if used + lane <= smem_limit:
+        return Placement(True, used + lane, 0)
+    return Placement(False, used, lane)
 
 
 _SMEM_OPTIN: dict[int, int] = {}
@@ -183,23 +307,29 @@ def _launch(pages, writes, num_sets, ways, policy, tm: Timing | None):
     k = tm.outstanding if fused else 1
     with torch.cuda.device(dev):
         index = torch.cuda.current_device()
-        state_in, smem = placement(num_sets, ways, k, _smem_optin(lib, index))
+        where = placement(num_sets, ways, k, _smem_optin(lib, index))
         hits = torch.empty((lanes, n), dtype=torch.uint8, device=dev)
         evicts = torch.empty((lanes, n), dtype=torch.uint8, device=dev)
-        lat = arr = None
+        lat = arr = scratch = None
         if fused:
             lat = torch.empty((lanes, n), dtype=torch.int32, device=dev)
             arr = torch.empty((lanes, n), dtype=torch.int32, device=dev)
+        if not where.state_in_smem:
+            scratch = torch.empty((lanes, where.scratch_bytes // 4),
+                                  dtype=torch.int32, device=dev)
         state = torch.empty((lanes, 3, num_sets, ways), dtype=torch.int32,
                             device=dev)
         t = tm or Timing(1)
         err = lib.cache_sim_launch(
             p.data_ptr(), w.data_ptr(), n, lanes, num_sets, ways,
-            int(policy == "lru"), int(fused), k, t.issue_ns, t.hit_ns,
-            t.miss_ns, t.miss_occ_ns, t.wb_ns, int(state_in),
-            threads_for(ways), smem, hits.data_ptr(), evicts.data_ptr(),
+            int(policy == "lru"), int(fused),
+            (ctypes.c_uint32 * len(Layout._fields))(*layout(num_sets, ways, k)),
+            k, t.issue_ns, t.hit_ns, t.miss_ns, t.miss_occ_ns,
+            t.wb_ns, int(where.state_in_smem), where.smem_bytes,
+            hits.data_ptr(), evicts.data_ptr(),
             lat.data_ptr() if fused else None,
             arr.data_ptr() if fused else None, state.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, err, "cache_sim kernel launch")
         LAUNCHES["cache_sim_fused" if fused else "cache_sim"] += 1

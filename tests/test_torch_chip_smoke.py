@@ -1,0 +1,121 @@
+"""How ``chip_smoke.py`` takes device times from the profiler.
+
+On the card's machine a profiler session now and then records no device
+activity at all.  These tests drive the script's timing helpers with a
+stand-in profiler on the CPU: a session that records nothing is retried,
+a timing that the profiler never records falls back to CUDA events and
+says so, and device events are split by kind.
+"""
+
+import importlib.util
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+import torch.profiler
+from torch.autograd import DeviceType
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _event(name, us, device=DeviceType.CUDA):
+    return SimpleNamespace(name=name, device_time_total=us,
+                           device_type=device)
+
+
+# torch as the helpers see it: only the card's synchronize is called
+_TORCH = SimpleNamespace(cuda=SimpleNamespace(synchronize=lambda: None))
+
+
+@pytest.fixture
+def sessions(monkeypatch):
+    """A stand-in ``torch.profiler.profile`` that hands out the event lists
+    of ``sessions.queue`` one per session, and counts the sessions."""
+    state = SimpleNamespace(queue=[], opened=0)
+
+    class Profile:
+        def __init__(self, **kw):
+            state.opened += 1
+            self.acts = state.queue.pop(0) if state.queue else []
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [_event("cpu_op", 5.0, DeviceType.CPU)] + self.acts
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    return state
+
+
+def test_an_empty_profiler_session_is_tried_again(smoke, sessions):
+    kernel = _event("cache_sim_kernel", 40.0)
+    sessions.queue = [[], [], [kernel]]
+    calls = []
+    acts = smoke.device_events(_TORCH, lambda: calls.append(1), bool)
+    assert acts == [kernel]
+    assert sessions.opened == 3 and len(calls) == 3
+
+
+def test_device_events_give_up_after_the_set_number_of_sessions(
+        smoke, sessions):
+    sessions.queue = [[]] * 10
+    assert smoke.device_events(_TORCH, lambda: None, bool) == []
+    assert sessions.opened == smoke.PROFILE_TRIES
+
+
+def test_a_timing_the_profiler_never_records_falls_back_to_cuda_events(
+        smoke, sessions, monkeypatch, capsys):
+    sessions.queue = [[_event("other_kernel", 9.0)]] * smoke.PROFILE_TRIES
+    monkeypatch.setattr(smoke, "cuda_ms", lambda torch, fn, reps=1: 12.0)
+    ms = smoke.device_ms(_TORCH, lambda i: None, reps=4,
+                         match="flash_decode_kernel")
+    assert ms == pytest.approx(3.0)
+    assert smoke.EVENT_TIMED == ["flash_decode_kernel"]
+    assert "CUDA events" in smoke.timing_note()
+    assert "fallback=CUDA events" in capsys.readouterr().out
+
+
+def test_device_ms_averages_a_named_kernel_over_its_recorded_launches(
+        smoke, sessions):
+    sessions.queue = [[_event("flash_decode_kernel<4>", 30.0),
+                       _event("flash_decode_kernel<4>", 50.0),
+                       _event("elementwise", 1000.0)]]
+    names = []
+    ms = smoke.device_ms(_TORCH, lambda i: None, reps=24,
+                         match="flash_decode_kernel", names=names)
+    assert ms == pytest.approx(0.040)          # 80 us over 2 launches
+    assert names == ["flash_decode_kernel<4>"]
+    assert smoke.EVENT_TIMED == []
+    assert smoke.timing_note() == "device time per call by torch.profiler"
+
+
+def test_device_ms_without_a_name_sums_every_device_event_per_call(
+        smoke, sessions):
+    sessions.queue = [[_event("a", 30.0), _event("Memcpy DtoD", 10.0)]]
+    assert smoke.device_ms(_TORCH, lambda i: None, reps=2) == \
+        pytest.approx(0.020)
+
+
+def test_split_by_kind(smoke):
+    acts = [_event("flash_attention_kernel", 3000.0),
+            _event("sm90_xmma_gemm_f32f32", 2000.0),
+            _event("Memset (Device)", 500.0),
+            _event("vectorized_elementwise_kernel", 250.0)]
+    kinds = smoke.split_by_kind(acts, ("flash_attention_kernel",),
+                                "flash_attention")
+    assert kinds == {"flash_attention": 3.0, "matmuls": 2.0,
+                     "other_kernels": 0.25, "copies": 0.5}

@@ -43,13 +43,6 @@ def card():
     return torch.device("cuda")
 
 
-def _trace(card, seed, shape, frames):
-    rng = np.random.default_rng(seed)
-    pages = torch.from_numpy(rng.integers(0, 3 * frames, shape).astype(np.int32))
-    writes = torch.from_numpy(rng.random(shape) < 0.3)
-    return pages.to(card), writes.to(card)
-
-
 def _equal(got, want):
     for g, w in zip(got, want):
         if isinstance(g, tuple):
@@ -58,17 +51,24 @@ def _equal(got, want):
             assert g.device.type == "cuda" and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("policy,num_sets,ways,outstanding,shape", [
-    ("lru", 1, 64, 32, (600,)),
-    ("fifo", 16, 4, 8, (777,)),
-    ("direct", 64, 1, 1, (600,)),
-    ("lru", 4096, 8, 32, (300,)),           # state in global scratch
-    ("lru", 4, 8, 4, (2, 300)),             # two lanes, two blocks
-    ("fifo", 1, 33, 2, (0,)),               # empty trace
+@pytest.mark.parametrize("policy,num_sets,ways,outstanding,shape,kind", [
+    ("lru", 1, 64, 32, (600,), "uniform"),
+    ("fifo", 16, 4, 8, (777,), "uniform"),
+    ("direct", 64, 1, 1, (600,), "uniform"),
+    ("lru", 4096, 8, 32, (300,), "uniform"),   # state in global scratch
+    ("lru", 4, 8, 4, (2, 300), "uniform"),     # two lanes, two blocks
+    ("fifo", 1, 33, 2, (0,), "uniform"),       # empty trace
+    ("lru", 1, 64, 32, (2500,), "collide"),    # long probes and shifts
+    ("fifo", 1, 64, 8, (2500,), "collide"),
+    ("fifo", 1, 4096, 32, (2, 9000), "uniform"),   # Table I shape, 2 lanes
+    ("lru", 3, 40, 8, (2500,), "uniform"),     # sets not a power of two
+    ("lru", 1, 4096, 32, (9000,), "all_hit"),
+    ("lru", 1, 4096, 32, (9000,), "all_miss"),
 ])
 def test_kernels_equal_plain_versions(card, policy, num_sets, ways,
-                                      outstanding, shape):
-    pages, writes = _trace(card, 7, shape, num_sets * ways)
+                                      outstanding, shape, kind):
+    pages, writes = (x.to(card) for x in ks.stress_trace(
+        kind, num_sets, ways, shape, seed=7))
     geo = dict(num_sets=num_sets, ways=ways, policy=policy)
     before = dict(ks.LAUNCHES)
     got = ks.cache_sim(pages, writes, return_state=True, **geo)
@@ -81,6 +81,12 @@ def test_kernels_equal_plain_versions(card, policy, num_sets, ways,
     _equal(got_f, ks.cache_sim_fused_plain(pages, writes,
                                            outstanding=outstanding,
                                            **TIMING, **geo))
+
+
+def test_kernel_hash_is_the_wrappers(card):
+    from repro_torch.kernels import _build
+
+    assert _build.library("cache_sim").cache_sim_hash_mul() == ks.HASH_MUL
 
 
 def test_run_cuda_on_the_card_equals_the_cpu(card):

@@ -29,9 +29,12 @@ and ``nvcc``.  Phases, each printing one or more lines:
 5. golden: the pinned ``cxl-ssd-cache@direct`` kernel-lane latencies of
    ``tests/golden/golden_traces.json``, reproduced on the card;
 6. decode kernels: ``flash_decode`` against its plain version at hd 120 /
-   128 / 64, G 4 / 1 and four fill levels; ``page_gather`` and
-   ``page_scatter`` against theirs over float32, bfloat16 and int32 pages
-   with a repeated slot (exact);
+   128 / 64, G 1 / 4 / 5 / 8 / 16, fill levels on tile and split edges, a
+   4096-slot cache and forced split plans with empty ranges; its split
+   plans (CTAs, cluster size, rows a CTA) and device times at glm4-9b's and
+   hymba-1.5b's attention shapes; ``page_gather`` and ``page_scatter``
+   against theirs over float32, bfloat16 and int32 pages with a repeated
+   slot (exact);
 7. main path (serve): ``repro_torch.launch.serve.serve`` of h2o-danube-3-4b
    at full width (24 layers, d_model 3840, 32/8 heads of 120, seeded random
    weights from a torch.Generator on the card), batch 4, context 512,
@@ -132,8 +135,24 @@ KERNEL_NAMES = {"flash_decode": "flash_decode_kernel",
                 "page_gather": "gather_kernel",
                 "page_scatter": "scatter_kernel"}
 DECODE_TOL = dict(out=2e-5, m=1e-5, l_rtol=1e-4)   # tests/test_kernels.py
-DECODE_CHECKS = [(hd, g, n) for hd in (120, 128, 64) for g in (4, 1)
-                 for n in (1, 31, 32, 512)]        # a tile is 32 rows
+# (hd, G, n_valid, Skv) of each flash_decode check at B 4, KV 8: tile
+# edges (32 rows) and split edges (about 64 rows a CTA; 448 = 7 x 64) of
+# the serving cache, G 5 / 8 / 16, and a 4096-slot cache over 16 CTAs of
+# 65 to 256 rows (chunks of 64)
+DECODE_CHECKS = ([(hd, g, n, 512) for hd in (120, 128, 64) for g in (4, 1)
+                  for n in (1, 31, 32, 512)]
+                 + [(hd, g, n, 512) for hd in (120, 64) for g in (5, 8, 16)
+                    for n in (63, 64, 65, 448, 511)]
+                 + [(hd, g, n, 4096) for hd, g in ((120, 4), (128, 16))
+                    for n in (1025, 4000, 4096)])
+# (hd, G, n_valid, cluster): plans forced on the kernel, with short and
+# empty last ranges (40 keys over 16 CTAs of 3 leave two CTAs none) and
+# ranges of two chunks (1000 keys over 8 CTAs of 125)
+DECODE_FORCED = [(120, 4, 40, 16), (64, 5, 100, 16), (128, 16, 300, 2),
+                 (120, 4, 512, 1), (120, 4, 1000, 8)]
+# other families' attention shapes timed at B 4, n_valid 512
+DECODE_ARCHS = ("glm4-9b", "hymba-1_5b")
+DECODE_LAYERS = 24             # stacked caches rotated over, past the L2
 # the prefill main path: make_prefill_step at full width
 PREFILL = dict(batch=2, seq=8192)
 PREFILL_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -357,28 +376,92 @@ def worst_of(errs) -> dict:
     return {k: max(e[k] for e in errs) for k in errs[0]}
 
 
+def listed(values) -> str:
+    """The distinct values, in order, comma-separated."""
+    return ",".join(map(str, dict.fromkeys(values)))
+
+
 def decode_kernel_checks(torch, dev, seed: int) -> dict:
-    """Phase 6: the serving kernels against their plain versions."""
+    """Phase 6: the serving kernels against their plain versions; the
+    decode kernel's split plans and its device time at other families'
+    attention shapes."""
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.ops import page_gather_op, page_scatter_op
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    B, Skv, KV = 4, 512, 8
+    B, KV = 4, 8
+
+    def inputs(g, hd, skv, kv=KV, layers=()):
+        q = torch.randn(B, kv * g, hd, device=dev, generator=gen)
+        kc, vc = (torch.randn(*layers, B, skv, kv, hd, device=dev,
+                              generator=gen) for _ in range(2))
+        return q, kc, vc
+
     errs = []
-    for hd, g, n_valid in DECODE_CHECKS:
-        q = torch.randn(B, KV * g, hd, device=dev, generator=gen)
-        kc, vc = (torch.randn(B, Skv, KV, hd, device=dev, generator=gen)
-                  for _ in range(2))
+    for hd, g, n_valid, Skv in DECODE_CHECKS:
+        q, kc, vc = inputs(g, hd, Skv)
         errs.append(decode_err(fd.flash_decode(q, kc, vc, n_valid),
+                               fd.flash_decode_plain(q, kc, vc, n_valid)))
+    for hd, g, n_valid, cluster in DECODE_FORCED:
+        q, kc, vc = inputs(g, hd, max(512, n_valid))
+        plan = fd.split_plan(n_valid, hd, B * KV, cluster=cluster)
+        errs.append(decode_err(fd._launch(q, kc, vc, n_valid, plan),
                                fd.flash_decode_plain(q, kc, vc, n_valid)))
     worst = worst_of(errs)
     check(all(decode_within(e) for e in errs),
           f"flash_decode disagrees with its plain version: {worst}")
     say("decode", kernel="flash_decode", shapes=len(DECODE_CHECKS),
-        B=B, Skv=Skv, KV=KV, hd="120,128,64", G="4,1",
-        n_valid="1,31,32,512", max_out_err=f"{worst['out']:.3e}",
-        max_m_err=f"{worst['m']:.3e}", max_l_rel_err=f"{worst['l_rel']:.3e}",
+        forced_plans=len(DECODE_FORCED), B=B, KV=KV,
+        hd=listed(c[0] for c in DECODE_CHECKS),
+        G=listed(c[1] for c in DECODE_CHECKS),
+        n_valid=listed(c[2] for c in DECODE_CHECKS),
+        Skv=listed(c[3] for c in DECODE_CHECKS),
+        forced=json.dumps(DECODE_FORCED, separators=(",", ":")),
+        max_out_err=f"{worst['out']:.3e}", max_m_err=f"{worst['m']:.3e}",
+        max_l_rel_err=f"{worst['l_rel']:.3e}",
         tol=json.dumps(DECODE_TOL, separators=(",", ":")))
+
+    # the split plans: the serving shape, other families', a long cache
+    shapes = {"h2o-danube-3-4b": (KV, 4, 120, 512)}
+    for arch in DECODE_ARCHS:
+        cfg = get_arch(arch)
+        shapes[arch] = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                        cfg.resolved_head_dim, 512)
+    shapes["h2o-danube-3-4b@4096"] = (KV, 4, 120, 4096)
+    for name, (kv, g, hd, n_valid) in shapes.items():
+        plan = fd.split_plan(n_valid, hd, B * kv)
+        say("decode", plan=name, B=B, KV=kv, G=g, hd=hd, n_valid=n_valid,
+            ctas=plan.ctas, cluster=plan.cluster, rows_per_cta=plan.rows,
+            chunk_rows=plan.chunk,
+            max_active_clusters=fd.max_active_clusters(g, hd, plan))
+
+    # device time at other families' attention shapes, rotating over
+    # stacked caches past the 50 MB L2, against the plain version and the
+    # bytes bound
+    times = {}
+    for arch in DECODE_ARCHS:
+        kv, g, hd, n = shapes[arch]
+        q, kc, vc = inputs(g, hd, n, kv=kv, layers=(DECODE_LAYERS,))
+        err = decode_err(fd.flash_decode(q, kc[0], vc[0], n),
+                         fd.flash_decode_plain(q, kc[0], vc[0], n))
+        check(decode_within(err), f"flash_decode disagrees with its plain "
+                                  f"version at {arch}'s shape: {err}")
+        ms = device_ms(torch, lambda i: fd.flash_decode(
+            q, kc[i % DECODE_LAYERS], vc[i % DECODE_LAYERS], n),
+            match=KERNEL_NAMES["flash_decode"])
+        plain = device_ms(torch, lambda i: fd.flash_decode_plain(
+            q, kc[i % DECODE_LAYERS], vc[i % DECODE_LAYERS], n))
+        nbytes = 4 * (2 * B * n * kv * hd + 2 * B * kv * g * hd
+                      + 2 * B * kv * g)
+        times[arch] = {"shape": f"KV{kv}xG{g}xhd{hd}",
+                       "us": round(ms * 1e3, 3),
+                       "plain_us": round(plain * 1e3, 3),
+                       "bound_us": round(nbytes / HBM_BYTES_PER_S * 1e6, 3),
+                       "max_out_err": err["out"]}
+        del q, kc, vc
+    say("decode", kernel="flash_decode", B=B, n_valid=512,
+        times=json.dumps(times, separators=(",", ":")))
 
     shape = (9, 24, 4, 16, 8, 120)   # pool slots x one KV page of the serve path
     table = torch.tensor([7, 2, 7, 0], dtype=torch.int32)   # slot 7 twice
@@ -654,9 +737,11 @@ def serve_kernel_rows(torch, dev, run: dict, check_worst: dict) -> list:
         sdpa_vs_plain_max_err=f"{lib_err:.3e}")
 
     rows = []
+    plan = fd.split_plan(n, hd, B * KV)
     shapes = {"flash_decode": f"q {B}x{H}x{hd}, caches {B}x{kc.shape[2]}x"
                               f"{KV}x{hd} (the run's, one layer a call), "
-                              f"n_valid {n}",
+                              f"n_valid {n}; {plan.ctas} CTAs in clusters "
+                              f"of {plan.cluster}, {plan.rows} rows a CTA",
               "page_gather": f"2 pages of {page_bytes} B a call from the "
                              f"run's pool, rotating over its {slots} slots",
               "page_scatter": f"2 pages of {page_bytes} B a call into the "

@@ -45,8 +45,10 @@ SIGNATURES = {
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_decode": {
-        "flash_decode_launch": (_I, [_P] * 6 + [_I] * 5 + [_L] * 6
+        "flash_decode_launch": (_I, [_P] * 6 + [_I] * 8 + [_L] * 6
                                 + [ctypes.c_float, _P]),
+        "flash_decode_max_active_clusters": (_I, [_I] * 4
+                                             + [ctypes.POINTER(_I)]),
         "flash_decode_error_string": (ctypes.c_char_p, [_I]),
     },
     "page_gather": {

@@ -13,6 +13,9 @@ tensors it runs :func:`flash_decode_plain` (the reference's oracle
 ``flash_decode_ref``).  Nothing falls back from one to the other.  The
 kernel reads the caches in place through their strides, so a cache that is
 a view (one layer of a stacked decode state) costs no copy.  float32 only.
+The kernel splits the valid keys of each ``(b, kv head)`` over a cluster of
+CTAs as :func:`split_plan` says and merges their partials on the card; it
+takes any group size ``G <= MAX_GROUP``.
 
 ``LAUNCHES`` counts kernel launches only, so a run can show that it went
 through the kernel.
@@ -20,12 +23,55 @@ through the kernel.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.models.layers import NEG_INF, decode_attention
 
 LAUNCHES = {"flash_decode": 0}
-GROUP_SIZES = (1, 2, 4, 8, 16)     # G = H / KV the kernel is compiled for
+MAX_GROUP = 16        # G = H / KV the kernel takes (compiled for 1, 2, 4, 8, 16)
+MAX_CLUSTER = 16      # CTAs a (b, kv head); above 8 is a non-portable size
+ROWS_PER_CTA = 64     # key rows a CTA is planned for
+MAX_CHUNK = 64        # key rows a CTA holds in shared memory at once
+CHUNK_FLOATS = 8192   # floats of a chunk's K (or V) rows at most: 32 KB
+MAX_HEAD_DIM = 512
+
+
+class SplitPlan(NamedTuple):
+    """How one call spreads over the card: ``cluster`` CTAs for each of
+    the ``groups`` ``(b, kv head)`` pairs, CTA rank r owning the key rows
+    ``[r * rows, (r + 1) * rows)`` of the valid ones, ``chunk`` rows at a
+    time."""
+    cluster: int
+    rows: int
+    chunk: int
+    ctas: int
+
+    def ranges(self, n_valid: int) -> list[tuple[int, int]]:
+        """Each rank's key range ``[lo, hi)``, as the kernel computes it
+        (the last ranks' may be short or empty)."""
+        out = []
+        for r in range(self.cluster):
+            lo = min(n_valid, r * self.rows)
+            out.append((lo, min(n_valid, lo + self.rows)))
+        return out
+
+
+def split_plan(n_valid: int, hd: int, groups: int = 1,
+               cluster: int | None = None) -> SplitPlan:
+    """The kernel's plan for ``n_valid`` keys of head dim ``hd`` over
+    ``groups = B * KV`` clusters: about ``ROWS_PER_CTA`` rows a CTA, at
+    most ``MAX_CLUSTER`` CTAs a cluster (``cluster`` forces the size)."""
+    if cluster is None:
+        cluster = min(MAX_CLUSTER, -(-n_valid // ROWS_PER_CTA))
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"a cluster holds 1 to {MAX_CLUSTER} CTAs, "
+                         f"got {cluster}")
+    rows = -(-n_valid // cluster)
+    chunk = min(MAX_CHUNK, -(-rows // 8) * 8, CHUNK_FLOATS // hd // 8 * 8)
+    return SplitPlan(cluster, rows, chunk, groups * cluster)
 
 
 def reset_launches() -> None:
@@ -101,29 +147,33 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 def _check_rows(*caches) -> None:
     """The kernel copies cache rows as 16-byte vectors: unit stride along
-    hd, hd a multiple of 4 and every row 16-byte aligned."""
+    hd, hd a multiple of 4 (at most ``MAX_HEAD_DIM``) and every row 16-byte
+    aligned."""
     for t in caches:
         if (t.stride(-1) != 1 or t.shape[-1] % 4 or t.data_ptr() % 16
+                or t.shape[-1] > MAX_HEAD_DIM
                 or any(s % 4 for s in t.stride()[:-1])):
             raise ValueError(
-                f"the kernel needs caches with hd a multiple of 4 and "
-                f"16-byte aligned rows, got shape {tuple(t.shape)}, "
-                f"strides {t.stride()}")
+                f"the kernel needs caches with hd a multiple of 4 up to "
+                f"{MAX_HEAD_DIM} and 16-byte aligned rows, got shape "
+                f"{tuple(t.shape)}, strides {t.stride()}")
 
 
-def _launch(q, k_cache, v_cache, n_valid: int):
-    """Launch the kernel on the tensors' card, on PyTorch's current stream."""
+def _launch(q, k_cache, v_cache, n_valid: int, plan: SplitPlan | None = None):
+    """Launch the kernel on the tensors' card, on PyTorch's current stream,
+    with ``plan`` (``split_plan``'s when not given)."""
     from repro_torch.kernels import _build
 
+    B, H, hd = q.shape
+    KV = k_cache.shape[2]
+    if H // KV > MAX_GROUP:
+        raise ValueError(f"the kernel takes group sizes H / KV up to "
+                         f"{MAX_GROUP}, got {H // KV}")
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    B, H, hd = q.shape
-    KV = k_cache.shape[2]
-    if H // KV not in GROUP_SIZES:
-        raise ValueError(f"group size H / KV = {H // KV} is not one of "
-                         f"{GROUP_SIZES}")
     _check_rows(k_cache, v_cache)
+    plan = plan if plan is not None else split_plan(n_valid, hd, B * KV)
     lib = _build.library("flash_decode")
     q = q.contiguous()
     out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
@@ -133,8 +183,22 @@ def _launch(q, k_cache, v_cache, n_valid: int):
         err = lib.flash_decode_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, KV, hd,
-            n_valid, *k_cache.stride()[:3], *v_cache.stride()[:3],
+            n_valid, plan.cluster, plan.rows, plan.chunk,
+            *k_cache.stride()[:3], *v_cache.stride()[:3],
             hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, err, "flash_decode kernel launch")
         LAUNCHES["flash_decode"] += 1
     return out, m, l
+
+
+def max_active_clusters(G: int, hd: int, plan: SplitPlan) -> int:
+    """The most clusters of ``plan`` that the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), for the plan's report."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library("flash_decode")
+    n = ctypes.c_int(0)
+    _raise_on(lib, lib.flash_decode_max_active_clusters(
+        G, hd, plan.chunk, plan.cluster, ctypes.byref(n)),
+        "cudaOccupancyMaxActiveClusters")
+    return n.value

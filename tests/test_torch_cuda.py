@@ -7,8 +7,9 @@ on the card with::
 
 Cache replay outputs are integers and flags, and page copies are bytes:
 those comparisons are exact.  ``flash_decode`` sums in another order than
-its plain version: out within 2e-5, m within 1e-5, l within rtol 1e-4 (the
-tolerances of ``tests/test_kernels.py``); so does ``flash_attention``:
+its plain version (and splits the keys over a cluster of CTAs): out within
+2e-5, m within 1e-5, l within rtol 1e-4 (the tolerances of
+``tests/test_kernels.py``); so does ``flash_attention``:
 within 2e-5.  A reduced-width forward on the card matches the CPU's within
 1e-4 (float32 matmuls summed in another order).  This file imports no JAX,
 so it also runs where JAX is not installed.
@@ -115,20 +116,73 @@ def _decode_close(got, want):
     torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("n_valid", [1, 31, 32, 512])
-@pytest.mark.parametrize("G", [4, 1])
-@pytest.mark.parametrize("hd", [120, 128, 64])
-def test_flash_decode_equals_plain(card, hd, G, n_valid):
-    gen = torch.Generator(device=card).manual_seed(hd * 100 + G)
-    B, Skv, KV = 4, 512, 8
+def _decode_inputs(card, seed, B, Skv, KV, G, hd):
+    gen = torch.Generator(device=card).manual_seed(seed)
     q = torch.randn(B, KV * G, hd, device=card, generator=gen)
     kc, vc = (torch.randn(B, Skv, KV, hd, device=card, generator=gen)
               for _ in range(2))
+    return q, kc, vc
+
+
+# n_valid on the earlier kernel's tile edges (31, 32), on and around split
+# edges (64 rows a CTA: 63, 64, 65; 448 = 7 x 64; 511), and a 4096-slot
+# cache split over 16 CTAs (1000 and 1025: ranges of 63 and 65 rows, the
+# latter two chunks)
+@pytest.mark.parametrize("Skv,n_valid", [(512, n) for n in (
+    1, 31, 32, 63, 64, 65, 448, 511, 512)] + [(4096, n) for n in (
+        1000, 1025, 4096)])
+@pytest.mark.parametrize("G", [4, 1, 5, 16])
+@pytest.mark.parametrize("hd", [120, 128, 64])
+def test_flash_decode_equals_plain(card, hd, G, Skv, n_valid):
+    q, kc, vc = _decode_inputs(card, hd * 100 + G, 4, Skv, 8 if G < 16
+                               else 2, G, hd)
     before = fd.LAUNCHES["flash_decode"]
     got = fd.flash_decode(q, kc, vc, n_valid)
     torch.cuda.synchronize()
     assert fd.LAUNCHES["flash_decode"] == before + 1
     _decode_close(got, fd.flash_decode_plain(q, kc, vc, n_valid))
+
+
+@pytest.mark.parametrize("n_valid", [1, 40, 63, 64, 65, 200, 511])
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+@pytest.mark.parametrize("hd,G", [(120, 4), (64, 5), (128, 16)])
+def test_flash_decode_forced_cluster_sizes_equal_plain(card, hd, G, cluster,
+                                                       n_valid):
+    """Every cluster size, with short and empty last ranges (n_valid 40
+    over 16 CTAs leaves two of them no key)."""
+    q, kc, vc = _decode_inputs(card, cluster * 1000 + n_valid, 2, 512, 2, G,
+                               hd)
+    plan = fd.split_plan(n_valid, hd, 2 * 2, cluster=cluster)
+    _decode_close(fd._launch(q, kc, vc, n_valid, plan),
+                  fd.flash_decode_plain(q, kc, vc, n_valid))
+
+
+def test_flash_decode_refused_launch_raises(card):
+    """A launch the card refuses raises and counts no launch; the next
+    call runs."""
+    q, kc, vc = _decode_inputs(card, 9, 2, 512, 8, 4, 120)
+    plan = fd.split_plan(512, 120, 16)
+    before = fd.LAUNCHES["flash_decode"]
+    for bad in (plan._replace(cluster=32, rows=16, ctas=512),  # > 16 CTAs
+                plan._replace(chunk=1024)):        # 960 KB of shared memory
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fd._launch(q, kc, vc, 512, bad)
+    assert fd.LAUNCHES["flash_decode"] == before
+    _decode_close(fd.flash_decode(q, kc, vc, 512),
+                  fd.flash_decode_plain(q, kc, vc, 512))
+
+
+def test_flash_decode_spreads_over_the_card(card):
+    """At the serving shape one call is one launch of 256 CTAs (clusters
+    of 8), and the card holds clusters of every planned size."""
+    plan = fd.split_plan(512, 120, 4 * 8)
+    assert (plan.cluster, plan.rows, plan.ctas) == (8, 64, 256)
+    assert plan.ctas >= torch.cuda.get_device_properties(
+        card).multi_processor_count
+    for G, hd in ((4, 120), (16, 128), (5, 64)):
+        for n_valid in (64, 512, 4096):
+            p = fd.split_plan(n_valid, hd)
+            assert fd.max_active_clusters(G, hd, p) >= 1, (G, hd, p)
 
 
 def test_flash_decode_reads_one_layer_of_the_stacked_state(card):

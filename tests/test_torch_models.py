@@ -106,6 +106,7 @@ def _close_decode(got, want):
 @pytest.mark.parametrize("Smax,H,KV,hd,n_valid", [
     (128, 8, 8, 32, 128), (128, 8, 2, 32, 77), (256, 4, 4, 16, 1),
     (96, 16, 4, 64, 50), (96, 32, 8, 120, 33),
+    (96, 10, 2, 64, 70),                       # G 5 (hymba-1.5b's group)
 ])
 def test_flash_decode_plain_matches_pallas_and_oracle(Smax, H, KV, hd,
                                                       n_valid):

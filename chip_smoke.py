@@ -47,16 +47,20 @@ and ``nvcc``.  Phases, each printing one or more lines:
    kernels, matrix products, other kernels, copies, idle), by the profiler;
 9. scheduler: ``BatchScheduler`` at full width, 4 slots, 8 seeded requests,
    all complete, twice with identical outputs;
-10. prefill: ``flash_attention`` against its plain version over head dims
-   64 / 120 / 128, group sizes 1 / 4 / 5 / 8 / 16 and four masks (causal,
-   sliding window, cross lengths, a ragged S); then the main path
+10. prefill: ``flash_attention``'s ptxas report (the run fails on a
+   spill); the kernel against its plain version over head dims 64 / 120 /
+   128 / 36 / 100 (the last two not multiples of 8), group sizes 1 / 4 /
+   5 / 8 / 16, six masks (causal, sliding window, cross lengths, a ragged
+   S, S and Skv one past a tile edge, causal and cross) and q scaled x 1
+   and x 4; then the main path
    ``make_prefill_step(cfg)(params, {"tokens": ...})`` of h2o-danube-3-4b
    at full width (the serve phase's weights), batch 2 x 8192 seeded
    tokens: 24 kernel launches, finite logits, the kernel against its plain
    version on layer 0's own q / k / v, the logits of the first 64
    positions against 64 decode steps (equal greedy argmax), the host wall
-   time, the device time by kind, and the kernel's time beside its bound,
-   its plain version and ``F.scaled_dot_product_attention``.
+   time, the device time by kind, and the kernel's time beside its bound
+   (split TF32 on the tensor cores, and the FP32 FMA bound of the same
+   flops), its plain version and ``F.scaled_dot_product_attention``.
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -69,6 +73,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +87,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
+TF32_SPLIT_TERMS = 3           # flash_attention's products in split TF32
 INT32_LANES_PER_SM = 64        # Hopper SM: 4 partitions x 16 INT32 units
 # integer operations of one access of the cache_sim kernel, a miss in a
 # full LRU set (its costliest case; a probe and a deletion of one step):
@@ -160,13 +167,20 @@ PREFILL_REPLACES = "src/repro/kernels/flash_attention.py:25"
 PREFILL_KERNEL = "flash_attention_kernel"
 PREFILL_TOL = dict(atol=2e-5, rtol=2e-5)   # tests/test_kernels.py, float32
 # (S, Skv, causal, window) of each mask the kernel is checked on; a block
-# is 64 query rows, a key tile 32 keys (64 at hd <= 64)
+# is 128 query rows (position, head) of one KV head, 16 a warp, a key tile
+# 32 keys; "edge" ends one key past a tile (and, at G 1, one row past a
+# block), "cross_edge" one key past a tile with one partial block
 PREFILL_MODES = {"causal": (256, 256, True, 0),
                  "window": (320, 320, True, 100),
                  "cross": (160, 200, False, 0),
-                 "ragged": (333, 333, True, 0)}
-PREFILL_CHECKS = [(hd, g, mode) for hd in (64, 120, 128)
-                  for g in (1, 4, 5, 8, 16) for mode in PREFILL_MODES]
+                 "ragged": (333, 333, True, 0),
+                 "edge": (129, 129, True, 0),
+                 "cross_edge": (65, 129, False, 0)}
+# (hd, G, mode, q scale): hd 36 and 100 are multiples of 4 but not of 8
+# (zero-filled columns); q x 4 makes the scores large
+PREFILL_CHECKS = [(hd, g, mode, q_scale) for hd in (64, 120, 128, 36, 100)
+                  for g in (1, 4, 5, 8, 16) for mode in PREFILL_MODES
+                  for q_scale in (1.0, 4.0)]
 PARITY_TOKENS = 64             # decode steps held against the prefill
 PARITY_TOL = 2e-3              # tests/test_models_smoke.py prefill/decode
 PREFILL_TIMING_REPS = 8
@@ -191,6 +205,20 @@ def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_spills(log: str, kernel: str) -> int:
+    """Bytes of spill stores and loads of every function whose (mangled)
+    name holds ``kernel`` in an ``nvcc -Xptxas -v`` report.  Raises
+    ``ValueError`` when the report names no such function, so a missing
+    report never reads as no spills."""
+    found = re.findall(
+        r"Function properties for (\S*" + re.escape(kernel) + r"\S*)\n"
+        r"\s*\d+ bytes stack frame, (\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads", log)
+    if not found:
+        raise ValueError(f"the ptxas report names no {kernel}")
+    return sum(int(a) + int(b) for _, a, b in found)
 
 
 def cuda_ms(torch, fn, reps: int = 1) -> float:
@@ -772,12 +800,16 @@ def serve_kernel_rows(torch, dev, run: dict, check_worst: dict) -> list:
 
 
 # ------------------------------------------------------------ prefill path
-def close_err(torch, got, want, tol: dict) -> tuple[float, bool]:
-    """Max |got - want| and whether every element is within
-    ``atol + rtol * |want|``."""
+def close_err(torch, got, want, tol: dict) -> tuple[float, float, bool]:
+    """Max |got - want|, the largest error as a share of its element's
+    tolerance ``atol + rtol * |want|``, and whether every element is
+    within it.  A NaN in either fails the check and reads as inf."""
     diff = (got - want).abs()
-    ok = bool((diff <= tol["atol"] + tol["rtol"] * want.abs()).all())
-    return float(diff.max()), ok
+    bound = tol["atol"] + tol["rtol"] * want.abs()
+    ok = bool((diff <= bound).all())
+    inf = float("inf")
+    share = (diff / bound).nan_to_num(nan=inf).max()
+    return float(diff.nan_to_num(nan=inf).max()), float(share), ok
 
 
 def prefill_kernel_checks(torch, dev, seed: int) -> float:
@@ -786,26 +818,27 @@ def prefill_kernel_checks(torch, dev, seed: int) -> float:
 
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     B, KV = 2, 2
-    worst, bad = 0.0, []
-    for hd, g, mode in PREFILL_CHECKS:
+    worst, share, bad = 0.0, 0.0, []
+    for hd, g, mode, q_scale in PREFILL_CHECKS:
         S, Skv, causal, window = PREFILL_MODES[mode]
-        q = torch.randn(B, S, KV * g, hd, device=dev, generator=gen)
+        q = torch.randn(B, S, KV * g, hd, device=dev, generator=gen) * q_scale
         k, v = (torch.randn(B, Skv, KV, hd, device=dev, generator=gen)
                 for _ in range(2))
-        err, ok = close_err(
-            torch, fa.flash_attention(q, k, v, causal=causal, window=window),
-            fa.flash_attention_plain(q, k, v, causal=causal, window=window),
-            PREFILL_TOL)
-        worst = max(worst, err)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        err, case, ok = close_err(torch, got, want, PREFILL_TOL)
+        worst, share = max(worst, err), max(share, case)
         if not ok:
-            bad.append((hd, g, mode, err))
+            bad.append((hd, g, mode, q_scale, err))
     check(not bad, f"flash_attention disagrees with its plain version: {bad}")
     say("prefill", kernel="flash_attention", shapes=len(PREFILL_CHECKS),
-        B=B, KV=KV, hd="64,120,128", G="1,4,5,8,16",
+        B=B, KV=KV, hd=listed(c[0] for c in PREFILL_CHECKS),
+        G=listed(c[1] for c in PREFILL_CHECKS),
+        q_scale=listed(c[3] for c in PREFILL_CHECKS),
         masks=json.dumps({m: dict(zip(("S", "Skv", "causal", "window"), c))
                           for m, c in PREFILL_MODES.items()},
                          separators=(",", ":")),
-        max_abs_err=f"{worst:.3e}",
+        max_abs_err=f"{worst:.3e}", max_share_of_tol=f"{share:.3f}",
         tol=json.dumps(PREFILL_TOL, separators=(",", ":")))
     return worst
 
@@ -869,7 +902,7 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
                        blk["ln1"], cfg.norm_eps)
         q, k, v = T.attention_inputs(h, blk, cfg, positions)
         del h
-        layer_err, ok = close_err(
+        layer_err, _, ok = close_err(
             torch, fa.flash_attention(q, k, v, window=window),
             fa.flash_attention_plain(q, k, v, window=window), PREFILL_TOL)
     check(ok, f"flash_attention disagrees with its plain version on layer "
@@ -883,8 +916,8 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
         lg, state = serve(params, state, tokens[:1, t])
         dec.append(lg[0])
     dec = torch.stack(dec)
-    parity_err, ok = close_err(torch, dec, head,
-                               dict(atol=PARITY_TOL, rtol=PARITY_TOL))
+    parity_err, _, ok = close_err(torch, dec, head,
+                                  dict(atol=PARITY_TOL, rtol=PARITY_TOL))
     check(ok, f"prefill logits differ from {PARITY_TOKENS} decode steps: "
               f"max error {parity_err:.3e}")
     check(torch.equal(dec[:, :cfg.vocab].argmax(-1),
@@ -918,7 +951,11 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
     pairs = int(np.minimum(np.arange(1, S + 1), window or S).sum())
     flops = 4 * hd * pairs * B * H
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    # the kernel's work: every product three times over, on the tensor
+    # cores; the same flops on the FP32 FMA units beside it
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = TF32_SPLIT_TERMS * flops / TF32_FLOPS_PER_S
+    fma_ms = flops / FP32_FLOPS_PER_S * 1e3
     say("prefill", arch=cfg.name, batch=B, seq=S, tokens=B * S,
         first_wall_ms=f"{first_s * 1e3:.3f}", wall_ms=f"{wall_s * 1e3:.3f}",
         tok_per_s=f"{B * S / wall_s:.1f}",
@@ -934,8 +971,10 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
         flash_attention_cuda_events_ms=f"{events_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
         bound_ms=f"{max(t_bytes, t_ops) * 1e3:.4f}",
+        fp32_fma_bound_ms=f"{fma_ms:.4f}",
         live_pairs_per_head=pairs, gflop=f"{flops / 1e9:.1f}",
         tflops=f"{flops / ms / 1e9:.2f}",
+        split_tf32_tflops=f"{TF32_SPLIT_TERMS * flops / ms / 1e9:.2f}",
         sdpa_vs_kernel_max_err=f"{lib_err:.3e}",
         sdpa_kernels=repr(",".join(lib_names)[:200]))
     return {
@@ -945,6 +984,8 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_note": "3 x the flops (split TF32) over the TF32 tensor-core "
+                      "peak",
         "library_ms": lib_ms,
         "library": "F.scaled_dot_product_attention(attn_mask=band, "
                    "enable_gqa=True)",
@@ -1004,6 +1045,10 @@ def main() -> int:
         libraries=",".join(p.name for p in libs))
     for ln in ptxas:
         say("build", ptxas=repr(ln))
+    spilled = ptxas_spills(_build.build_log.get("flash_attention", ""),
+                           "flash_attention_kernel")
+    say("prefill", kernel="flash_attention", spill_bytes=spilled)
+    check(spilled == 0, f"flash_attention spills {spilled} bytes: {ptxas}")
 
     # 3. kernels against their plain versions, on the card --------------
     table1 = make_device("cxl-ssd-cache")

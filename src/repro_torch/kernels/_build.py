@@ -60,7 +60,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each build, by name
+# ptxas report (registers, shared memory, spills) of each library, by name;
+# kept beside the library, so one built by an earlier run has its report too
 build_log: dict[str, str] = {}
 
 
@@ -91,6 +92,7 @@ def build(name: str) -> Path:
     """Compile source ``name`` unless it is built already; return the
     library's path.  Raises with the compiler's output on failure."""
     out = library_path(name)
+    log = out.with_suffix(".ptxas")
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -101,7 +103,12 @@ def build(name: str) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"CUDA build of {name} failed: nvcc exited "
                                f"{proc.returncode}\n{proc.stdout}")
+        tmp_log = log.with_suffix(f".{os.getpid()}.log")
+        tmp_log.write_text(proc.stdout)
+        os.replace(tmp_log, log)   # the report first: a library has one
         os.replace(tmp, out)   # atomic: concurrent builders agree
+    elif name not in build_log and log.exists():
+        build_log[name] = log.read_text()
     return out
 
 

@@ -12,9 +12,15 @@ For CUDA tensors the wrapper launches ``csrc/flash_attention.cu``; for CPU
 tensors it runs :func:`flash_attention_plain` (the reference's oracle
 ``flash_attention_ref``).  Nothing falls back from one to the other.  The
 kernel reads q, k and v in place through their strides, so views cost no
-copy.  Both paths take float32 only, head dims that are multiples of 4 up
-to 128 and the group sizes in ``GROUP_SIZES``, and refuse tensors that
-require a gradient: the backward kernel comes with the training slice.
+copy.  It takes both products on the tensor cores in split TF32: each
+float32 operand ``x`` enters as ``big = tf32(x)`` and ``small = tf32(x -
+big)``, and ``a . b`` is ``small_a . big_b + big_a . small_b + big_a .
+big_b``, so the result keeps float32's accuracy (plain TF32 would not:
+``tests/test_torch_attention_tf32.py``).  cuBLAS's float32 products
+elsewhere keep TF32 off.  Both paths take float32 only, head dims that
+are multiples of 4 up to 128 and the group sizes in ``GROUP_SIZES``, and
+refuse tensors that require a gradient: the backward kernel comes with
+the training slice.
 
 ``LAUNCHES`` counts kernel launches only, so a run can show that it went
 through the kernel.

@@ -4,7 +4,9 @@ On the card's machine a profiler session now and then records no device
 activity at all.  These tests drive the script's timing helpers with a
 stand-in profiler on the CPU: a session that records nothing is retried,
 a timing that the profiler never records falls back to CUDA events and
-says so, and device events are split by kind.
+says so, and device events are split by kind.  The last tests hold the
+script's correctness gates: the spill gate reads a ptxas report on every
+run, and the tolerance check fails on any element outside it or NaN.
 """
 
 import importlib.util
@@ -119,3 +121,61 @@ def test_split_by_kind(smoke):
                                 "flash_attention")
     assert kinds == {"flash_attention": 3.0, "matmuls": 2.0,
                      "other_kernels": 0.25, "copies": 0.5}
+
+
+PTXAS = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_attention_kernelILi15ELb1EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122flash_attention_kernelILi15ELb1EEEvNS_6ParamsE
+    0 bytes stack frame, {stores} bytes spill stores, {loads} bytes spill loads
+ptxas info    : Used 232 registers, 560 bytes cmem[0]
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122flash_attention_kernelILi8ELb0EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+"""
+
+
+@pytest.mark.parametrize("stores,loads", [(0, 0), (8, 0), (0, 4), (24, 16)])
+def test_ptxas_spills_sums_every_kernel_of_the_report(smoke, stores, loads):
+    log = PTXAS.format(stores=stores, loads=loads)
+    assert smoke.ptxas_spills(log, "flash_attention_kernel") == stores + loads
+    # no report, or one of another kernel, is refused, never read as 0
+    for other in ("", log.replace("flash_attention", "flash_decode")):
+        with pytest.raises(ValueError, match="names no"):
+            smoke.ptxas_spills(other, "flash_attention_kernel")
+
+
+def test_library_built_earlier_keeps_its_ptxas_report(tmp_path, monkeypatch):
+    """A library found on disk brings the report of the build that made
+    it, so the spill gate reads a report on every run."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path)
+    monkeypatch.setattr(_build, "build_log", {})
+    lib = _build.library_path("flash_attention")
+    lib.write_bytes(b"")
+    report = PTXAS.format(stores=0, loads=0)
+    lib.with_suffix(".ptxas").write_text(report)
+    assert _build.build("flash_attention") == lib     # no nvcc: it exists
+    assert _build.build_log == {"flash_attention": report}
+
+
+@pytest.mark.parametrize("case", ["within", "outside", "nan_got", "nan_want"])
+def test_close_err_fails_on_any_element_outside_or_nan(smoke, case):
+    tol = dict(atol=2e-5, rtol=2e-5)
+    want = torch.linspace(-4, 4, 65)        # holds 0, where the share peaks
+    got = want + 1e-5                       # share 1e-5 / (2e-5 + 2e-5|w|)
+    if case == "outside":
+        got[7] += 1e-3
+    elif case == "nan_got":
+        got[7] = float("nan")
+    elif case == "nan_want":
+        want = want.clone()
+        want[7] = float("nan")
+    err, share, ok = smoke.close_err(torch, got, want, tol)
+    assert ok == (case == "within")
+    if case == "within":
+        assert err == pytest.approx(1e-5, rel=1e-2)
+        assert share == pytest.approx(0.5, rel=1e-2)
+    elif case == "outside":
+        assert err > 1e-3 and share > 1
+    else:                                   # a NaN reads as inf, not lost
+        assert err == float("inf") and share == float("inf")

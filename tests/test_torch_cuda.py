@@ -262,19 +262,23 @@ def test_serve_on_the_card_runs_the_kernels_and_matches_the_cpu(card):
     assert gpu.tiered.sim_ticks == cpu.tiered.sim_ticks
 
 
-# (S, Skv, causal, window): a block is 64 query rows, a key tile 32 keys
-# (64 at hd <= 64)
+# (S, Skv, causal, window): a block is 128 query rows (position, head) of
+# one KV head, 16 a warp, a key tile 32 keys; "edge" ends one key past a
+# tile (and, at G 1, one row past a block), "cross_edge" one key past a
+# tile with one partial block
 PREFILL_MODES = {"causal": (256, 256, True, 0), "window": (320, 320, True, 100),
-                 "cross": (160, 200, False, 0), "ragged": (333, 333, True, 0)}
+                 "cross": (160, 200, False, 0), "ragged": (333, 333, True, 0),
+                 "edge": (129, 129, True, 0), "cross_edge": (65, 129, False, 0)}
 
 
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])   # x 4: large scores
 @pytest.mark.parametrize("mode", sorted(PREFILL_MODES))
 @pytest.mark.parametrize("G", [1, 4, 5, 8, 16])
-@pytest.mark.parametrize("hd", [64, 120, 128])
-def test_flash_attention_equals_plain(card, hd, G, mode):
+@pytest.mark.parametrize("hd", [64, 120, 128, 36, 100])
+def test_flash_attention_equals_plain(card, hd, G, mode, q_scale):
     S, Skv, causal, window = PREFILL_MODES[mode]
     gen = torch.Generator(device=card).manual_seed(hd * 100 + G)
-    q = torch.randn(2, S, 2 * G, hd, device=card, generator=gen)
+    q = torch.randn(2, S, 2 * G, hd, device=card, generator=gen) * q_scale
     k, v = (torch.randn(2, Skv, 2, hd, device=card, generator=gen)
             for _ in range(2))
     before = fa.LAUNCHES["flash_attention"]

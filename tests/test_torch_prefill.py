@@ -55,7 +55,7 @@ def _qkv(seed, B, S, Skv, KV, G, hd):
 
 # (S, Skv, causal, window); no S is a multiple of the Pallas kernel's
 # 128-row tile, and "ragged" is a multiple of neither its tiles nor the
-# CUDA kernel's (64 query rows, 32 or 64 keys)
+# CUDA kernel's (128 query rows, 32 keys)
 MODES = {"causal": (200, 200, True, 0), "window": (200, 200, True, 48),
          "cross": (72, 40, False, 0), "ragged": (133, 133, True, 0)}
 

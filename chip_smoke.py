@@ -28,14 +28,28 @@ and ``nvcc``.  Phases, each printing one or more lines:
    shared-memory latency, measured here by ``tools/smem_latency.cu``;
 5. golden: the pinned ``cxl-ssd-cache@direct`` kernel-lane latencies of
    ``tests/golden/golden_traces.json``, reproduced on the card;
-6. decode kernels: ``flash_decode`` against its plain version at hd 120 /
+6. fabric: the golden ``cxl-ssd-cache@fabric`` kernel-lane pin through
+   a two-level fabric mount (``TraceDriver`` and ``run_cuda(validate=
+   True)``); Table I's cached CXL-SSD mounted behind
+   ``Fabric.build("two_level", num_hosts=2, num_devices=2,
+   num_leaves=2)`` replaying the main path's trace with
+   ``engine="cuda"``: ``cache_sim_fused`` launched, every output
+   bit-equal to phase 4's direct run (the kernel lane reads the mounted
+   device alone, as the JAX package's pallas lane does), ``TraceDriver``'s
+   wall time; an installed link-retry ``FaultPlan`` refused with
+   ``ReplayUnsupported``; the torch hash twins (``flow_choices_torch``,
+   ``nand_read_retries_torch``, ``erase_fails_torch``) bit-equal to their
+   numpy twins over 2^20 seeded uint64 values; ``LinkCongestionSim`` at
+   4 hosts x 4 devices on a spine-leaf with ECMP over 2^22 accesses
+   against its own CPU result (rtol 1e-5), and its wall time;
+7. decode kernels: ``flash_decode`` against its plain version at hd 120 /
    128 / 64, G 1 / 4 / 5 / 8 / 16, fill levels on tile and split edges, a
    4096-slot cache and forced split plans with empty ranges; its split
    plans (CTAs, cluster size, rows a CTA) and device times at glm4-9b's and
    hymba-1.5b's attention shapes; ``page_gather`` and ``page_scatter``
    against theirs over float32, bfloat16 and int32 pages with a repeated
    slot (exact);
-7. main path (serve): ``repro_torch.launch.serve.serve`` of h2o-danube-3-4b
+8. main path (serve): ``repro_torch.launch.serve.serve`` of h2o-danube-3-4b
    at full width (24 layers, d_model 3840, 32/8 heads of 120, seeded random
    weights from a torch.Generator on the card), batch 4, context 512,
    32 + 608 steps, LRU tiered KV store backed by a simulated CXL-SSD;
@@ -43,11 +57,11 @@ and ``nvcc``.  Phases, each printing one or more lines:
    against values pinned from the JAX package's store, ``flash_decode``
    against its plain version on the run's final caches of all 24 layers,
    and the greedy tokens of a second run, which must be identical;
-8. profile: where a serving step's time goes on the card (the port's
+9. profile: where a serving step's time goes on the card (the port's
    kernels, matrix products, other kernels, copies, idle), by the profiler;
-9. scheduler: ``BatchScheduler`` at full width, 4 slots, 8 seeded requests,
+10. scheduler: ``BatchScheduler`` at full width, 4 slots, 8 seeded requests,
    all complete, twice with identical outputs;
-10. prefill: ``flash_attention``'s ptxas report (the run fails on a
+11. prefill: ``flash_attention``'s ptxas report (the run fails on a
    spill); the kernel against its plain version over head dims 64 / 120 /
    128 / 36 / 100 (the last two not multiples of 8), group sizes 1 / 4 /
    5 / 8 / 16, six masks (causal, sliding window, cross lengths, a ragged
@@ -112,6 +126,26 @@ SMEM_HOPS = 1 << 16            # dependent loads timed by the latency probe
 GOLDEN = "cxl-ssd-cache@direct"
 GOLDEN_CACHE = dict(capacity_bytes=16 * 4096, mshr_entries=4,
                     writeback_buffer=2)
+GOLDEN_PINS = ROOT / "tests" / "golden" / "golden_traces.json"
+# the fabric phase: the golden fabric scenario's mount (tests/golden/
+# scenarios.py: a two-level tree, host h1 to device d1), and Table I's
+# cached CXL-SSD behind the same tree for the main path's trace
+FABRIC_GOLDEN = "cxl-ssd-cache@fabric"
+FABRIC = dict(num_hosts=2, num_devices=2, num_leaves=2)
+FABRIC_PLAN = dict(link_retry_rate=0.25)      # refused by the kernel lane
+# the torch hash twins: 2^20 seeded uint64 values (the top bit set in
+# half), ECMP path counts, and a NAND plan with both fault classes on
+TWIN_VALUES = 1 << 20
+TWIN_FLOWS = [("h0", "d0", 2), ("h3", "d1", 3), ("d2", "h1", 5),
+              ("h1", "d3", 16)]
+TWIN_NAND = dict(nand_read_retry_rate=0.35, nand_read_retry_max=3,
+                 erase_fail_rate=0.4)
+# the congestion estimator: 4 hosts x 4 devices on a spine-leaf with ECMP
+ESTIMATOR = dict(num_hosts=4, num_devices=4, num_leaves=2, num_spines=2,
+                 ecmp=True)
+ESTIMATOR_ACCESSES = 1 << 22
+ESTIMATOR_SCALES = [0.5, 1.0, 2.0, 4.0]
+ESTIMATOR_RTOL = 1e-5          # float32 sums in another order
 # (num_sets, ways, policy, lanes, trace): the first is the main path's
 CHECK_SHAPES = [(1, 4096, "lru", 1, "uniform"), (1, 4096, "fifo", 1, "uniform"),
                 (4096, 1, "direct", 1, "uniform"), (4096, 8, "lru", 1, "uniform"),
@@ -199,6 +233,67 @@ def say(phase: str, **kw) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"FAILED: {what}")
+
+
+def golden_pin(scenario: str, lane: str) -> dict:
+    """The pinned lane ``lane`` of ``scenario`` in the golden fixture."""
+    return json.loads(GOLDEN_PINS.read_text())["scenarios"][scenario][lane]
+
+
+def refuses(fn, exc) -> bool:
+    """Whether ``fn()`` raises ``exc`` (any other exception propagates)."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def nand_plain(statics, seq):
+    """numpy twins of ``FaultPlan.nand_read_retries`` and ``erase_fails``
+    over the uint64 array ``seq``: ``(retries int64, fails bool)``."""
+    from repro_torch.core.faults.plan import (SALT_NAND_ERASE,
+                                              SALT_NAND_READ, fault_hash_np)
+
+    seed, read_thresh, read_max, erase_thresh = statics
+    m32 = np.uint64((1 << 32) - 1)
+    h = fault_hash_np(seed, SALT_NAND_READ, 0, seq)
+    k = np.uint64(1) + (h >> np.uint64(32)) % np.uint64(read_max)
+    retries = np.where((h & m32) < np.uint64(read_thresh), k,
+                       np.uint64(0)).astype(np.int64)
+    e = fault_hash_np(seed, SALT_NAND_ERASE, 0, seq)
+    return retries, (e & m32) < np.uint64(erase_thresh)
+
+
+def twin_mismatches(torch, dev, values: np.ndarray, seed: int) -> dict:
+    """Elements where each torch hash twin, on ``dev``, differs from its
+    numpy twin over the uint64 array ``values``."""
+    from repro_torch.core.fabric.routing import (flow_choices,
+                                                 flow_choices_torch)
+    from repro_torch.core.faults import (FaultConfig, FaultPlan,
+                                         erase_fails_torch,
+                                         nand_read_retries_torch)
+
+    bits = torch.from_numpy(values.view(np.int64)).to(dev)
+    flows = 0
+    for src, dst, paths in TWIN_FLOWS:
+        got = flow_choices_torch(src, dst, bits, paths).cpu().numpy()
+        flows += int((got != flow_choices(src, dst, values, paths)).sum())
+    statics = FaultPlan(FaultConfig(**TWIN_NAND), seed=seed).nand_statics()
+    retries, fails = nand_plain(statics, values)
+    got_r = nand_read_retries_torch(statics, bits).cpu().numpy()
+    got_e = erase_fails_torch(statics, bits).cpu().numpy()
+    return {"flow_choices_torch": flows,
+            "nand_read_retries_torch": int((got_r != retries).sum()),
+            "erase_fails_torch": int((got_e != fails).sum())}
+
+
+def twin_values(seed: int, n: int) -> np.ndarray:
+    """``n`` seeded uint64 values, the extremes first."""
+    values = np.random.default_rng(seed).integers(
+        0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)
+    values[:4] = [0, 2**63 - 1, 2**63, 2**64 - 1]
+    return values
 
 
 def smi(query: str) -> str:
@@ -995,6 +1090,122 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
     }
 
 
+def fabric_phase(torch, dev, trace, direct, seed: int) -> dict:
+    """[fabric]: the kernel lane on fabric mounts, the fault refusal, the
+    torch hash twins and the congestion estimator, all on the card."""
+    from repro_torch.core.cache.dram_cache import DRAMCacheConfig
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.fabric.link_sim import LinkCongestionSim
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.replay.cuda_engine import run_cuda
+    from repro_torch.core.replay.spec import ReplayUnsupported, trace_to_arrays
+    from repro_torch.core.workloads.driver import TraceDriver
+    from repro_torch.core.workloads.traces import hash_seed, make_trace
+    from repro_torch.kernels import cache_sim as ks
+
+    # the golden fabric scenario's pallas pin, through the driver and
+    # through run_cuda(validate=True)
+    pin = golden_pin(FABRIC_GOLDEN, "pallas")
+    gtrace = make_trace(hash_seed(FABRIC_GOLDEN))
+    addrs, writes, size = trace_to_arrays(gtrace)
+
+    def golden_mount():
+        fab = Fabric.build("two_level", **FABRIC)
+        return fab.mount("h1", "d1", make_device(
+            "cxl-ssd-cache", cache_cfg=DRAMCacheConfig(policy="lru",
+                                                       **GOLDEN_CACHE)))
+
+    runs = {"driver": TraceDriver(golden_mount(), outstanding=8,
+                                  engine="cuda").run(gtrace),
+            "validate": run_cuda(golden_mount(), addrs, writes, size=size,
+                                 outstanding=8, validate=True)}
+    for how, gres in runs.items():
+        check(gres.latency_ticks.tolist() == pin["latency_ticks"],
+              f"fabric golden per-access latencies ({how})")
+        for field in ("elapsed_ticks", "sum_latency_ticks", "end_tick"):
+            check(getattr(gres, field) == pin[field],
+                  f"fabric golden {field} ({how})")
+    say("fabric", scenario=FABRIC_GOLDEN, lane="cuda",
+        accesses=len(gtrace), elapsed_ticks=runs["driver"].elapsed_ticks,
+        equal="all fields", validate="pass")
+
+    # the main path's trace on Table I's cached CXL-SSD behind a two-level
+    # tree: the kernel lane reads the mounted device alone (the JAX
+    # package's design), so every output equals the direct run's
+    fab = Fabric.build("two_level", **FABRIC)
+    mount = fab.mount("h0", "d0", make_device("cxl-ssd-cache"))
+    ks.reset_launches()
+    t0 = time.perf_counter()
+    fres = TraceDriver(mount, engine="cuda").run(trace)
+    wall = time.perf_counter() - t0
+    launches = dict(ks.LAUNCHES)
+    check(launches["cache_sim_fused"] >= 1,
+          f"the fabric mount's replay missed cache_sim_fused: {launches}")
+    for field in ("latency_ticks", "hit_flags", "evict_flags"):
+        check(np.array_equal(getattr(fres, field), getattr(direct, field)),
+              f"fabric-mounted and direct replays differ in {field}")
+    for field in ("elapsed_ticks", "sum_latency_ticks", "end_tick"):
+        check(getattr(fres, field) == getattr(direct, field),
+              f"fabric-mounted and direct replays differ in {field}")
+    install(FaultPlan(FaultConfig(**FABRIC_PLAN)), [mount])
+    check(refuses(lambda: run_cuda(mount, addrs, writes), ReplayUnsupported),
+          "run_cuda replayed a mount with an active fault plan")
+    say("fabric", mount="two_level h0->d0", device="cxl-ssd-cache Table I",
+        accesses=fres.accesses, equal_to_direct="all fields",
+        launches=json.dumps(launches, separators=(",", ":")),
+        driver_wall_s=f"{wall:.3f}", fault_plan="refused")
+
+    # the torch hash twins on the card, bit for bit
+    mism = twin_mismatches(torch, dev, twin_values(seed, TWIN_VALUES), seed)
+    check(not any(mism.values()), f"torch hash twins differ: {mism}")
+    say("fabric", twins=",".join(mism), values=TWIN_VALUES, mismatches=0)
+
+    # the congestion estimator on the card against its CPU result
+    sfab = Fabric.build("spine_leaf", **ESTIMATOR)
+    hosts, devices = sfab.topology.hosts, sfab.topology.devices
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, len(hosts), ESTIMATOR_ACCESSES)
+    di = rng.integers(0, len(devices), ESTIMATOR_ACCESSES)
+    nb = rng.integers(1, 5, ESTIMATOR_ACCESSES) * 64
+    sims = {"cuda": LinkCongestionSim(sfab, hosts, devices),
+            "cpu": LinkCongestionSim(sfab, hosts, devices,
+                                     torch_device="cpu")}
+    sims["cuda"].estimate(hi, di, nb, window_s=1e-3)        # warm up
+    torch.cuda.synchronize()
+    out, secs = {}, {}
+    for where, sim in sims.items():
+        t0 = time.perf_counter()
+        est = sim.estimate(hi, di, nb, window_s=1e-3)       # ends on the host
+        secs[where] = time.perf_counter() - t0
+        out[where] = (est, sim.what_if_bandwidth(hi, di, nb, 1e-3,
+                                                 ESTIMATOR_SCALES))
+    (est, wif), (cest, cwif) = out["cuda"], out["cpu"]
+    check(est["bottleneck_link"] == cest["bottleneck_link"],
+          "estimator bottleneck differs between the card and the CPU")
+    worst = 0.0
+    for got, want, keys in ((est, cest, ("link_utilization", "pair_slowdown",
+                                         "pair_bytes")),
+                            (wif, cwif, ("max_link_utilization",
+                                         "mean_pair_slowdown"))):
+        for key in keys:
+            rel = np.abs(got[key].astype(np.float64) - want[key]) \
+                / np.maximum(np.abs(want[key]), 1e-30)
+            worst = max(worst, float(rel.max()))
+    check(worst <= ESTIMATOR_RTOL,
+          f"estimator on the card vs the CPU: rel err {worst} > "
+          f"{ESTIMATOR_RTOL}")
+    check(int(est["pair_bytes"].sum()) == int(nb.sum()),
+          "estimator lost bytes")
+    say("fabric", estimator="spine_leaf 4x4 ecmp",
+        accesses=ESTIMATOR_ACCESSES, links=len(est["link_names"]),
+        bottleneck=est["bottleneck_link"],
+        max_rel_err=f"{worst:.3e}", rtol=ESTIMATOR_RTOL,
+        estimate_wall_ms=f"{secs['cuda'] * 1e3:.3f}",
+        cpu_estimate_wall_ms=f"{secs['cpu'] * 1e3:.3f}")
+    return {"launches": launches, "driver_wall_s": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1203,8 +1414,7 @@ def main() -> int:
         validate="pass")
 
     # 5. golden pin on the card -------------------------------------------
-    pin = json.loads((ROOT / "tests/golden/golden_traces.json").read_text())
-    pin = pin["scenarios"][GOLDEN]["pallas"]
+    pin = golden_pin(GOLDEN, "pallas")
     gdev = make_device("cxl-ssd-cache",
                        cache_cfg=DRAMCacheConfig(policy="lru", **GOLDEN_CACHE))
     gres = TraceDriver(gdev, outstanding=8, engine="cuda").run(
@@ -1217,14 +1427,17 @@ def main() -> int:
         first_latency_ticks=int(gres.latency_ticks[0]),
         elapsed_ticks=gres.elapsed_ticks, equal="all fields")
 
-    # 6.-9. the serving path ---------------------------------------------
+    # 6. the replay lane on the fabric ------------------------------------
+    fabric = fabric_phase(torch, dev, trace, res, args.seed)
+
+    # 7.-10. the serving path --------------------------------------------
     check_worst = decode_kernel_checks(torch, dev, args.seed)
     run = serve_phase(torch, dev)
     profile_phase(torch, run)
     scheduler_phase(torch, run, args.seed)
     serve_rows = serve_kernel_rows(torch, dev, run, check_worst)
 
-    # 10. the prefill path ------------------------------------------------
+    # 11. the prefill path ------------------------------------------------
     prefill_row = prefill_phase(torch, run, args.seed,
                                 prefill_kernel_checks(torch, dev, args.seed))
 
@@ -1248,6 +1461,7 @@ def main() -> int:
             "shapes": [f"{s}x{w}:{p}:{lanes}:{t}"
                        for s, w, p, lanes, t in CHECK_SHAPES],
             "mismatches": mismatches[name],
+            "fabric_launches": fabric["launches"][name],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": rows + serve_rows + [prefill_row]}),

@@ -41,7 +41,7 @@ class MemDevice:
     def __init__(self, engine: Optional[EventEngine] = None) -> None:
         self.engine = engine
         self.stats = {"reads": 0, "writes": 0, "bytes": 0}
-        # deterministic fault injection (the faults slice; stays None here): the
+        # deterministic fault injection (repro_torch.core.faults.install): the
         # device marks read-response flits poisoned per the plan, keyed on
         # its own flit ordinal — corrupt data surfaces as status, never as
         # fabricated latency

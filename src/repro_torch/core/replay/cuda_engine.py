@@ -16,7 +16,11 @@ Fidelity contract (different from the scan lane's tick-exactness):
   + fill-path busy-until queueing, nanosecond resolution) that tracks the
   shape of the exact replay but does not model MSHR coalescing, writeback
   stalls, or flash channel contention.  Use the python lane when ticks must
-  match the interpreted driver exactly.
+  match the interpreted driver exactly;
+* a fabric mount (:class:`~repro_torch.core.fabric.FabricAttachedDevice`)
+  replays as the device it mounts: the model has no fabric hops, as in the
+  JAX package's pallas lane.  An active fault plan on the device or its
+  fabric is refused.
 """
 
 from __future__ import annotations
@@ -27,19 +31,22 @@ import torch
 from repro_torch import torch_device as _td
 from repro_torch.core.devices import CachedCXLSSDDevice
 from repro_torch.core.engine import TICKS_PER_NS
+from repro_torch.core.fabric.fabric import FabricAttachedDevice
 from repro_torch.core.replay.engine import ReplayResult
 from repro_torch.core.replay.spec import ReplayUnsupported
 from repro_torch.kernels.cache_sim import cache_sim_fused, fill_latency_assoc
 
 
 def _cached(device) -> CachedCXLSSDDevice:
-    # fabric mounts (FabricAttachedDevice) arrive with the fabric slice
-    if not isinstance(device, CachedCXLSSDDevice):
+    # a fabric mount replays its device alone: the kernel's analytic model
+    # has no fabric hops, exactly as the JAX package's pallas lane
+    inner = device.inner if isinstance(device, FabricAttachedDevice) else device
+    if not isinstance(inner, CachedCXLSSDDevice):
         raise ReplayUnsupported(
             "engine='cuda' models the cached CXL-SSD; the lane for "
-            f"{type(device).__name__} (the fused scan, ROADMAP Queue A item 5) "
+            f"{type(inner).__name__} (the fused scan, ROADMAP Queue A item 5) "
             "is not ported yet — use engine='python'")
-    return device
+    return inner
 
 
 def cuda_params(device, issue_overhead_ns: float) -> dict:
@@ -85,6 +92,16 @@ def run_cuda(device, addrs: np.ndarray, writes: np.ndarray, *,
     and raises if the two disagree bit-for-bit — a cheap end-to-end
     cross-check of the in-kernel sequential chain."""
     dev = _td.resolve(torch_device)
+    plan = getattr(device, "fault_plan", None)
+    if plan is None:
+        plan = getattr(getattr(device, "fabric", None), "fault_plan", None)
+    if plan is not None and plan.active:
+        raise ReplayUnsupported(
+            f"active fault plan ({', '.join(plan.class_names())}): the "
+            "cuda kernel models the fault-free cached CXL-SSD; the fault "
+            "classes replay in the python lane (the fused scan lane, "
+            "ROADMAP Queue A item 5, is not ported yet) — use "
+            "engine='python'")
     kw = cuda_params(device, issue_overhead_ns)
     # int32-nanosecond budget: arrival/busy cursors grow by at most
     # (miss_occ + issue) per access, plus one service term on top.

@@ -56,7 +56,7 @@ class FTL:
         self.free_blocks = list(range(1, self.num_blocks))
         self.stats = {"host_writes": 0, "host_reads": 0, "gc_writes": 0,
                       "gc_erases": 0, "gc_runs": 0}
-        # deterministic fault injection (the faults slice; stays None here): a
+        # deterministic fault injection (repro_torch.core.faults.install): a
         # failed erase grows the victim bad — it is retired from both the
         # free pool and future GC candidacy, shrinking over-provisioning
         self.fault_plan = None

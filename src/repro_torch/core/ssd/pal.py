@@ -84,7 +84,7 @@ class PAL:
                       "bytes_read": 0, "bytes_programmed": 0,
                       "die_wait_ticks": 0, "channel_wait_ticks": 0,
                       "read_retries": 0}
-        # deterministic NAND fault injection (the faults slice; stays None here):
+        # deterministic NAND fault injection (repro_torch.core.faults.install):
         # read-retry decisions key on the per-PAL read sequence number,
         # which the fused scan's flash state mirrors exactly
         self.fault_plan = None

@@ -5,10 +5,11 @@ line-fill-buffer slots.  Dependent chains (membench pointer chasing) use
 ``outstanding=1``; streaming kernels use the full LFB depth so bandwidth
 saturates by Little's law.
 
-:class:`MultiHostDriver` interleaves N such hosts onto *shared* targets:
-accesses are issued in global issue-time order with deterministic
-host-index tie-breaking, so contention on shared device media emerges from
-the targets' busy-until state rather than from run ordering.
+:class:`MultiHostDriver` interleaves N such hosts onto *shared* targets
+(fabric-attached devices or pool views): accesses are issued in global
+issue-time order with deterministic host-index tie-breaking, so contention
+on shared switch ports and device media emerges from the targets'
+busy-until state rather than from run ordering.
 
 The python lane is plain Python and uses no torch; the kernel lane
 (``engine="cuda"``) loads :mod:`repro_torch.core.replay.cuda_engine` only
@@ -68,7 +69,8 @@ class TraceDriver:
     ``python``   interpret every access through the device objects (the
                  reference semantics; always available, no torch);
     ``cuda``     the fused cache+latency CUDA kernel for the cached
-                 CXL-SSD — bit-identical hit/evict decisions, analytic
+                 CXL-SSD, bare or fabric-mounted (the model has no
+                 fabric hops) — bit-identical hit/evict decisions, analytic
                  closed-loop latency (see
                  :mod:`repro_torch.core.replay.cuda_engine`); ``"pallas"``
                  is an alias.  Runs on ``torch_device`` (the card by
@@ -205,7 +207,8 @@ class MultiHostDriver:
 
     def __init__(self, targets: Sequence[MemDevice], outstanding: int = 32,
                  issue_overhead_ns: float = 0.5,
-                 posted_writes: bool = True, engine: str = "python") -> None:
+                 posted_writes: bool = True, engine: str = "python",
+                 block_size: int = 1, metrics=None) -> None:
         if not targets:
             raise ValueError("need at least one host target")
         if engine == "scan":
@@ -215,11 +218,22 @@ class MultiHostDriver:
         if engine != "python":
             raise ValueError(f"multi-host engine must be python|scan, "
                              f"got {engine!r}")
+        from repro_torch.core.replay.spec import validate_block_size
+
         self.targets = list(targets)
         self.outstanding = max(1, outstanding)
         self.issue_overhead_ns = issue_overhead_ns
         self.posted_writes = posted_writes
         self.engine = engine
+        self.block_size = validate_block_size(block_size)
+        self.metrics = metrics
+        if metrics is not None:
+            raise NotImplementedError(
+                "metrics collection is not ported yet (ROADMAP Queue A "
+                "item 7)")
+        if self.block_size > 1:
+            raise ValueError(
+                f"block_size applies to engine='scan', not {engine!r}")
 
     def run(self, traces: Sequence[Iterable[Access]],
             start_tick: int = 0) -> MultiHostResult:

@@ -179,3 +179,75 @@ def test_close_err_fails_on_any_element_outside_or_nan(smoke, case):
         assert err > 1e-3 and share > 1
     else:                                   # a NaN reads as inf, not lost
         assert err == float("inf") and share == float("inf")
+
+
+# ------------------------------------------------------- the fabric phase
+def test_golden_pin_reads_the_fabric_scenario(smoke):
+    from test_torch_reference import golden
+
+    pin = smoke.golden_pin(smoke.FABRIC_GOLDEN, "pallas")
+    assert pin == golden("cxl-ssd-cache@fabric")["pallas"]
+    assert pin["latency_ticks"][0] == 7_677_000
+    assert smoke.golden_pin(smoke.GOLDEN, "pallas") == \
+        golden("cxl-ssd-cache@direct")["pallas"]
+
+
+def test_refuses_catches_only_the_named_exception(smoke):
+    from repro_torch.core.replay.spec import ReplayUnsupported
+
+    def raise_(exc):
+        raise exc
+
+    assert smoke.refuses(lambda: raise_(ReplayUnsupported("x")),
+                         ReplayUnsupported)
+    assert not smoke.refuses(lambda: None, ReplayUnsupported)
+    with pytest.raises(KeyError):
+        smoke.refuses(lambda: raise_(KeyError("x")), ReplayUnsupported)
+
+
+def test_the_phase_plan_is_refused_on_its_mount(smoke):
+    import numpy as np
+
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.replay.cuda_engine import run_cuda
+    from repro_torch.core.replay.spec import ReplayUnsupported
+
+    mount = Fabric.build("two_level", **smoke.FABRIC).mount(
+        "h0", "d0", make_device("cxl-ssd-cache"))
+    addrs, writes = np.arange(0, 64 * 8, 64), np.zeros(8, bool)
+    assert run_cuda(mount, addrs, writes, torch_device="cpu").accesses == 8
+    install(FaultPlan(FaultConfig(**smoke.FABRIC_PLAN)), [mount])
+    assert smoke.refuses(lambda: run_cuda(mount, addrs, writes,
+                                          torch_device="cpu"),
+                         ReplayUnsupported)
+
+
+def test_twin_mismatches_are_zero_and_catch_a_broken_twin(smoke,
+                                                          monkeypatch):
+    from repro_torch.core.fabric import routing
+
+    values = smoke.twin_values(3, 4096)
+    assert values[2] == 2**63 and values[3] == 2**64 - 1
+    cpu = torch.device("cpu")
+    assert smoke.twin_mismatches(torch, cpu, values, 3) == {
+        "flow_choices_torch": 0, "nand_read_retries_torch": 0,
+        "erase_fails_torch": 0}
+    monkeypatch.setattr(routing, "flow_choices_torch",
+                        lambda src, dst, x, n: torch.zeros(
+                            x.shape, dtype=torch.int32))
+    assert smoke.twin_mismatches(torch, cpu, values, 3)[
+        "flow_choices_torch"] > 0
+
+
+def test_nand_plain_equals_the_scalar_plan(smoke):
+    import numpy as np
+
+    from repro_torch.core.faults import FaultConfig, FaultPlan
+
+    plan = FaultPlan(FaultConfig(**smoke.TWIN_NAND), seed=5)
+    retries, fails = smoke.nand_plain(plan.nand_statics(),
+                                      np.arange(400, dtype=np.uint64))
+    assert retries.tolist() == [plan.nand_read_retries(i) for i in range(400)]
+    assert fails.tolist() == [plan.erase_fails(i) for i in range(400)]

@@ -327,3 +327,85 @@ def test_forward_on_the_card_runs_the_kernel_and_matches_the_cpu(card):
     assert aux == 0.0
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(logits, gpu, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------- the fabric
+def test_hash_twins_on_the_card_equal_numpy(card):
+    from repro_torch.core.fabric.routing import (flow_choices,
+                                                 flow_choices_torch)
+    from repro_torch.core.faults import (FaultConfig, FaultPlan,
+                                         erase_fails_torch,
+                                         nand_read_retries_torch)
+
+    rng = np.random.default_rng(11)
+    values = rng.integers(0, 2**64 - 1, 1 << 16, dtype=np.uint64,
+                          endpoint=True)
+    values[:3] = [2**63, 2**64 - 1, 2**63 - 1]
+    bits = torch.from_numpy(values.view(np.int64)).to(card)
+    for n in range(1, 17):
+        got = flow_choices_torch("h1", "d2", bits, n)
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      flow_choices("h1", "d2", values, n))
+    plan = FaultPlan(FaultConfig(nand_read_retry_rate=0.35,
+                                 nand_read_retry_max=3,
+                                 erase_fail_rate=0.4), seed=2**63 + 5)
+    statics = plan.nand_statics()
+    cpu = bits.cpu()
+    assert torch.equal(nand_read_retries_torch(statics, bits).cpu(),
+                       nand_read_retries_torch(statics, cpu))
+    assert torch.equal(erase_fails_torch(statics, bits).cpu(),
+                       erase_fails_torch(statics, cpu))
+    seq = torch.arange(300, device=card)
+    assert nand_read_retries_torch(statics, seq).tolist() == [
+        plan.nand_read_retries(i) for i in range(300)]
+
+
+def test_congestion_estimator_on_the_card_equals_the_cpu(card):
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.fabric.link_sim import LinkCongestionSim
+
+    fab = Fabric.build("spine_leaf", num_hosts=4, num_devices=4,
+                       num_leaves=2, num_spines=2, ecmp=True)
+    hosts, devices = fab.topology.hosts, fab.topology.devices
+    rng = np.random.default_rng(5)
+    n = 1 << 18
+    hi, di = rng.integers(0, 4, n), rng.integers(0, 4, n)
+    nb = rng.integers(1, 5, n) * 64
+    gpu = LinkCongestionSim(fab, hosts, devices)
+    cpu = LinkCongestionSim(fab, hosts, devices, torch_device="cpu")
+    assert gpu.routes.device.type == "cuda"
+    a, b = gpu.estimate(hi, di, nb, 1e-4), cpu.estimate(hi, di, nb, 1e-4)
+    assert a["bottleneck_link"] == b["bottleneck_link"]
+    for key in ("link_utilization", "pair_slowdown", "pair_bytes"):
+        np.testing.assert_allclose(a[key], b[key], rtol=1e-5)
+    a = gpu.what_if_bandwidth(hi, di, nb, 1e-4, [0.5, 1.0, 2.0])
+    b = cpu.what_if_bandwidth(hi, di, nb, 1e-4, [0.5, 1.0, 2.0])
+    for key in ("max_link_utilization", "mean_pair_slowdown"):
+        np.testing.assert_allclose(a[key], b[key], rtol=1e-5)
+
+
+def test_fabric_mount_on_the_card_replays_as_the_bare_device(card):
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.replay.spec import ReplayUnsupported
+
+    rng = np.random.default_rng(9)
+    addrs = rng.integers(0, 256, 3000) * 4096 + rng.integers(0, 64, 3000) * 64
+    writes = rng.random(3000) < 0.3
+
+    def cached():
+        return make_device("cxl-ssd-cache", cache_cfg=DRAMCacheConfig(
+            capacity_bytes=64 * 4096))
+
+    mount = Fabric.build("two_level", num_hosts=2, num_devices=2,
+                         num_leaves=2).mount("h1", "d1", cached())
+    before = ks.LAUNCHES["cache_sim_fused"]
+    got = run_cuda(mount, addrs, writes, validate=True)
+    assert ks.LAUNCHES["cache_sim_fused"] == before + 1
+    want = run_cuda(cached(), addrs, writes, validate=True)
+    for f in ("latency_ticks", "hit_flags", "evict_flags"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    install(FaultPlan(FaultConfig(link_retry_rate=0.25)), [mount])
+    with pytest.raises(ReplayUnsupported, match="fault plan"):
+        run_cuda(mount, addrs, writes)

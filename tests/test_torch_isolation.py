@@ -55,15 +55,21 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_package_has_the_reference_layout():
     for sub in ("core", "core/cache", "core/ssd", "core/cxl", "core/replay",
-                "core/workloads", "kernels", "configs", "models", "tiered",
-                "serving", "launch", "distributed"):
+                "core/workloads", "core/fabric", "core/faults", "kernels",
+                "configs", "models", "tiered", "serving", "launch",
+                "distributed"):
         assert (REPO / "src" / "repro_torch" / sub / "__init__.py").exists()
         assert (REPO / "src" / "repro" / sub / "__init__.py").exists()
     for name in ("cache_sim", "flash_attention", "flash_decode",
                  "page_gather"):
         assert (REPO / "src" / "repro_torch" / "kernels" / "csrc"
                 / f"{name}.cu").exists()
-    for mod in ("models/layers.py", "models/transformer.py",
+    for mod in ("core/fabric/topology.py", "core/fabric/switch.py",
+                "core/fabric/routing.py", "core/fabric/fabric.py",
+                "core/fabric/pool.py", "core/fabric/link_sim.py",
+                "core/faults/plan.py", "core/workloads/membench.py",
+                "core/workloads/stream.py", "core/workloads/viper.py",
+                "models/layers.py", "models/transformer.py",
                 "kernels/flash_attention.py", "kernels/flash_decode.py",
                 "kernels/page_gather.py",
                 "kernels/ops.py", "tiered/store.py", "serving/scheduler.py",
@@ -170,3 +176,42 @@ def test_chip_smoke_fails_outside_the_repository(tmp_path):
     proc = _smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_fabric_tensor_entry_points_default_to_the_card(no_card):
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.fabric.link_sim import LinkCongestionSim
+    from repro_torch.core.fabric.routing import flow_choices_torch
+
+    fab = Fabric.build("two_level", num_hosts=2, num_devices=1, num_leaves=2)
+    args = (fab, fab.topology.hosts, fab.topology.devices)
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        LinkCongestionSim(*args)
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        flow_choices_torch("h0", "d0", np.arange(4), 2)
+    # the CPU is used when asked for, and tensors are hashed where they lie
+    assert LinkCongestionSim(*args, torch_device="cpu").routes.device.type \
+        == "cpu"
+    assert flow_choices_torch("h0", "d0", torch.arange(4), 2).shape == (4,)
+
+
+def test_fabric_python_lane_loads_no_torch():
+    code = ("import sys\n"
+            "from repro_torch.core.fabric import Fabric\n"
+            "from repro_torch.core.faults import FaultConfig, FaultPlan, "
+            "install\n"
+            "from repro_torch.core.workloads import MultiHostDriver, "
+            "run_membench, run_stream, run_viper\n"
+            "from repro_torch.core.devices import make_device\n"
+            "fab = Fabric.build('spine_leaf', num_hosts=2, num_devices=2, "
+            "ecmp=True)\n"
+            "t = fab.mount('h0', 'd0', make_device('dram'))\n"
+            "install(FaultPlan(FaultConfig(link_retry_rate=0.5)), [t])\n"
+            "MultiHostDriver([t]).run([[(i * 64, 64, False) "
+            "for i in range(64)]])\n"
+            "assert fab.fault_stats['link_retries'] > 0\n"
+            "assert 'torch' not in sys.modules, 'torch was loaded'\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

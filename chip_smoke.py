@@ -74,7 +74,20 @@ and ``nvcc``.  Phases, each printing one or more lines:
    positions against 64 decode steps (equal greedy argmax), the host wall
    time, the device time by kind, and the kernel's time beside its bound
    (split TF32 on the tensor cores, and the FP32 FMA bound of the same
-   flops), its plain version and ``F.scaled_dot_product_attention``.
+   flops), its plain version and ``F.scaled_dot_product_attention``;
+12. scan: the tick-exact scan lane, ``TraceDriver(make_device(d),
+   engine="scan")``, for the five devices at their defaults over the main
+   path's trace, one ``replay_scan`` launch each, every replay equal access
+   for access (latency ticks, hit and dirty-evict flags, elapsed and end
+   ticks) to the python lane run on this host, with the kernel's device
+   time, both walls and its bound; the 14 single-host fault-free golden
+   ``python_scan`` pins and ``metrics`` blocks (GC included); the kernel
+   against its plain twin (CPU tensors of this process) on the pins'
+   traces, 4096 accesses of each device and 2^14 of Table I's cached
+   CXL-SSD (its cache filled and evicting); an active link-retry plan
+   and ``chunk_size`` refused with ``ReplayUnsupported``.  It runs last,
+   after the host-bound serving loop, so that its 2^20-access python-lane
+   replays leave no load on that loop's host.
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -146,6 +159,44 @@ ESTIMATOR = dict(num_hosts=4, num_devices=4, num_leaves=2, num_spines=2,
 ESTIMATOR_ACCESSES = 1 << 22
 ESTIMATOR_SCALES = [0.5, 1.0, 2.0, 4.0]
 ESTIMATOR_RTOL = 1e-5          # float32 sums in another order
+# the scan phase: the five devices at make_device's defaults (the cached
+# CXL-SSD is Table I's), the 14 single-host fault-free golden scenarios
+# (tests/test_torch_scan.py), and the kernel against its twin at 4096
+# accesses of each device
+SCAN_DEVICES = ["dram", "cxl-dram", "pmem", "cxl-ssd", "cxl-ssd-cache"]
+SCAN_SCENARIOS = ([f"{d}@{a}" for d in SCAN_DEVICES
+                   for a in ("direct", "fabric")]
+                  + ["dram@stream", "pmem@stream", "dram-qos@fabric",
+                     "ssd-gc@direct"])
+SCAN_TWIN_ACCESSES = 4096
+# Table I's cached CXL-SSD against its twin past its 4096 frames: the
+# main-path trace's first 2^14 accesses touch about 10,000 of its 16,384
+# pages, so the cache fills, evicts and writes back
+SCAN_CHURN_ACCESSES = 1 << 14
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/replay_scan.cu"
+# no Pallas kernel: the JAX package's per-access lax.scan step
+SCAN_REPLACES = "src/repro/core/replay/engine.py:441"
+SCAN_KERNEL = "replay_scan_kernel"
+# dependent shared-memory round trips (a load or store waited on, or a
+# shuffle round) of one replay_scan access on its serial chain, a model:
+# the LFB argmin (a load and five shuffle rounds) and the slot's store (7);
+# the buffer's frame scan (a load and five rounds) and its commit (+7);
+# the cache's MSHR lookup and frame scan (six each) and its commit (+13);
+# and two for each transport hop (the port's busy-until read, then
+# stored).  The flash path's device-memory round trips are not counted.
+SCAN_ROUND_TRIPS = {"dram": 7, "pmem": 7, "ssd-buf": 14, "ssd-cache": 20}
+# bytes of one access through device memory: address (8) and write flag
+# (1) in, issue and completion ticks (8 + 8) and flags (4) out
+SCAN_IO_BYTES = 29
+# int64 operations of one access on the tick chain (each counted as two
+# INT32 operations): the LFB min over 32 slots and the issue (33), the
+# stamp and the next issue (2), and the media step: DRAM 4, PMEM 8, the
+# buffer's match and argmin over 4 registers and its commit (14), the
+# cache's over Table I's 4096 frames cut to one hash probe, as the
+# cache_sim kernel finds a frame, with the MSHR and writeback tables and
+# the commit (40)
+SCAN_OPS = {"dram": 39, "pmem": 43, "ssd-buf": 49, "ssd-cache": 75}
+SCAN_PLAN = dict(link_retry_rate=0.25)      # refused by the scan lane
 # (num_sets, ways, policy, lanes, trace): the first is the main path's
 CHECK_SHAPES = [(1, 4096, "lru", 1, "uniform"), (1, 4096, "fifo", 1, "uniform"),
                 (4096, 1, "direct", 1, "uniform"), (4096, 8, "lru", 1, "uniform"),
@@ -1206,6 +1257,258 @@ def fabric_phase(torch, dev, trace, direct, seed: int) -> dict:
     return {"launches": launches, "driver_wall_s": wall}
 
 
+class FlagTap:
+    """A python-lane target that records, per access, the latency and
+    whether the device counted a hit and a dirty eviction (cache or
+    page-register hits and dirty evictions, PMEM row hits)."""
+
+    def __init__(self, dev):
+        self._dev = dev
+        self.latency, self.hit, self.evict = [], [], []
+
+    def counts(self) -> tuple[int, int]:
+        d = self._dev
+        if hasattr(d, "cache"):
+            return d.cache.policy.hits, d.cache.policy.dirty_evictions
+        return (d.stats.get("buf_hits", d.stats.get("row_hits", 0)),
+                d.stats.get("flash_writes", 0))
+
+    def service(self, now, addr, size, write, posted=False):
+        h0, e0 = self.counts()
+        done = self._dev.service(now, addr, size, write, posted)
+        h1, e1 = self.counts()
+        self.latency.append(done - now)
+        self.hit.append(h1 > h0)
+        self.evict.append(e1 > e0)
+        return done
+
+
+def scan_against_twin(torch, make, trace, outstanding):
+    """``replay_scan`` on the card against its plain twin on CPU tensors
+    of this process, from fresh states: the elements that differ over
+    every output and every final state tensor, the twin's wall
+    milliseconds and its per-access flags."""
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.spec import (access_route_choices,
+                                              build_stack, trace_to_arrays)
+    from repro_torch.kernels import replay_scan as rs
+
+    addrs, writes, size = trace_to_arrays(trace)
+    dev = make()
+    cfg, params = build_stack(dev, size=size, outstanding=outstanding,
+                              issue_overhead_ns=0.5, posted_writes=True,
+                              n_accesses=addrs.size,
+                              max_addr=int(addrs.max()), counters=True)
+    routes = None
+    if cfg.num_routes > 1:
+        routes = torch.from_numpy(
+            access_route_choices(dev, addrs).astype(np.int32))
+    a, w = torch.from_numpy(addrs), torch.from_numpy(writes)
+    cpu, card = stack.init_state(cfg, "cpu"), stack.init_state(cfg, "cuda")
+    t0 = time.perf_counter()
+    want = rs.replay_scan(cfg, params, cpu, a, w, routes)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = rs.replay_scan(cfg, params, card, a.cuda(), w.cuda(),
+                         None if routes is None else routes.cuda())
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want))
+    for part in ("media", "flash"):
+        pairs += [(card[part][k], x) for k, x in (cpu[part] or {}).items()]
+    return sum(int((g.cpu() != x).sum()) for g, x in pairs), plain_ms, want[2]
+
+
+def scan_kernel_ms(torch, device, trace) -> tuple[float, str]:
+    """Device milliseconds of one ``replay_scan`` launch over ``trace`` on
+    a fresh ``device`` (32 outstanding), and how they were timed: by the
+    profiler, or by CUDA events when it recorded nothing."""
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.spec import build_stack, trace_to_arrays
+    from repro_torch.kernels import replay_scan as rs
+
+    addrs, writes, size = trace_to_arrays(trace)
+    cfg, params = build_stack(device, size=size, outstanding=32,
+                              issue_overhead_ns=0.5, posted_writes=True,
+                              n_accesses=addrs.size,
+                              max_addr=int(addrs.max()))
+    a, w = torch.from_numpy(addrs).cuda(), torch.from_numpy(writes).cuda()
+
+    def run():
+        rs.replay_scan(cfg, params, stack.init_state(cfg, "cuda"), a, w)
+
+    acts = [e for e in device_events(
+        torch, run, lambda acts: any(SCAN_KERNEL in e.name for e in acts))
+        if SCAN_KERNEL in e.name]
+    if acts:
+        return acts[0].device_time_total / 1e3, "profiler"
+    EVENT_TIMED.append(SCAN_KERNEL)
+    say("timing", fallback="CUDA events", what=SCAN_KERNEL,
+        reason=f"the profiler recorded no device activity in "
+               f"{PROFILE_TRIES} sessions")
+    return cuda_ms(torch, run), "CUDA events"
+
+
+def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
+               int32_ops_per_s: float) -> dict:
+    """[scan]: the tick-exact scan lane on the card for the five devices,
+    each replay equal access for access to the python lane; the golden
+    pins and metrics; the kernel against its twin; the refusals."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenarios import (make_target, scenario_outstanding,
+                                 scenario_trace)
+
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.spec import ReplayUnsupported, build_stack
+    from repro_torch.core.workloads.driver import TraceDriver
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    log = _build.build_log.get("replay_scan", "")
+    spilled = ptxas_spills(log, SCAN_KERNEL)
+    report = [ln.strip() for ln in log.splitlines()
+              if "registers" in ln or "spill" in ln or "smem" in ln]
+    say("scan", kernel="replay_scan", ptxas=repr(" | ".join(report)),
+        spill_bytes=spilled)
+    check(spilled == 0, f"replay_scan spills {spilled} bytes: {report}")
+
+    # the main path: one replay per device, its launches counted alone
+    n = len(trace)
+    max_addr = max(a for a, _, _ in trace)
+    runs, launches, kernel_ms, bound, serial = {}, {}, {}, {}, {}
+    for d in SCAN_DEVICES:
+        rs.reset_launches()
+        t0 = time.perf_counter()
+        res = TraceDriver(make_device(d), engine="scan").run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[d] = rs.LAUNCHES["replay_scan"]
+        check(launches[d] == 1,
+              f"the {d} scan replay launched replay_scan {launches[d]} times")
+        runs[d] = (res, wall)
+    for d in SCAN_DEVICES:
+        res, wall = runs[d]
+        tap = FlagTap(make_device(d))
+        t0 = time.perf_counter()
+        want = TraceDriver(tap).run(trace)
+        py_wall = time.perf_counter() - t0
+        check(np.array_equal(res.latency_ticks,
+                             np.asarray(tap.latency, np.int64)),
+              f"{d}: scan latencies differ from the python lane")
+        check(np.array_equal(res.hit_flags, np.asarray(tap.hit))
+              and np.array_equal(res.evict_flags, np.asarray(tap.evict)),
+              f"{d}: scan hit or evict flags differ from the python lane")
+        for field in ("elapsed_ticks", "end_tick", "sum_latency_ticks"):
+            check(getattr(res, field) == getattr(want, field),
+                  f"{d}: scan {field} differs from the python lane")
+        kernel_ms[d], how = scan_kernel_ms(torch, make_device(d), trace)
+        cfg, _ = build_stack(make_device(d), size=64, outstanding=32,
+                             issue_overhead_ns=0.5, posted_writes=True,
+                             n_accesses=n, max_addr=max_addr)
+        state = 2 * 4 * cfg.num_pages + 2 * 8 * cfg.cache_frames
+        bound[d] = bound_ms(n, 2 * SCAN_OPS[cfg.kind], SCAN_IO_BYTES, state,
+                            int32_ops_per_s)
+        serial[d] = (n * (SCAN_ROUND_TRIPS[cfg.kind] + 2 * cfg.num_hops)
+                     * smem_cycles / (sm_clock_mhz * 1e3))
+        say("scan", device=d, accesses=n, equal_to_python="all fields",
+            launches=launches[d], kernel_ms=f"{kernel_ms[d]:.3f}",
+            timing=how, ns_per_access=f"{kernel_ms[d] * 1e6 / n:.1f}",
+            driver_wall_s=f"{wall:.3f}", python_wall_s=f"{py_wall:.3f}",
+            hit_rate=f"{res.hits / n:.6f}",
+            avg_latency_ns=f"{res.avg_latency_ns:.3f}",
+            bound_ms=f"{bound[d][0]:.6f}",
+            serial_chain_ms=f"{serial[d]:.3f}")
+
+    # the golden pins and metrics blocks on the card, GC included
+    for name in SCAN_SCENARIOS:
+        res = TraceDriver(make_target(name),
+                          outstanding=scenario_outstanding(name),
+                          engine="scan", metrics=MetricsSpec()).run(
+            scenario_trace(name))
+        pin = golden_pin(name, "python_scan")
+        check(res.latency_ticks.tolist() == pin["latency_ticks"]
+              and all(getattr(res, f) == pin[f] for f in (
+                  "elapsed_ticks", "sum_latency_ticks", "end_tick")),
+              f"scan pin {name} on the card")
+        check(json.loads(json.dumps(res.metrics.to_jsonable()))
+              == golden_pin(name, "metrics"), f"scan metrics {name}")
+        if name == "ssd-gc@direct":
+            check(res.gc_runs > 0, "the GC scenario ran no GC on the card")
+            say("scan", scenario=name, gc_runs=res.gc_runs, pin="equal",
+                metrics="equal")
+    say("scan", pins=len(SCAN_SCENARIOS), python_scan="equal",
+        metrics="equal")
+
+    # the kernel against its plain twin: the pins' traces, then 4096
+    # accesses of each device, then Table I's cached CXL-SSD over enough
+    # accesses to fill its cache and evict from it
+    mismatches, plain_ms = 0, {}
+    for name in SCAN_SCENARIOS:
+        bad, _, _ = scan_against_twin(
+            torch, lambda: make_target(name), scenario_trace(name),
+            scenario_outstanding(name))
+        mismatches += bad
+    for d in SCAN_DEVICES:
+        bad, plain_ms[d], _ = scan_against_twin(
+            torch, lambda: make_device(d), trace[:SCAN_TWIN_ACCESSES], 32)
+        mismatches += bad
+    bad, churn_ms, flags = scan_against_twin(
+        torch, lambda: make_device("cxl-ssd-cache"),
+        trace[:SCAN_CHURN_ACCESSES], 32)
+    mismatches += bad
+    check(mismatches == 0, f"replay_scan differs from its twin in "
+                           f"{mismatches} elements")
+    churn_hits = int((flags & 1).sum())
+    churn_evicts = int(((flags >> 1) & 1).sum())
+    check(churn_hits > 0 and churn_evicts > 0,
+          f"the churn trace neither hit nor evicted ({churn_hits} hits, "
+          f"{churn_evicts} dirty evictions)")
+    say("scan", twin_checks=len(SCAN_SCENARIOS) + len(SCAN_DEVICES) + 1,
+        mismatches=0, twin_ms_at_4096=json.dumps(
+            {d: round(v, 3) for d, v in plain_ms.items()},
+            separators=(",", ":")),
+        churn_accesses=SCAN_CHURN_ACCESSES, churn_hits=churn_hits,
+        churn_dirty_evictions=churn_evicts, churn_twin_ms=f"{churn_ms:.3f}")
+
+    # the lane's refusals on the card
+    mount = Fabric.build("two_level", **FABRIC).mount(
+        "h0", "d0", make_device("cxl-ssd-cache"))
+    install(FaultPlan(FaultConfig(**SCAN_PLAN)), [mount])
+    check(refuses(lambda: TraceDriver(mount, engine="scan").run(trace[:16]),
+                  ReplayUnsupported), "the scan lane replayed a fault plan")
+    check(refuses(lambda: ReplayEngine(make_device("dram")).run(
+        trace[:16], chunk_size=4), ReplayUnsupported),
+        "the scan lane streamed a chunked replay")
+    say("scan", fault_plan="refused", chunk_size="refused")
+    return {"launches": launches, "kernel_ms": kernel_ms, "bound": bound,
+            "serial": serial, "plain_ms": plain_ms,
+            "walls": {d: runs[d][1] for d in SCAN_DEVICES}}
+
+
+def scan_row(scan: dict, n: int) -> dict:
+    """The kernels line's ``replay_scan`` row: the Table I cached CXL-SSD's
+    numbers, with every device's beside them."""
+    main = "cxl-ssd-cache"
+    b_ms, b_by = scan["bound"][main]
+    return {
+        "name": "replay_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES,
+        "launches": sum(scan["launches"].values()),
+        "max_abs_err": 0, "tolerance": 0,
+        "ms": scan["kernel_ms"][main], "plain_ms": scan["plain_ms"][main],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "accesses": n, "plain_accesses": SCAN_TWIN_ACCESSES,
+        "device": main,
+        "ms_by_device": scan["kernel_ms"],
+        "bound_ms_by_device": {d: v[0] for d, v in scan["bound"].items()},
+        "serial_chain_ms_by_device": scan["serial"],
+        "plain_ms_by_device": scan["plain_ms"],
+        "launches_by_device": scan["launches"],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1441,9 +1744,14 @@ def main() -> int:
     prefill_row = prefill_phase(torch, run, args.seed,
                                 prefill_kernel_checks(torch, dev, args.seed))
 
-    # kernels line -------------------------------------------------------
+    # 12. the tick-exact scan lane, after the host-bound serving loop so
+    # that its python-lane replays leave nothing behind for that loop -----
     int32_ops_per_s = (torch.cuda.get_device_properties(0).multi_processor_count
                        * INT32_LANES_PER_SM * sm_clock_mhz * 1e6)
+    scan = scan_phase(torch, trace, smem_cycles, sm_clock_mhz,
+                      int32_ops_per_s)
+
+    # kernels line -------------------------------------------------------
     rows = []
     for name, io in (("cache_sim", 7), ("cache_sim_fused", 15)):
         state = 12 * 4096 if name == "cache_sim" else 0
@@ -1464,7 +1772,8 @@ def main() -> int:
             "fabric_launches": fabric["launches"][name],
         })
     print(card, flush=True)
-    print(json.dumps({"kernels": rows + serve_rows + [prefill_row]}),
+    print(json.dumps({"kernels": rows + serve_rows + [prefill_row,
+                                                   scan_row(scan, n)]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,18 +1,62 @@
 """Fused replay lanes of the port.
 
-This slice has the kernel lane for the cached CXL-SSD
-(:mod:`repro_torch.core.replay.cuda_engine`, ``engine="cuda"``), the
-trace validation it shares with later lanes (:mod:`.spec`) and the result
-type (:mod:`.engine`).  The scan, associative, multi-host, metrics, sweep
-and streaming lanes are later slices (see ROADMAP.md)."""
+* :class:`ReplayEngine` (``engine="scan"``) — single host, any of the five
+  paper devices, directly attached or fabric-mounted, one launch of the
+  ``replay_scan`` kernel per trace (its plain twin on the CPU),
+  tick-identical to the python driver.
+* :mod:`repro_torch.core.replay.stack` — the device-state layer it
+  replays (``init_state(cfg, device)`` / ``step(cfg, p, state, access)``,
+  greedy FTL GC included).
+* :mod:`repro_torch.core.replay.metrics` — :class:`MetricsSpec`-configured
+  telemetry (latency histograms with p50/p95/p99, component counters,
+  tick-windowed series), schema- and value-identical between the python
+  driver and the scan lane; exportable to Perfetto via
+  :mod:`repro_torch.obs`.
+* :mod:`repro_torch.core.replay.cuda_engine` — the cached CXL-SSD kernel
+  lane (``engine="cuda"``, analytic latency).
 
-from repro_torch.core.replay.engine import ReplayResult
+The associative, multi-host, sweep and streaming lanes are later slices
+(ROADMAP Queue A items 6, 10, 11 and 12).  Importing this package loads no
+torch: the state layer's names load it on first use.
+"""
+
+import importlib
+
+from repro_torch.core.replay.engine import ReplayEngine, ReplayResult
+from repro_torch.core.replay.metrics import MetricsBundle, MetricsSpec
 from repro_torch.core.replay.spec import (
     ReplayUnsupported,
+    StackConfig,
+    build_stack,
+    media_stack,
     require_metrics_lane,
     trace_to_arrays,
     validate_block_size,
 )
 
-__all__ = ["ReplayResult", "ReplayUnsupported", "require_metrics_lane",
-           "trace_to_arrays", "validate_block_size"]
+_STACK_NAMES = ("init_state", "media_init", "media_step", "step")
+
+
+def __getattr__(name):
+    if name in _STACK_NAMES:
+        return getattr(importlib.import_module(f"{__name__}.stack"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = [
+    "MetricsBundle",
+    "MetricsSpec",
+    "ReplayEngine",
+    "ReplayResult",
+    "ReplayUnsupported",
+    "StackConfig",
+    "build_stack",
+    "init_state",
+    "media_init",
+    "media_stack",
+    "media_step",
+    "require_metrics_lane",
+    "step",
+    "trace_to_arrays",
+    "validate_block_size",
+]

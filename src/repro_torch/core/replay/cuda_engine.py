@@ -43,9 +43,9 @@ def _cached(device) -> CachedCXLSSDDevice:
     inner = device.inner if isinstance(device, FabricAttachedDevice) else device
     if not isinstance(inner, CachedCXLSSDDevice):
         raise ReplayUnsupported(
-            "engine='cuda' models the cached CXL-SSD; the lane for "
-            f"{type(inner).__name__} (the fused scan, ROADMAP Queue A item 5) "
-            "is not ported yet — use engine='python'")
+            f"engine='cuda' models the cached CXL-SSD, not "
+            f"{type(inner).__name__}; use engine='scan' (tick-exact) or "
+            "engine='python'")
     return inner
 
 
@@ -99,9 +99,8 @@ def run_cuda(device, addrs: np.ndarray, writes: np.ndarray, *,
         raise ReplayUnsupported(
             f"active fault plan ({', '.join(plan.class_names())}): the "
             "cuda kernel models the fault-free cached CXL-SSD; the fault "
-            "classes replay in the python lane (the fused scan lane, "
-            "ROADMAP Queue A item 5, is not ported yet) — use "
-            "engine='python'")
+            "classes replay in the python lane (the faulted scan lane is "
+            "ROADMAP Queue A item 5b) — use engine='python'")
     kw = cuda_params(device, issue_overhead_ns)
     # int32-nanosecond budget: arrival/busy cursors grow by at most
     # (miss_occ + issue) per access, plus one service term on top.

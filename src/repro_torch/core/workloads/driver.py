@@ -11,9 +11,9 @@ issue-time order with deterministic host-index tie-breaking, so contention
 on shared switch ports and device media emerges from the targets'
 busy-until state rather than from run ordering.
 
-The python lane is plain Python and uses no torch; the kernel lane
-(``engine="cuda"``) loads :mod:`repro_torch.core.replay.cuda_engine` only
-when it runs.
+The python lane is plain Python and uses no torch (its metrics are numpy);
+the fused lanes (``engine="scan"``, ``engine="cuda"``) load
+:mod:`repro_torch.core.replay` only when they run.
 """
 
 from __future__ import annotations
@@ -35,7 +35,9 @@ class TraceResult:
     elapsed_ticks: int
     sum_latency_ticks: int
     end_tick: int = 0      # absolute completion tick (chain multi-pass runs)
-    # telemetry bundle of the metrics slice; None until that slice lands
+    # telemetry bundle (repro_torch.core.replay.metrics.MetricsBundle) when
+    # the run collected metrics; None otherwise.  Typed loosely: the
+    # metrics layer imports this module, not vice versa.
     metrics: object = None
 
     @property
@@ -50,12 +52,31 @@ class TraceResult:
     def bandwidth_gbps(self) -> float:
         return self.bytes_moved / self.elapsed_s / 1e9 if self.elapsed_ticks else 0.0
 
+    @property
+    def p99_ns(self):
+        """99th-percentile latency (ns, bucket upper edge) from the metrics
+        bundle; None without metrics or on an empty trace."""
+        return (self.metrics.percentile_ns(99)
+                if self.metrics is not None else None)
+
+    @property
+    def hit_rate(self):
+        """Device hit rate (cache/buffer/row hits over accesses) from the
+        metrics bundle; None without metrics."""
+        return self.metrics.hit_rate if self.metrics is not None else None
+
+    @property
+    def write_amplification(self):
+        """Flash write amplification from the metrics bundle; None without
+        metrics."""
+        return (self.metrics.write_amplification
+                if self.metrics is not None else None)
+
 
 # "pallas" is the JAX package's name for the kernel lane; it is accepted
 # here so code and golden lane names written for that package line up.
 ENGINES = ("python", "scan", "assoc", "cuda", "pallas")
 _NOT_PORTED = {
-    "scan": "the fused scan lane is not ported yet (ROADMAP Queue A item 5)",
     "assoc": "the associative lane is not ported yet (ROADMAP Queue A item 6)",
 }
 
@@ -68,6 +89,19 @@ class TraceDriver:
 
     ``python``   interpret every access through the device objects (the
                  reference semantics; always available, no torch);
+    ``scan``     the fused stack replay
+                 (:class:`~repro_torch.core.replay.engine.ReplayEngine`):
+                 one launch of the ``replay_scan`` kernel for the whole
+                 trace on the card (``torch_device="cpu"`` runs its plain
+                 twin), tick-identical to ``python`` for all five devices,
+                 attached directly or fabric-mounted (fixed route or ECMP,
+                 with or without QoS), greedy FTL GC included, metrics on
+                 request; other shapes raise
+                 :class:`~repro_torch.core.replay.spec.ReplayUnsupported`
+                 (the JAX package retries those in its multi-host replay,
+                 which is not ported yet, ROADMAP Queue A item 10: the
+                 port raises the single-host reason).  ``block_size`` is
+                 accepted and tick-invisible: the kernel ignores it;
     ``cuda``     the fused cache+latency CUDA kernel for the cached
                  CXL-SSD, bare or fabric-mounted (the model has no
                  fabric hops) — bit-identical hit/evict decisions, analytic
@@ -76,8 +110,8 @@ class TraceDriver:
                  is an alias.  Runs on ``torch_device`` (the card by
                  default; ``"cpu"`` runs the kernel's plain version).
 
-    ``scan`` and ``assoc`` raise :class:`NotImplementedError` until their
-    slices are ported.
+    ``assoc`` raises :class:`NotImplementedError` until its slice is
+    ported.
     """
 
     def __init__(self, device: MemDevice, outstanding: int = 32,
@@ -100,15 +134,12 @@ class TraceDriver:
         self.engine = "cuda" if engine == "pallas" else engine
         self.block_size = validate_block_size(block_size)
         self.torch_device = torch_device
-        self.metrics = metrics
+        self.metrics = metrics        # Optional[MetricsSpec]
         if metrics is not None:
             # the kernel lane has no carry slot for the accumulators: refuse
             # up front rather than returning metric-less results
             require_metrics_lane(self.engine)
-            raise NotImplementedError(
-                "metrics collection is not ported yet (ROADMAP Queue A "
-                "item 7)")
-        if self.block_size > 1:
+        if self.block_size > 1 and self.engine != "scan":
             # blocking shapes the sequential scan's lowering only; accepting
             # it elsewhere would silently run identical replays
             raise ValueError(
@@ -122,10 +153,19 @@ class TraceDriver:
         # model keeps the two from drifting.
         multi = MultiHostDriver([self.device], outstanding=self.outstanding,
                                 issue_overhead_ns=self.issue_overhead_ns,
-                                posted_writes=self.posted_writes)
+                                posted_writes=self.posted_writes,
+                                metrics=self.metrics)
         return multi.run([rows], start_tick=start_tick).per_host[0]
 
     def _run_fast(self, rows, start_tick: int) -> TraceResult:
+        if self.engine == "scan":
+            from repro_torch.core.replay.engine import ReplayEngine
+            return ReplayEngine(
+                self.device, outstanding=self.outstanding,
+                issue_overhead_ns=self.issue_overhead_ns,
+                posted_writes=self.posted_writes,
+                block_size=self.block_size, metrics=self.metrics,
+                torch_device=self.torch_device).run(rows, start_tick)
         from repro_torch.core.replay.cuda_engine import run_cuda
         from repro_torch.core.replay.spec import trace_to_arrays
 
@@ -143,10 +183,27 @@ class MultiHostResult:
 
     per_host: List[TraceResult]
     elapsed_ticks: int      # global span: first issue to last completion
+    metrics: object = None  # MetricsBundle when collected (see TraceResult)
 
     @property
     def num_hosts(self) -> int:
         return len(self.per_host)
+
+    @property
+    def p99_ns(self):
+        """Cluster-wide p99 latency (ns) from the metrics bundle; None
+        without metrics or on an empty run."""
+        return (self.metrics.percentile_ns(99)
+                if self.metrics is not None else None)
+
+    @property
+    def hit_rate(self):
+        return self.metrics.hit_rate if self.metrics is not None else None
+
+    @property
+    def write_amplification(self):
+        return (self.metrics.write_amplification
+                if self.metrics is not None else None)
 
     @property
     def total_bytes(self) -> int:
@@ -202,7 +259,8 @@ class MultiHostDriver:
     next issue tick goes first (ties break on host index).  Running host
     traces back-to-back instead would serialize them through the shared
     busy-until state and hide all contention — the interleave is the point.
-    Only the python lane exists in this slice.
+    Only the python lane exists here: the fused multi-host replay is
+    ROADMAP Queue A item 10.
     """
 
     def __init__(self, targets: Sequence[MemDevice], outstanding: int = 32,
@@ -226,11 +284,7 @@ class MultiHostDriver:
         self.posted_writes = posted_writes
         self.engine = engine
         self.block_size = validate_block_size(block_size)
-        self.metrics = metrics
-        if metrics is not None:
-            raise NotImplementedError(
-                "metrics collection is not ported yet (ROADMAP Queue A "
-                "item 7)")
+        self.metrics = metrics        # Optional[MetricsSpec]
         if self.block_size > 1:
             raise ValueError(
                 f"block_size applies to engine='scan', not {engine!r}")
@@ -241,8 +295,21 @@ class MultiHostDriver:
             raise ValueError(f"{len(traces)} traces for "
                              f"{len(self.targets)} host targets")
         issue_ov = ns(self.issue_overhead_ns)
+        taps = None
+        run_targets = self.targets
+        if self.metrics is not None:
+            from repro_torch.core.replay import metrics as replay_metrics
+            taps = replay_metrics.attach_taps(self.targets)
+            run_targets = taps
         hosts = [_HostState(t, self.outstanding, start_tick, tr)
-                 for t, tr in zip(self.targets, traces)]
+                 for t, tr in zip(run_targets, traces)]
+        # deterministic poison accounting: the fault plan flags a read's
+        # returned data corrupt as a pure function of (host, per-host
+        # access ordinal) — counted here because the analytic service path
+        # never materializes response flits (the flit codec carries the
+        # same flag on the protocol path)
+        plans = [getattr(t, "fault_plan", None) for t in self.targets]
+        poisoned = 0
 
         # Global issue queue: (candidate issue tick, host index), one entry
         # per host with a pending access.  A host's candidate tick depends
@@ -266,12 +333,19 @@ class MultiHostDriver:
             h.sum_lat += done - issue
             h.last_done = max(h.last_done, done)
             h.now = issue + issue_ov
+            plan = plans[i]
+            if plan is not None and plan.has_poison:
+                poisoned += plan.poisoned(i, h.n, write)
             h.n += 1
             h.bytes += size
             h.pending = next(h.trace, None)
             if h.pending is not None:
                 heapq.heappush(ready, (h.next_issue_tick(), i))
 
+        bundle = None
+        if taps is not None:
+            bundle = replay_metrics.collect_python(
+                self.metrics, self.targets, taps, poisoned=poisoned)
         first = min((h.first_issue for h in hosts
                      if h.first_issue is not None), default=start_tick)
         last = max(h.last_done for h in hosts)
@@ -279,6 +353,8 @@ class MultiHostDriver:
                                 elapsed_ticks=(h.last_done - h.first_issue
                                                if h.first_issue is not None else 0),
                                 sum_latency_ticks=h.sum_lat,
-                                end_tick=h.last_done)
+                                end_tick=h.last_done,
+                                metrics=bundle)
                     for h in hosts]
-        return MultiHostResult(per_host=per_host, elapsed_ticks=last - first)
+        return MultiHostResult(per_host=per_host, elapsed_ticks=last - first,
+                               metrics=bundle)

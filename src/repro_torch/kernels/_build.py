@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = {name: CSRC / f"{name}.cu"
            for name in ("cache_sim", "flash_attention", "flash_decode",
-                        "page_gather")}
+                        "page_gather", "replay_scan")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,6 +55,12 @@ SIGNATURES = {
         "page_gather_launch": (_I, [_P] * 3 + [_L, _I, _I, _P]),
         "page_scatter_launch": (_I, [_P] * 3 + [_L, _I, _I, _P]),
         "page_gather_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "replay_scan": {
+        "replay_scan_launch": (_I, [_P] * 22 + [_I, _P]),
+        "replay_scan_num_args": (_I, []),
+        "replay_scan_smem_optin": (_I, [_I, ctypes.POINTER(_I)]),
+        "replay_scan_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 

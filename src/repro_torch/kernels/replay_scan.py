@@ -1,0 +1,321 @@
+"""The scan lane's stack replay, as a CUDA kernel for Hopper beside its
+plain PyTorch twin.
+
+:func:`replay_scan` replays a trace through one device stack (LFB issue,
+port busy-until transport, the media, the flash backend with greedy GC)
+and returns per-access ``(issues, dones, flags)`` plus the per-port
+queueing and QoS-throttle totals, updating the stack state in place.  It
+is tick-identical to the JAX package's ``ReplayEngine`` scan (its
+``_scan_chunk`` over ``stack.step``).  For CUDA tensors it launches
+``csrc/replay_scan.cu`` once for the whole trace; for CPU tensors it runs
+:func:`replay_scan_plain`, the loop of ``_scan_chunk`` over
+:func:`repro_torch.core.replay.stack.step`.  Nothing falls back from one
+to the other.
+
+The ``LAUNCHES`` counter counts kernel launches only, so a run can show
+that it went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.replay import stack
+from repro_torch.core.replay.metrics import FLAG_EVENT_BITS
+from repro_torch.core.replay.spec import (
+    DRAM,
+    MAX_ACCESSES,
+    PMEM,
+    SSD_BUF,
+    SSD_CACHE,
+    StackConfig,
+)
+
+LAUNCHES = {"replay_scan": 0}
+KINDS = (DRAM, PMEM, SSD_BUF, SSD_CACHE)
+# the kernel's argument block (`enum Arg` in csrc/replay_scan.cu, field for
+# field): the StackConfig statics, the trace's length and start tick, and
+# the int64 tick constants of the params dict
+ARGS = ("kind", "n", "start_tick", "outstanding", "posted_writes",
+        "num_hops", "num_ports", "num_routes", "page_bytes", "cache_frames",
+        "cache_assoc", "mshr_entries", "wb_slots", "channels",
+        "dies_per_channel", "pages_per_block", "buf_entries", "gc",
+        "num_blocks", "gc_watermark_blocks",
+        "issue_ov", "rt_extra", "occ", "load", "pack", "row_bytes",
+        "lat_read_miss", "lat_read_hit", "lat_write_miss", "lat_write_hit",
+        "hil_ov", "xfer_page", "read_t", "prog_t", "sus_t", "erase_t",
+        "internal", "hit_lat", "line_xfer", "page_xfer", "pack10", "is_lru",
+        "cap", "frames_in_smem")
+# the state's scalars, in and out of the kernel (`enum Scalar`)
+SCALARS = ("busy", "row", "dram_busy", "wpb", "wpp", "nfree", "fq_head",
+           "fq_count", "gcs", "bad", "c_hr", "c_hw", "c_gw", "c_ge")
+MEDIA_ARRAYS = ("frames", "mpage", "mready", "wtick")
+FLASH_ARRAYS = ("l2p", "p2l", "valid", "free_q", "free_mask", "die_busy",
+                "die_prog", "chan_busy")
+MAX_OUTSTANDING = 4096      # LFB slots the kernel keeps in shared memory
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
+           writes: torch.Tensor, routes: Optional[torch.Tensor]) -> None:
+    n = addrs.shape[0] if addrs.dim() == 1 else -1
+    if addrs.dtype != torch.int64 or addrs.dim() != 1 or n < 1:
+        raise ValueError(f"addrs must be a non-empty (N,) int64 tensor, got "
+                         f"{addrs.dtype} {tuple(addrs.shape)}")
+    if n > MAX_ACCESSES:
+        raise ValueError(f"{n} accesses exceed the packed stamp's "
+                         f"{MAX_ACCESSES}")
+    if writes.dtype != torch.bool or tuple(writes.shape) != (n,):
+        raise ValueError(f"writes must be a ({n},) bool tensor, got "
+                         f"{writes.dtype} {tuple(writes.shape)}")
+    if (cfg.num_routes > 1) != (routes is not None):
+        raise ValueError("a per-access route column goes with an ECMP stack "
+                         "(num_routes > 1) and only with one")
+    tensors = [writes] + ([routes] if routes is not None else [])
+    for part in ("media", "flash"):
+        tensors += list((state[part] or {}).values())
+    for x in tensors:
+        if x.device != addrs.device:
+            raise ValueError(f"tensors on {x.device} and {addrs.device}")
+    if routes is not None and (routes.dtype != torch.int32
+                               or tuple(routes.shape) != (n,)):
+        raise ValueError(f"routes must be a ({n},) int32 tensor")
+
+
+def replay_scan(cfg: StackConfig, params: Dict, state: Dict,
+                addrs: torch.Tensor, writes: torch.Tensor,
+                routes: Optional[torch.Tensor] = None, *,
+                start_tick: int = 0):
+    """Replay ``addrs`` / ``writes`` (``(N,)`` int64 / bool) through the
+    stack ``cfg`` / ``params`` from ``state``
+    (:func:`repro_torch.core.replay.stack.init_state` on the trace's
+    device), which ends as the final state.  ``routes`` is the per-access
+    ECMP choice (int32) of a stack with ``num_routes > 1``.
+
+    Returns ``(issues, dones, flags, qacc, qthr)``: int64 issue and
+    completion ticks and int32 flags per access (bit 0 hit, bit 1 dirty
+    evict, then the kind's :data:`FLAG_EVENT_BITS`), and the int64
+    queueing ticks and QoS throttle events of each port."""
+    _check(cfg, state, addrs, writes, routes)
+    if addrs.device.type == "cpu":
+        return replay_scan_plain(cfg, params, state, addrs, writes, routes,
+                                 start_tick=start_tick)
+    return _launch(cfg, params, state, addrs, writes, routes, start_tick)
+
+
+def host_params(params: Dict) -> Dict:
+    """The params dict with numpy scalars as Python ints and arrays as
+    nested lists of ints, for the plain twin's integer arithmetic."""
+    out = {}
+    for k, v in params.items():
+        a = np.asarray(v)
+        out[k] = a.tolist() if a.ndim else int(a)
+    return out
+
+
+def replay_scan_plain(cfg: StackConfig, params: Dict, state: Dict,
+                      addrs: torch.Tensor, writes: torch.Tensor,
+                      routes: Optional[torch.Tensor] = None, *,
+                      start_tick: int = 0):
+    """Plain version of :func:`replay_scan`: the JAX package's
+    ``_scan_chunk`` step (LFB slot recycle, then ``_transport`` or
+    ``_transport_ecmp`` with the qacc / qthr totals) one access per loop
+    step over :func:`repro_torch.core.replay.stack.step`.  Runs on any
+    device's tensors; the card's main path launches the kernel instead."""
+    p = host_params(params)
+    a, w = addrs.tolist(), writes.tolist()
+    r = routes.tolist() if routes is not None else None
+    ecmp = cfg.num_routes > 1
+    qos = set(cfg.qos_ports)
+    bits = FLAG_EVENT_BITS[cfg.kind]
+    slots = [start_tick] * cfg.outstanding          # LFB slots
+    pb = [0] * cfg.num_ports                         # port busy-until
+    qacc = [0] * cfg.num_ports
+    qthr = [0] * cfg.num_ports
+    now = start_tick
+    issues, dones, flags = [], [], []
+    for i in range(len(a)):
+        k = min(range(len(slots)), key=slots.__getitem__)   # lowest on ties
+        issue = max(now, slots[k])
+        t = issue
+        for h in range(cfg.num_hops):
+            if ecmp:
+                pi = p["hop_port"][r[i]][h]
+                occ, after = p["hop_occ"][r[i]][h], p["hop_after"][r[i]][h]
+            else:
+                pi, occ, after = h, p["hop_occ"][h], p["hop_after"][h]
+            if pi in qos and pb[pi] > t:
+                qthr[pi] += 1
+            start = max(t, pb[pi])
+            qacc[pi] += start - t
+            pb[pi] = start + occ
+            t = pb[pi] + after
+        t += p["rt_extra"]
+        out = stack.step(cfg, p, state, dict(
+            t=t, addr=a[i], write=w[i], posted=w[i] and cfg.posted_writes,
+            ctr=i + 1))
+        f = int(out["hit"]) | int(out["evict"]) << 1
+        for bit, key in bits:
+            f |= int(out[key]) << bit
+        issues.append(issue)
+        dones.append(out["done"])
+        flags.append(f)
+        slots[k] = out["done"]
+        now = issue + p["issue_ov"]
+    dev = addrs.device
+
+    def i64(x):
+        return torch.tensor(x, dtype=torch.int64, device=dev)
+
+    return (i64(issues), i64(dones),
+            torch.tensor(flags, dtype=torch.int32, device=dev),
+            i64(qacc), i64(qthr))
+
+
+# ------------------------------------------------------------ the launch
+def arg_block(cfg: StackConfig, params: Dict, n: int, start_tick: int,
+              frames_in_smem: bool) -> np.ndarray:
+    """The kernel's argument block (:data:`ARGS`), int64."""
+    p = host_params(params)
+    lat = p.get("lat", [[0, 0], [0, 0]])
+    vals = dict(
+        kind=KINDS.index(cfg.kind), n=n, start_tick=start_tick,
+        **{f: int(getattr(cfg, f)) for f in (
+            "outstanding", "posted_writes", "num_hops", "num_ports",
+            "num_routes", "page_bytes", "cache_frames", "cache_assoc",
+            "mshr_entries", "wb_slots", "channels", "dies_per_channel",
+            "pages_per_block", "buf_entries", "gc", "num_blocks",
+            "gc_watermark_blocks")},
+        lat_read_miss=lat[0][0], lat_read_hit=lat[0][1],
+        lat_write_miss=lat[1][0], lat_write_hit=lat[1][1],
+        frames_in_smem=int(frames_in_smem))
+    for k in ARGS:
+        if k not in vals:
+            vals[k] = int(p.get(k, 0))
+    return np.asarray([vals[k] for k in ARGS], np.int64)
+
+
+def route_tables(cfg: StackConfig, params: Dict) -> np.ndarray:
+    """``hop_port``, ``hop_occ`` and ``hop_after`` (routes x hops each; on
+    a fixed route hop h is port h), then the per-port QoS mask, as one
+    int64 array."""
+    H, K = cfg.num_hops, cfg.num_routes
+    if K > 1:
+        port = np.asarray(params["hop_port"], np.int64).reshape(K, H)
+        occ = np.asarray(params["hop_occ"], np.int64).reshape(K, H)
+        after = np.asarray(params["hop_after"], np.int64).reshape(K, H)
+    else:
+        port = np.arange(H, dtype=np.int64)
+        occ = np.asarray(params["hop_occ"], np.int64).reshape(H)
+        after = np.asarray(params["hop_after"], np.int64).reshape(H)
+    qos = np.zeros(cfg.num_ports, np.int64)
+    qos[list(cfg.qos_ports)] = 1
+    return np.concatenate([port.ravel(), occ.ravel(), after.ravel(), qos])
+
+
+def smem_bytes(cfg: StackConfig) -> tuple[int, int]:
+    """``(small, frames)``: the bytes of shared memory the kernel needs for
+    its LFB slots, ports and MSHR / writeback tables, and for the frames."""
+    small = 8 * (cfg.outstanding + 3 * cfg.num_ports + 2 * cfg.mshr_entries
+                 + cfg.wb_slots)
+    frames = 8 * (cfg.buf_entries if cfg.kind == SSD_BUF
+                  else cfg.cache_frames)
+    return small, frames
+
+
+_SMEM_OPTIN: dict[int, int] = {}
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.replay_scan_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def _smem_optin(lib, index: int) -> int:
+    if index not in _SMEM_OPTIN:
+        out = ctypes.c_int(0)
+        _raise_on(lib, lib.replay_scan_smem_optin(index, ctypes.byref(out)),
+                  "cudaDeviceGetAttribute")
+        _SMEM_OPTIN[index] = out.value
+    return _SMEM_OPTIN[index]
+
+
+def _launch(cfg, params, state, addrs, writes, routes, start_tick):
+    """Launch the kernel on the tensors' card, on PyTorch's current
+    stream."""
+    from repro_torch.kernels import _build
+
+    dev = addrs.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if cfg.outstanding > MAX_OUTSTANDING:
+        raise ValueError(f"outstanding={cfg.outstanding} exceeds the "
+                         f"kernel's {MAX_OUTSTANDING} LFB slots")
+    lib = _build.library("replay_scan")
+    if lib.replay_scan_num_args() != len(ARGS):
+        raise RuntimeError(f"the kernel takes {lib.replay_scan_num_args()} "
+                           f"arguments, the wrapper packs {len(ARGS)}")
+    with torch.cuda.device(dev):
+        optin = _smem_optin(lib, torch.cuda.current_device())
+        small, frames = smem_bytes(cfg)
+        if small > optin:
+            raise ValueError(f"the kernel's tables need {small} B of shared "
+                             f"memory, more than the {optin} B a block may use")
+        err, out = call_launch(lib, cfg, params, state, addrs, writes, routes,
+                               start_tick, small + frames <= optin,
+                               torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, err, "replay_scan kernel launch")
+        LAUNCHES["replay_scan"] += 1
+    return out
+
+
+def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
+                frames_in_smem: bool, stream):
+    """Pack one replay's arguments, call ``lib.replay_scan_launch`` on them
+    and its tensors' device, and copy the state's scalars back.  Returns
+    the call's return code and ``(issues, dones, flags, qacc, qthr)``.
+    :func:`_launch` calls it with the CUDA library; a host build of the
+    same source (``REPLAY_SCAN_EMULATE``) takes CPU tensors."""
+    dev = addrs.device
+    n = addrs.shape[0]
+    P = cfg.num_ports
+    md, fl = state["media"], state["flash"] or {}
+    small, frames = smem_bytes(cfg)
+    args = arg_block(cfg, params, n, start_tick, frames_in_smem)
+    tables = torch.from_numpy(route_tables(cfg, params)).to(dev)
+    issues = torch.empty(n, dtype=torch.int64, device=dev)
+    dones = torch.empty(n, dtype=torch.int64, device=dev)
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    totals = torch.empty(2 * P, dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    scal = torch.stack([
+        (md.get(k) if k in md else fl.get(k, zero)).to(torch.int64)
+        for k in SCALARS])
+    w8 = writes.view(torch.uint8)
+    addrs = addrs.contiguous()
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = lib.replay_scan_launch(
+        args.ctypes.data, tables.data_ptr(), addrs.data_ptr(),
+        w8.data_ptr(), ptr(routes), issues.data_ptr(), dones.data_ptr(),
+        flags.data_ptr(), totals.data_ptr(), scal.data_ptr(),
+        *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
+        *(ptr(fl.get(k)) for k in FLASH_ARRAYS),
+        small + (frames if frames_in_smem else 0), stream)
+    if err == 0:
+        for i, k in enumerate(SCALARS):
+            part = md if k in md else fl
+            if k in part:
+                part[k].copy_(scal[i])
+    return err, (issues, dones, flags, totals[:P], totals[P:])

@@ -251,3 +251,83 @@ def test_nand_plain_equals_the_scalar_plan(smoke):
                                       np.arange(400, dtype=np.uint64))
     assert retries.tolist() == [plan.nand_read_retries(i) for i in range(400)]
     assert fails.tolist() == [plan.erase_fails(i) for i in range(400)]
+
+
+# --------------------------------------------------------- the scan phase
+def test_scan_phase_replays_the_scan_scenarios(smoke):
+    from test_torch_scan import SCAN_SCENARIOS
+
+    assert smoke.SCAN_SCENARIOS == SCAN_SCENARIOS
+    assert smoke.SCAN_DEVICES == ["dram", "cxl-dram", "pmem", "cxl-ssd",
+                                  "cxl-ssd-cache"]
+    kinds = {"dram", "pmem", "ssd-buf", "ssd-cache"}
+    assert set(smoke.SCAN_ROUND_TRIPS) == kinds == set(smoke.SCAN_OPS)
+
+
+@pytest.mark.parametrize("device", ["dram", "cxl-dram", "pmem", "cxl-ssd",
+                                    "cxl-ssd-cache"])
+def test_flag_tap_sees_the_scan_lanes_flags(smoke, device):
+    """The python lane's per-access hit and dirty-evict flags, as the tap
+    reads them off the device's counters, are the scan lane's."""
+    import numpy as np
+
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.workloads.driver import TraceDriver
+    from repro_torch.core.workloads.traces import make_trace
+
+    # pages enough to fill Table I's 4096 frames, or few, so that caches
+    # and page registers hit and evict dirty pages
+    cached = device == "cxl-ssd-cache"
+    trace = make_trace(2, n=8000 if cached else 3000,
+                       pages=6000 if cached else 12)
+    tap = smoke.FlagTap(make_device(device))
+    want = TraceDriver(tap).run(trace)
+    got = ReplayEngine(make_device(device), torch_device="cpu").run(trace)
+    assert got.latency_ticks.tolist() == tap.latency
+    assert got.hit_flags.tolist() == tap.hit
+    assert got.evict_flags.tolist() == tap.evict
+    assert got.end_tick == want.end_tick
+    if device != "dram" and device != "cxl-dram":
+        assert any(tap.hit)
+    if device in ("cxl-ssd", "cxl-ssd-cache"):
+        assert any(tap.evict)
+    assert np.asarray(tap.hit).dtype == bool
+
+
+def test_scan_row_carries_the_contract_keys(smoke):
+    devs = smoke.SCAN_DEVICES
+    scan = {"launches": {d: 1 for d in devs},
+            "kernel_ms": {d: 2.0 for d in devs},
+            "bound": {d: (0.01, "bytes") for d in devs},
+            "serial": {d: 1.0 for d in devs},
+            "plain_ms": {d: 3.0 for d in devs}}
+    row = smoke.scan_row(scan, 1 << 20)
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in row, key
+    assert row["launches"] == 5 and row["library_ms"] is None
+    assert row["route"] == "cuda"
+    assert (REPO / row["source"]).exists()
+    path, line = row["replaces"].split(":")
+    src = (REPO / path).read_text().splitlines()
+    assert src[int(line) - 1].startswith("def _scan_chunk")
+
+
+def test_scan_churn_trace_fills_table1s_cache(smoke):
+    """The twin check's 2^14 accesses of the main path's trace touch more
+    pages than Table I's 4096 frames hold, so the cache evicts."""
+    from repro_torch.core.workloads.traces import make_trace
+
+    trace = make_trace(0, n=1 << 20, pages=16384)
+    pages = {a // 4096 for a, _, _ in trace[:smoke.SCAN_CHURN_ACCESSES]}
+    assert len(pages) > 2 * 4096
+
+
+def test_scan_phase_runs_after_the_serving_and_prefill_paths(smoke):
+    import inspect
+
+    src = inspect.getsource(smoke.main)
+    assert (src.index("serve_phase(") < src.index("prefill_phase(")
+            < src.index("scan_phase("))

@@ -409,3 +409,141 @@ def test_fabric_mount_on_the_card_replays_as_the_bare_device(card):
     install(FaultPlan(FaultConfig(link_retry_rate=0.25)), [mount])
     with pytest.raises(ReplayUnsupported, match="fault plan"):
         run_cuda(mount, addrs, writes)
+
+
+# ------------------------------------------------------ the scan lane
+SCAN_SCENARIOS = ([f"{d}@{a}" for d in ("dram", "cxl-dram", "pmem",
+                                         "cxl-ssd", "cxl-ssd-cache")
+                   for a in ("direct", "fabric")]
+                  + ["dram@stream", "pmem@stream", "dram-qos@fabric",
+                     "ssd-gc@direct"])
+
+
+def _scan_both(dev_fn, trace, outstanding, posted=True, start=0):
+    """``replay_scan`` on the card and its plain twin on the CPU, from
+    fresh states: every output and every final state tensor."""
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.spec import (access_route_choices,
+                                              build_stack, trace_to_arrays)
+    from repro_torch.kernels import replay_scan as rs
+
+    addrs, writes, size = trace_to_arrays(trace)
+    dev = dev_fn()
+    cfg, params = build_stack(dev, size=size, outstanding=outstanding,
+                              issue_overhead_ns=0.5, posted_writes=posted,
+                              n_accesses=addrs.size,
+                              max_addr=int(addrs.max()), counters=True)
+    routes = None
+    if cfg.num_routes > 1:
+        routes = torch.from_numpy(
+            access_route_choices(dev, addrs).astype(np.int32))
+    a, w = torch.from_numpy(addrs), torch.from_numpy(writes)
+    cpu_state = stack.init_state(cfg, "cpu")
+    gpu_state = stack.init_state(cfg, "cuda")
+    want = rs.replay_scan(cfg, params, cpu_state, a, w, routes,
+                          start_tick=start)
+    before = rs.LAUNCHES["replay_scan"]
+    got = rs.replay_scan(cfg, params, gpu_state, a.cuda(), w.cuda(),
+                         None if routes is None else routes.cuda(),
+                         start_tick=start)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["replay_scan"] == before + 1
+    for g, x in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), x)
+    for part in ("media", "flash"):
+        for k, x in (cpu_state[part] or {}).items():
+            assert torch.equal(gpu_state[part][k].cpu(), x), (part, k)
+    return cfg, cpu_state
+
+
+@pytest.mark.parametrize("name", SCAN_SCENARIOS)
+def test_replay_scan_equals_its_twin_on_the_scenarios(card, name):
+    from golden import scenarios as sc
+    from test_torch_scenarios import make_target, scenario_trace
+
+    cfg, state = _scan_both(lambda: make_target(name), scenario_trace(name),
+                            sc.scenario_outstanding(name))
+    if name == "ssd-gc@direct":
+        assert cfg.gc and int(state["flash"]["gcs"]) > 0
+
+
+# (policy, MSHR entries, writeback slots, outstanding, posted writes,
+# frames): the CPU tests' hypothesis ranges, corners and middles
+SCAN_SHAPES = [("lru", 1, 1, 1, True, 1), ("fifo", 4, 3, 32, False, 16),
+               ("direct", 2, 2, 7, True, 8), ("lru", 3, 1, 33, False, 3),
+               ("fifo", 1, 2, 2, True, 8), ("direct", 4, 3, 16, False, 16),
+               ("lru", 2, 3, 32, True, 16), ("fifo", 3, 1, 5, False, 1)]
+
+
+@pytest.mark.parametrize("policy,mshr,wb,outstanding,posted,frames",
+                         SCAN_SHAPES)
+def test_replay_scan_equals_its_twin_on_cache_shapes(card, policy, mshr, wb,
+                                                     outstanding, posted,
+                                                     frames):
+    from repro_torch.core.workloads.traces import make_trace
+
+    kw = dict(policy=policy, capacity_bytes=frames * 4096, mshr_entries=mshr,
+              writeback_buffer=wb)
+    _scan_both(lambda: make_device("cxl-ssd-cache",
+                                   cache_cfg=DRAMCacheConfig(**kw)),
+               make_trace(outstanding, n=600, pages=24, write_frac=0.5),
+               outstanding, posted, start=777)
+
+
+@pytest.mark.parametrize("device", ["dram", "cxl-dram", "pmem", "cxl-ssd",
+                                    "cxl-ssd-cache"])
+def test_replay_scan_equals_its_twin_at_table_i_width(card, device):
+    from repro_torch.core.workloads.traces import make_trace
+
+    _scan_both(lambda: make_device(device),
+               make_trace(3, n=8000, pages=8192), 32)
+
+
+def test_replay_scan_keeps_large_caches_in_device_memory(card):
+    from repro_torch.core.workloads.traces import make_trace
+    from repro_torch.kernels import replay_scan as rs
+
+    big = DRAMCacheConfig(capacity_bytes=32768 * 4096)     # 256 KB of frames
+    cfg, _ = _scan_both(lambda: make_device("cxl-ssd-cache", cache_cfg=big),
+                        make_trace(4, n=3000, pages=40000), 32)
+    small, frames = rs.smem_bytes(cfg)
+    assert small + frames > 232448
+
+
+def test_scan_lane_on_the_card_equals_the_python_lane(card):
+    from test_torch_scenarios import ServiceTap
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.workloads.driver import TraceDriver
+    from repro_torch.core.workloads.traces import make_trace
+    from repro_torch.kernels import replay_scan as rs
+
+    trace = make_trace(8, n=5000, pages=2048)
+    for device in ("dram", "cxl-ssd-cache"):
+        tap = ServiceTap(make_device(device))
+        TraceDriver(tap).run(trace)
+        want = TraceDriver(make_device(device), metrics=MetricsSpec()).run(
+            trace)
+        before = rs.LAUNCHES["replay_scan"]
+        got = TraceDriver(make_device(device), engine="scan",
+                          metrics=MetricsSpec()).run(trace)
+        assert rs.LAUNCHES["replay_scan"] == before + 1
+        assert got.latency_ticks.tolist() == tap.latencies
+        assert got.end_tick == want.end_tick
+        assert got.metrics.to_jsonable() == want.metrics.to_jsonable()
+
+
+def test_scan_lane_on_the_card_refuses_faults_and_streaming(card):
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.replay.spec import ReplayUnsupported
+    from repro_torch.kernels import replay_scan as rs
+
+    dev = make_device("cxl-ssd-cache")
+    install(FaultPlan(FaultConfig(nand_read_retry_rate=0.5)), [dev])
+    with pytest.raises(ReplayUnsupported, match="item 5b"):
+        ReplayEngine(dev).run([(0, 64, False)])
+    with pytest.raises(ReplayUnsupported, match="item 12"):
+        ReplayEngine(make_device("dram")).run([(0, 64, False)], chunk_size=1)
+    with pytest.raises(ValueError, match="LFB slots"):
+        ReplayEngine(make_device("dram"),
+                     outstanding=rs.MAX_OUTSTANDING + 1).run([(0, 64, False)])

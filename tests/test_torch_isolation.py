@@ -29,8 +29,9 @@ from repro_torch.serving.scheduler import BatchScheduler, SchedulerConfig
 from repro_torch.tiered.store import TieredStore, TieredStoreConfig
 from test_torch_reference import REPO
 
+# chip_smoke.py and the one module of tests/ that it loads
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_scenarios.py"]
 
 
 def _imported_modules(path):
@@ -61,13 +62,16 @@ def test_port_package_has_the_reference_layout():
         assert (REPO / "src" / "repro_torch" / sub / "__init__.py").exists()
         assert (REPO / "src" / "repro" / sub / "__init__.py").exists()
     for name in ("cache_sim", "flash_attention", "flash_decode",
-                 "page_gather"):
+                 "page_gather", "replay_scan"):
         assert (REPO / "src" / "repro_torch" / "kernels" / "csrc"
                 / f"{name}.cu").exists()
     for mod in ("core/fabric/topology.py", "core/fabric/switch.py",
                 "core/fabric/routing.py", "core/fabric/fabric.py",
                 "core/fabric/pool.py", "core/fabric/link_sim.py",
                 "core/faults/plan.py", "core/workloads/membench.py",
+                "core/replay/metrics.py", "core/replay/stack.py",
+                "core/replay/engine.py", "core/replay/spec.py",
+                "obs/__init__.py", "obs/export.py",
                 "core/workloads/stream.py", "core/workloads/viper.py",
                 "models/layers.py", "models/transformer.py",
                 "kernels/flash_attention.py", "kernels/flash_decode.py",
@@ -153,6 +157,34 @@ def test_kernel_wrappers_launch_or_raise_off_the_cpu(no_card):
     assert page_gather_op(cpu, torch.tensor([1, 1])).shape == (2, 2, 3)
 
 
+def test_scan_lane_defaults_to_the_card_and_refuses_without_one(no_card):
+    from repro_torch.core.replay.engine import ReplayEngine
+
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        TraceDriver(make_device("dram"), engine="scan").run([(0, 64, False)])
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        ReplayEngine(make_device("dram")).run([(0, 64, False)])
+    # the CPU is used when asked for
+    assert TraceDriver(make_device("dram"), engine="scan",
+                       torch_device="cpu").run([(0, 64, False)]).accesses == 1
+
+
+def test_replay_scan_launches_or_raises_off_the_cpu(no_card):
+    from repro_torch.core.replay.spec import build_stack
+    from repro_torch.kernels.replay_scan import replay_scan
+
+    cfg, params = build_stack(make_device("dram"), size=64, outstanding=1,
+                              issue_overhead_ns=0.5, posted_writes=True,
+                              n_accesses=1, max_addr=0)
+    meta = dict(device="meta")
+    state = {"media": {"busy": torch.zeros((), dtype=torch.int64, **meta)},
+             "flash": None}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        replay_scan(cfg, params, state,
+                    torch.zeros(1, dtype=torch.int64, **meta),
+                    torch.zeros(1, dtype=torch.bool, **meta))
+
+
 def test_python_lane_needs_no_card(no_card):
     res = TraceDriver(make_device("dram")).run([(0, 64, False)] * 4)
     assert res.accesses == 4
@@ -195,6 +227,23 @@ def test_fabric_tensor_entry_points_default_to_the_card(no_card):
     assert flow_choices_torch("h0", "d0", torch.arange(4), 2).shape == (4,)
 
 
+def test_python_lane_metrics_load_no_torch():
+    code = ("import sys\n"
+            "from repro_torch.core.devices import make_device\n"
+            "from repro_torch.core.replay.metrics import MetricsSpec\n"
+            "from repro_torch.core.workloads.driver import TraceDriver\n"
+            "from repro_torch.obs import to_perfetto\n"
+            "res = TraceDriver(make_device('cxl-ssd-cache'), "
+            "metrics=MetricsSpec()).run([(i * 64, 64, i % 3 == 0) "
+            "for i in range(256)])\n"
+            "assert res.p99_ns and to_perfetto(res)['traceEvents']\n"
+            "assert 'torch' not in sys.modules, 'torch was loaded'\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_fabric_python_lane_loads_no_torch():
     code = ("import sys\n"
             "from repro_torch.core.fabric import Fabric\n"
@@ -212,6 +261,33 @@ def test_fabric_python_lane_loads_no_torch():
             "assert fab.fault_stats['link_retries'] > 0\n"
             "assert 'torch' not in sys.modules, 'torch was loaded'\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_loads_of_tests_only_the_scenario_builders():
+    tests = {p.stem for p in (REPO / "tests").glob("*.py")} | {"golden"}
+    for path in (REPO / "chip_smoke.py", REPO / "tests" / "torch_scenarios.py"):
+        loaded = {m.split(".")[0] for m in _imported_modules(path)}
+        assert loaded & tests <= {"torch_scenarios"}, path
+        assert "pytest" not in loaded, path
+
+
+def test_scenario_builders_load_neither_pytest_nor_the_golden_fixture():
+    code = ("import sys\n"
+            "from torch_scenarios import (make_target, scenario_outstanding,"
+            " scenario_trace, DEVICES)\n"
+            "names = [f'{d}@{a}' for d in DEVICES for a in "
+            "('direct', 'fabric')] + ['dram@stream', 'pmem@stream', "
+            "'dram-qos@fabric', 'ssd-gc@direct']\n"
+            "for n in names:\n"
+            "    make_target(n), scenario_trace(n), scenario_outstanding(n)\n"
+            "bad = {'pytest', 'golden', 'repro', 'jax'} & {m.split('.')[0] "
+            "for m in sys.modules}\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src"), str(REPO / "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

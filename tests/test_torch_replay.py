@@ -171,18 +171,10 @@ def test_cuda_lane_refuses_uncached_devices_by_name():
                     torch_device="cpu").run([(0, 64, False)])
 
 
-@pytest.mark.parametrize("engine,item", [("scan", "item 5"),
-                                         ("assoc", "item 6")])
+@pytest.mark.parametrize("engine,item", [("assoc", "item 6")])
 def test_unported_lanes_name_their_roadmap_items(engine, item):
     with pytest.raises(NotImplementedError, match=item):
         TraceDriver(_cached(), engine=engine)
-
-
-def test_python_lane_metrics_wait_for_their_slice():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TraceDriver(_cached(), metrics=object())
-    with pytest.raises(ValueError, match="block_size"):
-        TraceDriver(_cached(), block_size=4)
 
 
 def test_empty_trace_takes_the_python_lane():

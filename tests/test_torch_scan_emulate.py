@@ -1,0 +1,200 @@
+"""``replay_scan.cu``'s own source on the CPU: the host compiler builds it
+for a thread-per-lane emulation of its warp (``REPLAY_SCAN_EMULATE``,
+``torch_replay_scan_emulate.cpp``) under AddressSanitizer, and the
+wrapper's packing (``replay_scan.call_launch``) feeds it CPU tensors.
+
+Every output and every final state tensor must equal the plain twin's
+(``replay_scan_plain``) on the 14 single-host fault-free scenarios, on
+cache shapes over policy, MSHR, writeback, ``outstanding`` and posted
+writes, on Table I's cached CXL-SSD past its 4096 frames, on the other
+devices at 2000 accesses, with frames in shared and in global memory, and
+on ECMP and QoS mounts.  ASan aborts on any index the kernel forms outside
+its array.  The library only loads into a process that starts with ASan's
+runtime, so the cases run in one child process for this file.
+
+    python tests/test_torch_scan_emulate.py LIBRARY OUT.json
+
+runs them in such a process and writes their results.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.cache.dram_cache import DRAMCacheConfig
+from repro_torch.core.devices import make_device
+from repro_torch.core.fabric import Fabric
+from repro_torch.core.replay import stack
+from repro_torch.core.replay.spec import (access_route_choices, build_stack,
+                                          trace_to_arrays)
+from repro_torch.kernels import _build
+from repro_torch.kernels import replay_scan as rs
+from torch_scenarios import (DEVICES, make_target, scenario_outstanding,
+                             scenario_trace)
+
+REPO = Path(__file__).resolve().parents[1]
+SHIM = REPO / "tests" / "torch_replay_scan_emulate.cpp"
+CSRC = REPO / "src" / "repro_torch" / "kernels" / "csrc"
+SCAN_SCENARIOS = ([f"{d}@{a}" for d in DEVICES for a in ("direct", "fabric")]
+                  + ["dram@stream", "pmem@stream", "dram-qos@fabric",
+                     "ssd-gc@direct"])
+# (policy, MSHR entries, writeback slots, outstanding, posted writes) of a
+# 16-frame cache over 48 pages
+CACHE_SHAPES = [("lru", 1, 1, 1, True), ("fifo", 4, 3, 32, False),
+                ("direct", 2, 2, 7, True), ("lru", 3, 1, 33, False),
+                ("fifo", 1, 2, 2, True), ("direct", 4, 3, 16, False)]
+OTHER_DEVICES = ["dram", "cxl-dram", "pmem", "cxl-ssd"]
+CASES = (SCAN_SCENARIOS + ["ssd-gc@direct/global"]
+         + [f"cache/{p}/m{m}/wb{wb}/out{o}/posted{int(pw)}"
+            for p, m, wb, o, pw in CACHE_SHAPES]
+         + ["table1/churn", "table1/global"]
+         + [f"{d}/2000" for d in OTHER_DEVICES]
+         + ["ecmp/dram", "ecmp-qos/cxl-ssd-cache"])
+
+
+def _trace(n: int, pages: int, write_frac: float, seed: int):
+    rng = np.random.default_rng(seed)
+    addrs = rng.integers(0, pages, n) * 4096 + rng.integers(0, 64, n) * 64
+    writes = rng.random(n) < write_frac
+    return [(int(a), 64, bool(w)) for a, w in zip(addrs, writes)]
+
+
+def _case(name: str):
+    """``(make_target, trace, outstanding, posted, start_tick,
+    frames_in_smem)`` of case ``name``."""
+    base = name.removesuffix("/global")
+    if base in SCAN_SCENARIOS:
+        return (lambda: make_target(base), scenario_trace(base),
+                scenario_outstanding(base), True, 0, base == name)
+    if name.startswith("cache/"):
+        i = [c for c in CASES if c.startswith("cache/")].index(name)
+        policy, mshr, wb, out, posted = CACHE_SHAPES[i]
+        cfg = dict(policy=policy, capacity_bytes=16 * 4096,
+                   mshr_entries=mshr, writeback_buffer=wb)
+        return (lambda: make_device("cxl-ssd-cache",
+                                    cache_cfg=DRAMCacheConfig(**cfg)),
+                _trace(600, 48, 0.5, i), out, posted, 1000 * i, True)
+    if name == "table1/churn":      # ~5100 of 8192 pages: fills, evicts
+        return (lambda: make_device("cxl-ssd-cache"),
+                _trace(8000, 8192, 0.3, 9), 32, True, 0, True)
+    if name == "table1/global":
+        return (lambda: make_device("cxl-ssd-cache"),
+                _trace(3000, 8192, 0.3, 9), 32, True, 0, False)
+    if name.endswith("/2000"):
+        d = name.split("/")[0]
+        return lambda: make_device(d), _trace(2000, 4096, 0.3, 5), 32, True, \
+            0, True
+    qos = {"h0": 2.0, "h1": 1.0} if name.startswith("ecmp-qos") else None
+    kind = name.split("/")[1]
+
+    def mount():
+        fab = Fabric.build("spine_leaf", num_hosts=2, num_devices=2,
+                           num_leaves=2, num_spines=2, ecmp=True,
+                           qos_weights=qos)
+        dev = (make_device(kind, cache_cfg=DRAMCacheConfig(
+            capacity_bytes=16 * 4096)) if kind == "cxl-ssd-cache"
+            else make_device(kind))
+        return fab.mount("h0", "d1", dev)
+
+    return mount, _trace(800, 64, 0.3, 3 if qos is None else 4), 8, True, \
+        0, True
+
+
+def run_case(lib, name: str) -> dict:
+    """The emulated kernel and the plain twin on case ``name``, each from a
+    fresh state: the outputs and state tensors that differ, and the twin's
+    hit and dirty-eviction counts."""
+    make, trace, outstanding, posted, start, in_smem = _case(name)
+    addrs, writes, size = trace_to_arrays(trace)
+    dev = make()
+    cfg, params = build_stack(dev, size=size, outstanding=outstanding,
+                              issue_overhead_ns=0.5, posted_writes=posted,
+                              n_accesses=addrs.size,
+                              max_addr=int(addrs.max()), counters=True)
+    routes = None
+    if cfg.num_routes > 1:
+        routes = torch.from_numpy(
+            access_route_choices(dev, addrs).astype(np.int32))
+    a, w = torch.from_numpy(addrs), torch.from_numpy(writes)
+    want_state, got_state = (stack.init_state(cfg, "cpu"),
+                             stack.init_state(cfg, "cpu"))
+    want = rs.replay_scan_plain(cfg, params, want_state, a, w, routes,
+                                start_tick=start)
+    err, got = rs.call_launch(lib, cfg, params, got_state, a, w, routes,
+                              start, in_smem, None)
+    differ = [k for k, g, x in zip(
+        ("issues", "dones", "flags", "qacc", "qthr"), got, want)
+        if not torch.equal(g, x)]
+    for part in ("media", "flash"):
+        differ += [f"{part}.{k}" for k, x in (want_state[part] or {}).items()
+                   if not torch.equal(got_state[part][k], x)]
+    flags = want[2]
+    return {"err": err, "differ": differ, "accesses": len(trace),
+            "hits": int((flags & 1).sum()),
+            "evicts": int(((flags >> 1) & 1).sum())}
+
+
+def _child(lib_path: str, out_path: str) -> None:
+    lib = ctypes.CDLL(lib_path)
+    for fn in ("replay_scan_launch", "replay_scan_num_args"):
+        restype, argtypes = _build.SIGNATURES["replay_scan"][fn]
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    out = {"num_args": lib.replay_scan_num_args(), "args": len(rs.ARGS),
+           "cases": {name: run_case(lib, name) for name in CASES}}
+    Path(out_path).write_text(json.dumps(out))
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The cases' results, from the ASan build run in one child."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler (g++) to build the emulation")
+    tmp = tmp_path_factory.mktemp("replay_scan_emulate")
+    lib = tmp / "libreplay_scan_emulate.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-g", "-fsanitize=address",
+                    "-fno-omit-frame-pointer", "-shared", "-fPIC", "-pthread",
+                    f"-I{CSRC}", str(SHIM), "-o", str(lib)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    asan = subprocess.run([cxx, "-print-file-name=libasan.so"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    env = dict(os.environ, LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0",
+               PYTHONPATH=os.pathsep.join([str(REPO / "src"),
+                                           str(REPO / "tests")]))
+    out = tmp / "cases.json"
+    proc = subprocess.run([sys.executable, __file__, str(lib), str(out)],
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    return json.loads(out.read_text())
+
+
+def test_the_emulation_takes_the_wrappers_argument_block(emulated):
+    assert emulated["num_args"] == emulated["args"]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_kernel_source_equals_its_twin(emulated, name):
+    got = emulated["cases"][name]
+    assert got["err"] == 0
+    assert got["differ"] == [], f"{name}: {got['differ']} differ"
+
+
+def test_table1_case_fills_and_evicts(emulated):
+    churn = emulated["cases"]["table1/churn"]
+    assert churn["hits"] > 0 and churn["evicts"] > 0, churn
+
+
+if __name__ == "__main__":
+    _child(sys.argv[1], sys.argv[2])

@@ -13,6 +13,7 @@ import csv
 import pytest
 
 from repro_torch.core.devices import DEVICE_NAMES, DRAMDevice, make_device
+from repro_torch.core.replay.metrics import MetricsSpec
 from repro_torch.core.workloads import (MultiHostDriver, run_membench,
                                         run_stream)
 from test_torch_reference import REPO
@@ -58,7 +59,9 @@ def test_multihost_driver_takes_the_reference_keywords():
         MultiHostDriver([DRAMDevice()], block_size=4)
     with pytest.raises(ValueError, match="block_size must be >= 1"):
         MultiHostDriver([DRAMDevice()], block_size=0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MultiHostDriver([DRAMDevice()], metrics=object())
+    res = MultiHostDriver([DRAMDevice()], metrics=MetricsSpec()).run(
+        [[(0, 64, False), (64, 64, True)]])
+    assert res.metrics.media == [{"accesses": 2, "reads": 1, "writes": 1}]
+    assert res.per_host[0].metrics is res.metrics
     with pytest.raises(NotImplementedError, match="item 10"):
         MultiHostDriver([DRAMDevice()], engine="scan")

@@ -1,0 +1,168 @@
+"""The port's builders of the golden scenarios' targets and traces.
+
+``tests/golden/scenarios.py`` builds its targets from the JAX package; the
+functions here build the same targets from the port (after
+scenarios.py:123-335), with their own copies of its constants.  The module
+imports the port and numpy only, neither pytest nor the golden fixture, so
+``chip_smoke.py`` replays the scenarios on the card from it;
+``test_torch_scenarios.py`` holds every constant and trace here equal to
+the fixture's.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.cache.dram_cache import DRAMCacheConfig
+from repro_torch.core.devices import CachedCXLSSDDevice, DRAMDevice, make_device
+from repro_torch.core.fabric import Fabric, MemoryPool
+from repro_torch.core.faults import FaultConfig, FaultPlan, install
+from repro_torch.core.ssd.hil import HIL, SSDConfig
+from repro_torch.core.ssd.pal import NANDTiming
+from repro_torch.core.workloads.traces import hash_seed, make_trace
+
+# copies of tests/golden/scenarios.py's constants
+CACHE_KW = dict(capacity_bytes=16 * 4096, mshr_entries=4, writeback_buffer=2)
+DEVICES = ["dram", "cxl-dram", "pmem", "cxl-ssd", "cxl-ssd-cache"]
+N_ACCESSES = 160
+OUTSTANDING = 8
+STREAM_OUTSTANDING = 32
+MULTI = dict(num_hosts=3, num_leaves=2, num_spines=2,
+             qos_weights={"h0": 3.0, "h1": 1.0, "h2": 1.0})
+MULTI_SSD_HOSTS = {"multihost-ssd-mounts": 2, "multihost-ssd-pool": 4,
+                   "multihost-ssd-sharedflash": 2}
+FAULT_SCENARIOS = ("faults-linkretry@spine_leaf",
+                   "faults-portdown-failover@mesh",
+                   "faults-nand-retry@direct")
+MULTI_FAULT_HOSTS = {"faults-portdown@multihost_x2": 2,
+                     "faults-linkretry@spine_leaf_x4": 4}
+
+
+def is_multi(name: str) -> bool:
+    """Multi-host scenarios pin one latency list per host."""
+    return (name.startswith("multihost") or name in MULTI_FAULT_HOSTS
+            or name.startswith("fleet"))
+
+
+def scenario_outstanding(name: str) -> int:
+    return STREAM_OUTSTANDING if name.endswith("@stream") else OUTSTANDING
+
+
+def mk_device(name: str):
+    if name == "cxl-ssd-cache":
+        return make_device(name, cache_cfg=DRAMCacheConfig(policy="lru",
+                                                           **CACHE_KW))
+    return make_device(name)
+
+
+def gc_ssd_cfg(cap_pages: int) -> SSDConfig:
+    """Tiny flash geometry so short pinned traces reach the GC watermark."""
+    return SSDConfig(capacity_bytes=cap_pages * 4096, page_bytes=4096,
+                     channels=2, dies_per_channel=2, pages_per_block=8,
+                     timing=NANDTiming.low_latency(), hil_overhead_ns=1000.0)
+
+
+def _gc_cached_ssd():
+    return make_device("cxl-ssd-cache", ssd_cfg=gc_ssd_cfg(750),
+                       cache_cfg=DRAMCacheConfig(capacity_bytes=8 * 4096,
+                                                 mshr_entries=4,
+                                                 writeback_buffer=2))
+
+
+def _make_fault_target(name: str):
+    if name == "faults-linkretry@spine_leaf":
+        fab = Fabric.build("spine_leaf", num_hosts=2, num_devices=2,
+                           num_leaves=2, num_spines=2, ecmp=True)
+        tgt = fab.mount("h0", "d0", mk_device("dram"))
+        install(FaultPlan(FaultConfig(link_retry_rate=0.25), seed=7), [tgt])
+        return tgt
+    if name == "faults-portdown-failover@mesh":
+        fab = Fabric.build("mesh", num_hosts=2, num_devices=2)
+        tgt = fab.mount("h0", "d0", mk_device("cxl-dram"))
+        install(FaultPlan(FaultConfig(
+            down_links=(("s0_0", "s0_1", 10, 70),)), seed=7), [tgt])
+        return tgt
+    assert name == "faults-nand-retry@direct", name
+    dev = _gc_cached_ssd()
+    install(FaultPlan(FaultConfig(nand_read_retry_rate=0.3,
+                                  erase_fail_rate=0.5,
+                                  poison_rate=0.1), seed=0), [dev])
+    return dev
+
+
+def make_target(name: str):
+    """Fresh port target of a single-host scenario."""
+    if name in FAULT_SCENARIOS:
+        return _make_fault_target(name)
+    if name == "dram-qos@fabric":
+        fab = Fabric.build("two_level", num_hosts=2, num_devices=2,
+                           num_leaves=2, qos_weights={"h0": 3.0, "h1": 1.0})
+        return fab.mount("h1", "d1", mk_device("dram"))
+    device, attach = name.split("@")
+    if device == "ssd-gc":
+        return _gc_cached_ssd()
+    dev = mk_device(device)
+    if attach == "fabric":
+        fab = Fabric.build("two_level", num_hosts=2, num_devices=2,
+                           num_leaves=2)
+        return fab.mount("h1", "d1", dev)
+    return dev
+
+
+def make_multi_targets(name: str):
+    """Fresh port targets of a multi-host scenario, one per host."""
+    if name in MULTI_FAULT_HOSTS:
+        nh = MULTI_FAULT_HOSTS[name]
+        fab = Fabric.build("spine_leaf", num_hosts=nh, num_devices=nh,
+                           num_leaves=2, num_spines=2, ecmp=True)
+        tgts = [fab.mount(f"h{i}", f"d{i}", make_device("dram"))
+                for i in range(nh)]
+        cfg = (FaultConfig(down_links=(("s0", "sp0", 20, 90),))
+               if name == "faults-portdown@multihost_x2"
+               else FaultConfig(link_retry_rate=0.2, link_retry_max=2))
+        install(FaultPlan(cfg, seed=11), tgts)
+        return tgts
+    if name == "multihost-qos-ecmp":
+        m = MULTI
+        fab = Fabric.build("spine_leaf", num_hosts=m["num_hosts"],
+                           num_devices=2, num_leaves=m["num_leaves"],
+                           num_spines=m["num_spines"], ecmp=True,
+                           qos_weights=m["qos_weights"])
+        pool = MemoryPool(fab, {"d0": DRAMDevice(), "d1": DRAMDevice()})
+        return pool.views([f"h{i}" for i in range(m["num_hosts"])])
+    cache_cfg = dict(policy="lru", **CACHE_KW)
+    if name == "multihost-ssd-pool":
+        fab = Fabric.build("two_level", num_hosts=4, num_devices=2,
+                           num_leaves=2)
+        pool = MemoryPool(fab, {
+            d: CachedCXLSSDDevice(cache_cfg=DRAMCacheConfig(**cache_cfg))
+            for d in ("d0", "d1")})
+        return pool.views([f"h{i}" for i in range(4)])
+    nh = MULTI_SSD_HOSTS[name]
+    fab = Fabric.build("two_level", num_hosts=nh, num_devices=nh,
+                       num_leaves=2)
+    hil = HIL(gc_ssd_cfg(48)) if name == "multihost-ssd-sharedflash" else None
+    return [fab.mount(f"h{i}", f"d{i}", CachedCXLSSDDevice(
+                cache_cfg=DRAMCacheConfig(**cache_cfg), hil=hil))
+            for i in range(nh)]
+
+
+def multi_traces(name: str):
+    if name in MULTI_FAULT_HOSTS:
+        return [make_trace(400 + h) for h in range(MULTI_FAULT_HOSTS[name])]
+    if name == "multihost-ssd-sharedflash":
+        return [make_trace(300 + h, n=N_ACCESSES, pages=24, write_frac=0.7)
+                for h in range(MULTI_SSD_HOSTS[name])]
+    nh = MULTI_SSD_HOSTS.get(name, MULTI["num_hosts"])
+    return [make_trace(100 + h) for h in range(nh)]
+
+
+def scenario_trace(name: str):
+    """The pinned trace of a single-host scenario."""
+    if name in ("ssd-gc@direct", "faults-nand-retry@direct"):
+        trace = [(p * 4096, 64, True) for p in range(750)]
+        trace += [(((k * 9) % 750) * 4096 + (k % 64) * 64, 64, True)
+                  for k in range(40)]
+        if name == "faults-nand-retry@direct":
+            trace += [(((k * 131) % 750) * 4096, 64, False)
+                      for k in range(24)]
+        return trace
+    return make_trace(hash_seed(name))

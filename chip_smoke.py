@@ -48,7 +48,10 @@ and ``nvcc``.  Phases, each printing one or more lines:
    plans (CTAs, cluster size, rows a CTA) and device times at glm4-9b's and
    hymba-1.5b's attention shapes; ``page_gather`` and ``page_scatter``
    against theirs over float32, bfloat16 and int32 pages with a repeated
-   slot (exact);
+   slot (exact), and (after the serving run, on its pool) each against
+   its library call (``torch.index_select``, ``Tensor.index_copy_``) over
+   200 calls of each in turn: medians and 10th-90th percentile spreads,
+   and whether they separate;
 8. main path (serve): ``repro_torch.launch.serve.serve`` of h2o-danube-3-4b
    at full width (24 layers, d_model 3840, 32/8 heads of 120, seeded random
    weights from a torch.Generator on the card), batch 4, context 512,
@@ -80,12 +83,14 @@ and ``nvcc``.  Phases, each printing one or more lines:
    path's trace, one ``replay_scan`` launch each, every replay equal access
    for access (latency ticks, hit and dirty-evict flags, elapsed and end
    ticks) to the python lane run on this host, with the kernel's device
-   time, both walls and its bound; the 14 single-host fault-free golden
-   ``python_scan`` pins and ``metrics`` blocks (GC included); the kernel
-   against its plain twin (CPU tensors of this process) on the pins'
-   traces, 4096 accesses of each device and 2^14 of Table I's cached
-   CXL-SSD (its cache filled and evicting); an active link-retry plan
-   and ``chunk_size`` refused with ``ReplayUnsupported``.  It runs last,
+   time, both walls, its bound and its serial-chain model (and PR 22's
+   model of its warp-wide chain beside it); the 14 single-host
+   fault-free golden ``python_scan`` pins and ``metrics`` blocks (GC
+   included); the kernel against its plain twin (CPU tensors of this
+   process) on the pins' traces, 4096 accesses of each device and 2^14
+   of Table I's cached CXL-SSD (its cache filled and evicting); an active
+   link-retry plan and ``chunk_size`` refused with
+   ``ReplayUnsupported``.  It runs last,
    after the host-bound serving loop, so that its 2^20-access python-lane
    replays leave no load on that loop's host.
 
@@ -177,14 +182,18 @@ SCAN_SOURCE = "src/repro_torch/kernels/csrc/replay_scan.cu"
 # no Pallas kernel: the JAX package's per-access lax.scan step
 SCAN_REPLACES = "src/repro/core/replay/engine.py:441"
 SCAN_KERNEL = "replay_scan_kernel"
-# dependent shared-memory round trips (a load or store waited on, or a
-# shuffle round) of one replay_scan access on its serial chain, a model:
-# the LFB argmin (a load and five shuffle rounds) and the slot's store (7);
-# the buffer's frame scan (a load and five rounds) and its commit (+7);
-# the cache's MSHR lookup and frame scan (six each) and its commit (+13);
-# and two for each transport hop (the port's busy-until read, then
-# stored).  The flash path's device-memory round trips are not counted.
-SCAN_ROUND_TRIPS = {"dram": 7, "pmem": 7, "ssd-buf": 14, "ssd-cache": 20}
+# dependent shared-memory round trips of one replay_scan access on its
+# serial chain, a model of the one-thread walk (its input and, on the
+# flash, its l2p entry are loaded one access ahead): the LFB tree's first
+# sibling, the next ones loaded a level ahead (1); the buffer adds its
+# page map, then the frame, the PAL's busy-untils on the fill and the
+# recency list (+4); the cache adds its MSHR lookup, the page map, then
+# the frame, the MSHR's expiry on a full table, the PAL's busy-untils on
+# the fill and the recency list (+6); and one for each transport hop on
+# a fixed route (its busy-until; ECMP reads the hop's port first).  The
+# writeback's and GC's extra trips are not counted.
+SCAN_ROUND_TRIPS = {"dram": 1, "pmem": 1, "ssd-buf": 5, "ssd-cache": 7}
+SCAN_HOP_TRIPS = 1
 # bytes of one access through device memory: address (8) and write flag
 # (1) in, issue and completion ticks (8 + 8) and flags (4) out
 SCAN_IO_BYTES = 29
@@ -272,6 +281,7 @@ PREFILL_TIMING_REPS = 8
 SCHED_REQUESTS, SCHED_SLOTS, SCHED_NEW = 8, 4, 32
 PROFILE_STEPS = 16              # decode steps at a full ring, profiled
 TIMING_REPS = 24                # calls per device time, on rotating inputs
+COPY_ALTERNATIONS = 200         # page copy vs library call, in turn
 PROFILE_TRIES = 3               # profiler sessions before a timing gives up
 EVENT_TIMED: list = []          # timings taken by CUDA events instead
 
@@ -499,6 +509,44 @@ def device_ms(torch, fn, reps: int = TIMING_REPS,
     # profiler recorded, so one it misses does not count as no time
     calls = len(acts) if match else reps
     return sum(e.device_time_total for e in acts) / calls / 1e3
+
+
+def copy_verdict(torch, kernel: str, ours, theirs,
+                 calls: int = COPY_ALTERNATIONS) -> dict:
+    """A page copy against its library call: ``ours(i)`` (one launch of
+    our kernel, named ``kernel``) and ``theirs(i)`` in turn, ``calls``
+    times each, in one profiler session; each launch's device
+    microseconds (every other kernel of the session is the library's),
+    their medians and 10th-90th percentile spreads, and whether the
+    spreads separate."""
+    def run():
+        for i in range(calls):
+            ours(i)
+            theirs(i)
+
+    ours(0)
+    theirs(0)
+    torch.cuda.synchronize()
+    acts = [e for e in device_events(
+        torch, run, lambda a: any(kernel in e.name for e in a))
+        if not e.name.startswith(("Memcpy", "Memset"))]
+    mine = np.asarray([e.device_time_total for e in acts
+                       if kernel in e.name], float)
+    lib = [e for e in acts if kernel not in e.name]
+    libs = np.asarray([e.device_time_total for e in lib], float)
+    check(len(mine) > 0 and len(libs) > 0,
+          f"the profiler recorded no {kernel} or library launch")
+    lo, med, hi = (np.percentile(mine, q) for q in (10, 50, 90))
+    llo, lmed, lhi = (np.percentile(libs, q) for q in (10, 50, 90))
+    return {"library": ",".join(sorted({e.name[:60] for e in lib})),
+            "calls": calls, "kernel_launches": int(len(mine)),
+            "library_launches": int(len(libs)),
+            "kernel_us_median": round(float(med), 3),
+            "kernel_us_p10_p90": [round(float(lo), 3), round(float(hi), 3)],
+            "library_us_median": round(float(lmed), 3),
+            "library_us_p10_p90": [round(float(llo), 3), round(float(lhi), 3)],
+            "separate": bool(hi < llo or lhi < lo),
+            "faster": "kernel" if med < lmed else "library"}
 
 
 def timing_note() -> str:
@@ -898,6 +946,25 @@ def serve_kernel_rows(torch, dev, run: dict, check_worst: dict) -> list:
         torch, lambda i: torch.index_select(pool, 0, ix(i)))
     lib["page_scatter"] = device_ms(
         torch, lambda i: pool.index_copy_(0, ix(i), srcs[i % len(srcs)]))
+    # the kernels through their launch alone (the wrapper's slot checks
+    # are reductions and a read to the host), so that every other kernel
+    # of the session is the library call's
+    gathered = torch.empty((2,) + tuple(pool.shape[1:]), dtype=pool.dtype,
+                           device=dev)
+    verdict = {
+        "page_scatter": copy_verdict(
+            torch, KERNEL_NAMES["page_scatter"],
+            lambda i: pg._launch("page_scatter", pool, srcs[i % len(srcs)],
+                                 tb(i)),
+            lambda i: pool.index_copy_(0, ix(i), srcs[i % len(srcs)])),
+        "page_gather": copy_verdict(
+            torch, KERNEL_NAMES["page_gather"],
+            lambda i: pg._launch("page_gather", gathered, pool, tb(i)),
+            lambda i: torch.index_select(pool, 0, ix(i)))}
+    for name, v in verdict.items():
+        say("decode", page_copy=name, library=v.pop("library"),
+            **{k: json.dumps(x) if isinstance(x, list) else x
+               for k, x in v.items()})
     page_bytes = res.tiered.page_bytes
     copy_bytes = 2 * 2 * page_bytes + 2 * 4
 
@@ -940,6 +1007,7 @@ def serve_kernel_rows(torch, dev, run: dict, check_worst: dict) -> list:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib[name], "library": library[name],
             "shape": shapes[name],
+            **({"alternating": verdict[name]} if name in verdict else {}),
             "timing": timing_note(),
         })
     return rows
@@ -1410,8 +1478,9 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
         state = 2 * 4 * cfg.num_pages + 2 * 8 * cfg.cache_frames
         bound[d] = bound_ms(n, 2 * SCAN_OPS[cfg.kind], SCAN_IO_BYTES, state,
                             int32_ops_per_s)
-        serial[d] = (n * (SCAN_ROUND_TRIPS[cfg.kind] + 2 * cfg.num_hops)
-                     * smem_cycles / (sm_clock_mhz * 1e3))
+        serial[d] = (n * (SCAN_ROUND_TRIPS[cfg.kind]
+                          + SCAN_HOP_TRIPS * cfg.num_hops) * smem_cycles
+                     / (sm_clock_mhz * 1e3))
         say("scan", device=d, accesses=n, equal_to_python="all fields",
             launches=launches[d], kernel_ms=f"{kernel_ms[d]:.3f}",
             timing=how, ns_per_access=f"{kernel_ms[d] * 1e6 / n:.1f}",

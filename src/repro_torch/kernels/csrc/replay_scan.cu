@@ -1,5 +1,5 @@
-// The scan lane's stack replay on Hopper (sm_90a): one persistent warp walks
-// a whole trace through the device stack, one access after another.
+// The scan lane's stack replay on Hopper (sm_90a): one thread walks a whole
+// trace through the device stack, one access after another.
 //
 // Replaces the JAX package's per-access lax.scan, which is not a Pallas
 // kernel: src/repro/core/replay/engine.py::_scan_chunk (:441, its step: LFB
@@ -16,37 +16,69 @@
 // the state the previous one left (LFB slots, port busy-untils, frames,
 // flash busy-untils), so one trace is one chain on one SM; device memory
 // moves ~29 bytes an access (address, write flag and route in; issue,
-// done and flags out).  An access waits on a handful of dependent
-// shared-memory round trips (the LFB argmin, the port hops, the frame
-// scan's reduction, the commit), the warp's shuffle trees and, on a cache
-// miss, on device-memory round trips into the flash state.
+// done and flags out).  An access waits on a few dependent shared-memory
+// round trips (about 23 cycles each on an H100, by tools/smem_latency.cu)
+// and on the instructions of one thread, which issues them in order: on
+// the cached CXL-SSD ~3,000 cycles an access against a model of ~8 round
+// trips (PERF.md; tools/scan_phases.py splits them by phase).
 //
-// What the design does about it: it keeps the chain on one warp.  All 32
-// lanes run the scalar tick chain redundantly in registers (every branch
-// is taken by the whole warp, so no lane waits on another to learn a
-// decision) and share only the scans: the LFB argmin, the residency match
-// and the victim argmin over the packed frames (one pass computes both),
-// the MSHR and writeback reductions and the GC victim argmin are spread
-// over the lanes and closed by a shuffle tree, with no block barrier.  The
-// state's arrays are written by lane 0 between two __syncwarp()s, so that
-// every lane has read the old value before it changes and reads the new
-// one after.  LFB slots,
-// port busy-untils and the qacc / qthr totals, the MSHR and writeback
-// tables and the frames live in dynamic shared memory (Table I's 4096
-// packed frames take 32 KB); frames that do not fit stay in the state
-// tensor in device memory.  The flash state (l2p, p2l, valid counts, the
-// free-block FIFO and mask, die and channel busy-untils) is the state
-// tensors themselves, in device memory.
+// What the design does about it: one thread owns the chain, and nothing on
+// it scans the frames.  Thread 0 walks a staged chunk of the trace with no
+// barrier and no shuffle per access; the argument fields and the state's
+// scalars live in its registers, and each access loads the next one's
+// input (and, on the flash, its l2p entry) after its own stores.  A block
+// is four warps: warps 1-3 stage the next chunk's input (the media key,
+// address / page_bytes or / row_bytes, the direct-mapped frame, the write
+// flag and route) into shared memory and flush the previous chunk's issue,
+// done and flags, coalesced, while thread 0 walks; the chunks are double
+// buffered, one block barrier each.
+//   * LFB: a tournament tree over the slots (a node holds the {tick, slot}
+//     that wins its subtree, lowest slot on ties): the root is the argmin,
+//     and the access's commit replays one leaf-to-root path, each level
+//     loading the next level's sibling before its own store.
+//   * Frames of the fully associative buffer and cache: a page-indexed map
+//     where[page] (frame, -1 if absent; pages lie below num_pages, as l2p
+//     is indexed by them) gives residency in one load; the victim is the
+//     fill pointer while frames are free, then the head of a doubly linked
+//     recency list (LRU: a touch moves the frame to the tail) or a
+//     round-robin pointer (FIFO).  The packed frames (stamp<<39 | page<<1 |
+//     dirty) are kept as the reference keeps them, so the state comes out
+//     word for word.  This equals the reference's argmin over the packed
+//     words only from a fresh cache (every frame free, as init_state makes
+//     it and ReplayEngine passes it): the stamp counter restarts at 1, and
+//     the wrapper refuses any other frames.  Direct-mapped takes
+//     page % cap, staged.
+//   * MSHR and writeback tables: padded to blocks of eight free entries and
+//     read a block at a time (16-byte loads, then bit masks: the lookup's
+//     first match, occupancy and first free slot in one pass; MSHR pages
+//     are int32 here).  The MSHR's earliest ready tick stays in a register
+//     (mmin), so a full table's stall needs no search, and the expiry pass
+//     runs only when some entry is ready by the access's arrival.
+//   * The flash's die, channel and block arithmetic is 32-bit, one
+//     multiply-high by a magic number; l2p[page] comes from the access's
+//     early load unless a GC ran in its writeback.  GC (greedy victim
+//     argmin over the blocks) runs only when its watermark is reached.
+// Shared memory holds the staging buffers, the tree, the ports, the route
+// tables, the MSHR and writeback tables and the die / channel busy-untils;
+// then, while they fit, the frames' map, the packed frames, their links,
+// l2p, the GC's valid counts, free mask, free queue and p2l.  What does not
+// fit stays in device memory (the state tensors themselves; the map and
+// links in a scratch tensor from the wrapper).  The wrapper computes that
+// layout (`layout()` in kernels/replay_scan.py) and passes it in.  Table I's
+// cached CXL-SSD over the 16,384 pages of chip_smoke.py's trace (2^20
+// accesses, 32 outstanding, 256-access chunks) takes 216,976 bytes: 18,432
+// of staging, 1,024 of tree, 912 of small tables, a 65,536-byte map,
+// 32,768 of frames, 32,768 of links and a 65,536-byte l2p; every access
+// stays in shared memory.
 //
 // Where the JAX reference's semantics need care:
 //   * Ties.  jnp.argmin / argmax return the lowest index among ties: the
-//     LFB slot (engine.py:461), the victim over packed frames (invalid
-//     frames are -1, stack.py:358 and :434), the MSHR slot argmin(mpage)
-//     (:459), the writeback slot argmin(wtick) (:449), the GC victim
-//     (:189) and the first match of every residency / MSHR lookup.  Each
-//     lane scans its indices in ascending order keeping the first winner,
-//     and the shuffle tree keeps the lower index on equal values
-//     (warp_argmin, warp_first).
+//     LFB slot (engine.py:461; the tree compares {tick, slot}), the victim
+//     over packed frames (invalid frames are -1, stack.py:358 and :434;
+//     the fill pointer and list give the same), the MSHR slot
+//     argmin(mpage) (:459: the first free one), the writeback slot
+//     argmin(wtick) (:449), the GC victim (:189) and the first match of
+//     every MSHR lookup: each scan keeps its first winner.
 //   * JAX clamps out-of-range gathers and drops out-of-range scatters;
 //     CUDA does neither.  Gated calls pass nonsense indices there: an
 //     invalid victim's ev_page is 2^38 - 1 (stack.py:434-437, :358-361),
@@ -77,16 +109,32 @@
 #include <cuda_runtime.h>
 #endif
 
+// Per-phase clock64 stamps of the walking thread; a stamped copy of this
+// source defines these (tools/scan_phases.py).  Here they compile to
+// nothing.
+#ifndef SCAN_PHASE
+#define SCAN_PHASE_MEMBERS
+#define SCAN_PHASE_BEGIN()
+#define SCAN_PHASE(k)
+#define SCAN_PHASE_DEP(k, v)
+#define SCAN_PHASE_END()
+#endif
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kLanes = 32;
+constexpr int kThreads = 128;        // thread 0 walks; warps 1-3 stage
+constexpr int kStagers = kThreads - 32;
 constexpr long long kBig = 1LL << 62;
 constexpr long long kFree = -1;
 constexpr int kStampShift = 39;
 constexpr long long kPageField = ((1LL << 38) - 1) << 1;
 constexpr long long kStampField = -(1LL << kStampShift);
 constexpr long long kInt32Max = 2147483647LL;
+constexpr int kBlock = 8;            // MSHR / writeback entries a pass loads
+
+// phases of tools/scan_phases.py
+enum Phase { P_LOAD, P_LFB, P_HOPS, P_MSHR, P_FRAMES, P_MISS, P_FLASH,
+             P_COMMIT };
 
 enum Kind { kDram = 0, kPmem = 1, kSsdBuf = 2, kSsdCache = 3 };
 
@@ -94,13 +142,27 @@ enum Kind { kDram = 0, kPmem = 1, kSsdBuf = 2, kSsdCache = 3 };
 enum Arg {
   A_KIND, A_N, A_START, A_OUTSTANDING, A_POSTED, A_HOPS, A_PORTS, A_ROUTES,
   A_PAGE_BYTES, A_FRAMES, A_ASSOC, A_MSHR, A_WB, A_CHANNELS, A_DIES, A_PPB,
-  A_BUF, A_GC, A_NUM_BLOCKS, A_WATERMARK,
+  A_BUF, A_GC, A_NUM_BLOCKS, A_WATERMARK, A_NUM_PAGES,
   A_ISSUE_OV, A_RT_EXTRA, A_OCC, A_LOAD, A_PACK, A_ROW_BYTES,
   A_LAT_R_MISS, A_LAT_R_HIT, A_LAT_W_MISS, A_LAT_W_HIT,
   A_HIL_OV, A_XFER_PAGE, A_READ_T, A_PROG_T, A_SUS_T, A_ERASE_T, A_INTERNAL,
   A_HIT_LAT, A_LINE_XFER, A_PAGE_XFER, A_PACK10, A_IS_LRU, A_CAP,
-  A_FRAMES_IN_SMEM,
   kNumArgs
+};
+
+// The layout, field for field `LAYOUT` in kernels/replay_scan.py: the
+// chunk's accesses, the tree's leaves (a power of two), then byte offsets
+// into dynamic shared memory.  The staging buffers, the tree and the small
+// tables are always there; a placed array (frames and after) at an offset
+// < 0 lives in device memory: the state tensor, or for the map and links
+// the scratch tensor at byte -1 - offset.
+enum Lay {
+  L_CHUNK, L_LEAVES,
+  L_IN_KEY, L_IN_AUX, L_IN_SET, L_OUT_ISSUE, L_OUT_DONE, L_OUT_FLAGS,
+  L_TREE, L_PB, L_QACC, L_QTHR, L_TABLES, L_MPAGE, L_MREADY, L_WTICK,
+  L_DIE_BUSY, L_DIE_PROG, L_CHAN_BUSY,
+  L_WHERE, L_FRAMES, L_LINKS, L_L2P, L_VALID, L_FREE_MASK, L_FREE_Q, L_P2L,
+  kLayoutWords
 };
 
 // The state's scalars, in and out, in the order of `SCALARS` in
@@ -114,10 +176,15 @@ struct Args {
   long long v[kNumArgs];
 };
 
+struct Layout {
+  long long v[kLayoutWords];
+};
+
 // Device pointers of one replay.  The trace and the per-access outputs;
 // `tables` holds hop_port, hop_occ and hop_after (routes x hops each) and
 // the per-port QoS mask; `totals` receives qacc then qthr (ports each);
-// `scal` the state's scalars.  The rest are the state's arrays.
+// `scal` the state's scalars; `scratch` the map and links that the layout
+// leaves in device memory.  The rest are the state's arrays.
 struct Ptrs {
   const long long* addrs;
   const uint8_t* writes;
@@ -140,22 +207,17 @@ struct Ptrs {
   long long* die_busy;
   long long* die_prog;
   long long* chan_busy;
+  char* scratch;
 };
 
-// Defining REPLAY_SCAN_EMULATE leaves these four warp primitives, and the
-// CUDA keywords, to the file that includes this one: a host compiler then
-// builds the replay for a thread-per-lane emulation of the warp
-// (tests/torch_replay_scan_emulate.cpp, run by
+// Defining REPLAY_SCAN_EMULATE leaves these primitives, the CUDA keywords
+// and the vector types to the file that includes this one: a host compiler
+// then builds the replay for a thread-per-CUDA-thread emulation of the
+// block (tests/torch_replay_scan_emulate.cpp, run by
 // tests/test_torch_scan_emulate.py under AddressSanitizer).
 #ifndef REPLAY_SCAN_EMULATE
-__device__ __forceinline__ int lane_id() { return threadIdx.x & (kLanes - 1); }
-__device__ __forceinline__ void warp_sync() { __syncwarp(kFull); }
-__device__ __forceinline__ long long shfl_xor(long long v, int m) {
-  return __shfl_xor_sync(kFull, v, m);
-}
-__device__ __forceinline__ int shfl_xor(int v, int m) {
-  return __shfl_xor_sync(kFull, v, m);
-}
+__device__ __forceinline__ int thread_id() { return threadIdx.x; }
+__device__ __forceinline__ void block_sync() { __syncthreads(); }
 #endif
 
 __device__ __forceinline__ long long max64(long long a, long long b) {
@@ -169,428 +231,521 @@ __device__ __forceinline__ long long floor_mod(long long a, long long m) {
   return r < 0 ? r + m : r;
 }
 
-// Lane 0 stores, once every lane has read what it needed (the value to
-// store included); the warp then agrees on memory before anyone reads it.
-template <typename T>
-__device__ __forceinline__ void put(T* at, T v) {
-  warp_sync();
-  if (lane_id() == 0) *at = v;
-  warp_sync();
-}
-
-struct MinIdx {
-  long long v;
-  int i;          // -1: this lane saw no element
+// x / d and x % d of a 32-bit x < 2^31 for a fixed d >= 1, by one
+// multiply-high: with l = ceil(log2 d) and m = floor(2^32 (2^l - d) / d) + 1,
+// x / d = (umulhi(m, x) + x) >> l for every 32-bit x (Granlund and
+// Montgomery's round-up method); x < 2^31 keeps the sum in 32 bits.
+struct Div {
+  uint32_t d = 1, m = 1;
+  int l = 0;
+  __device__ void set(long long v) {
+    d = v > 0 ? static_cast<uint32_t>(v) : 1u;
+    l = 0;
+    while ((1ull << l) < d) ++l;
+    m = static_cast<uint32_t>(((1ull << 32) * ((1ull << l) - d)) / d + 1);
+  }
+  __device__ __forceinline__ uint32_t div(uint32_t x) const {
+    return (__umulhi(m, x) + x) >> l;
+  }
+  __device__ __forceinline__ uint32_t mod(uint32_t x) const {
+    return x - div(x) * d;
+  }
 };
 
-// The warp's (min, lowest index of the min) from per-lane candidates, each
-// lane's the first minimum of its ascending indices.
-__device__ __forceinline__ MinIdx warp_min_idx(MinIdx m) {
-  for (int off = kLanes / 2; off; off >>= 1) {
-    const long long ov = shfl_xor(m.v, off);
-    const int oi = shfl_xor(m.i, off);
-    if (oi >= 0 && (m.i < 0 || ov < m.v || (ov == m.v && oi < m.i))) {
-      m.v = ov;
-      m.i = oi;
-    }
+// Eight int64 entries of a table block (16-byte aligned: the tables start
+// on 16 bytes and a block is 64), four 16-byte loads.
+__device__ __forceinline__ void load_block(const long long* p,
+                                           long long (&r)[kBlock]) {
+  const longlong2* q = reinterpret_cast<const longlong2*>(p);
+#pragma unroll
+  for (int u = 0; u < kBlock / 2; ++u) {
+    const longlong2 x = q[u];
+    r[2 * u] = x.x;
+    r[2 * u + 1] = x.y;
   }
-  return m;
 }
 
-// jnp.argmin over a[0, n): lowest index among ties.
-__device__ __forceinline__ MinIdx warp_argmin(const long long* a, int n) {
-  MinIdx m{0, -1};
-  for (int i = lane_id(); i < n; i += kLanes) {
-    const long long x = a[i];
-    if (m.i < 0 || x < m.v) m = MinIdx{x, i};
-  }
-  return warp_min_idx(m);
+template <typename T>
+__device__ __forceinline__ T* placed(char* sm, long long off, T* dev) {
+  return off >= 0 ? reinterpret_cast<T*>(sm + off) : dev;
 }
 
-// Lowest index of a lane candidate (n: none), over the warp.
-__device__ __forceinline__ int warp_first(int i) {
-  for (int off = kLanes / 2; off; off >>= 1) {
-    const int o = shfl_xor(i, off);
-    i = o < i ? o : i;
-  }
-  return i;
-}
-
-__device__ __forceinline__ long long warp_sum(long long v) {
-  for (int off = kLanes / 2; off; off >>= 1) v += shfl_xor(v, off);
-  return v;
-}
-
-// jnp.argmax(a == key) over a[0, n): the first match, or n when none.
-__device__ __forceinline__ int warp_find(const long long* a, int n,
-                                         long long key) {
-  int first = n;
-  for (int i = lane_id(); i < n; i += kLanes) {
-    if (a[i] == key) { first = i; break; }
-  }
-  return warp_first(first);
-}
-
-// ------------------------------------------------------------ the replay
-struct Replay {
-  const long long* a;      // the argument block
-  Ptrs p;
-  // scalars of the state, the same value in every lane
-  long long s[kNumScalars];
-
-  __device__ long long arg(int k) const { return a[k]; }
+// ------------------------------------------------------------ the chain
+// Thread 0's registers and the state's arrays.
+struct Chain {
+  // argument fields
+  int H, nf, nm, nw, nm8, nw8, nb, depth, leaves;
+  bool ecmp, posted_writes, assoc, lru, gc;
+  long long issue_ov, rt_extra, occ, load, pack, lat_rm, lat_rh, lat_wm,
+      lat_wh, hil_ov, xfer_page, read_t, prog_t, sus_t, erase_t, internal,
+      hit_lat, line_xfer, page_xfer, pack10, watermark, ppb;
+  Div C, D, PPB;
+  // the state's scalars
+  long long busy, row, dram_busy, wpb, wpp, nfree, fq_head, fq_count, gcs,
+      bad, c_hr, c_hw, c_gw, c_ge;
+  // the frames' fill pointer and recency list; the LFB winner; the next
+  // issue floor
+  int fill, head, tail;
+  long long mmin;     // the MSHR's earliest ready tick (kBig: none)
+  longlong2 win;
+  long long now;
+  // arrays
+  longlong2* tree;
+  long long *pb, *qacc, *qthr, *mready, *wtick;
+  int32_t* mpage;       // the MSHR's pages, int32 here (-1: free)
+  const long long *hop_port, *hop_occ, *hop_after, *qos;
+  long long *die_busy, *die_prog, *chan_busy, *frames;
+  int32_t *where, *l2p, *p2l, *valid, *free_q;
+  int2* links;
+  uint8_t* free_mask;
+  SCAN_PHASE_MEMBERS
 
   // ---------------------------------------------------------- PAL
-  __device__ void die_of(long long ppn, long long* ch, long long* i) const {
-    const long long C = arg(A_CHANNELS), D = arg(A_DIES);
-    *ch = ppn % C;
-    *i = *ch * D + (ppn / C) % D;
+  __device__ __forceinline__ void die_of(long long ppn, uint32_t* ch,
+                                         uint32_t* i) const {
+    const uint32_t u = static_cast<uint32_t>(ppn);
+    *ch = C.mod(u);
+    *i = *ch * D.d + D.mod(C.div(u));
   }
 
   __device__ long long pal_read(long long t, long long ppn) {
-    long long ch, i;
+    uint32_t ch, i;
     die_of(ppn, &ch, &i);
-    const long long dbi = p.die_busy[i], dpi = p.die_prog[i];
-    const long long cbi = p.chan_busy[ch];
+    const long long dbi = die_busy[i], dpi = die_prog[i];
+    const long long cbi = chan_busy[ch];
     long long ds = max64(t, dbi);
-    if (dpi > ds) ds = min64(dpi, ds + arg(A_SUS_T));
-    const long long array_done = ds + arg(A_READ_T);
-    const long long new_dp = dpi > ds ? dpi + arg(A_READ_T) : dpi;
-    const long long done = max64(array_done, cbi) + arg(A_XFER_PAGE);
-    put(p.die_busy + i, done);
-    put(p.die_prog + i, new_dp);
-    put(p.chan_busy + ch, done);
+    if (dpi > ds) ds = min64(dpi, ds + sus_t);
+    const long long array_done = ds + read_t;
+    const long long new_dp = dpi > ds ? dpi + read_t : dpi;
+    const long long done = max64(array_done, cbi) + xfer_page;
+    die_busy[i] = done;
+    die_prog[i] = new_dp;
+    chan_busy[ch] = done;
     return done;
   }
 
   __device__ long long pal_prog(long long t, long long ppn) {
-    long long ch, i;
+    uint32_t ch, i;
     die_of(ppn, &ch, &i);
-    const long long ds = max64(max64(t, p.die_busy[i]), p.die_prog[i]);
-    const long long bus_done = max64(ds, p.chan_busy[ch]) + arg(A_XFER_PAGE);
-    const long long done = bus_done + arg(A_PROG_T);
-    put(p.die_busy + i, bus_done);
-    put(p.die_prog + i, done);
-    put(p.chan_busy + ch, bus_done);
+    const long long ds = max64(max64(t, die_busy[i]), die_prog[i]);
+    const long long bus_done = max64(ds, chan_busy[ch]) + xfer_page;
+    const long long done = bus_done + prog_t;
+    die_busy[i] = bus_done;
+    die_prog[i] = done;
+    chan_busy[ch] = bus_done;
     return done;
   }
 
   __device__ long long pal_erase(long long t, long long ppn) {
-    long long ch, i;
+    uint32_t ch, i;
     die_of(ppn, &ch, &i);
     const long long done =
-        max64(max64(t, p.die_busy[i]), p.die_prog[i]) + arg(A_ERASE_T);
-    put(p.die_busy + i, done);
+        max64(max64(t, die_busy[i]), die_prog[i]) + erase_t;
+    die_busy[i] = done;
     return done;
   }
 
   // ------------------------------------------------ free-block FIFO
   __device__ long long free_pop(bool en) {
-    const long long nb = arg(A_NUM_BLOCKS);
-    const long long head = s[S_FQ_HEAD], cnt = s[S_FQ_COUNT];
-    const long long v = p.free_q[head];
+    const long long head_ = fq_head, cnt = fq_count;
+    const long long v = free_q[head_];
     if (en) {
-      s[S_FQ_HEAD] = (head + 1) % nb;
-      s[S_FQ_COUNT] = cnt - 1;
-      put(p.free_mask + v, uint8_t(0));
-      if (cnt <= 0) s[S_BAD] = 1;
+      fq_head = head_ + 1 == nb ? 0 : head_ + 1;
+      fq_count = cnt - 1;
+      free_mask[v] = 0;
+      if (cnt <= 0) bad = 1;
     }
     return v;
   }
 
   __device__ void free_append(long long v) {
-    const long long cnt = s[S_FQ_COUNT];
-    put(p.free_q + floor_mod(s[S_FQ_HEAD] + cnt, arg(A_NUM_BLOCKS)),
-        int32_t(v));
-    s[S_FQ_COUNT] = cnt + 1;
-    put(p.free_mask + v, uint8_t(1));
+    free_q[floor_mod(fq_head + fq_count, nb)] = static_cast<int32_t>(v);
+    fq_count += 1;
+    free_mask[v] = 1;
   }
 
   // ------------------------------------------------------- FTL + GC
-  __device__ long long collect(long long now) {
-    const long long nb = arg(A_NUM_BLOCKS), ppb = arg(A_PPB);
+  __device__ long long collect(long long now_) {
     // greedy victim: fewest valid pages among blocks that are neither the
     // write block nor free, ties to the lowest block id
-    MinIdx m{0, -1};
-    int any = 0;
-    for (int b = lane_id(); b < nb; b += kLanes) {
-      const bool cand = b != s[S_WPB] && !p.free_mask[b];
-      any |= cand;
-      const long long score = cand ? p.valid[b] : kInt32Max;
-      if (m.i < 0 || score < m.v) m = MinIdx{score, b};
+    long long best = kInt32Max + 1;
+    int victim = 0;
+    bool any_cand = false;
+    for (int b = 0; b < nb; ++b) {
+      const bool cand = b != wpb && !free_mask[b];
+      any_cand |= cand;
+      const long long score = cand ? valid[b] : kInt32Max;
+      if (score < best) {
+        best = score;
+        victim = b;
+      }
     }
-    m = warp_min_idx(m);
-    const bool any_cand = warp_sum(any) > 0;
-    const long long victim = m.i, base = victim * ppb;
-    long long t = now;
+    const long long base = static_cast<long long>(victim) * ppb;
+    long long t = now_;
     for (long long off = 0; off < ppb && any_cand; ++off) {
       const long long ppn = base + off;
-      const long long lpn = p.p2l[ppn];
+      const long long lpn = p2l[ppn];
       if (lpn < 0) continue;
       t = pal_read(t, ppn);
-      long long wpb = s[S_WPB], wpp = s[S_WPP];
-      if (wpp >= ppb) {
-        wpb = free_pop(true);
-        wpp = 0;
+      long long wb_ = wpb, wp_ = wpp;
+      if (wp_ >= ppb) {
+        wb_ = free_pop(true);
+        wp_ = 0;
       }
-      const long long new_ppn = wpb * ppb + wpp;
-      s[S_WPB] = wpb;
-      s[S_WPP] = wpp + 1;
+      const long long new_ppn = wb_ * ppb + wp_;
+      wpb = wb_;
+      wpp = wp_ + 1;
       t = pal_prog(t, new_ppn);
-      put(p.p2l + ppn, int32_t(kFree));
-      put(p.p2l + new_ppn, int32_t(lpn));
-      put(p.l2p + lpn, int32_t(new_ppn));
-      put(p.valid + new_ppn / ppb, p.valid[new_ppn / ppb] + 1);
-      put(p.valid + victim, p.valid[victim] - 1);
-      s[S_C_GW] += 1;
+      p2l[ppn] = static_cast<int32_t>(kFree);
+      p2l[new_ppn] = static_cast<int32_t>(lpn);
+      l2p[lpn] = static_cast<int32_t>(new_ppn);
+      valid[PPB.div(static_cast<uint32_t>(new_ppn))] += 1;
+      valid[victim] -= 1;
+      c_gw += 1;
     }
     if (any_cand) {
       t = pal_erase(t, base);
-      s[S_C_GE] += 1;
+      c_ge += 1;
       free_append(victim);
     }
     return t;
   }
 
   __device__ void ftl_invalidate(long long lpn) {
-    const long long old = p.l2p[lpn];
+    const long long old = l2p[lpn];
     if (old >= 0) {
-      const long long b = old / arg(A_PPB);
-      put(p.valid + b, p.valid[b] - 1);
-      put(p.p2l + old, int32_t(kFree));
+      valid[PPB.div(static_cast<uint32_t>(old))] -= 1;
+      p2l[old] = static_cast<int32_t>(kFree);
     }
   }
 
   // FTL._next_ppn; returns the ppn and sets *gc_done
   __device__ long long alloc_ppn(long long t, long long* gc_done) {
-    const long long ppb = arg(A_PPB);
-    const bool need = s[S_WPP] >= ppb;
+    const bool need = wpp >= ppb;
     *gc_done = t;
-    if (!arg(A_GC)) {
-      long long wpb = s[S_WPB], wpp = s[S_WPP];
+    if (!gc) {
       if (need) {
-        wpb = s[S_NFREE];
+        wpb = nfree;
         wpp = 0;
-        s[S_NFREE] += 1;
+        nfree += 1;
       }
-      s[S_WPB] = wpb;
-      s[S_WPP] = wpp + 1;
-      return wpb * ppb + wpp;
+      wpp += 1;
+      return wpb * ppb + wpp - 1;
     }
-    if (need && s[S_FQ_COUNT] <= arg(A_WATERMARK)) {
-      s[S_GCS] += 1;
+    if (need && fq_count <= watermark) {
+      gcs += 1;
       *gc_done = collect(t);
     }
     // `need` as taken before the collection, as in the reference
     const long long v = free_pop(need);
-    const long long wpb = need ? v : s[S_WPB];
-    const long long wpp = need ? 0 : s[S_WPP];
-    s[S_WPB] = wpb;
-    s[S_WPP] = wpp + 1;
-    return wpb * ppb + wpp;
+    const long long b = need ? v : wpb;
+    const long long p = need ? 0 : wpp;
+    wpb = b;
+    wpp = p + 1;
+    return b * ppb + p;
   }
 
   __device__ long long hil_write(long long t, long long lpn) {
-    s[S_C_HW] += 1;
-    if (arg(A_GC)) ftl_invalidate(lpn);
+    SCAN_PHASE(P_MISS);
+    c_hw += 1;
+    if (gc) ftl_invalidate(lpn);
     long long t1;
-    const long long ppn = alloc_ppn(t + arg(A_HIL_OV), &t1);
-    put(p.l2p + lpn, int32_t(ppn));
-    if (arg(A_GC)) {
-      const long long b = ppn / arg(A_PPB);
-      put(p.p2l + ppn, int32_t(lpn));
-      put(p.valid + b, p.valid[b] + 1);
+    const long long ppn = alloc_ppn(t + hil_ov, &t1);
+    l2p[lpn] = static_cast<int32_t>(ppn);
+    if (gc) {
+      p2l[ppn] = static_cast<int32_t>(lpn);
+      valid[PPB.div(static_cast<uint32_t>(ppn))] += 1;
     }
-    return pal_prog(t1, ppn);
+    const long long done = pal_prog(t1, ppn);
+    SCAN_PHASE_DEP(P_FLASH, done);
+    return done;
   }
 
   __device__ long long hil_read(long long t, long long ppn) {
-    s[S_C_HR] += 1;
-    return pal_read(t + arg(A_HIL_OV), ppn);
+    SCAN_PHASE(P_MISS);
+    c_hr += 1;
+    const long long done = pal_read(t + hil_ov, ppn);
+    SCAN_PHASE_DEP(P_FLASH, done);
+    return done;
+  }
+
+  // ------------------------------------------------------------ MSHR
+  // Free every MSHR entry ready by `tick` (pages -1, ticks kBig), block by
+  // block: four 16-byte loads of ticks, a mask, the stores.  Sets mmin to
+  // the smallest tick left (kBig when none; the pads hold kBig) and
+  // returns the lowest slot freed (-1 if none).
+  __device__ __forceinline__ int expire(long long tick) {
+    int first = -1;
+    long long left = kBig;
+#pragma unroll 1
+    for (int i0 = 0; i0 < nm8; i0 += kBlock) {
+      long long r[kBlock];
+      load_block(mready + i0, r);
+      unsigned kill = 0;
+      long long keep[kBlock];
+#pragma unroll
+      for (int u = 0; u < kBlock; ++u) {
+        const bool k = r[u] <= tick && i0 + u < nm;
+        kill |= static_cast<unsigned>(k) << u;
+        keep[u] = k ? kBig : r[u];
+      }
+      // the survivors' minimum as a tree of independent mins
+#pragma unroll
+      for (int w = kBlock / 2; w; w /= 2) {
+#pragma unroll
+        for (int u = 0; u < w; ++u) keep[u] = min64(keep[u], keep[u + w]);
+      }
+      left = min64(left, keep[0]);
+#pragma unroll
+      for (int u = 0; u < kBlock; ++u) {
+        if ((kill >> u) & 1) {
+          mpage[i0 + u] = -1;
+          mready[i0 + u] = kBig;
+        }
+      }
+      if (first < 0 && kill) first = i0 + __ffs(kill) - 1;
+    }
+    mmin = left;
+    return first;
+  }
+
+  // ------------------------------------------- frames: map and list
+  // Move frame f (valid) to the tail of the recency list.
+  __device__ __forceinline__ void to_tail(int f) {
+    if (f == tail) return;
+    const int2 lk = links[f];           // lk.y >= 0: f is not the tail
+    if (lk.x >= 0) links[lk.x].y = lk.y;
+    else head = lk.y;
+    links[lk.y].x = lk.x;
+    links[f] = make_int2(tail, -1);
+    links[tail].y = f;
+    tail = f;
+  }
+
+  // The victim of a fully associative miss: the first free frame while
+  // any is, then the list's head (LRU) or the round-robin pointer (FIFO).
+  __device__ __forceinline__ int victim() const {
+    return fill < nf ? fill : lru ? head : fill - nf;
+  }
+
+  // Frame v takes `page` on a miss; `vval` is its old packed word.
+  __device__ __forceinline__ void insert(int v, long long vval,
+                                         long long page) {
+    if (vval >= 0) where[(vval & kPageField) >> 1] = -1;
+    where[page] = v;
+    if (lru) {
+      if (fill < nf) {
+        links[v] = make_int2(tail, -1);
+        if (tail >= 0) links[tail].y = v;
+        else head = v;
+        tail = v;
+        fill += 1;
+      } else {
+        to_tail(v);
+      }
+    } else {
+      fill = fill + 1 == 2 * nf ? nf : fill + 1;
+    }
   }
 
   // ---------------------------------------------------------- media
   // Each returns the completion tick and sets the event bits of `flags`:
   // 0 hit, 1 dirty evict, then FLAG_EVENT_BITS (metrics.py) of its kind.
-  __device__ long long dram_step(long long t, bool posted) {
-    const long long occ_done = max64(t, s[S_BUSY]) + arg(A_OCC);
-    s[S_BUSY] = occ_done;
-    return occ_done + (posted ? arg(A_PACK) : arg(A_LOAD));
+  __device__ __forceinline__ long long dram_step(long long t, bool posted) {
+    const long long occ_done = max64(t, busy) + occ;
+    busy = occ_done;
+    return occ_done + (posted ? pack : load);
   }
 
-  __device__ long long pmem_step(long long t, long long addr, bool wr,
-                                 bool posted, int* flags) {
-    const long long row = addr / arg(A_ROW_BYTES);
-    const bool row_hit = row == s[S_ROW];
-    const long long occ_done = max64(t, s[S_BUSY]) + arg(A_OCC);
-    s[S_BUSY] = occ_done;
-    s[S_ROW] = row;
+  __device__ __forceinline__ long long pmem_step(long long t, long long row_,
+                                                 bool wr, bool posted,
+                                                 int* flags) {
+    const bool row_hit = row_ == row;
+    const long long occ_done = max64(t, busy) + occ;
+    busy = occ_done;
+    row = row_;
     *flags = row_hit ? 1 : 0;
-    const long long lat = arg(A_LAT_R_MISS + 2 * int(wr) + int(row_hit));
-    return occ_done + (posted ? arg(A_PACK) : lat);
+    const long long lat = wr ? (row_hit ? lat_wh : lat_wm)
+                             : (row_hit ? lat_rh : lat_rm);
+    return occ_done + (posted ? pack : lat);
   }
 
-  // One pass over the packed frames: the first frame holding `pfield`
-  // (n if none) and the argmin frame.
-  __device__ void scan_frames(const long long* frames, int n, long long pfield,
-                              int* fidx, MinIdx* vic) const {
-    int first = n;
-    MinIdx m{0, -1};
-    for (int i = lane_id(); i < n; i += kLanes) {
-      const long long x = frames[i];
-      if (first == n && x >= 0 && (x & kPageField) == pfield) first = i;
-      if (m.i < 0 || x < m.v) m = MinIdx{x, i};
-    }
-    *fidx = warp_first(first);
-    *vic = warp_min_idx(m);
-  }
-
-  __device__ long long buf_step(long long* frames, long long t, long long addr,
-                                bool wr, long long ctr, int* flags) {
-    const int n = int(arg(A_BUF));
-    const long long page = addr / arg(A_PAGE_BYTES);
+  __device__ __forceinline__ long long buf_step(long long t, long long page,
+                                                bool wr, long long ctr,
+                                                long long early_ppn,
+                                                int* flags) {
     const long long pfield = page << 1;
-    int fidx;
-    MinIdx vic;
-    scan_frames(frames, n, pfield, &fidx, &vic);
-    long long done0 = t;
-    if (fidx < n) {                                       // hit
-      const long long old = frames[fidx];
-      put(frames + fidx,
-          (ctr << kStampShift) | pfield | ((old & 1) | (long long)wr));
+    const int f = where[page];
+    const int v = victim();
+    const long long vval = frames[v];
+    SCAN_PHASE_DEP(P_FRAMES, f + vval);
+    if (f >= 0) {                                        // hit
+      const long long old = frames[f];
+      frames[f] = (ctr << kStampShift) | pfield | ((old & 1) | (long long)wr);
+      to_tail(f);
       *flags = 1;
-      return done0 + arg(A_INTERNAL);
+      return t + internal;
     }
-    const long long vval = vic.v;
     const bool flushed = vval >= 0 && (vval & 1) > 0;
-    const long long ppn = p.l2p[page];
-    const bool filled = ppn >= 0;
-    if (filled) done0 = hil_read(t, ppn);
+    const bool filled = early_ppn >= 0;
+    long long done0 = t;
+    if (filled) done0 = hil_read(t, early_ppn);
     if (flushed) hil_write(done0, (vval & kPageField) >> 1);
-    put(frames + vic.i, (ctr << kStampShift) | pfield | (long long)wr);
+    frames[v] = (ctr << kStampShift) | pfield | (long long)wr;
+    insert(v, vval, page);
+    SCAN_PHASE(P_MISS);
     *flags = (flushed ? 2 : 0) | (filled ? 4 : 0);
-    return done0 + arg(A_INTERNAL);
+    return done0 + internal;
   }
 
-  __device__ long long cache_step(long long* frames, long long* mpage,
-                                  long long* mready, long long* wtick,
-                                  long long t, long long addr, bool wr,
-                                  bool posted, long long ctr, int* flags) {
-    const int nf = int(arg(A_FRAMES)), nm = int(arg(A_MSHR));
-    const int nw = int(arg(A_WB));
-    const long long page = addr / arg(A_PAGE_BYTES);
+  __device__ __forceinline__ long long cache_step(long long t,
+                                                  long long page, int set,
+                                                  bool wr, bool posted,
+                                                  long long ctr,
+                                                  long long early_ppn,
+                                                  int* flags) {
     const long long pfield = page << 1;
+    const int page32 = static_cast<int>(page);    // pages lie below num_pages
 
-    // MSHR lookup: an unmatched lookup reads slot 0, as jnp.argmax does
-    int m_idx = warp_find(mpage, nm, page);
+    // MSHR lookup, the first match (an unmatched lookup reads slot 0, as
+    // jnp.argmax does), with the occupancy and the first free slot (the
+    // insert's argmin(mpage): pages are >= 0, a free slot -1) in the same
+    // pass: a block is eight int32 pages, two 16-byte loads, bit masks; the
+    // pads hold page -1
+    int m_idx = nm, used = 0, mslot = -1;
+#pragma unroll 1
+    for (int i0 = 0; i0 < nm8; i0 += kBlock) {
+      const int4 lo = *reinterpret_cast<const int4*>(mpage + i0);
+      const int4 hi = *reinterpret_cast<const int4*>(mpage + i0 + 4);
+      const int v[kBlock] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      unsigned hits = 0, frees = 0;
+#pragma unroll
+      for (int u = 0; u < kBlock; ++u) {
+        hits |= static_cast<unsigned>(v[u] == page32) << u;
+        frees |= static_cast<unsigned>(v[u] < 0) << u;
+      }
+      const unsigned real =
+          nm - i0 >= kBlock ? (1u << kBlock) - 1 : (1u << (nm - i0)) - 1;
+      used += __popc(real & ~frees);
+      if (m_idx == nm && (hits & real)) m_idx = i0 + __ffs(hits & real) - 1;
+      if (mslot < 0 && (frees & real)) mslot = i0 + __ffs(frees & real) - 1;
+    }
     const bool m_exists = m_idx < nm;
     if (!m_exists) m_idx = 0;
     const long long m_ready = mready[m_idx];
     const bool coalesce = m_exists && m_ready > t;
+    SCAN_PHASE_DEP(P_MSHR, m_ready);
 
-    // residency (and, in the same pass, the LRU/FIFO victim)
-    int fidx;
-    MinIdx vic{0, -1};
+    // residency and the victim
+    int fidx, vic;
     bool resident;
-    if (arg(A_ASSOC)) {
-      scan_frames(frames, nf, pfield, &fidx, &vic);
-      resident = fidx < nf;
-      if (!resident) fidx = 0;
+    if (assoc) {
+      const int f = where[page];
+      resident = f >= 0;
+      fidx = resident ? f : 0;
+      vic = victim();
     } else {
-      fidx = int(page % arg(A_CAP));
+      fidx = set;
       const long long fv = frames[fidx];
       resident = fv >= 0 && (fv & kPageField) == pfield;
-      vic = MinIdx{fv, fidx};
+      vic = fidx;
     }
+    const long long old = frames[fidx];
+    const long long vval = frames[vic];
     const bool hit = !coalesce && resident;
     const bool miss = !coalesce && !resident;
-    const long long old = frames[fidx];
-    const long long dram_busy = s[S_DRAM_BUSY];
-    const long long xdone = max64(t, dram_busy) + arg(A_LINE_XFER);
+    const long long xdone = max64(t, dram_busy) + line_xfer;
+    SCAN_PHASE_DEP(P_FRAMES, old + vval);
 
     long long start2 = t, fill_done = t;
     bool do_wb = false, stalled = false, evicted = false;
     if (miss) {
-      // MSHR allocate (stall if the table is full)
-      long long used = 0;
-      for (int i = lane_id(); i < nm; i += kLanes) used += mpage[i] >= 0;
-      stalled = warp_sum(used) >= nm;
+      // MSHR allocate: a full table stalls until its earliest fill (mmin),
+      // which frees every slot ready by then; the insert takes the lowest
+      stalled = used >= nm;
       long long start1 = t;
       if (stalled) {
-        const long long vic_ready = warp_argmin(mready, nm).v;
+        const long long vic_ready = mmin;
         start1 = max64(t, vic_ready);
-        for (int i = lane_id(); i < nm; i += kLanes) {
-          if (mready[i] <= vic_ready) {
-            mpage[i] = kFree;
-            mready[i] = kBig;
-          }
-        }
-        warp_sync();
+        mslot = expire(vic_ready);
       }
-      const long long vval = vic.v;
       evicted = vval >= 0;
       do_wb = evicted && (vval & 1) > 0;
       long long stall = start1;
       if (do_wb) {
         // writeback queue: reap, stall on the earliest drain if full
-        long long alive = 0, wmin = kBig;
-        for (int i = lane_id(); i < nw; i += kLanes) {
-          const long long w = wtick[i];
-          if (w <= start1) {
-            wtick[i] = kFree;
-          } else {
-            alive += 1;
-            wmin = min64(wmin, w);
+        int alive = 0;
+        long long wmin = kBig;
+#pragma unroll 1
+        for (int i0 = 0; i0 < nw8; i0 += kBlock) {
+          long long w[kBlock];
+          load_block(wtick + i0, w);
+#pragma unroll
+          for (int u = 0; u < kBlock; ++u) {
+            const bool real = i0 + u < nw, dead = w[u] <= start1;
+            if (real && dead) wtick[i0 + u] = kFree;
+            alive += real && !dead;
+            wmin = real && !dead ? min64(wmin, w[u]) : wmin;
           }
         }
-        warp_sync();
-        alive = warp_sum(alive);
-        for (int off = kLanes / 2; off; off >>= 1)
-          wmin = min64(wmin, shfl_xor(wmin, off));
         if (alive >= nw) {
           stall = wmin;
-          for (int i = lane_id(); i < nw; i += kLanes) {
+#pragma unroll 1
+          for (int i = 0; i < nw; ++i) {
             if (wtick[i] <= stall) wtick[i] = kFree;
           }
-          warp_sync();
         }
         const long long wdone = hil_write(stall, (vval & kPageField) >> 1);
-        put(wtick + warp_argmin(wtick, nw).i, wdone);
+        int slot = 0;
+        long long wbest = kBig;
+#pragma unroll 1
+        for (int i0 = nw8 - kBlock; i0 >= 0; i0 -= kBlock) {
+          long long w[kBlock];
+          load_block(wtick + i0, w);
+#pragma unroll
+          for (int u = kBlock - 1; u >= 0; --u) {
+            const bool take = i0 + u < nw && w[u] <= wbest;
+            wbest = take ? w[u] : wbest;
+            slot = take ? i0 + u : slot;
+          }
+        }
+        wtick[slot] = wdone;
         start2 = max64(start1, stall);
       } else {
         start2 = start1;
       }
-      // fill from flash (virgin pages skip the read), then cache-DRAM
-      const long long ppn = p.l2p[page];
+      // fill from flash (virgin pages skip the read), then cache-DRAM; a
+      // GC in the writeback may have moved this page
+      const long long ppn = do_wb && gc ? static_cast<long long>(l2p[page])
+                                        : early_ppn;
       const long long flash_done = ppn >= 0 ? hil_read(start2, ppn) : start2;
-      fill_done = max64(flash_done, dram_busy) + arg(A_PAGE_XFER);
+      fill_done = max64(flash_done, dram_busy) + page_xfer;
       // MSHR insert (an existing key is overwritten), then expiry
-      const int slot = m_exists ? m_idx : warp_argmin(mpage, nm).i;
-      put(mpage + slot, page);
-      put(mready + slot, fill_done);
-      for (int i = lane_id(); i < nm; i += kLanes) {
-        if (mready[i] <= t) {
-          mpage[i] = kFree;
-          mready[i] = kBig;
-        }
-      }
-      warp_sync();
-      put(frames + vic.i, (ctr << kStampShift) | pfield | (long long)wr);
+      const int slot = m_exists ? m_idx : mslot;
+      mpage[slot] = page32;
+      mready[slot] = fill_done;
+      mmin = min64(mmin, fill_done);
+      // nothing expires while the earliest fill is after t (mmin stays the
+      // table's minimum: an overwritten entry was ready by t, so then the
+      // pass runs and takes the minimum anew)
+      if (mmin <= t) expire(t);
+      frames[vic] = (ctr << kStampShift) | pfield | (long long)wr;
+      if (assoc) insert(vic, vval, page);
+      SCAN_PHASE(P_MISS);
     } else if ((coalesce && wr && resident) || hit) {
       // touch: LRU restamps, FIFO keeps the insertion stamp
-      const long long stamp =
-          arg(A_IS_LRU) ? (ctr << kStampShift) : (old & kStampField);
-      put(frames + fidx, stamp | pfield | ((old & 1) | (long long)wr));
+      const long long stamp = lru ? (ctr << kStampShift) : (old & kStampField);
+      frames[fidx] = stamp | pfield | ((old & 1) | (long long)wr);
+      if (assoc && lru) to_tail(fidx);
     }
 
-    if (hit) s[S_DRAM_BUSY] = xdone;
-    else if (miss) s[S_DRAM_BUSY] = fill_done;
-    const long long hit_lat = arg(A_HIT_LAT);
+    if (hit) dram_busy = xdone;
+    else if (miss) dram_busy = fill_done;
     long long ret;
     if (coalesce) {
       ret = wr ? t + hit_lat : m_ready + hit_lat;
     } else if (hit) {
-      ret = wr ? (posted ? t + arg(A_PACK10) : t + hit_lat)
+      ret = wr ? (posted ? t + pack10 : t + hit_lat)
                : max64(xdone, t + hit_lat);
     } else {
       ret = wr ? start2 + hit_lat : fill_done + hit_lat;
@@ -599,121 +754,418 @@ struct Replay {
              (coalesce ? 8 : 0) | (stalled ? 16 : 0) | (evicted ? 32 : 0);
     return max64(t, ret);
   }
+
+  // ---------------------------------------------------- LFB and ports
+  // Slot k (the winner) now holds `done`: replay its leaf-to-root path,
+  // one compare a level (a sibling on the left, of lower slots, wins a
+  // tie: it wins when its tick, less one if it is on the left, is below
+  // the path's).  Each level loads the next level's sibling before its own
+  // store, into the other of two registers (the loop is unrolled by two,
+  // so no copy waits on the load); past the root that is node 0, which no
+  // level uses.
+  __device__ __forceinline__ void lfb_commit(long long done) {
+    int node = leaves + static_cast<int>(win.y);
+    longlong2 cur = make_longlong2(done, win.y);
+    longlong2 a = tree[node ^ 1];
+    tree[node] = cur;
+#pragma unroll 1
+    for (int l = 0; l < depth; l += 2) {
+      const longlong2 b = tree[(node >> 1) ^ 1];
+      if (a.x - (node & 1) < cur.x) cur = a;
+      node >>= 1;
+      tree[node] = cur;
+      if (l + 1 == depth) break;
+      a = tree[(node >> 1) ^ 1];
+      if (b.x - (node & 1) < cur.x) cur = b;
+      node >>= 1;
+      tree[node] = cur;
+    }
+    win = cur;
+  }
+
+  // Each hop's loads go before its stores (the compiler cannot tell the
+  // tables apart), so they overlap.
+  __device__ __forceinline__ long long hops(long long t, int route) {
+    const long long row_ = ecmp ? static_cast<long long>(route) * H : 0;
+#pragma unroll 1
+    for (int h = 0; h < H; ++h) {
+      const long long pi = ecmp ? hop_port[row_ + h] : h;
+      const long long occ_h = hop_occ[row_ + h], after_h = hop_after[row_ + h];
+      const long long b = pb[pi], q = qos[pi], acc = qacc[pi], thr = qthr[pi];
+      const long long st = max64(t, b);
+      qthr[pi] = thr + (q && b > t ? 1 : 0);
+      qacc[pi] = acc + (st - t);
+      const long long done = st + occ_h;
+      pb[pi] = done;
+      t = done + after_h;
+    }
+    return t + rt_extra;
+  }
+
+  // ------------------------------------------------------- the walk
+  // Thread 0 replays the m staged accesses of a chunk whose first has
+  // index `base`.  In: key (PMEM row, buffer / cache page), aux (write |
+  // route << 1) and the direct-mapped frame; out: issue, done, flags.
+  template <int KIND>
+  __device__ void walk(int m, long long base, const long long* in_key,
+                       const int32_t* in_aux, const int32_t* in_set,
+                       long long* o_issue, long long* o_done,
+                       int32_t* o_flags) {
+    constexpr bool kFlash = KIND == kSsdBuf || KIND == kSsdCache;
+    // each access loads the next one's input, and for the flash its
+    // l2p[page] (after its own stores, before the next one's)
+    long long key = in_key[0];
+    int32_t aux = in_aux[0];
+    int set = in_set[0];
+    long long early_ppn = kFlash ? l2p[key] : 0;
+    for (int j = 0; j < m; ++j) {
+      const bool wr = (aux & 1) != 0;
+      SCAN_PHASE_DEP(P_LOAD, key + aux + early_ppn);
+      const long long issue = max64(now, win.x);
+      const bool posted = wr && posted_writes;
+      const long long t = hops(issue, aux >> 1);
+      SCAN_PHASE_DEP(P_HOPS, t);
+      const long long ctr = base + j + 1;          // stamp counter: 1, 2, ...
+      int flags = 0;
+      long long done;
+      if (KIND == kDram) {
+        done = dram_step(t, posted);
+      } else if (KIND == kPmem) {
+        done = pmem_step(t, key, wr, posted, &flags);
+      } else if (KIND == kSsdBuf) {
+        done = buf_step(t, key, wr, ctr, early_ppn, &flags);
+      } else {
+        done = cache_step(t, key, set, wr, posted, ctr, early_ppn,
+                          &flags);
+      }
+      o_issue[j] = issue;
+      o_done[j] = done;
+      o_flags[j] = flags;
+      now = issue + issue_ov;
+      if (j + 1 < m) {
+        key = in_key[j + 1];
+        aux = in_aux[j + 1];
+        set = in_set[j + 1];
+        if (kFlash) early_ppn = l2p[key];
+      }
+      SCAN_PHASE(P_COMMIT);
+      lfb_commit(done);
+      SCAN_PHASE_DEP(P_LFB, win.x);
+    }
+  }
 };
 
-// Shared-memory layout (int64 words): LFB slots, port busy-untils, qacc,
-// qthr, then the MSHR pages and ready ticks and the writeback ticks, then
-// the frames when they fit.
-__device__ void replay(const Args& args, const Ptrs& ptrs, long long* sm) {
-  Replay r;
-  r.a = args.v;
-  r.p = ptrs;
+// The block: prologue, the chunks, epilogue.
+template <int KIND>
+__device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
+                       char* sm) {
   const long long* a = args.v;
-  const int K = int(a[A_OUTSTANDING]), P = int(a[A_PORTS]);
-  const int H = int(a[A_HOPS]);
-  const int nm = int(a[A_MSHR]), nw = int(a[A_WB]);
-  const int nf = int(a[A_KIND] == kSsdBuf ? a[A_BUF] : a[A_FRAMES]);
+  const long long* L = lay.v;
+  const int tid = thread_id();
+  const int K = static_cast<int>(a[A_OUTSTANDING]);
+  const int P = static_cast<int>(a[A_PORTS]);
+  const int H = static_cast<int>(a[A_HOPS]);
+  const int R = static_cast<int>(a[A_ROUTES]);
+  const int nm = static_cast<int>(a[A_MSHR]), nw = static_cast<int>(a[A_WB]);
+  // the tables padded to whole blocks: free pads (page -1, ready kBig)
+  const int nm8 = (nm + kBlock - 1) / kBlock * kBlock;
+  const int nw8 = (nw + kBlock - 1) / kBlock * kBlock;
+  const int nf = static_cast<int>(KIND == kSsdBuf ? a[A_BUF] : a[A_FRAMES]);
+  const int dies = static_cast<int>(a[A_CHANNELS] * a[A_DIES]);
+  const int chans = static_cast<int>(a[A_CHANNELS]);
+  const int nb = static_cast<int>(a[A_NUM_BLOCKS]);
+  const long long num_pages = a[A_NUM_PAGES];
   const long long n = a[A_N], start = a[A_START];
-  const int kind = int(a[A_KIND]);
-  const int lane = lane_id();
+  const int chunk = static_cast<int>(L[L_CHUNK]);
+  const long long leaves = L[L_LEAVES];
+  constexpr bool kFlash = KIND == kSsdBuf || KIND == kSsdCache;
+  const bool assoc = KIND == kSsdBuf || (KIND == kSsdCache && a[A_ASSOC]);
+  const bool gc = kFlash && a[A_GC];
 
-  long long* slots = sm;
-  long long* pb = slots + K;
-  long long* qacc = pb + P;
-  long long* qthr = qacc + P;
-  long long* mpage = qthr + P;
-  long long* mready = mpage + nm;
-  long long* wtick = mready + nm;
-  long long* frames = ptrs.frames;
-  if (a[A_FRAMES_IN_SMEM]) frames = wtick + nw;
+  Chain c;
+  c.tree = reinterpret_cast<longlong2*>(sm + L[L_TREE]);
+  c.pb = reinterpret_cast<long long*>(sm + L[L_PB]);
+  c.qacc = reinterpret_cast<long long*>(sm + L[L_QACC]);
+  c.qthr = reinterpret_cast<long long*>(sm + L[L_QTHR]);
+  long long* tables = reinterpret_cast<long long*>(sm + L[L_TABLES]);
+  c.hop_port = tables;
+  c.hop_occ = tables + R * H;
+  c.hop_after = tables + 2 * R * H;
+  c.qos = tables + 3 * R * H;
+  c.mpage = reinterpret_cast<int32_t*>(sm + L[L_MPAGE]);
+  c.mready = reinterpret_cast<long long*>(sm + L[L_MREADY]);
+  c.wtick = reinterpret_cast<long long*>(sm + L[L_WTICK]);
+  c.die_busy = reinterpret_cast<long long*>(sm + L[L_DIE_BUSY]);
+  c.die_prog = reinterpret_cast<long long*>(sm + L[L_DIE_PROG]);
+  c.chan_busy = reinterpret_cast<long long*>(sm + L[L_CHAN_BUSY]);
+  c.where = placed(sm, L[L_WHERE], reinterpret_cast<int32_t*>(
+                                       ptrs.scratch - 1 - L[L_WHERE]));
+  c.frames = placed(sm, L[L_FRAMES], ptrs.frames);
+  c.links = placed(sm, L[L_LINKS], reinterpret_cast<int2*>(
+                                       ptrs.scratch - 1 - L[L_LINKS]));
+  c.l2p = placed(sm, L[L_L2P], ptrs.l2p);
+  c.valid = placed(sm, L[L_VALID], ptrs.valid);
+  c.free_mask = placed(sm, L[L_FREE_MASK], ptrs.free_mask);
+  c.free_q = placed(sm, L[L_FREE_Q], ptrs.free_q);
+  c.p2l = placed(sm, L[L_P2L], ptrs.p2l);
 
-  // prologue (engine.py::_init_carry): LFB slots at start, ports idle
-  for (int i = lane; i < K; i += kLanes) slots[i] = start;
-  for (int i = lane; i < P; i += kLanes) pb[i] = qacc[i] = qthr[i] = 0;
-  for (int i = lane; i < nm; i += kLanes) {
-    mpage[i] = ptrs.mpage[i];
-    mready[i] = ptrs.mready[i];
-  }
-  for (int i = lane; i < nw; i += kLanes) wtick[i] = ptrs.wtick[i];
-  if (a[A_FRAMES_IN_SMEM]) {
-    for (int i = lane; i < nf; i += kLanes) frames[i] = ptrs.frames[i];
-  }
-  for (int k = 0; k < kNumScalars; ++k) r.s[k] = ptrs.scal[k];
-  warp_sync();
-
-  const long long* hop_port = ptrs.tables;
-  const long long* hop_occ = hop_port + a[A_ROUTES] * H;
-  const long long* hop_after = hop_occ + a[A_ROUTES] * H;
-  const long long* qos = hop_after + a[A_ROUTES] * H;
-  const bool ecmp = a[A_ROUTES] > 1;
-
-  long long now = start;
-  for (long long i = 0; i < n; ++i) {
-    const long long addr = ptrs.addrs[i];
-    const bool wr = ptrs.writes[i] != 0;
-    const MinIdx k = warp_argmin(slots, K);
-    const long long issue = max64(now, k.v);
-    const bool posted = wr && a[A_POSTED];
-    // transport: hop h of the route occupies port hop_port[route, h]
-    long long t = issue;
-    const long long row = ecmp ? (long long)ptrs.routes[i] * H : 0;
-    for (int h = 0; h < H; ++h) {
-      const long long pi = hop_port[row + h];
-      const long long busy = pb[pi];
-      if (qos[pi] && busy > t) put(qthr + pi, qthr[pi] + 1);
-      const long long st = max64(t, busy);
-      put(qacc + pi, qacc[pi] + (st - t));
-      const long long done = st + hop_occ[row + h];
-      put(pb + pi, done);
-      t = done + hop_after[row + h];
+  // prologue (engine.py::_init_carry): LFB slots at start, ports idle;
+  // the tables and the placed state copied in, the map emptied
+  const long long T = R * H;
+  const long long ppb = a[A_PPB];
+  for (long long i = tid; i < 2 * leaves; i += kThreads) {
+    if (i == 0) {                // past the root: read, never used
+      c.tree[0] = make_longlong2(kBig, 0);
+      continue;
     }
-    t += a[A_RT_EXTRA];
-    const long long ctr = i + 1;          // stamp counter: 1, 2, ...
-    int flags = 0;
-    long long done;
-    switch (kind) {
-      case kDram: done = r.dram_step(t, posted); break;
-      case kPmem: done = r.pmem_step(t, addr, wr, posted, &flags); break;
-      case kSsdBuf:
-        done = r.buf_step(frames, t, addr, wr, ctr, &flags);
-        break;
-      default:
-        done = r.cache_step(frames, mpage, mready, wtick, t, addr, wr, posted,
-                            ctr, &flags);
-        break;
-    }
-    if (lane == 0) {
-      ptrs.issues[i] = issue;
-      ptrs.dones[i] = done;
-      ptrs.flags[i] = flags;
-    }
-    put(slots + k.i, done);
-    now = issue + a[A_ISSUE_OV];
+    // node i covers the leaves from its leftmost one, lo; every real slot
+    // starts at `start`, so its winner is lo when lo is a real slot
+    long long lo = i;
+    while (lo < leaves) lo <<= 1;
+    lo -= leaves;
+    c.tree[i] = make_longlong2(lo < K ? start : kBig, lo);
+  }
+  for (int i = tid; i < P; i += kThreads) c.pb[i] = c.qacc[i] = c.qthr[i] = 0;
+  for (long long i = tid; i < 3 * T + P; i += kThreads)
+    tables[i] = ptrs.tables[i];
+  for (int i = tid; i < nm8; i += kThreads) {
+    c.mpage[i] = i < nm ? static_cast<int32_t>(ptrs.mpage[i]) : -1;
+    c.mready[i] = i < nm ? ptrs.mready[i] : kBig;
+  }
+  for (int i = tid; i < nw8; i += kThreads)
+    c.wtick[i] = i < nw ? ptrs.wtick[i] : kFree;
+  for (int i = tid; i < dies; i += kThreads) {
+    c.die_busy[i] = ptrs.die_busy[i];
+    c.die_prog[i] = ptrs.die_prog[i];
+  }
+  for (int i = tid; i < chans; i += kThreads)
+    c.chan_busy[i] = ptrs.chan_busy[i];
+  if (assoc) {
+    for (long long i = tid; i < num_pages; i += kThreads) c.where[i] = -1;
+  }
+  if (KIND == kSsdCache || assoc) {
+    if (L[L_FRAMES] >= 0)
+      for (int i = tid; i < nf; i += kThreads) c.frames[i] = ptrs.frames[i];
+  }
+  if (kFlash) {
+    if (L[L_L2P] >= 0)
+      for (long long i = tid; i < num_pages; i += kThreads)
+        c.l2p[i] = ptrs.l2p[i];
+  }
+  if (gc) {
+    if (L[L_VALID] >= 0)
+      for (int i = tid; i < nb; i += kThreads) c.valid[i] = ptrs.valid[i];
+    if (L[L_FREE_MASK] >= 0)
+      for (int i = tid; i < nb; i += kThreads)
+        c.free_mask[i] = ptrs.free_mask[i];
+    if (L[L_FREE_Q] >= 0)
+      for (int i = tid; i < nb; i += kThreads) c.free_q[i] = ptrs.free_q[i];
+    if (L[L_P2L] >= 0)
+      for (long long i = tid; i < nb * ppb; i += kThreads)
+        c.p2l[i] = ptrs.p2l[i];
   }
 
-  // epilogue: totals, scalars and the shared-memory state back out
-  for (int i = lane; i < P; i += kLanes) {
-    ptrs.totals[i] = qacc[i];
-    ptrs.totals[P + i] = qthr[i];
+  // thread 0's registers
+  if (tid == 0) {
+    c.H = H;
+    c.nf = nf;
+    c.nm = nm;
+    c.nw = nw;
+    c.nm8 = nm8;
+    c.nw8 = nw8;
+    c.nb = nb;
+    c.leaves = static_cast<int>(leaves);
+    int depth = 0;
+    while ((1LL << depth) < leaves) ++depth;
+    c.depth = depth;
+    c.ecmp = R > 1;
+    c.posted_writes = a[A_POSTED] != 0;
+    c.assoc = assoc;
+    c.lru = KIND == kSsdBuf || a[A_IS_LRU] != 0;
+    c.gc = gc;
+    c.issue_ov = a[A_ISSUE_OV];
+    c.rt_extra = a[A_RT_EXTRA];
+    c.occ = a[A_OCC];
+    c.load = a[A_LOAD];
+    c.pack = a[A_PACK];
+    c.lat_rm = a[A_LAT_R_MISS];
+    c.lat_rh = a[A_LAT_R_HIT];
+    c.lat_wm = a[A_LAT_W_MISS];
+    c.lat_wh = a[A_LAT_W_HIT];
+    c.hil_ov = a[A_HIL_OV];
+    c.xfer_page = a[A_XFER_PAGE];
+    c.read_t = a[A_READ_T];
+    c.prog_t = a[A_PROG_T];
+    c.sus_t = a[A_SUS_T];
+    c.erase_t = a[A_ERASE_T];
+    c.internal = a[A_INTERNAL];
+    c.hit_lat = a[A_HIT_LAT];
+    c.line_xfer = a[A_LINE_XFER];
+    c.page_xfer = a[A_PAGE_XFER];
+    c.pack10 = a[A_PACK10];
+    c.watermark = a[A_WATERMARK];
+    c.ppb = ppb;
+    c.C.set(a[A_CHANNELS]);
+    c.D.set(a[A_DIES]);
+    c.PPB.set(ppb);
+    const long long* s = ptrs.scal;
+    c.busy = s[S_BUSY];
+    c.row = s[S_ROW];
+    c.dram_busy = s[S_DRAM_BUSY];
+    c.wpb = s[S_WPB];
+    c.wpp = s[S_WPP];
+    c.nfree = s[S_NFREE];
+    c.fq_head = s[S_FQ_HEAD];
+    c.fq_count = s[S_FQ_COUNT];
+    c.gcs = s[S_GCS];
+    c.bad = s[S_BAD];
+    c.c_hr = s[S_C_HR];
+    c.c_hw = s[S_C_HW];
+    c.c_gw = s[S_C_GW];
+    c.c_ge = s[S_C_GE];
+    c.fill = 0;
+    c.head = c.tail = -1;
+    c.mmin = kBig;
+    for (int i = 0; i < nm; ++i) c.mmin = min64(c.mmin, ptrs.mready[i]);
+    c.win = make_longlong2(start, 0);
+    c.now = start;
   }
-  for (int i = lane; i < nm; i += kLanes) {
-    ptrs.mpage[i] = mpage[i];
-    ptrs.mready[i] = mready[i];
+
+  // the chunks, double buffered: while thread 0 walks chunk q from buffer
+  // q & 1, warps 1-3 stage chunk q + 1 into the other buffer and flush
+  // chunk q - 1 out of it
+  long long* in_key = reinterpret_cast<long long*>(sm + L[L_IN_KEY]);
+  int32_t* in_aux = reinterpret_cast<int32_t*>(sm + L[L_IN_AUX]);
+  int32_t* in_set = reinterpret_cast<int32_t*>(sm + L[L_IN_SET]);
+  long long* o_issue = reinterpret_cast<long long*>(sm + L[L_OUT_ISSUE]);
+  long long* o_done = reinterpret_cast<long long*>(sm + L[L_OUT_DONE]);
+  int32_t* o_flags = reinterpret_cast<int32_t*>(sm + L[L_OUT_FLAGS]);
+  const long long chunks = (n + chunk - 1) / chunk;
+  const long long page_bytes = a[A_PAGE_BYTES], row_bytes = a[A_ROW_BYTES];
+  const long long cap = a[A_CAP];
+  const bool direct = KIND == kSsdCache && !a[A_ASSOC];
+  auto span = [&](long long q) {
+    return static_cast<int>(min64(n - q * chunk, chunk));
+  };
+  auto stage = [&](long long q) {
+    const long long g = q * chunk;
+    const int m = span(q);
+    const int b = static_cast<int>(q & 1) * chunk;
+    for (int j = tid - 32; j < m; j += kStagers) {
+      const long long addr = ptrs.addrs[g + j];
+      long long key = 0;
+      if (KIND == kPmem) key = addr / row_bytes;
+      if (kFlash) key = addr / page_bytes;
+      in_key[b + j] = key;
+      in_aux[b + j] = (ptrs.writes[g + j] != 0 ? 1 : 0) |
+                      (ptrs.routes ? ptrs.routes[g + j] << 1 : 0);
+      in_set[b + j] = direct ? static_cast<int32_t>(key % cap) : 0;
+    }
+  };
+  auto flush = [&](long long q) {
+    const long long g = q * chunk;
+    const int m = span(q);
+    const int b = static_cast<int>(q & 1) * chunk;
+    for (int j = tid - 32; j < m; j += kStagers) {
+      ptrs.issues[g + j] = o_issue[b + j];
+      ptrs.dones[g + j] = o_done[b + j];
+      ptrs.flags[g + j] = o_flags[b + j];
+    }
+  };
+  if (tid >= 32) stage(0);
+  block_sync();
+  if (tid == 0) SCAN_PHASE_BEGIN();
+  for (long long q = 0; q < chunks; ++q) {
+    if (tid == 0) {
+      const int b = static_cast<int>(q & 1) * chunk;
+      c.walk<KIND>(span(q), q * chunk, in_key + b, in_aux + b, in_set + b,
+                   o_issue + b, o_done + b, o_flags + b);
+    } else if (tid >= 32) {
+      if (q + 1 < chunks) stage(q + 1);
+      if (q > 0) flush(q - 1);
+    }
+    block_sync();
   }
-  for (int i = lane; i < nw; i += kLanes) ptrs.wtick[i] = wtick[i];
-  if (a[A_FRAMES_IN_SMEM]) {
-    for (int i = lane; i < nf; i += kLanes) ptrs.frames[i] = frames[i];
+  if (tid == 0) SCAN_PHASE_END();
+
+  // epilogue: the last chunk's outputs, the totals, the scalars and the
+  // shared-memory state back out
+  if (tid >= 32) flush(chunks - 1);
+  for (int i = tid; i < P; i += kThreads) {
+    ptrs.totals[i] = c.qacc[i];
+    ptrs.totals[P + i] = c.qthr[i];
   }
-  if (lane == 0) {
-    for (int k = 0; k < kNumScalars; ++k) ptrs.scal[k] = r.s[k];
+  for (int i = tid; i < nm; i += kThreads) {
+    ptrs.mpage[i] = c.mpage[i];
+    ptrs.mready[i] = c.mready[i];
+  }
+  for (int i = tid; i < nw; i += kThreads) ptrs.wtick[i] = c.wtick[i];
+  for (int i = tid; i < dies; i += kThreads) {
+    ptrs.die_busy[i] = c.die_busy[i];
+    ptrs.die_prog[i] = c.die_prog[i];
+  }
+  for (int i = tid; i < chans; i += kThreads)
+    ptrs.chan_busy[i] = c.chan_busy[i];
+  if (KIND == kSsdCache || assoc) {
+    if (L[L_FRAMES] >= 0)
+      for (int i = tid; i < nf; i += kThreads) ptrs.frames[i] = c.frames[i];
+  }
+  if (kFlash) {
+    if (L[L_L2P] >= 0)
+      for (long long i = tid; i < num_pages; i += kThreads)
+        ptrs.l2p[i] = c.l2p[i];
+  }
+  if (gc) {
+    if (L[L_VALID] >= 0)
+      for (int i = tid; i < nb; i += kThreads) ptrs.valid[i] = c.valid[i];
+    if (L[L_FREE_MASK] >= 0)
+      for (int i = tid; i < nb; i += kThreads)
+        ptrs.free_mask[i] = c.free_mask[i];
+    if (L[L_FREE_Q] >= 0)
+      for (int i = tid; i < nb; i += kThreads) ptrs.free_q[i] = c.free_q[i];
+    if (L[L_P2L] >= 0)
+      for (long long i = tid; i < nb * ppb; i += kThreads)
+        ptrs.p2l[i] = c.p2l[i];
+  }
+  if (tid == 0) {
+    long long* s = ptrs.scal;
+    s[S_BUSY] = c.busy;
+    s[S_ROW] = c.row;
+    s[S_DRAM_BUSY] = c.dram_busy;
+    s[S_WPB] = c.wpb;
+    s[S_WPP] = c.wpp;
+    s[S_NFREE] = c.nfree;
+    s[S_FQ_HEAD] = c.fq_head;
+    s[S_FQ_COUNT] = c.fq_count;
+    s[S_GCS] = c.gcs;
+    s[S_BAD] = c.bad;
+    s[S_C_HR] = c.c_hr;
+    s[S_C_HW] = c.c_hw;
+    s[S_C_GW] = c.c_gw;
+    s[S_C_GE] = c.c_ge;
   }
 }
 
 #ifndef REPLAY_SCAN_EMULATE
-__global__ void __launch_bounds__(kLanes)
-replay_scan_kernel(const __grid_constant__ Args args, const Ptrs ptrs) {
-  extern __shared__ long long smem[];
-  replay(args, ptrs, smem);
+// One block of four warps an SM: the minimum of 1 lets ptxas give the
+// walking thread the registers it wants.
+template <int KIND>
+__global__ void __launch_bounds__(kThreads, 1)
+replay_scan_kernel(const __grid_constant__ Args args,
+                   const __grid_constant__ Layout lay, const Ptrs ptrs) {
+  extern __shared__ __align__(16) char smem[];
+  replay<KIND>(args, lay, ptrs, smem);
+}
+
+template <int KIND>
+int launch(const Args& a, const Layout& lay, const Ptrs& p, int smem_bytes,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      replay_scan_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  replay_scan_kernel<KIND><<<1, kThreads, smem_bytes, stream>>>(a, lay, p);
+  return static_cast<int>(cudaGetLastError());
 }
 #endif
 
@@ -722,36 +1174,41 @@ replay_scan_kernel(const __grid_constant__ Args args, const Ptrs ptrs) {
 #ifndef REPLAY_SCAN_EMULATE
 extern "C" {
 
-// Launch the replay of one trace (one block of one warp) on `stream`.
-// `args` is the host array of the kNumArgs fields of the argument block;
-// every other pointer is on the card.  Returns the CUDA error code of the
-// launch (0 on success); the kernel itself does not synchronise.
-int replay_scan_launch(const long long* args, const long long* tables,
-                       const long long* addrs, const uint8_t* writes,
-                       const int32_t* routes, long long* issues,
-                       long long* dones, int32_t* flags, long long* totals,
-                       long long* scal, long long* frames, long long* mpage,
-                       long long* mready, long long* wtick, int32_t* l2p,
-                       int32_t* p2l, int32_t* valid, int32_t* free_q,
-                       uint8_t* free_mask, long long* die_busy,
-                       long long* die_prog, long long* chan_busy,
-                       int smem_bytes, void* stream) {
+// Launch the replay of one trace (one block) on `stream`.  `args` and
+// `layout` are the host arrays of the kNumArgs fields of the argument
+// block and of the kLayoutWords fields of the layout; every other pointer
+// is on the card.  Returns the CUDA error code of the launch (0 on
+// success); the kernel itself does not synchronise.
+int replay_scan_launch(const long long* args, const long long* layout,
+                       const long long* tables, const long long* addrs,
+                       const uint8_t* writes, const int32_t* routes,
+                       long long* issues, long long* dones, int32_t* flags,
+                       long long* totals, long long* scal, long long* frames,
+                       long long* mpage, long long* mready, long long* wtick,
+                       int32_t* l2p, int32_t* p2l, int32_t* valid,
+                       int32_t* free_q, uint8_t* free_mask,
+                       long long* die_busy, long long* die_prog,
+                       long long* chan_busy, char* scratch, int smem_bytes,
+                       void* stream) {
   Args a;
   memcpy(a.v, args, sizeof(a.v));
+  Layout lay;
+  memcpy(lay.v, layout, sizeof(lay.v));
   const Ptrs p{addrs, writes, routes, tables, issues, dones, flags, totals,
                scal, frames, mpage, mready, wtick, l2p, p2l, valid, free_q,
-               free_mask, die_busy, die_prog, chan_busy};
-  cudaError_t err = cudaFuncSetAttribute(
-      replay_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  replay_scan_kernel<<<1, kLanes, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(a, p);
-  return static_cast<int>(cudaGetLastError());
+               free_mask, die_busy, die_prog, chan_busy, scratch};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a.v[A_KIND]) {
+    case kDram: return launch<kDram>(a, lay, p, smem_bytes, s);
+    case kPmem: return launch<kPmem>(a, lay, p, smem_bytes, s);
+    case kSsdBuf: return launch<kSsdBuf>(a, lay, p, smem_bytes, s);
+    default: return launch<kSsdCache>(a, lay, p, smem_bytes, s);
+  }
 }
 
-// The argument block's length (kNumArgs), for the wrapper to check.
+// The argument block's and the layout's lengths, for the wrapper to check.
 int replay_scan_num_args() { return kNumArgs; }
+int replay_scan_layout_words() { return kLayoutWords; }
 
 // Largest dynamic shared memory a block may opt in to on `device`.
 int replay_scan_smem_optin(int device, int* bytes) {

@@ -19,6 +19,7 @@ that it went through the kernel.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
@@ -44,19 +45,29 @@ ARGS = ("kind", "n", "start_tick", "outstanding", "posted_writes",
         "num_hops", "num_ports", "num_routes", "page_bytes", "cache_frames",
         "cache_assoc", "mshr_entries", "wb_slots", "channels",
         "dies_per_channel", "pages_per_block", "buf_entries", "gc",
-        "num_blocks", "gc_watermark_blocks",
+        "num_blocks", "gc_watermark_blocks", "num_pages",
         "issue_ov", "rt_extra", "occ", "load", "pack", "row_bytes",
         "lat_read_miss", "lat_read_hit", "lat_write_miss", "lat_write_hit",
         "hil_ov", "xfer_page", "read_t", "prog_t", "sus_t", "erase_t",
         "internal", "hit_lat", "line_xfer", "page_xfer", "pack10", "is_lru",
-        "cap", "frames_in_smem")
+        "cap")
+# the kernel's layout (`enum Lay`): the chunk's accesses, the LFB tree's
+# leaves, then byte offsets into shared memory; a placed array (`where`
+# and after) at an offset < 0 lives in device memory
+LAYOUT = ("chunk", "leaves", "in_key", "in_aux", "in_set", "out_issue",
+          "out_done", "out_flags", "tree", "pb", "qacc", "qthr", "tables",
+          "mpage", "mready", "wtick", "die_busy", "die_prog", "chan_busy",
+          "where", "frames", "links", "l2p", "valid", "free_mask", "free_q",
+          "p2l")
+PLACED = LAYOUT[LAYOUT.index("where"):]
 # the state's scalars, in and out of the kernel (`enum Scalar`)
 SCALARS = ("busy", "row", "dram_busy", "wpb", "wpp", "nfree", "fq_head",
            "fq_count", "gcs", "bad", "c_hr", "c_hw", "c_gw", "c_ge")
 MEDIA_ARRAYS = ("frames", "mpage", "mready", "wtick")
 FLASH_ARRAYS = ("l2p", "p2l", "valid", "free_q", "free_mask", "die_busy",
                 "die_prog", "chan_busy")
-MAX_OUTSTANDING = 4096      # LFB slots the kernel keeps in shared memory
+MAX_OUTSTANDING = 4096      # LFB slots of the kernel's tournament tree
+CHUNK = 256                 # accesses a staged chunk
 
 
 def reset_launches() -> None:
@@ -90,6 +101,41 @@ def _check(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
         raise ValueError(f"routes must be a ({n},) int32 tensor")
 
 
+def _check_values(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
+                  routes: Optional[torch.Tensor]) -> None:
+    """The checks that read the tensors (one read from their device): the
+    kernel indexes its page map and l2p by the page, and its route tables
+    by the route, unchecked, and takes a fresh cache only."""
+    top = cfg.num_pages * cfg.page_bytes if stack.has_flash(cfg) else None
+    checks = {"addresses": addrs.min() < 0}
+    if top is not None:
+        checks["addresses"] |= addrs.max() >= top
+    if routes is not None:
+        checks["routes"] = ((routes.min() < 0)
+                            | (routes.max() >= cfg.num_routes))
+    if fully_associative(cfg):
+        checks["frames"] = (state["media"]["frames"] != stack.FREE).any()
+    failed = dict(zip(checks, torch.stack(list(checks.values())).tolist()))
+    if failed["addresses"]:
+        raise ValueError("addresses must be >= 0" + (
+            "" if top is None else f" and below {top} ({cfg.num_pages} pages, "
+            "as build_stack sizes l2p)"))
+    if failed.get("routes"):
+        raise ValueError(f"routes must lie in [0, {cfg.num_routes})")
+    if failed.get("frames"):
+        raise ValueError(
+            "replay_scan starts from a fresh cache: every frame free (-1), "
+            "as stack.init_state makes it; its stamp counter restarts at 1, "
+            "so the kernel's victim order equals the reference's only then")
+
+
+def fully_associative(cfg: StackConfig) -> bool:
+    """Whether the stack's frames are fully associative (the CXL-SSD's
+    page registers, an LRU or FIFO cache): the kernel keeps a page map and
+    a victim order beside them."""
+    return cfg.kind == SSD_BUF or (cfg.kind == SSD_CACHE and cfg.cache_assoc)
+
+
 def replay_scan(cfg: StackConfig, params: Dict, state: Dict,
                 addrs: torch.Tensor, writes: torch.Tensor,
                 routes: Optional[torch.Tensor] = None, *,
@@ -103,9 +149,15 @@ def replay_scan(cfg: StackConfig, params: Dict, state: Dict,
     Returns ``(issues, dones, flags, qacc, qthr)``: int64 issue and
     completion ticks and int32 flags per access (bit 0 hit, bit 1 dirty
     evict, then the kind's :data:`FLAG_EVENT_BITS`), and the int64
-    queueing ticks and QoS throttle events of each port."""
+    queueing ticks and QoS throttle events of each port.
+
+    Raises ``ValueError`` on addresses below 0 or past the stack's
+    ``num_pages``, on routes outside ``num_routes``, and on the frames of
+    a page-register buffer or a fully associative cache that are not all
+    free: the kernel's victim order starts from a fresh cache."""
     _check(cfg, state, addrs, writes, routes)
     if addrs.device.type == "cpu":
+        _check_values(cfg, state, addrs, routes)
         return replay_scan_plain(cfg, params, state, addrs, writes, routes,
                                  start_tick=start_tick)
     return _launch(cfg, params, state, addrs, writes, routes, start_tick)
@@ -181,8 +233,8 @@ def replay_scan_plain(cfg: StackConfig, params: Dict, state: Dict,
 
 
 # ------------------------------------------------------------ the launch
-def arg_block(cfg: StackConfig, params: Dict, n: int, start_tick: int,
-              frames_in_smem: bool) -> np.ndarray:
+def arg_block(cfg: StackConfig, params: Dict, n: int,
+              start_tick: int) -> np.ndarray:
     """The kernel's argument block (:data:`ARGS`), int64."""
     p = host_params(params)
     lat = p.get("lat", [[0, 0], [0, 0]])
@@ -193,10 +245,9 @@ def arg_block(cfg: StackConfig, params: Dict, n: int, start_tick: int,
             "num_routes", "page_bytes", "cache_frames", "cache_assoc",
             "mshr_entries", "wb_slots", "channels", "dies_per_channel",
             "pages_per_block", "buf_entries", "gc", "num_blocks",
-            "gc_watermark_blocks")},
+            "gc_watermark_blocks", "num_pages")},
         lat_read_miss=lat[0][0], lat_read_hit=lat[0][1],
-        lat_write_miss=lat[1][0], lat_write_hit=lat[1][1],
-        frames_in_smem=int(frames_in_smem))
+        lat_write_miss=lat[1][0], lat_write_hit=lat[1][1])
     for k in ARGS:
         if k not in vals:
             vals[k] = int(p.get(k, 0))
@@ -221,14 +272,99 @@ def route_tables(cfg: StackConfig, params: Dict) -> np.ndarray:
     return np.concatenate([port.ravel(), occ.ravel(), after.ravel(), qos])
 
 
-def smem_bytes(cfg: StackConfig) -> tuple[int, int]:
-    """``(small, frames)``: the bytes of shared memory the kernel needs for
-    its LFB slots, ports and MSHR / writeback tables, and for the frames."""
-    small = 8 * (cfg.outstanding + 3 * cfg.num_ports + 2 * cfg.mshr_entries
-                 + cfg.wb_slots)
-    frames = 8 * (cfg.buf_entries if cfg.kind == SSD_BUF
-                  else cfg.cache_frames)
-    return small, frames
+@dataclass(frozen=True)
+class Layout:
+    """Where the kernel keeps what: ``words`` is its ``enum Lay`` (the
+    chunk, the tree's leaves, then byte offsets into shared memory, < 0
+    for a placed array in device memory), ``smem_bytes`` the dynamic
+    shared memory of the block, ``scratch_bytes`` the device memory of the
+    page map and links that shared memory does not hold, ``in_smem`` the
+    placed arrays that it does."""
+
+    words: tuple
+    smem_bytes: int
+    scratch_bytes: int
+    in_smem: tuple
+
+
+def _placed_bytes(cfg: StackConfig, params: Dict) -> Dict[str, int]:
+    """Bytes of each placed array the stack has, in the order shared
+    memory takes them: the frames' map, packed frames and links (the
+    recency list of an LRU buffer or cache), then the flash's l2p, and
+    the GC's valid counts, free mask, free queue and p2l."""
+    out = {}
+    if fully_associative(cfg):
+        frames = cfg.buf_entries if cfg.kind == SSD_BUF else cfg.cache_frames
+        out["where"] = 4 * cfg.num_pages
+        out["frames"] = 8 * frames
+        if cfg.kind == SSD_BUF or bool(np.asarray(params["is_lru"])):
+            out["links"] = 8 * frames
+    elif cfg.kind == SSD_CACHE:
+        out["frames"] = 8 * cfg.cache_frames
+    if stack.has_flash(cfg):
+        out["l2p"] = 4 * cfg.num_pages
+    if cfg.gc:
+        nb = cfg.num_blocks
+        out.update(valid=4 * nb, free_mask=nb, free_q=4 * nb,
+                   p2l=4 * nb * cfg.pages_per_block)
+    return out
+
+
+def layout(cfg: StackConfig, params: Dict, budget: int, *,
+           chunk: int = CHUNK, placed: bool = True) -> Layout:
+    """The kernel's layout for ``cfg`` within ``budget`` bytes of shared
+    memory: the staging buffers (two chunks of inputs and outputs), the
+    LFB tree, the ports, route tables, MSHR and writeback tables (padded
+    to blocks of 8 entries) and the die / channel busy-untils always; then
+    each placed array, in the order of :func:`_placed_bytes`, while it
+    fits (none when ``placed`` is False: the device-memory layout).  The
+    kernel reads ``chunk`` accesses a staged chunk.  Raises ``ValueError``
+    when the tables alone exceed ``budget``."""
+    frames = cfg.buf_entries if cfg.kind == SSD_BUF else cfg.cache_frames
+    if stack.has_flash(cfg) and frames < 1:
+        raise ValueError("the kernel's buffer or cache needs >= 1 frame")
+    leaves = 1 << (max(1, cfg.outstanding) - 1).bit_length()
+    R, H, P = cfg.num_routes, cfg.num_hops, cfg.num_ports
+    dies = cfg.channels * cfg.dies_per_channel
+    words = {"chunk": chunk, "leaves": leaves}
+    off = 0
+
+    def take(nbytes: int) -> int:
+        nonlocal off
+        at, off = off, off + -(-nbytes // 16) * 16
+        return at
+
+    for name, size in (("in_key", 8), ("in_aux", 4), ("in_set", 4),
+                       ("out_issue", 8), ("out_done", 8), ("out_flags", 4)):
+        words[name] = take(2 * chunk * size)
+    words["tree"] = take(2 * leaves * 16)
+    for name in ("pb", "qacc", "qthr"):
+        words[name] = take(8 * P)
+    words["tables"] = take(8 * (3 * R * H + P))
+    nm8, nw8 = (-(-x // 8) * 8 for x in (cfg.mshr_entries, cfg.wb_slots))
+    words["mpage"] = take(4 * nm8)              # int32 pages in the kernel
+    for name, count in (("mready", nm8), ("wtick", nw8), ("die_busy", dies),
+                        ("die_prog", dies), ("chan_busy", cfg.channels)):
+        words[name] = take(8 * count)
+    if off > budget:
+        raise ValueError(f"the kernel's staging buffers and tables need {off} "
+                         f"B of shared memory, more than the {budget} B a "
+                         f"block may use")
+    scratch, in_smem = 0, []
+    sizes = _placed_bytes(cfg, params)
+    for name in PLACED:
+        if name not in sizes:
+            words[name] = -1
+        elif placed and off + -(-sizes[name] // 16) * 16 <= budget:
+            words[name] = take(sizes[name])
+            in_smem.append(name)
+        elif name in ("where", "links"):
+            words[name] = -1 - scratch
+            scratch += -(-sizes[name] // 16) * 16
+        else:
+            words[name] = -1
+    return Layout(tuple(words[k] for k in LAYOUT), off, scratch,
+                  tuple(in_smem))
 
 
 _SMEM_OPTIN: dict[int, int] = {}
@@ -260,18 +396,19 @@ def _launch(cfg, params, state, addrs, writes, routes, start_tick):
     if cfg.outstanding > MAX_OUTSTANDING:
         raise ValueError(f"outstanding={cfg.outstanding} exceeds the "
                          f"kernel's {MAX_OUTSTANDING} LFB slots")
+    _check_values(cfg, state, addrs, routes)
     lib = _build.library("replay_scan")
-    if lib.replay_scan_num_args() != len(ARGS):
-        raise RuntimeError(f"the kernel takes {lib.replay_scan_num_args()} "
-                           f"arguments, the wrapper packs {len(ARGS)}")
+    if (lib.replay_scan_num_args(), lib.replay_scan_layout_words()) != (
+            len(ARGS), len(LAYOUT)):
+        raise RuntimeError(
+            f"the kernel takes {lib.replay_scan_num_args()} arguments and "
+            f"{lib.replay_scan_layout_words()} layout words, the wrapper "
+            f"packs {len(ARGS)} and {len(LAYOUT)}")
     with torch.cuda.device(dev):
         optin = _smem_optin(lib, torch.cuda.current_device())
-        small, frames = smem_bytes(cfg)
-        if small > optin:
-            raise ValueError(f"the kernel's tables need {small} B of shared "
-                             f"memory, more than the {optin} B a block may use")
+        lay = layout(cfg, params, optin)
         err, out = call_launch(lib, cfg, params, state, addrs, writes, routes,
-                               start_tick, small + frames <= optin,
+                               start_tick, lay,
                                torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, err, "replay_scan kernel launch")
         LAUNCHES["replay_scan"] += 1
@@ -279,23 +416,26 @@ def _launch(cfg, params, state, addrs, writes, routes, start_tick):
 
 
 def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
-                frames_in_smem: bool, stream):
-    """Pack one replay's arguments, call ``lib.replay_scan_launch`` on them
-    and its tensors' device, and copy the state's scalars back.  Returns
-    the call's return code and ``(issues, dones, flags, qacc, qthr)``.
-    :func:`_launch` calls it with the CUDA library; a host build of the
-    same source (``REPLAY_SCAN_EMULATE``) takes CPU tensors."""
+                lay: Layout, stream):
+    """Pack one replay's arguments and layout, call
+    ``lib.replay_scan_launch`` on them and its tensors' device, and copy
+    the state's scalars back.  Returns the call's return code and
+    ``(issues, dones, flags, qacc, qthr)``.  :func:`_launch` calls it with
+    the CUDA library; a host build of the same source
+    (``REPLAY_SCAN_EMULATE``) takes CPU tensors."""
     dev = addrs.device
     n = addrs.shape[0]
     P = cfg.num_ports
     md, fl = state["media"], state["flash"] or {}
-    small, frames = smem_bytes(cfg)
-    args = arg_block(cfg, params, n, start_tick, frames_in_smem)
+    args = arg_block(cfg, params, n, start_tick)
+    words = np.asarray(lay.words, np.int64)
     tables = torch.from_numpy(route_tables(cfg, params)).to(dev)
     issues = torch.empty(n, dtype=torch.int64, device=dev)
     dones = torch.empty(n, dtype=torch.int64, device=dev)
     flags = torch.empty(n, dtype=torch.int32, device=dev)
     totals = torch.empty(2 * P, dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(16, lay.scratch_bytes), dtype=torch.uint8,
+                          device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     scal = torch.stack([
         (md.get(k) if k in md else fl.get(k, zero)).to(torch.int64)
@@ -307,12 +447,12 @@ def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
         return None if x is None else x.data_ptr()
 
     err = lib.replay_scan_launch(
-        args.ctypes.data, tables.data_ptr(), addrs.data_ptr(),
-        w8.data_ptr(), ptr(routes), issues.data_ptr(), dones.data_ptr(),
-        flags.data_ptr(), totals.data_ptr(), scal.data_ptr(),
-        *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
-        *(ptr(fl.get(k)) for k in FLASH_ARRAYS),
-        small + (frames if frames_in_smem else 0), stream)
+        args.ctypes.data, words.ctypes.data, tables.data_ptr(),
+        addrs.data_ptr(), w8.data_ptr(), ptr(routes), issues.data_ptr(),
+        dones.data_ptr(), flags.data_ptr(), totals.data_ptr(),
+        scal.data_ptr(), *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
+        *(ptr(fl.get(k)) for k in FLASH_ARRAYS), scratch.data_ptr(),
+        lay.smem_bytes, stream)
     if err == 0:
         for i, k in enumerate(SCALARS):
             part = md if k in md else fl

@@ -264,6 +264,31 @@ def test_scan_phase_replays_the_scan_scenarios(smoke):
     assert set(smoke.SCAN_ROUND_TRIPS) == kinds == set(smoke.SCAN_OPS)
 
 
+def test_copy_verdict_separates_two_spreads(smoke, sessions):
+    """The page copy against its library call, alternating: each launch's
+    device time from one profiler session (our kernel by its name, every
+    other kernel the library's), medians, 10th-90th percentile spreads,
+    and whether they separate."""
+    mine = [_event("scatter_kernel", 10.0 + 0.01 * i) for i in range(20)]
+    lib = [_event("index_copy_kernel", 8.0 + 0.01 * i) for i in range(20)]
+    sessions.queue = [[e for pair in zip(mine, lib) for e in pair]
+                      + [_event("Memcpy DtoH", 1.0)]]
+    got = smoke.copy_verdict(_TORCH, "scatter_kernel", lambda i: None,
+                             lambda i: None, calls=20)
+    assert (got["kernel_launches"], got["library_launches"]) == (20, 20)
+    assert got["separate"] and got["faster"] == "library"
+    assert got["library"] == "index_copy_kernel"
+    assert 10.0 < got["kernel_us_median"] < 10.2
+    assert 8.0 < got["library_us_median"] < 8.2
+    sessions.queue = [[_event("gather_kernel", 8.0 + (i % 3))
+                       for i in range(10)]
+                      + [_event("index_select", 8.5 + (i % 3))
+                         for i in range(10)]]
+    got = smoke.copy_verdict(_TORCH, "gather_kernel", lambda i: None,
+                             lambda i: None, calls=10)
+    assert not got["separate"]
+
+
 @pytest.mark.parametrize("device", ["dram", "cxl-dram", "pmem", "cxl-ssd",
                                     "cxl-ssd-cache"])
 def test_flag_tap_sees_the_scan_lanes_flags(smoke, device):
@@ -303,6 +328,7 @@ def test_scan_row_carries_the_contract_keys(smoke):
             "serial": {d: 1.0 for d in devs},
             "plain_ms": {d: 3.0 for d in devs}}
     row = smoke.scan_row(scan, 1 << 20)
+    assert row["serial_chain_ms_by_device"] == scan["serial"]
     for key in ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"):

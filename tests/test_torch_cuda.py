@@ -419,12 +419,18 @@ SCAN_SCENARIOS = ([f"{d}@{a}" for d in ("dram", "cxl-dram", "pmem",
                      "ssd-gc@direct"])
 
 
-def _scan_both(dev_fn, trace, outstanding, posted=True, start=0):
+def _scan_both(dev_fn, trace, outstanding, posted=True, start=0,
+               placed=None, chunk=None):
     """``replay_scan`` on the card and its plain twin on the CPU, from
-    fresh states: every output and every final state tensor."""
+    fresh states: every output and every final state tensor.  With
+    ``placed`` or ``chunk`` given, the kernel runs under that layout
+    (``placed=False``: every placed array in device memory) through
+    ``call_launch``; else through the wrapper, one counted launch.
+    Returns the stack's ``(cfg, params)`` and the twin's final state."""
     from repro_torch.core.replay import stack
     from repro_torch.core.replay.spec import (access_route_choices,
                                               build_stack, trace_to_arrays)
+    from repro_torch.kernels import _build
     from repro_torch.kernels import replay_scan as rs
 
     addrs, writes, size = trace_to_arrays(trace)
@@ -442,18 +448,27 @@ def _scan_both(dev_fn, trace, outstanding, posted=True, start=0):
     gpu_state = stack.init_state(cfg, "cuda")
     want = rs.replay_scan(cfg, params, cpu_state, a, w, routes,
                           start_tick=start)
-    before = rs.LAUNCHES["replay_scan"]
-    got = rs.replay_scan(cfg, params, gpu_state, a.cuda(), w.cuda(),
-                         None if routes is None else routes.cuda(),
-                         start_tick=start)
+    r = None if routes is None else routes.cuda()
+    if placed is None and chunk is None:
+        before = rs.LAUNCHES["replay_scan"]
+        got = rs.replay_scan(cfg, params, gpu_state, a.cuda(), w.cuda(), r,
+                             start_tick=start)
+        assert rs.LAUNCHES["replay_scan"] == before + 1
+    else:
+        lib = _build.library("replay_scan")
+        lay = rs.layout(cfg, params, rs._smem_optin(lib, 0),
+                        chunk=chunk or rs.CHUNK, placed=placed is not False)
+        err, got = rs.call_launch(lib, cfg, params, gpu_state, a.cuda(),
+                                  w.cuda(), r, start, lay,
+                                  torch.cuda.current_stream().cuda_stream)
+        assert err == 0
     torch.cuda.synchronize()
-    assert rs.LAUNCHES["replay_scan"] == before + 1
     for g, x in zip(got, want):
         assert g.device.type == "cuda" and torch.equal(g.cpu(), x)
     for part in ("media", "flash"):
         for k, x in (cpu_state[part] or {}).items():
             assert torch.equal(gpu_state[part][k].cpu(), x), (part, k)
-    return cfg, cpu_state
+    return (cfg, params), cpu_state
 
 
 @pytest.mark.parametrize("name", SCAN_SCENARIOS)
@@ -461,8 +476,9 @@ def test_replay_scan_equals_its_twin_on_the_scenarios(card, name):
     from golden import scenarios as sc
     from test_torch_scenarios import make_target, scenario_trace
 
-    cfg, state = _scan_both(lambda: make_target(name), scenario_trace(name),
-                            sc.scenario_outstanding(name))
+    (cfg, _), state = _scan_both(lambda: make_target(name),
+                                 scenario_trace(name),
+                                 sc.scenario_outstanding(name))
     if name == "ssd-gc@direct":
         assert cfg.gc and int(state["flash"]["gcs"]) > 0
 
@@ -501,13 +517,54 @@ def test_replay_scan_equals_its_twin_at_table_i_width(card, device):
 
 def test_replay_scan_keeps_large_caches_in_device_memory(card):
     from repro_torch.core.workloads.traces import make_trace
+    from repro_torch.kernels import _build
     from repro_torch.kernels import replay_scan as rs
 
     big = DRAMCacheConfig(capacity_bytes=32768 * 4096)     # 256 KB of frames
-    cfg, _ = _scan_both(lambda: make_device("cxl-ssd-cache", cache_cfg=big),
-                        make_trace(4, n=3000, pages=40000), 32)
-    small, frames = rs.smem_bytes(cfg)
-    assert small + frames > 232448
+    (cfg, params), _ = _scan_both(
+        lambda: make_device("cxl-ssd-cache", cache_cfg=big),
+        make_trace(4, n=3000, pages=40000), 32)
+    lay = rs.layout(cfg, params, rs._smem_optin(_build.library("replay_scan"),
+                                                0))
+    assert "frames" not in lay.in_smem and lay.smem_bytes <= 232448
+
+
+@pytest.mark.parametrize("name", SCAN_SCENARIOS)
+def test_replay_scan_device_memory_layout_equals_its_twin(card, name):
+    from golden import scenarios as sc
+    from test_torch_scenarios import make_target, scenario_trace
+
+    _scan_both(lambda: make_target(name), scenario_trace(name),
+               sc.scenario_outstanding(name), placed=False)
+
+
+@pytest.mark.parametrize("device", ["cxl-ssd", "cxl-ssd-cache"])
+@pytest.mark.parametrize("placed", [True, False])
+def test_replay_scan_layouts_equal_the_twin_at_table_i_width(card, device,
+                                                            placed):
+    from repro_torch.core.workloads.traces import make_trace
+
+    _scan_both(lambda: make_device(device),
+               make_trace(0, n=(1 << 14) + 77, pages=16384), 32,
+               placed=placed)
+
+
+# (accesses, chunk): a trace that wraps the two staging buffers 125 times,
+# one whose length is not a multiple of its chunk, one shorter than a chunk
+SCAN_CHUNKS = [(2000, 16), (1001, 64), (5, 256)]
+
+
+@pytest.mark.parametrize("n,chunk", SCAN_CHUNKS)
+@pytest.mark.parametrize("placed", [True, False])
+@pytest.mark.parametrize("device", ["pmem", "cxl-ssd-cache"])
+def test_replay_scan_chunks_wrap_the_staging_ring(card, n, chunk, placed,
+                                                  device):
+    from repro_torch.core.workloads.traces import make_trace
+
+    kw = dict(cache_cfg=DRAMCacheConfig(capacity_bytes=64 * 4096)) \
+        if device == "cxl-ssd-cache" else {}
+    _scan_both(lambda: make_device(device, **kw),
+               make_trace(n, n=n, pages=200), 8, placed=placed, chunk=chunk)
 
 
 def test_scan_lane_on_the_card_equals_the_python_lane(card):

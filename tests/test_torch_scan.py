@@ -444,14 +444,15 @@ def test_the_kernel_takes_the_wrappers_argument_block():
     for c, py in zip(enum("Arg"), rs.ARGS):
         assert c.startswith("A_"), c
     assert [c[2:].lower() for c in enum("Scalar")] == list(rs.SCALARS)
+    assert [c[2:].lower() for c in enum("Lay")] == list(rs.LAYOUT)
     assert rs.KINDS == ("dram", "pmem", "ssd-buf", "ssd-cache")
     assert "kDram = 0, kPmem = 1, kSsdBuf = 2, kSsdCache = 3" in src
     args = rs.arg_block(*build_stack(
         make_device("pmem"), size=64, outstanding=4, issue_overhead_ns=0.5,
-        posted_writes=True, n_accesses=9, max_addr=0), 9, 77, True)
+        posted_writes=True, n_accesses=9, max_addr=0), 9, 77)
     named = dict(zip(rs.ARGS, args.tolist()))
     assert (named["kind"], named["n"], named["start_tick"],
-            named["outstanding"], named["frames_in_smem"]) == (1, 9, 77, 4, 1)
+            named["outstanding"], named["num_pages"]) == (1, 9, 77, 4, 0)
     assert named["lat_write_hit"] > 0 and named["row_bytes"] == 256
 
 

@@ -1,21 +1,24 @@
 """``replay_scan.cu``'s own source on the CPU: the host compiler builds it
-for a thread-per-lane emulation of its warp (``REPLAY_SCAN_EMULATE``,
-``torch_replay_scan_emulate.cpp``) under AddressSanitizer, and the
-wrapper's packing (``replay_scan.call_launch``) feeds it CPU tensors.
+for a thread-per-CUDA-thread emulation of its block
+(``REPLAY_SCAN_EMULATE``, ``torch_replay_scan_emulate.cpp``) under
+AddressSanitizer, and the wrapper's packing (``replay_scan.call_launch``,
+``replay_scan.layout``) feeds it CPU tensors.
 
 Every output and every final state tensor must equal the plain twin's
 (``replay_scan_plain``) on the 14 single-host fault-free scenarios, on
 cache shapes over policy, MSHR, writeback, ``outstanding`` and posted
-writes, on Table I's cached CXL-SSD past its 4096 frames, on the other
-devices at 2000 accesses, with frames in shared and in global memory, and
-on ECMP and QoS mounts.  ASan aborts on any index the kernel forms outside
-its array.  The library only loads into a process that starts with ASan's
-runtime, so the cases run in one child process for this file.
+writes, on Table I's cached CXL-SSD past its 4096 frames (and past 2^14
+accesses over 16,384 pages), under FIFO and direct mapping, on the other
+devices at 2000 accesses, in the shared-memory and the device-memory
+layout, on traces that wrap the staging buffers many times or end inside
+a chunk, and on ECMP and QoS mounts.  ASan aborts on any index the kernel
+forms outside its array.  The library only loads into a process that
+starts with ASan's runtime, so the cases run in one child process for
+this file.
 
     python tests/test_torch_scan_emulate.py LIBRARY OUT.json
 
-runs them in such a process and writes their results.
-"""
+runs them in such a process and writes their results."""
 
 from __future__ import annotations
 
@@ -45,6 +48,9 @@ from torch_scenarios import (DEVICES, make_target, scenario_outstanding,
 REPO = Path(__file__).resolve().parents[1]
 SHIM = REPO / "tests" / "torch_replay_scan_emulate.cpp"
 CSRC = REPO / "src" / "repro_torch" / "kernels" / "csrc"
+# dynamic shared memory a block may opt in to on an H100: the budget the
+# emulated layouts are computed for (on the card the wrapper asks for it)
+H100_SMEM_OPTIN = 232448
 SCAN_SCENARIOS = ([f"{d}@{a}" for d in DEVICES for a in ("direct", "fabric")]
                   + ["dram@stream", "pmem@stream", "dram-qos@fabric",
                      "ssd-gc@direct"])
@@ -54,12 +60,28 @@ CACHE_SHAPES = [("lru", 1, 1, 1, True), ("fifo", 4, 3, 32, False),
                 ("direct", 2, 2, 7, True), ("lru", 3, 1, 33, False),
                 ("fifo", 1, 2, 2, True), ("direct", 4, 3, 16, False)]
 OTHER_DEVICES = ["dram", "cxl-dram", "pmem", "cxl-ssd"]
+# (name, device, cache policy, accesses, pages, chunk): traces that wrap
+# the two staging buffers 125 times, lengths that are not a multiple of the
+# chunk, Table I's cached CXL-SSD past 2^14 accesses over chip_smoke.py's
+# 16,384 pages, and Table I's geometry under FIFO and direct mapping
+CHUNKED = [("ring/pmem", "pmem", None, 2000, 200, 16),
+           ("ring/cxl-ssd-cache", "cxl-ssd-cache", "lru", 2000, 200, 16),
+           ("odd/dram", "dram", None, 1001, 200, 64),
+           ("odd/cxl-ssd", "cxl-ssd", None, 1001, 200, 64),
+           ("table1/16461", "cxl-ssd-cache", None, (1 << 14) + 77, 16384,
+            256),
+           ("table1-fifo/8000", "cxl-ssd-cache", "fifo", 8000, 8192, 256),
+           ("table1-direct/8000", "cxl-ssd-cache", "direct", 8000, 8192,
+            256)]
 CASES = (SCAN_SCENARIOS + ["ssd-gc@direct/global"]
          + [f"cache/{p}/m{m}/wb{wb}/out{o}/posted{int(pw)}"
             for p, m, wb, o, pw in CACHE_SHAPES]
          + ["table1/churn", "table1/global"]
          + [f"{d}/2000" for d in OTHER_DEVICES]
-         + ["ecmp/dram", "ecmp-qos/cxl-ssd-cache"])
+         + ["ecmp/dram", "ecmp-qos/cxl-ssd-cache"]
+         + [c[0] for c in CHUNKED]
+         + ["table1/16461/global", "table1-fifo/8000/global",
+            "table1-direct/8000/global", "gc/chunk16", "gc/chunk16/global"])
 
 
 def _trace(n: int, pages: int, write_frac: float, seed: int):
@@ -71,11 +93,17 @@ def _trace(n: int, pages: int, write_frac: float, seed: int):
 
 def _case(name: str):
     """``(make_target, trace, outstanding, posted, start_tick,
-    frames_in_smem)`` of case ``name``."""
+    placed_in_smem, chunk)`` of case ``name``; a ``/global`` case runs the
+    device-memory layout."""
     base = name.removesuffix("/global")
+    placed = base == name
     if base in SCAN_SCENARIOS:
         return (lambda: make_target(base), scenario_trace(base),
-                scenario_outstanding(base), True, 0, base == name)
+                scenario_outstanding(base), True, 0, placed, rs.CHUNK)
+    if base == "gc/chunk16":
+        return (lambda: make_target("ssd-gc@direct"),
+                scenario_trace("ssd-gc@direct"),
+                scenario_outstanding("ssd-gc@direct"), True, 0, placed, 16)
     if name.startswith("cache/"):
         i = [c for c in CASES if c.startswith("cache/")].index(name)
         policy, mshr, wb, out, posted = CACHE_SHAPES[i]
@@ -83,17 +111,29 @@ def _case(name: str):
                    mshr_entries=mshr, writeback_buffer=wb)
         return (lambda: make_device("cxl-ssd-cache",
                                     cache_cfg=DRAMCacheConfig(**cfg)),
-                _trace(600, 48, 0.5, i), out, posted, 1000 * i, True)
+                _trace(600, 48, 0.5, i), out, posted, 1000 * i, True,
+                rs.CHUNK)
     if name == "table1/churn":      # ~5100 of 8192 pages: fills, evicts
         return (lambda: make_device("cxl-ssd-cache"),
-                _trace(8000, 8192, 0.3, 9), 32, True, 0, True)
+                _trace(8000, 8192, 0.3, 9), 32, True, 0, True, rs.CHUNK)
     if name == "table1/global":
         return (lambda: make_device("cxl-ssd-cache"),
-                _trace(3000, 8192, 0.3, 9), 32, True, 0, False)
+                _trace(3000, 8192, 0.3, 9), 32, True, 0, False, rs.CHUNK)
     if name.endswith("/2000"):
         d = name.split("/")[0]
         return lambda: make_device(d), _trace(2000, 4096, 0.3, 5), 32, True, \
-            0, True
+            0, True, rs.CHUNK
+    chunked = {c[0]: c[1:] for c in CHUNKED}
+    if base in chunked:
+        device, policy, n, pages, chunk = chunked[base]
+        kw = {}
+        if device == "cxl-ssd-cache" and pages < 1000:
+            kw = dict(cache_cfg=DRAMCacheConfig(policy=policy,
+                                                capacity_bytes=64 * 4096))
+        elif policy is not None:
+            kw = dict(cache_cfg=DRAMCacheConfig(policy=policy))
+        return (lambda: make_device(device, **kw),
+                _trace(n, pages, 0.3, n % 97), 32, True, 0, placed, chunk)
     qos = {"h0": 2.0, "h1": 1.0} if name.startswith("ecmp-qos") else None
     kind = name.split("/")[1]
 
@@ -104,23 +144,24 @@ def _case(name: str):
         dev = (make_device(kind, cache_cfg=DRAMCacheConfig(
             capacity_bytes=16 * 4096)) if kind == "cxl-ssd-cache"
             else make_device(kind))
-        return fab.mount("h0", "d1", dev)
+        return fab.mount("h0", "d0", dev)      # two routes through the spines
 
     return mount, _trace(800, 64, 0.3, 3 if qos is None else 4), 8, True, \
-        0, True
+        0, True, rs.CHUNK
 
 
 def run_case(lib, name: str) -> dict:
     """The emulated kernel and the plain twin on case ``name``, each from a
     fresh state: the outputs and state tensors that differ, and the twin's
     hit and dirty-eviction counts."""
-    make, trace, outstanding, posted, start, in_smem = _case(name)
+    make, trace, outstanding, posted, start, placed, chunk = _case(name)
     addrs, writes, size = trace_to_arrays(trace)
     dev = make()
     cfg, params = build_stack(dev, size=size, outstanding=outstanding,
                               issue_overhead_ns=0.5, posted_writes=posted,
                               n_accesses=addrs.size,
                               max_addr=int(addrs.max()), counters=True)
+    assert (cfg.num_routes > 1) == name.startswith("ecmp"), name
     routes = None
     if cfg.num_routes > 1:
         routes = torch.from_numpy(
@@ -130,8 +171,10 @@ def run_case(lib, name: str) -> dict:
                              stack.init_state(cfg, "cpu"))
     want = rs.replay_scan_plain(cfg, params, want_state, a, w, routes,
                                 start_tick=start)
+    lay = rs.layout(cfg, params, H100_SMEM_OPTIN, chunk=chunk,
+                    placed=placed)
     err, got = rs.call_launch(lib, cfg, params, got_state, a, w, routes,
-                              start, in_smem, None)
+                              start, lay, None)
     differ = [k for k, g, x in zip(
         ("issues", "dones", "flags", "qacc", "qthr"), got, want)
         if not torch.equal(g, x)]
@@ -146,7 +189,8 @@ def run_case(lib, name: str) -> dict:
 
 def _child(lib_path: str, out_path: str) -> None:
     lib = ctypes.CDLL(lib_path)
-    for fn in ("replay_scan_launch", "replay_scan_num_args"):
+    for fn in ("replay_scan_launch", "replay_scan_num_args",
+               "replay_scan_layout_words"):
         restype, argtypes = _build.SIGNATURES["replay_scan"][fn]
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
@@ -194,6 +238,13 @@ def test_kernel_source_equals_its_twin(emulated, name):
 def test_table1_case_fills_and_evicts(emulated):
     churn = emulated["cases"]["table1/churn"]
     assert churn["hits"] > 0 and churn["evicts"] > 0, churn
+
+
+@pytest.mark.parametrize("name", ["table1/16461", "table1-fifo/8000",
+                                  "table1-direct/8000", "ring/cxl-ssd-cache"])
+def test_chunked_and_policy_cases_fill_and_evict(emulated, name):
+    got = emulated["cases"][name]
+    assert got["hits"] > 0 and got["evicts"] > 0, got
 
 
 if __name__ == "__main__":

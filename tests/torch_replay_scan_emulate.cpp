@@ -1,12 +1,14 @@
 // A host build of src/repro_torch/kernels/csrc/replay_scan.cu: the same
-// replay() source, its warp emulated by 32 std::threads, one per lane.
+// replay() source, its block emulated by kThreads std::threads, one per
+// CUDA thread.
 //
-// REPLAY_SCAN_EMULATE leaves the four warp primitives and the CUDA
-// keywords to this file.  __syncwarp() becomes a barrier of the 32 threads
-// and a shuffle an exchange through a per-lane buffer between two such
-// barriers, so every lane sees the values of the others exactly where the
-// card's lanes would.  Dynamic shared memory is a host buffer filled with a
-// pattern, so a read before the kernel's own initialisation shows.
+// REPLAY_SCAN_EMULATE leaves the block primitives (thread_id, block_sync),
+// the intrinsics (__popc, __ffs, __umulhi), the CUDA keywords and the vector
+// types (int2, int4, longlong2) to this file.
+// __syncthreads() becomes a barrier of the kThreads threads, so every
+// thread sees the others' shared-memory stores exactly where the card's
+// would.  Dynamic shared memory is a host buffer filled with a pattern, so
+// a read before the kernel's own initialisation shows.
 //
 // Built by tests/test_torch_scan_emulate.py with
 //   g++ -std=c++20 -fsanitize=address -shared -fPIC -pthread
@@ -15,8 +17,9 @@
 
 #define __device__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __global__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __grid_constant__
 #define REPLAY_SCAN_EMULATE
 
@@ -26,28 +29,29 @@
 #include <thread>
 #include <vector>
 
+struct int2 {
+  int x, y;
+};
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+struct alignas(16) longlong2 {
+  long long x, y;
+};
+inline int2 make_int2(int x, int y) { return {x, y}; }
+inline longlong2 make_longlong2(long long x, long long y) { return {x, y}; }
+
 namespace {
 
-thread_local int tl_lane;
-std::barrier<>* warp;
-long long x64[32];
-int x32[32];
+thread_local int tl_thread;
+std::barrier<>* block;
 
-int lane_id() { return tl_lane; }
-void warp_sync() { warp->arrive_and_wait(); }
-long long shfl_xor(long long v, int m) {
-  x64[tl_lane] = v;
-  warp->arrive_and_wait();
-  const long long r = x64[tl_lane ^ m];
-  warp->arrive_and_wait();
-  return r;
-}
-int shfl_xor(int v, int m) {
-  x32[tl_lane] = v;
-  warp->arrive_and_wait();
-  const int r = x32[tl_lane ^ m];
-  warp->arrive_and_wait();
-  return r;
+int thread_id() { return tl_thread; }
+void block_sync() { block->arrive_and_wait(); }
+int __popc(unsigned x) { return __builtin_popcount(x); }
+int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+unsigned __umulhi(unsigned a, unsigned b) {
+  return static_cast<unsigned>((static_cast<uint64_t>(a) * b) >> 32);
 }
 
 }  // namespace
@@ -58,35 +62,46 @@ extern "C" {
 
 // The CUDA library's replay_scan_launch, argument for argument, on host
 // pointers; `stream` is ignored.  Returns when the replay has ended.
-int replay_scan_launch(const long long* args, const long long* tables,
-                       const long long* addrs, const uint8_t* writes,
-                       const int32_t* routes, long long* issues,
-                       long long* dones, int32_t* flags, long long* totals,
-                       long long* scal, long long* frames, long long* mpage,
-                       long long* mready, long long* wtick, int32_t* l2p,
-                       int32_t* p2l, int32_t* valid, int32_t* free_q,
-                       uint8_t* free_mask, long long* die_busy,
-                       long long* die_prog, long long* chan_busy,
-                       int smem_bytes, void* stream) {
+int replay_scan_launch(const long long* args, const long long* layout,
+                       const long long* tables, const long long* addrs,
+                       const uint8_t* writes, const int32_t* routes,
+                       long long* issues, long long* dones, int32_t* flags,
+                       long long* totals, long long* scal, long long* frames,
+                       long long* mpage, long long* mready, long long* wtick,
+                       int32_t* l2p, int32_t* p2l, int32_t* valid,
+                       int32_t* free_q, uint8_t* free_mask,
+                       long long* die_busy, long long* die_prog,
+                       long long* chan_busy, char* scratch, int smem_bytes,
+                       void* stream) {
   (void)stream;
   Args a;
   memcpy(a.v, args, sizeof(a.v));
+  Layout lay;
+  memcpy(lay.v, layout, sizeof(lay.v));
   const Ptrs p{addrs, writes, routes, tables, issues, dones, flags, totals,
                scal, frames, mpage, mready, wtick, l2p, p2l, valid, free_q,
-               free_mask, die_busy, die_prog, chan_busy};
-  std::vector<long long> smem(smem_bytes / 8, 0x5a5a5a5a5a5aLL);
-  std::barrier<> b(kLanes);
-  warp = &b;
-  std::vector<std::thread> lanes;
-  for (int l = 0; l < kLanes; ++l)
-    lanes.emplace_back([&, l] {
-      tl_lane = l;
-      replay(a, p, smem.data());
+               free_mask, die_busy, die_prog, chan_busy, scratch};
+  std::vector<longlong2> smem((smem_bytes + 15) / 16,
+                              longlong2{0x5a5a5a5a5a5aLL, 0x5a5a5a5a5a5aLL});
+  char* sm = reinterpret_cast<char*>(smem.data());
+  std::barrier<> b(kThreads);
+  block = &b;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < kThreads; ++t)
+    threads.emplace_back([&, t] {
+      tl_thread = t;
+      switch (a.v[A_KIND]) {
+        case kDram: replay<kDram>(a, lay, p, sm); break;
+        case kPmem: replay<kPmem>(a, lay, p, sm); break;
+        case kSsdBuf: replay<kSsdBuf>(a, lay, p, sm); break;
+        default: replay<kSsdCache>(a, lay, p, sm); break;
+      }
     });
-  for (auto& t : lanes) t.join();
+  for (auto& t : threads) t.join();
   return 0;
 }
 
 int replay_scan_num_args() { return kNumArgs; }
+int replay_scan_layout_words() { return kLayoutWords; }
 
 }  // extern "C"

@@ -8,10 +8,17 @@ if needed) and times ``cache_sim`` (decisions) and ``cache_sim_fused`` with
 CUDA events, three calls each after a warm-up: at Table I's 1 set x 4096
 ways (LRU, 32 outstanding) over 2^20 seeded accesses to 16,384 pages, 30%
 writes; then at 4096 sets x 8 ways (state in the global scratch) over 2^18
-accesses.  Prints one line: the tag, each call's milliseconds, the hit
-count and a digest of the fused kernel's hits and latencies, which must
-agree between checkouts.  ``--sass`` also writes the library's SASS to
-``chiprun_out/sass_TAG.txt`` and prints its ptxas register and spill lines.
+accesses.  Then ``replay_scan`` for each of the five devices of
+``chip_smoke.py``'s ``[scan]`` phase (``make_device`` defaults, 32
+outstanding, posted writes) over that phase's trace of 2^20 accesses
+(``make_trace(0, pages=16384)``), two calls each after one short
+warm-up.  Prints one line for the cache kernels (the tag, each
+call's milliseconds, the hit count and a digest of the fused kernel's hits
+and latencies) and one for the scan (each device's milliseconds and a
+digest of every replay's issue and done ticks and flags); the digests must
+agree between checkouts.  ``--sass`` also writes the cache library's SASS
+to ``chiprun_out/sass_TAG.txt`` and prints its ptxas register and spill
+lines.
 
 Compare two checkouts within one machine, in separate processes and in
 alternating order (A B B A ...): the kernels run on one SM, so their time
@@ -27,15 +34,24 @@ sys.path.insert(0, root + "/src")
 
 import torch  # noqa: E402
 
+from repro_torch.core.devices import make_device  # noqa: E402
+from repro_torch.core.replay import stack  # noqa: E402
+from repro_torch.core.replay.spec import build_stack, trace_to_arrays  # noqa: E402
+from repro_torch.core.workloads.traces import make_trace  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import cache_sim as ks  # noqa: E402
+from repro_torch.kernels import replay_scan as rs  # noqa: E402
+
+SCAN_DEVICES = ("dram", "cxl-dram", "pmem", "cxl-ssd", "cxl-ssd-cache")
+SCAN_REPS = 2
 
 TIMING = dict(outstanding=32, issue_ns=1, hit_ns=50, miss_ns=5000,
               miss_occ_ns=213, wb_ns=0)
 
 
-def timed(fn, reps=3):
-    fn()
+def timed(fn, reps=3, warm=True):
+    if warm:
+        fn()
     torch.cuda.synchronize()
     ms = []
     for _ in range(reps):
@@ -88,6 +104,30 @@ def main():
           f"decisions_again_ms={f(dec_again)} scratch_fused_ms={f(s_fused)} "
           f"scratch_decisions_ms={f(s_dec)} hits={int(hits[0].sum())} "
           f"digest={digest}", flush=True)
+    scan(f)
+
+
+def scan(f):
+    a, w, _ = trace_to_arrays(make_trace(0, n=1 << 20, pages=16384))
+    addrs, writes = torch.from_numpy(a).cuda(), torch.from_numpy(w).cuda()
+    h = hashlib.md5()
+    line = []
+    for d in SCAN_DEVICES:
+        def replay(n=addrs.numel()):
+            cfg, params = build_stack(make_device(d), size=64, outstanding=32,
+                                      issue_overhead_ns=0.5,
+                                      posted_writes=True, n_accesses=n,
+                                      max_addr=int(a[:n].max()))
+            return rs.replay_scan(cfg, params, stack.init_state(cfg, "cuda"),
+                                  addrs[:n], writes[:n])
+
+        replay(4096)
+        ms, out = timed(replay, SCAN_REPS, warm=False)
+        for x in out[:3]:
+            h.update(x.cpu().numpy().tobytes())
+        line.append(f"scan_{d}_ms={f(ms)}")
+    print(f"{tag} {' '.join(line)} scan_digest={h.hexdigest()[:12]}",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -88,11 +88,31 @@ and ``nvcc``.  Phases, each printing one or more lines:
    fault-free golden ``python_scan`` pins and ``metrics`` blocks (GC
    included); the kernel against its plain twin (CPU tensors of this
    process) on the pins' traces, 4096 accesses of each device and 2^14
-   of Table I's cached CXL-SSD (its cache filled and evicting); an active
-   link-retry plan and ``chunk_size`` refused with
-   ``ReplayUnsupported``.  It runs last,
-   after the host-bound serving loop, so that its 2^20-access python-lane
-   replays leave no load on that loop's host.
+   of Table I's cached CXL-SSD (its cache filled and evicting);
+   ``chunk_size`` refused with ``ReplayUnsupported``.  It runs after the
+   host-bound serving loop, so that its 2^20-access python-lane replays
+   leave no load on that loop's host;
+13. faults: the faulted scan lane, each replay one ``replay_scan`` launch
+   held access for access against the python lane on this host (latency
+   ticks, hit, dirty-evict and poison flags, elapsed and end ticks, GC
+   runs, the fault counters and the metrics bundle, and the availability
+   series under transport faults): Table I's cached CXL-SSD over the main
+   path's trace under the golden ``faults-nand-retry@direct`` rates (NAND
+   read retries and poison; its 16 GB run no GC at this footprint); the
+   golden scenario's GC-pressured flash under the same plan over the
+   longest power-of-two seeded trace that the python lane finishes
+   (blocks retired); Table I's device mounted h0 -> d0 on a 2 x 2
+   spine-leaf with ECMP under CRC retries and a down window (link
+   retries, degraded accesses and failovers), with the host time of the
+   fault-column builder apart from the kernel's device time; each
+   replay's bytes an access, bound and serial-chain model with its fault
+   terms; the three golden fault scenarios' pins and metrics, and the
+   kernel against its twin on them and on the GC trace;
+14. assoc: ``TraceDriver(make_device(d), engine="assoc")`` over the main
+   path's trace for dram, cxl-dram and pmem, each equal to phase 12's
+   python lane or refused where the JAX package's numpy backend refuses
+   (pinned: cxl-dram's trace is latency-bound); its wall, sweeps and
+   device time by kind; the golden ``assoc_supported`` pins.
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -205,7 +225,40 @@ SCAN_IO_BYTES = 29
 # cache_sim kernel finds a frame, with the MSHR and writeback tables and
 # the commit (40)
 SCAN_OPS = {"dram": 39, "pmem": 43, "ssd-buf": 49, "ssd-cache": 75}
-SCAN_PLAN = dict(link_retry_rate=0.25)      # refused by the scan lane
+# the faults phase: Table I's cached CXL-SSD under the golden
+# faults-nand-retry@direct rates, then mounted behind a 2 x 2 spine-leaf
+# with ECMP under CRC retries and a down window over the middle quarter
+# of the main path's trace; the golden scenario's GC-pressured flash on
+# the longest power-of-two seeded trace that the python lane finishes
+# (2^13 accesses run out of space, tests/test_torch_faults_scan.py)
+FAULT_NAND = dict(nand_read_retry_rate=0.3, erase_fail_rate=0.5,
+                  poison_rate=0.1)
+FAULT_NAND_SEED = 0
+FAULT_FABRIC = dict(num_hosts=2, num_devices=2, num_leaves=2, num_spines=2,
+                    ecmp=True)
+FAULT_LINK = dict(link_retry_rate=0.25,
+                  down_links=(("s0", "sp0", 1 << 18, 1 << 19),))
+FAULT_LINK_SEED = 7
+FAULT_GC_SCENARIO = "faults-nand-retry@direct"
+FAULT_GC_TRACE = dict(seed=24, n=1 << 12, pages=16)
+# a transport-faulted access also moves its path id (4 B) and one retry
+# byte a hop in; per hop it adds the path table's port read before the
+# port's busy-until (one round trip on the chain) and the retry multiply
+# and the off-hop test (3 int64 operations); each flash read adds the NAND
+# retry decision, 13 dependent int64 steps (the xor, add, two shift-xor-
+# multiply rounds, shift-xor, mask, compare, shift, remainder and the two
+# retry multiplies), counted as operations and, at 4 cycles a step, on
+# the chain
+FAULT_PATH_BYTES = 4
+FAULT_HOP_TRIPS = 1
+FAULT_HOP_OPS = 3
+NAND_HASH_STEPS = 13
+ALU_STEP_CYCLES = 4
+# the assoc phase: which of the main path's replays the associative lane
+# certifies (True) or refuses (False), as the JAX package's numpy backend
+# does (tests/test_torch_assoc.py holds the two equal)
+ASSOC_DEVICES = {"dram": True, "cxl-dram": False, "pmem": True}
+ASSOC_SWEEPS = 256             # tests/golden/scenarios.py's Kleene budget
 # (num_sets, ways, policy, lanes, trace): the first is the main path's
 CHECK_SHAPES = [(1, 4096, "lru", 1, "uniform"), (1, 4096, "fifo", 1, "uniform"),
                 (4096, 1, "direct", 1, "uniform"), (4096, 8, "lru", 1, "uniform"),
@@ -1326,29 +1379,67 @@ def fabric_phase(torch, dev, trace, direct, seed: int) -> dict:
 
 
 class FlagTap:
-    """A python-lane target that records, per access, the latency and
-    whether the device counted a hit and a dirty eviction (cache or
-    page-register hits and dirty evictions, PMEM row hits)."""
+    """A python-lane target that records, per access, the issue and
+    completion ticks and whether the device counted a hit and a dirty
+    eviction (cache or page-register hits and dirty evictions, PMEM row
+    hits); behind a fabric, whether the fabric counted the access degraded
+    and failed over; under a poison plan, the plan's verdict on it (the
+    python driver's own, per access).  ``dev`` may be a device, a fabric
+    mount or a metrics tap over either; other attributes are the
+    target's."""
 
     def __init__(self, dev):
         self._dev = dev
-        self.latency, self.hit, self.evict = [], [], []
+        self.issue, self.latency, self.hit, self.evict = [], [], [], []
+        self.degraded, self.failover, self.poison = [], [], []
 
-    def counts(self) -> tuple[int, int]:
-        d = self._dev
+    def __getattr__(self, name):
+        return getattr(self._dev, name)
+
+    def counts(self) -> tuple[int, ...]:
+        d = getattr(self._dev, "inner", self._dev)
         if hasattr(d, "cache"):
-            return d.cache.policy.hits, d.cache.policy.dirty_evictions
-        return (d.stats.get("buf_hits", d.stats.get("row_hits", 0)),
-                d.stats.get("flash_writes", 0))
+            out = (d.cache.policy.hits, d.cache.policy.dirty_evictions)
+        else:
+            out = (d.stats.get("buf_hits", d.stats.get("row_hits", 0)),
+                   d.stats.get("flash_writes", 0))
+        fab = getattr(self._dev, "fabric", None)
+        fs = getattr(fab, "fault_stats", {})
+        return out + (fs.get("degraded_accesses", 0), fs.get("failovers", 0))
 
     def service(self, now, addr, size, write, posted=False):
-        h0, e0 = self.counts()
+        before = self.counts()
         done = self._dev.service(now, addr, size, write, posted)
-        h1, e1 = self.counts()
+        h, e, dg, fo = (b > a for a, b in zip(before, self.counts()))
+        plan = getattr(self._dev, "fault_plan", None)
+        self.issue.append(now)
         self.latency.append(done - now)
-        self.hit.append(h1 > h0)
-        self.evict.append(e1 > e0)
+        self.hit.append(h)
+        self.evict.append(e)
+        self.degraded.append(dg)
+        self.failover.append(fo)
+        self.poison.append(plan is not None and plan.has_poison and bool(
+            plan.poisoned(0, len(self.issue) - 1, write)))
         return done
+
+
+def scan_inputs(torch, make, trace, outstanding=32, metrics=False):
+    """``(cfg, params, addrs, writes, routes, retries)`` of one replay of
+    ``trace`` on a fresh ``make()``, as ``ReplayEngine`` prepares them
+    (path ids and retry bytes under transport faults), on the CPU."""
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.spec import trace_to_arrays
+
+    addrs, writes, size = trace_to_arrays(trace)
+    cfg, params, routes, retries, _ = ReplayEngine(
+        make(), outstanding=outstanding,
+        metrics=MetricsSpec() if metrics else None).prepare(addrs, size=size)
+
+    def cpu(x):
+        return None if x is None else torch.from_numpy(x)
+
+    return (cfg, params, cpu(addrs), cpu(writes), cpu(routes), cpu(retries))
 
 
 def scan_against_twin(torch, make, trace, outstanding):
@@ -1357,27 +1448,20 @@ def scan_against_twin(torch, make, trace, outstanding):
     every output and every final state tensor, the twin's wall
     milliseconds and its per-access flags."""
     from repro_torch.core.replay import stack
-    from repro_torch.core.replay.spec import (access_route_choices,
-                                              build_stack, trace_to_arrays)
     from repro_torch.kernels import replay_scan as rs
 
-    addrs, writes, size = trace_to_arrays(trace)
-    dev = make()
-    cfg, params = build_stack(dev, size=size, outstanding=outstanding,
-                              issue_overhead_ns=0.5, posted_writes=True,
-                              n_accesses=addrs.size,
-                              max_addr=int(addrs.max()), counters=True)
-    routes = None
-    if cfg.num_routes > 1:
-        routes = torch.from_numpy(
-            access_route_choices(dev, addrs).astype(np.int32))
-    a, w = torch.from_numpy(addrs), torch.from_numpy(writes)
+    cfg, params, a, w, routes, retries = scan_inputs(
+        torch, make, trace, outstanding, metrics=True)
     cpu, card = stack.init_state(cfg, "cpu"), stack.init_state(cfg, "cuda")
     t0 = time.perf_counter()
-    want = rs.replay_scan(cfg, params, cpu, a, w, routes)
+    want = rs.replay_scan(cfg, params, cpu, a, w, routes, retries=retries)
     plain_ms = (time.perf_counter() - t0) * 1e3
+
+    def on_card(x):
+        return None if x is None else x.cuda()
+
     got = rs.replay_scan(cfg, params, card, a.cuda(), w.cuda(),
-                         None if routes is None else routes.cuda())
+                         on_card(routes), retries=on_card(retries))
     torch.cuda.synchronize()
     pairs = list(zip(got, want))
     for part in ("media", "flash"):
@@ -1385,23 +1469,19 @@ def scan_against_twin(torch, make, trace, outstanding):
     return sum(int((g.cpu() != x).sum()) for g, x in pairs), plain_ms, want[2]
 
 
-def scan_kernel_ms(torch, device, trace) -> tuple[float, str]:
+def scan_kernel_ms(torch, make, trace) -> tuple[float, str]:
     """Device milliseconds of one ``replay_scan`` launch over ``trace`` on
-    a fresh ``device`` (32 outstanding), and how they were timed: by the
+    a fresh ``make()`` (32 outstanding), and how they were timed: by the
     profiler, or by CUDA events when it recorded nothing."""
     from repro_torch.core.replay import stack
-    from repro_torch.core.replay.spec import build_stack, trace_to_arrays
     from repro_torch.kernels import replay_scan as rs
 
-    addrs, writes, size = trace_to_arrays(trace)
-    cfg, params = build_stack(device, size=size, outstanding=32,
-                              issue_overhead_ns=0.5, posted_writes=True,
-                              n_accesses=addrs.size,
-                              max_addr=int(addrs.max()))
-    a, w = torch.from_numpy(addrs).cuda(), torch.from_numpy(writes).cuda()
+    cfg, params, *inputs = scan_inputs(torch, make, trace)
+    a, w, r, rt = (None if x is None else x.cuda() for x in inputs)
 
     def run():
-        rs.replay_scan(cfg, params, stack.init_state(cfg, "cuda"), a, w)
+        rs.replay_scan(cfg, params, stack.init_state(cfg, "cuda"), a, w, r,
+                       retries=rt)
 
     acts = [e for e in device_events(
         torch, run, lambda acts: any(SCAN_KERNEL in e.name for e in acts))
@@ -1425,8 +1505,6 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
                                  scenario_trace)
 
     from repro_torch.core.devices import make_device
-    from repro_torch.core.fabric import Fabric
-    from repro_torch.core.faults import FaultConfig, FaultPlan, install
     from repro_torch.core.replay.engine import ReplayEngine
     from repro_torch.core.replay.metrics import MetricsSpec
     from repro_torch.core.replay.spec import ReplayUnsupported, build_stack
@@ -1446,6 +1524,7 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
     n = len(trace)
     max_addr = max(a for a, _, _ in trace)
     runs, launches, kernel_ms, bound, serial = {}, {}, {}, {}, {}
+    python = {}
     for d in SCAN_DEVICES:
         rs.reset_launches()
         t0 = time.perf_counter()
@@ -1471,7 +1550,9 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
         for field in ("elapsed_ticks", "end_tick", "sum_latency_ticks"):
             check(getattr(res, field) == getattr(want, field),
                   f"{d}: scan {field} differs from the python lane")
-        kernel_ms[d], how = scan_kernel_ms(torch, make_device(d), trace)
+        python[d] = (np.asarray(tap.latency, np.int64), want)
+        kernel_ms[d], how = scan_kernel_ms(torch, lambda: make_device(d),
+                                           trace)
         cfg, _ = build_stack(make_device(d), size=64, outstanding=32,
                              issue_overhead_ns=0.5, posted_writes=True,
                              n_accesses=n, max_addr=max_addr)
@@ -1541,30 +1622,27 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
         churn_accesses=SCAN_CHURN_ACCESSES, churn_hits=churn_hits,
         churn_dirty_evictions=churn_evicts, churn_twin_ms=f"{churn_ms:.3f}")
 
-    # the lane's refusals on the card
-    mount = Fabric.build("two_level", **FABRIC).mount(
-        "h0", "d0", make_device("cxl-ssd-cache"))
-    install(FaultPlan(FaultConfig(**SCAN_PLAN)), [mount])
-    check(refuses(lambda: TraceDriver(mount, engine="scan").run(trace[:16]),
-                  ReplayUnsupported), "the scan lane replayed a fault plan")
+    # the lane's refusal on the card
     check(refuses(lambda: ReplayEngine(make_device("dram")).run(
         trace[:16], chunk_size=4), ReplayUnsupported),
         "the scan lane streamed a chunked replay")
-    say("scan", fault_plan="refused", chunk_size="refused")
+    say("scan", chunk_size="refused")
     return {"launches": launches, "kernel_ms": kernel_ms, "bound": bound,
             "serial": serial, "plain_ms": plain_ms,
-            "walls": {d: runs[d][1] for d in SCAN_DEVICES}}
+            "walls": {d: runs[d][1] for d in SCAN_DEVICES},
+            "python": python}
 
 
-def scan_row(scan: dict, n: int) -> dict:
+def scan_row(scan: dict, faults: dict, n: int) -> dict:
     """The kernels line's ``replay_scan`` row: the Table I cached CXL-SSD's
-    numbers, with every device's beside them."""
+    numbers, with every device's and the faulted replays' beside them."""
     main = "cxl-ssd-cache"
     b_ms, b_by = scan["bound"][main]
     return {
         "name": "replay_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES,
-        "launches": sum(scan["launches"].values()),
+        "launches": sum(scan["launches"].values())
+        + sum(run["launches"] for run in faults.values()),
         "max_abs_err": 0, "tolerance": 0,
         "ms": scan["kernel_ms"][main], "plain_ms": scan["plain_ms"][main],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1575,7 +1653,290 @@ def scan_row(scan: dict, n: int) -> dict:
         "serial_chain_ms_by_device": scan["serial"],
         "plain_ms_by_device": scan["plain_ms"],
         "launches_by_device": scan["launches"],
+        "faulted": {name: {k: run[k] for k in (
+            "launches", "ms", "accesses", "bytes_per_access", "bound_ms",
+            "bound_by", "serial_chain_ms", "reads", "column_s")}
+            for name, run in faults.items()},
     }
+
+
+def python_lane(target, trace):
+    """The python lane over ``target`` with a metrics tap and a
+    :class:`FlagTap` over it: ``(result, bundle, tap)``."""
+    from repro_torch.core.replay import metrics as M
+    from repro_torch.core.workloads.driver import MultiHostDriver
+
+    spec = M.MetricsSpec()
+    metric_tap = M.attach_taps([target])[0]
+    tap = FlagTap(metric_tap)
+    res = MultiHostDriver([tap], outstanding=32).run([trace]).per_host[0]
+    bundle = M.collect_python(spec, [target], [metric_tap],
+                              poisoned=sum(tap.poison))
+    return res, bundle, tap
+
+
+def faulted_replay(torch, name, make, trace) -> dict:
+    """One faulted replay through ``engine="scan"`` on the card (one
+    launch), held access for access against the python lane on this host:
+    latencies, hit, dirty-evict and poison flags, elapsed and end ticks,
+    GC runs, the fault counters and the metrics bundle, and under
+    transport faults the availability series.  Returns its numbers."""
+    from repro_torch.core.replay import metrics as M
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.kernels import replay_scan as rs
+
+    rs.reset_launches()
+    eng = ReplayEngine(make(), metrics=M.MetricsSpec())
+    t0 = time.perf_counter()
+    res = eng.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rs.LAUNCHES["replay_scan"]
+    check(launches == 1, f"{name}: {launches} replay_scan launches")
+    t0 = time.perf_counter()
+    want, bundle, tap = python_lane(make(), trace)
+    py_wall = time.perf_counter() - t0
+    same = {
+        "latency": np.array_equal(res.latency_ticks,
+                                  np.asarray(tap.latency, np.int64)),
+        "hit": np.array_equal(res.hit_flags, np.asarray(tap.hit)),
+        "evict": np.array_equal(res.evict_flags, np.asarray(tap.evict)),
+        "poison": np.array_equal(
+            res.poison_flags if res.poison_flags is not None
+            else np.zeros(len(trace), bool), np.asarray(tap.poison)),
+        "ticks": all(getattr(res, f) == getattr(want, f) for f in (
+            "elapsed_ticks", "end_tick", "sum_latency_ticks")),
+        "gc_runs": res.gc_runs == bundle.flash[0]["gc_runs"]
+        if bundle.flash else res.gc_runs == 0,
+        "metrics": (json.loads(json.dumps(res.metrics.to_jsonable()))
+                    == json.loads(json.dumps(bundle.to_jsonable()))),
+    }
+    if res.availability is not None:
+        avail = M.availability_series(
+            np.asarray(tap.issue, np.int64),
+            np.asarray(tap.issue, np.int64) + np.asarray(tap.latency,
+                                                        np.int64),
+            np.asarray(tap.degraded), np.asarray(tap.failover),
+            spec=M.MetricsSpec())
+        same["availability"] = (json.loads(json.dumps(res.availability))
+                                == json.loads(json.dumps(avail)))
+    for field, ok in same.items():
+        check(ok, f"{name}: scan {field} differs from the python lane")
+    faults = res.metrics.faults
+    # the kernel alone, by the profiler, on the same inputs
+    cfg, params, *inputs = scan_inputs(torch, make, trace)
+    a, w, r, rt = (None if x is None else x.cuda() for x in inputs)
+    state = {}
+
+    def run():
+        state["s"] = stack.init_state(cfg, "cuda")
+        rs.replay_scan(cfg, params, state["s"], a, w, r, retries=rt)
+
+    acts = [e for e in device_events(
+        torch, run, lambda acts: any(SCAN_KERNEL in e.name for e in acts))
+        if SCAN_KERNEL in e.name]
+    if acts:
+        ms, how = acts[0].device_time_total / 1e3, "profiler"
+    else:
+        EVENT_TIMED.append(f"{SCAN_KERNEL} ({name})")
+        ms, how = cuda_ms(torch, run), "CUDA events"
+    flash = state["s"]["flash"] or {}
+    reads = int(flash.get("rd_seq", 0))
+    out = {"launches": launches, "ms": ms, "timing": how, "wall_s": wall,
+           "python_wall_s": py_wall,
+           "column_s": eng.last_column_seconds, "faults": dict(faults),
+           "reads": reads, "gc_runs": res.gc_runs, "cfg": cfg,
+           "accesses": len(trace)}
+    say("faults", case=name, accesses=len(trace), equal_to_python=",".join(
+        same), launches=launches, kernel_ms=f"{ms:.3f}", timing=how,
+        driver_wall_s=f"{wall:.3f}", python_wall_s=f"{py_wall:.3f}",
+        column_builder_s=f"{eng.last_column_seconds:.3f}",
+        flash_reads=reads, gc_runs=res.gc_runs,
+        faults=json.dumps(faults, separators=(",", ":")))
+    return out
+
+
+def fault_bound(run: dict, int32_ops_per_s: float, smem_cycles: float,
+                sm_clock_mhz: float) -> dict:
+    """The faulted replay's bytes an access, roofline bound and
+    serial-chain model, from this run's inputs: the fault-free terms of
+    its kind, plus the path code's bytes and each hop's round trip and
+    operations under transport faults, plus the NAND decision of each of
+    this run's flash reads."""
+    cfg, n, reads = run["cfg"], run["accesses"], run["reads"]
+    io = SCAN_IO_BYTES + (FAULT_PATH_BYTES + cfg.num_hops
+                          if cfg.fault_hops else 0)
+    hop_ops = FAULT_HOP_OPS * cfg.num_hops if cfg.fault_hops else 0
+    nand_ops = NAND_HASH_STEPS * reads if cfg.faults else 0
+    ops = n * (SCAN_OPS[cfg.kind] + hop_ops) + nand_ops
+    state = 2 * 4 * cfg.num_pages + 2 * 8 * cfg.cache_frames
+    b_ms, b_by = bound_ms(n, 2 * ops / n, io, state, int32_ops_per_s)
+    trips = n * (SCAN_ROUND_TRIPS[cfg.kind] + SCAN_HOP_TRIPS * cfg.num_hops
+                 + (FAULT_HOP_TRIPS * cfg.num_hops if cfg.fault_hops else 0))
+    cycles = trips * smem_cycles + (
+        reads * NAND_HASH_STEPS * ALU_STEP_CYCLES if cfg.faults else 0)
+    return {"bytes_per_access": io, "bound_ms": b_ms, "bound_by": b_by,
+            "serial_chain_ms": cycles / (sm_clock_mhz * 1e3),
+            "int64_ops": ops}
+
+
+def faults_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
+                 int32_ops_per_s: float) -> dict:
+    """[faults]: the faulted scan lane on the card, each replay equal to
+    the python lane; the kernel against its twin on the golden fault
+    scenarios and the GC trace."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenarios import (FAULT_SCENARIOS, make_target,
+                                 scenario_outstanding, scenario_trace)
+
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.workloads.traces import make_trace
+
+    def nand():
+        dev = make_device("cxl-ssd-cache")
+        install(FaultPlan(FaultConfig(**FAULT_NAND), seed=FAULT_NAND_SEED),
+                [dev])
+        return dev
+
+    def link():
+        mount = Fabric.build("spine_leaf", **FAULT_FABRIC).mount(
+            "h0", "d0", make_device("cxl-ssd-cache"))
+        install(FaultPlan(FaultConfig(**FAULT_LINK), seed=FAULT_LINK_SEED),
+                [mount])
+        return mount
+
+    gc_trace = make_trace(FAULT_GC_TRACE["seed"], n=FAULT_GC_TRACE["n"],
+                          pages=FAULT_GC_TRACE["pages"])
+    runs = {
+        "nand": faulted_replay(torch, "nand", nand, trace),
+        "gc": faulted_replay(torch, "gc",
+                             lambda: make_target(FAULT_GC_SCENARIO),
+                             gc_trace),
+        "link": faulted_replay(torch, "link", link, trace),
+    }
+    f = {k: v["faults"] for k, v in runs.items()}
+    check(f["nand"]["nand_read_retries"] > 0
+          and f["nand"]["poisoned_reads"] > 0,
+          f"Table I under NAND faults: {f['nand']}")
+    check(f["gc"]["retired_blocks"] >= 1 and runs["gc"]["gc_runs"] > 0,
+          f"the GC trace retired no block: {f['gc']}")
+    check(all(f["link"][k] > 0 for k in ("link_retries",
+                                         "degraded_accesses", "failovers")),
+          f"the fabric mount under transport faults: {f['link']}")
+    for name, run in runs.items():
+        run.update(fault_bound(run, int32_ops_per_s, smem_cycles,
+                               sm_clock_mhz))
+        say("faults", case=name, bytes_per_access=run["bytes_per_access"],
+            bound_ms=f"{run['bound_ms']:.6f}", bound_by=run["bound_by"],
+            serial_chain_ms=f"{run['serial_chain_ms']:.3f}")
+
+    # the kernel against its plain twin: the golden fault scenarios (their
+    # pins and metrics on the card too) and the GC trace
+    mismatches = 0
+    for name in FAULT_SCENARIOS:
+        from repro_torch.core.replay.metrics import MetricsSpec
+        from repro_torch.core.workloads.driver import TraceDriver
+
+        res = TraceDriver(make_target(name),
+                          outstanding=scenario_outstanding(name),
+                          engine="scan", metrics=MetricsSpec()).run(
+            scenario_trace(name))
+        pin = golden_pin(name, "python_scan")
+        check(res.latency_ticks.tolist() == pin["latency_ticks"]
+              and all(getattr(res, k) == pin[k] for k in (
+                  "elapsed_ticks", "sum_latency_ticks", "end_tick")),
+              f"fault pin {name} on the card")
+        check(json.loads(json.dumps(res.metrics.to_jsonable()))
+              == golden_pin(name, "metrics"), f"fault metrics {name}")
+        bad, _, _ = scan_against_twin(
+            torch, lambda: make_target(name), scenario_trace(name),
+            scenario_outstanding(name))
+        mismatches += bad
+    bad, gc_plain_ms, _ = scan_against_twin(
+        torch, lambda: make_target(FAULT_GC_SCENARIO), gc_trace, 32)
+    mismatches += bad
+    check(mismatches == 0, f"replay_scan under faults differs from its "
+                           f"twin in {mismatches} elements")
+    say("faults", pins=len(FAULT_SCENARIOS), python_scan="equal",
+        metrics="equal", twin_checks=len(FAULT_SCENARIOS) + 1, mismatches=0,
+        gc_twin_ms=f"{gc_plain_ms:.3f}")
+    return runs
+
+
+def assoc_phase(torch, trace, scan: dict) -> dict:
+    """[assoc]: ``engine="assoc"`` on the card over the main path's trace
+    for dram, cxl-dram and pmem, each equal to the [scan] phase's python
+    lane or refused where the JAX package's numpy backend refuses; its
+    walls, sweeps and device time by kind; the golden assoc pins."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenarios import (make_target, scenario_outstanding,
+                                 scenario_trace)
+
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.replay.assoc import AssocReplayEngine
+    from repro_torch.core.replay.spec import ReplayUnsupported
+    from repro_torch.core.workloads.driver import TraceDriver
+
+    out = {}
+    for d, certifies in ASSOC_DEVICES.items():
+        t0 = time.perf_counter()
+        try:
+            res = TraceDriver(make_device(d), engine="assoc").run(trace)
+            refused = None
+        except ReplayUnsupported as e:
+            res, refused = None, str(e)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check((refused is None) == certifies,
+              f"assoc {d}: {'refused: ' + refused if refused else 'certified'}"
+              f", the reference {'certifies' if certifies else 'refuses'}")
+        fields = {}
+        if res is not None:
+            lat, want = scan["python"][d]
+            check(np.array_equal(res.latency_ticks, lat)
+                  and all(getattr(res, f) == getattr(want, f) for f in (
+                      "elapsed_ticks", "end_tick", "sum_latency_ticks")),
+                  f"assoc {d} differs from the python lane")
+            eng = AssocReplayEngine(make_device(d))
+            acts = device_events(torch, lambda: eng.run(trace),
+                                 lambda acts: len(acts) > 0)
+            kinds = {}
+            for e in acts:
+                k = e.name.split("<")[0].split("(")[0].strip()[:48]
+                kinds[k] = kinds.get(k, 0.0) + e.device_time_total / 1e3
+            top = dict(sorted(kinds.items(), key=lambda kv: -kv[1])[:6])
+            fields = dict(sweeps=eng._last_sweeps,
+                          device_ms=f"{sum(kinds.values()):.3f}",
+                          device_ms_by_kind=json.dumps(
+                              {k: round(v, 3) for k, v in top.items()},
+                              separators=(",", ":")),
+                          equal_to_python="all fields")
+            out[d] = {"wall_s": wall, "sweeps": eng._last_sweeps,
+                      "device_ms": sum(kinds.values())}
+        else:
+            fields = dict(refused=repr(refused[:60]))
+            out[d] = {"wall_s": wall, "refused": refused}
+        say("assoc", device=d, accesses=len(trace),
+            outcome="certified" if refused is None else "refused",
+            wall_s=f"{wall:.3f}", **fields)
+    pins = [f"{d}@{a}" for d in ASSOC_DEVICES
+            for a in ("direct", "fabric", "stream")
+            if (d, a) != ("cxl-dram", "stream")]
+    for name in pins:
+        res = AssocReplayEngine(make_target(name),
+                                outstanding=scenario_outstanding(name),
+                                max_sweeps=ASSOC_SWEEPS).run(
+            scenario_trace(name))
+        pin = golden_pin(name, "python_scan")
+        check(res.latency_ticks.tolist() == pin["latency_ticks"]
+              and all(getattr(res, f) == pin[f] for f in (
+                  "elapsed_ticks", "sum_latency_ticks", "end_tick")),
+              f"assoc pin {name} on the card")
+    say("assoc", pins=len(pins), python_scan="equal")
+    return out
 
 
 def main() -> int:
@@ -1819,6 +2180,9 @@ def main() -> int:
                        * INT32_LANES_PER_SM * sm_clock_mhz * 1e6)
     scan = scan_phase(torch, trace, smem_cycles, sm_clock_mhz,
                       int32_ops_per_s)
+    faults = faults_phase(torch, trace, smem_cycles, sm_clock_mhz,
+                          int32_ops_per_s)
+    assoc_phase(torch, trace, scan)
 
     # kernels line -------------------------------------------------------
     rows = []
@@ -1841,9 +2205,8 @@ def main() -> int:
             "fabric_launches": fabric["launches"][name],
         })
     print(card, flush=True)
-    print(json.dumps({"kernels": rows + serve_rows + [prefill_row,
-                                                   scan_row(scan, n)]}),
-          flush=True)
+    print(json.dumps({"kernels": rows + serve_rows + [
+        prefill_row, scan_row(scan, faults, n)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,16 +12,22 @@
   tick-windowed series), schema- and value-identical between the python
   driver and the scan lane; exportable to Perfetto via
   :mod:`repro_torch.obs`.
+* :class:`AssocReplayEngine` (``engine="assoc"``) — stateless DRAM/PMEM
+  media on a single route, certified Kleene iteration over closed-form
+  prefix scans (:func:`busy_until`, :func:`port_busy_until`, from
+  :mod:`repro_torch.core.maxplus`) on an explicit torch device.
 * :mod:`repro_torch.core.replay.cuda_engine` — the cached CXL-SSD kernel
   lane (``engine="cuda"``, analytic latency).
 
-The associative, multi-host, sweep and streaming lanes are later slices
-(ROADMAP Queue A items 6, 10, 11 and 12).  Importing this package loads no
-torch: the state layer's names load it on first use.
+The multi-host, sweep and streaming lanes are later slices (ROADMAP Queue
+A items 10, 11 and 12).  Importing this package loads no torch: the state
+layer's names load it on first use.
 """
 
 import importlib
 
+from repro_torch.core.maxplus import busy_until, port_busy_until
+from repro_torch.core.replay.assoc import AssocReplayEngine
 from repro_torch.core.replay.engine import ReplayEngine, ReplayResult
 from repro_torch.core.replay.metrics import MetricsBundle, MetricsSpec
 from repro_torch.core.replay.spec import (
@@ -44,6 +50,7 @@ def __getattr__(name):
 
 
 __all__ = [
+    "AssocReplayEngine",
     "MetricsBundle",
     "MetricsSpec",
     "ReplayEngine",
@@ -51,10 +58,12 @@ __all__ = [
     "ReplayUnsupported",
     "StackConfig",
     "build_stack",
+    "busy_until",
     "init_state",
     "media_init",
     "media_stack",
     "media_step",
+    "port_busy_until",
     "require_metrics_lane",
     "step",
     "trace_to_arrays",

@@ -98,9 +98,9 @@ def run_cuda(device, addrs: np.ndarray, writes: np.ndarray, *,
     if plan is not None and plan.active:
         raise ReplayUnsupported(
             f"active fault plan ({', '.join(plan.class_names())}): the "
-            "cuda kernel models the fault-free cached CXL-SSD; the fault "
-            "classes replay in the python lane (the faulted scan lane is "
-            "ROADMAP Queue A item 5b) — use engine='python'")
+            "cuda kernel models the fault-free cached CXL-SSD; the "
+            "fused scan lane replays every fault class tick-identically "
+            "— use engine='scan' (or engine='python')")
     kw = cuda_params(device, issue_overhead_ns)
     # int32-nanosecond budget: arrival/busy cursors grow by at most
     # (miss_occ + issue) per access, plus one service term on top.

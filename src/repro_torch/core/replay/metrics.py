@@ -573,7 +573,7 @@ def _flash_dicts(flash_cnt) -> List[Dict[str, int]]:
 
 
 def _single_ports(device, queued, routes: Optional[np.ndarray], n: int,
-                  size: int, qthr=None):
+                  size: int, qthr=None, faulted=None):
     """``(host_label, dev_label, ports, ecmp)`` for a single-host scan run
     of ``n`` accesses: port byte/packet/occupancy totals and ECMP choice
     counts are reconstructed from the route choices on the host (pure
@@ -581,7 +581,9 @@ def _single_ports(device, queued, routes: Optional[np.ndarray], n: int,
     total and ``qthr`` its QoS-throttle twin (``None`` reads as all-zero,
     matching FCFS ports whose interpreted counter never moves).
     ``routes`` is the per-access ECMP choice column, ``None`` on a fixed
-    route."""
+    route.  ``faulted`` (the fault-column builder's totals) overrides the
+    clean reconstruction when transport faults rerouted accesses or
+    charged retry serializations."""
     ports: Dict[str, Dict] = {}
     ecmp: Dict[str, List[int]] = {}
     if not isinstance(device, FabricAttachedDevice):
@@ -590,6 +592,19 @@ def _single_ports(device, queued, routes: Optional[np.ndarray], n: int,
     queued = [int(q) for q in np.asarray(queued).reshape(-1)]
     qt = ([int(x) for x in np.asarray(qthr).reshape(-1)]
           if qthr is not None else None)
+    if faulted is not None:
+        for j, key in enumerate(faulted["port_keys"]):
+            if not faulted["packets"][j]:
+                continue
+            ports[f"{key[0]}->{key[1]}"] = {
+                "bytes": int(faulted["bytes"][j]),
+                "packets": int(faulted["packets"][j]),
+                "occupied_ticks": int(faulted["occupied"][j]),
+                "queued_ticks": queued[j],
+                "qos_throttle_events": qt[j] if qt is not None else 0,
+                "bytes_by_host": {host: int(faulted["bytes"][j])}}
+        ecmp = {k: list(v) for k, v in sorted(faulted["ecmp"].items())}
+        return host, node, ports, ecmp
     if routes is None:
         for h, (key, occ, _aft) in enumerate(
                 fab.route_occupancy(host, node, size)):
@@ -633,16 +648,19 @@ def _single_ports(device, queued, routes: Optional[np.ndarray], n: int,
 def bundle_single_deferred(spec: MetricsSpec, device, cfg, issues, dones,
                            flags, writes, queued, flash_cnt,
                            routes: Optional[np.ndarray], size: int,
-                           qthr=None) -> MetricsBundle:
+                           qthr=None, faults: Optional[Dict[str, int]] = None,
+                           faulted=None) -> MetricsBundle:
     """Assemble the bundle after a single-host scan run.  The
     histogram/window fold and the counter vector are pure functions of the
     materialized ``(issue, done, flags)`` columns (the scan packs every
     :data:`FLAG_EVENT_BITS` event into the flags word), so they are
     deferred to first access — replay pays only the per-port queueing
-    totals and a few flag bits for full telemetry."""
+    totals and a few flag bits for full telemetry.  ``faults`` is the
+    fault counter block of a run under an active plan, ``faulted`` the
+    fault-column builder's port totals (see :func:`_single_ports`)."""
     host_label, dev_label, ports, ecmp = _single_ports(
         device, queued, routes, int(np.asarray(issues).size), size,
-        qthr=qthr)
+        qthr=qthr, faulted=faulted)
 
     def fold():
         hist, windows, dev_hist = fold_arrays(
@@ -655,7 +673,7 @@ def bundle_single_deferred(spec: MetricsSpec, device, cfg, issues, dones,
     return MetricsBundle(
         spec=spec, hosts=[host_label], devices=[dev_label],
         flash=_flash_dicts(flash_cnt), ports=ports, ecmp=ecmp,
-        deferred=fold)
+        deferred=fold, faults=faults)
 
 
 # -------------------------------------------------- availability (faults)

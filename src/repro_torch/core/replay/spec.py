@@ -53,8 +53,9 @@ class ReplayUnsupported(ValueError):
     message names the widest lane that still covers the shape.  The port's
     ladder: ``python`` (everything) > ``scan`` (all five devices, single
     host, directly attached or fabric-mounted with ECMP and QoS, greedy
-    GC; no fault plan, no streaming) > ``cuda`` (the cached CXL-SSD, with
-    an analytic latency model).
+    GC, every fault class; no streaming) > ``assoc`` (stateless DRAM/PMEM
+    media on a single route, bandwidth-bound traces) and ``cuda`` (the
+    cached CXL-SSD, with an analytic latency model).
     """
 
 
@@ -66,6 +67,10 @@ DRAM = "dram"
 PMEM = "pmem"
 SSD_BUF = "ssd-buf"        # cxl-ssd: page-register buffer straight to flash
 SSD_CACHE = "ssd-cache"    # cxl-ssd-cache: DRAM cache + MSHR + writeback
+
+# media kinds with no per-access state beyond busy-until chains — the
+# stacks the associative lane (repro_torch.core.replay.assoc) covers
+ASSOC_KINDS = (DRAM, PMEM)
 
 
 def validate_block_size(block_size) -> int:
@@ -110,14 +115,19 @@ class StackConfig:
     counters: bool = False
     # deterministic NAND fault statics from FaultPlan.nand_statics():
     # (seed, read_retry_threshold, read_retry_max, erase_fail_threshold),
-    # or () when no NAND faults are planned.  The scan lane refuses a
-    # stack that has them (the faulted lane is ROADMAP Queue A item 5b).
+    # or () when no NAND faults are planned.  They shape the replay: retry
+    # rounds keyed on the in-state read sequence, erase-fail gating of the
+    # GC free-append.
     faults: Tuple[int, ...] = ()
+    # transport faults (link CRC retries / down-port failover): the replay
+    # consumes per-access hop columns precomputed on the host instead of
+    # the static route tensors — see ReplayEngine
+    fault_hops: bool = False
     # QoS observability (single host): indices into the busy-until
     # container (hop position on a fixed route, union-port index under
-    # ECMP) whose fabric port runs weighted arbitration.  With one origin
-    # the ack floor provably never binds (see _fabric_hops), so only the
-    # qos_throttle_events counter is mirrored.
+    # ECMP / fault hops) whose fabric port runs weighted arbitration.
+    # With one origin the ack floor provably never binds (see
+    # _fabric_hops), so only the qos_throttle_events counter is mirrored.
     qos_ports: Tuple[int, ...] = ()
 
 

@@ -30,6 +30,13 @@ queue — mirroring :meth:`repro_torch.core.ssd.ftl.FTL._collect` tick for
 tick.  A free-pool underrun (the interpreted path raises "FTL out of
 space") sets the sticky ``bad`` flag, which the engine surfaces as
 :class:`~repro_torch.core.replay.spec.ReplayUnsupported`.
+
+NAND faults: with the plan's statics in ``StackConfig.faults`` the flash
+state carries the read and erase sequence numbers of the PAL / FTL
+(``rd_seq``, ``er_seq``), the retry and retirement totals (``c_rr``,
+``c_rb``) and the retired-block mask; a read charges ``1 + retries``
+sense and transfer rounds, and a failed GC erase retires its victim
+(:func:`fault_counters` reads the totals).
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.faults.plan import (erase_fails_torch,
+                                          nand_read_retries_torch)
 from repro_torch.core.replay.spec import (  # noqa: F401  (MAX_ACCESSES)
     DRAM,
     MAX_ACCESSES,
@@ -78,16 +87,28 @@ def _die(cfg: StackConfig, ppn: int) -> Tuple[int, int]:
 
 
 def _pal_read(cfg: StackConfig, p: Dict, f: Dict, t: int, ppn: int) -> int:
-    """Mirror of :meth:`PAL._schedule` (read path, program-suspend rule)."""
+    """Mirror of :meth:`PAL._schedule` (read path, program-suspend rule).
+
+    With NAND fault statics (``cfg.faults``) the read charges
+    ``1 + retries`` full sense+transfer rounds, keyed on the in-state read
+    sequence number — the twin of :meth:`PAL.read_page` consulting the
+    plan on its ``_rd_seq``, which advances once a real read."""
     ch, i = _die(cfg, ppn)
     dbi, dpi = int(f["die_busy"][i]), int(f["die_prog"][i])
     cbi = int(f["chan_busy"][ch])
+    read_t, xfer = p["read_t"], p["xfer_page"]
+    if cfg.faults:
+        retries = int(nand_read_retries_torch(cfg.faults, f["rd_seq"]))
+        read_t *= 1 + retries
+        xfer *= 1 + retries
+        f["rd_seq"] += 1
+        f["c_rr"] += retries
     ds = max(t, dbi)
     if dpi > ds:
         ds = min(dpi, ds + p["sus_t"])
-    array_done = ds + p["read_t"]
-    new_dp = dpi + p["read_t"] if dpi > ds else dpi
-    done = max(array_done, cbi) + p["xfer_page"]
+    array_done = ds + read_t
+    new_dp = dpi + read_t if dpi > ds else dpi
+    done = max(array_done, cbi) + xfer
     f["die_busy"][i] = done
     f["die_prog"][i] = new_dp
     f["chan_busy"][ch] = done
@@ -141,12 +162,16 @@ def _free_append(cfg: StackConfig, f: Dict, v: int) -> None:
 # -------------------------------------------------------------- FTL + GC
 def _collect(cfg: StackConfig, p: Dict, f: Dict, now: int) -> int:
     """Mirror of :meth:`FTL._collect`: greedy victim (fewest valid pages,
-    excluding the write block and free blocks, ties to the lowest block id),
-    valid pages migrated read+program in offset order on a serial tick
-    chain, erase, victim appended to the free pool."""
+    excluding the write block, free blocks and retired blocks, ties to the
+    lowest block id), valid pages migrated read+program in offset order on
+    a serial tick chain, erase, victim appended to the free pool unless
+    its erase failed (the block is retired instead)."""
     nb, ppb = cfg.num_blocks, cfg.pages_per_block
     cand = (torch.arange(nb, device=f["valid"].device) != int(f["wpb"])) \
         & ~f["free_mask"]
+    if cfg.faults:
+        # grown bad blocks never re-enter candidacy (FTL.retired_blocks)
+        cand &= ~f["rtr_mask"]
     any_cand = bool(cand.any())
     score = torch.where(cand, f["valid"], torch.full_like(f["valid"],
                                                           INT32_MAX))
@@ -180,7 +205,18 @@ def _collect(cfg: StackConfig, p: Dict, f: Dict, now: int) -> int:
         # no-candidate early return skips the erase)
         t = _pal_erase(cfg, p, f, t, base)
         _bump(f, "c_ge")
-        _free_append(cfg, f, victim)
+        fail = False
+        if cfg.faults:
+            # FTL._collect's erase-fail consult: the erase sequence
+            # advances once a victim's erase; a failed erase retires the
+            # victim, which never returns to the free pool
+            fail = bool(erase_fails_torch(cfg.faults, f["er_seq"]))
+            f["er_seq"] += 1
+            if fail:
+                f["rtr_mask"][victim] = True
+                f["c_rb"] += 1
+        if not fail:
+            _free_append(cfg, f, victim)
     return t
 
 
@@ -437,6 +473,16 @@ def flash_init(cfg: StackConfig, device) -> Dict:
         })
     else:
         f["nfree"] = i64(1)
+    if cfg.faults:
+        # deterministic NAND faults: in-state read / erase sequence numbers
+        # (the PAL / FTL twins), retry and retirement totals, retired mask
+        f["rd_seq"] = i64(0)
+        f["c_rr"] = i64(0)
+        if cfg.gc:
+            f["er_seq"] = i64(0)
+            f["rtr_mask"] = torch.zeros(cfg.num_blocks, dtype=torch.bool,
+                                        device=device)
+            f["c_rb"] = i64(0)
     if cfg.counters:
         # FTL.stats twins (host vs GC traffic); gc_runs rides on "gcs"
         f["c_hr"] = i64(0)
@@ -521,3 +567,12 @@ def flash_counters(state: Dict):
     return [[int(flash.get(k, 0)) for k in
              ("c_hr", "c_hw", "c_gw", "c_ge", "gcs")]]
 
+
+def fault_counters(state: Dict) -> Tuple[int, int]:
+    """``(nand_read_retries, retired_blocks)`` of the flash lane — kept out
+    of :func:`flash_counters` so the pinned metrics shape is untouched;
+    both zero for stacks built without NAND fault statics."""
+    flash = state["flash"]
+    if flash is None or "c_rr" not in flash:
+        return 0, 0
+    return int(flash["c_rr"]), int(flash.get("c_rb", 0))

@@ -12,7 +12,7 @@ on shared switch ports and device media emerges from the targets'
 busy-until state rather than from run ordering.
 
 The python lane is plain Python and uses no torch (its metrics are numpy);
-the fused lanes (``engine="scan"``, ``engine="cuda"``) load
+the fused lanes (``engine="scan"``, ``"assoc"``, ``"cuda"``) load
 :mod:`repro_torch.core.replay` only when they run.
 """
 
@@ -76,9 +76,6 @@ class TraceResult:
 # "pallas" is the JAX package's name for the kernel lane; it is accepted
 # here so code and golden lane names written for that package line up.
 ENGINES = ("python", "scan", "assoc", "cuda", "pallas")
-_NOT_PORTED = {
-    "assoc": "the associative lane is not ported yet (ROADMAP Queue A item 6)",
-}
 
 
 class TraceDriver:
@@ -95,13 +92,21 @@ class TraceDriver:
                  trace on the card (``torch_device="cpu"`` runs its plain
                  twin), tick-identical to ``python`` for all five devices,
                  attached directly or fabric-mounted (fixed route or ECMP,
-                 with or without QoS), greedy FTL GC included, metrics on
-                 request; other shapes raise
+                 with or without QoS), greedy FTL GC included, under any
+                 installed fault plan, metrics on request; other shapes
+                 raise
                  :class:`~repro_torch.core.replay.spec.ReplayUnsupported`
                  (the JAX package retries those in its multi-host replay,
                  which is not ported yet, ROADMAP Queue A item 10: the
                  port raises the single-host reason).  ``block_size`` is
                  accepted and tick-invisible: the kernel ignores it;
+    ``assoc``    the associative lane
+                 (:class:`~repro_torch.core.replay.assoc.AssocReplayEngine`):
+                 stateless DRAM/PMEM media on a single route, solved by
+                 certified closed-form prefix scans on ``torch_device``,
+                 tick-identical to ``python`` or refused with
+                 :class:`~repro_torch.core.replay.spec.ReplayUnsupported`
+                 (no silent fallback);
     ``cuda``     the fused cache+latency CUDA kernel for the cached
                  CXL-SSD, bare or fabric-mounted (the model has no
                  fabric hops) — bit-identical hit/evict decisions, analytic
@@ -109,9 +114,6 @@ class TraceDriver:
                  :mod:`repro_torch.core.replay.cuda_engine`); ``"pallas"``
                  is an alias.  Runs on ``torch_device`` (the card by
                  default; ``"cpu"`` runs the kernel's plain version).
-
-    ``assoc`` raises :class:`NotImplementedError` until its slice is
-    ported.
     """
 
     def __init__(self, device: MemDevice, outstanding: int = 32,
@@ -120,10 +122,6 @@ class TraceDriver:
                  metrics=None, torch_device="cuda") -> None:
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
-        if engine in _NOT_PORTED:
-            raise NotImplementedError(
-                f"engine={engine!r}: {_NOT_PORTED[engine]}; use "
-                "engine='python' or engine='cuda'")
         from repro_torch.core.replay.spec import (require_metrics_lane,
                                                   validate_block_size)
 
@@ -158,6 +156,16 @@ class TraceDriver:
         return multi.run([rows], start_tick=start_tick).per_host[0]
 
     def _run_fast(self, rows, start_tick: int) -> TraceResult:
+        if self.engine == "assoc":
+            from repro_torch.core.replay.assoc import AssocReplayEngine
+            # no silent fallback: the caller asked for the associative
+            # lane, so a shape it cannot certify raises ReplayUnsupported
+            # naming the wider lane (engine='scan')
+            return AssocReplayEngine(
+                self.device, outstanding=self.outstanding,
+                issue_overhead_ns=self.issue_overhead_ns,
+                posted_writes=self.posted_writes,
+                torch_device=self.torch_device).run(rows, start_tick)
         if self.engine == "scan":
             from repro_torch.core.replay.engine import ReplayEngine
             return ReplayEngine(

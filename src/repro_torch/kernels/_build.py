@@ -57,7 +57,7 @@ SIGNATURES = {
         "page_gather_error_string": (ctypes.c_char_p, [_I]),
     },
     "replay_scan": {
-        "replay_scan_launch": (_I, [_P] * 24 + [_I, _P]),
+        "replay_scan_launch": (_I, [_P] * 26 + [_I, _P]),
         "replay_scan_num_args": (_I, []),
         "replay_scan_layout_words": (_I, []),
         "replay_scan_smem_optin": (_I, [_I, ctypes.POINTER(_I)]),

@@ -459,24 +459,21 @@ def _latency_plain(hits, evicts, outstanding, issue_ns, hit_ns, miss_ns,
 def fill_latency_assoc(hits, evicts, arr_ns, *, hit_ns: int, miss_ns: int,
                        miss_occ_ns: int, wb_ns: int) -> torch.Tensor:
     """Recompute the fused kernel's latency stream from its decisions and
-    arrivals, without the sequential chain.
+    arrivals with the associative busy-until form shared with the replay
+    lanes (:func:`repro_torch.core.maxplus.busy_until`).
 
-    The fill path is a gated busy-until with constant occupancy: misses
-    occupy it for ``miss_occ_ns`` each, hits bypass it.  With ``C`` the
-    running miss count, the fill stage frees at
-    ``occ * C + max(0, cummax(where(miss, arr - occ * (C - 1), -inf)))``,
-    which equals the sequential fold exactly (int64 here, so no wrap).
+    The kernel's fill path is a gated max-plus chain — misses occupy the
+    cache-DRAM fill stage for ``miss_occ_ns`` each, hits bypass it — so
+    given the arrival stream the whole latency recurrence is one closed
+    form, bit-identical to the sequential in-kernel chain.
     ``run_cuda(validate=True)`` uses it to cross-check every kernel run."""
+    from repro_torch.core.maxplus import busy_until
+
     hits = torch.as_tensor(hits).to(torch.bool)
     evicts = torch.as_tensor(evicts).to(torch.bool)
     arr = torch.as_tensor(arr_ns)
-    miss = ~hits
     a = arr.to(torch.int64)
-    m = miss.to(torch.int64)
-    c = torch.cumsum(m, -1)
-    key = torch.where(miss, a - miss_occ_ns * (c - m),
-                      torch.iinfo(torch.int64).min)
-    free = miss_occ_ns * c + torch.cummax(key, -1).values.clamp(min=0)
+    free = busy_until(a, miss_occ_ns, active=~hits, init=0)
     start = free - miss_occ_ns                   # fill-stage grant per miss
     lat = torch.where(hits, hit_ns,
                       start - a + miss_ns + torch.where(evicts, wb_ns, 0))

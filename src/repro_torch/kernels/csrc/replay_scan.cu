@@ -3,8 +3,9 @@
 //
 // Replaces the JAX package's per-access lax.scan, which is not a Pallas
 // kernel: src/repro/core/replay/engine.py::_scan_chunk (:441, its step: LFB
-// slot recycle, `_transport` :100 / `_transport_ecmp` :174 with the qacc /
-// qthr accumulators) over src/repro/core/replay/stack.py::step (:611) and
+// slot recycle, `_transport` :100 / `_transport_ecmp` :174 / the faulted
+// lane's `_transport_cols` :136 with the qacc / qthr / vft accumulators)
+// over src/repro/core/replay/stack.py::step (:611) and
 // `media_step` (:578): `_dram_step`, `_pmem_step`, `_buf_step`,
 // `_cache_step`, and under them `_hil_read` / `_hil_write`, `_alloc_ppn`,
 // `_ftl_invalidate`, greedy GC `_collect`, the free-block FIFO and
@@ -58,6 +59,21 @@
 //     multiply-high by a magic number; l2p[page] comes from the access's
 //     early load unless a GC ran in its writeback.  GC (greedy victim
 //     argmin over the blocks) runs only when its watermark is reached.
+//   * Faults.  A stack with NAND fault statics (its own instance, NAND)
+//     keeps the read and erase sequence numbers in registers: each page
+//     read, a GC migration's included, draws its retry count from
+//     splitmix64 over rd_seq (the seed-side mixes folded on the host) and
+//     charges 1 + k sense and transfer rounds; each GC erase draws its
+//     failure over er_seq, and a failed erase sets the victim's bit in a
+//     retired bitmap, which the greedy victim scan skips, instead of
+//     returning it to the free queue.  Under transport faults (its own
+//     instance, FAULTED) each access carries a path id (in aux) and one
+//     retry byte a hop (staged beside the chunk): the route tables hold
+//     the path table, port -1 marks a hop the path does not have, hop h
+//     occupies its port for occ * (1 + retries[h]), and a weighted port's
+//     virtual clock vft advances by the clean occ.  Poison is a flag bit
+//     the host ORs in.  A fault-free replay runs the instances without
+//     either.
 // Shared memory holds the staging buffers, the tree, the ports, the route
 // tables, the MSHR and writeback tables and the die / channel busy-untils;
 // then, while they fit, the frames' map, the packed frames, their links,
@@ -69,7 +85,9 @@
 // accesses, 32 outstanding, 256-access chunks) takes 216,976 bytes: 18,432
 // of staging, 1,024 of tree, 912 of small tables, a 65,536-byte map,
 // 32,768 of frames, 32,768 of links and a 65,536-byte l2p; every access
-// stays in shared memory.
+// stays in shared memory.  Mounted on chip_smoke.py's faulted 2 x 2
+// spine-leaf (four hops, six ports, two paths) it takes 219,376: the
+// retry bytes' staging, the path table and vft add 2,400.
 //
 // Where the JAX reference's semantics need care:
 //   * Ties.  jnp.argmin / argmax return the lowest index among ties: the
@@ -147,6 +165,8 @@ enum Arg {
   A_LAT_R_MISS, A_LAT_R_HIT, A_LAT_W_MISS, A_LAT_W_HIT,
   A_HIL_OV, A_XFER_PAGE, A_READ_T, A_PROG_T, A_SUS_T, A_ERASE_T, A_INTERNAL,
   A_HIT_LAT, A_LINE_XFER, A_PAGE_XFER, A_PACK10, A_IS_LRU, A_CAP,
+  A_FAULT_HOPS, A_PATHS, A_NAND, A_RD_KEY, A_RD_THRESH, A_RD_MAX, A_ER_KEY,
+  A_ER_THRESH,
   kNumArgs
 };
 
@@ -158,10 +178,11 @@ enum Arg {
 // the scratch tensor at byte -1 - offset.
 enum Lay {
   L_CHUNK, L_LEAVES,
-  L_IN_KEY, L_IN_AUX, L_IN_SET, L_OUT_ISSUE, L_OUT_DONE, L_OUT_FLAGS,
-  L_TREE, L_PB, L_QACC, L_QTHR, L_TABLES, L_MPAGE, L_MREADY, L_WTICK,
-  L_DIE_BUSY, L_DIE_PROG, L_CHAN_BUSY,
+  L_IN_KEY, L_IN_AUX, L_IN_SET, L_IN_RT, L_OUT_ISSUE, L_OUT_DONE,
+  L_OUT_FLAGS, L_TREE, L_PB, L_QACC, L_QTHR, L_VFT, L_TABLES, L_MPAGE,
+  L_MREADY, L_WTICK, L_DIE_BUSY, L_DIE_PROG, L_CHAN_BUSY,
   L_WHERE, L_FRAMES, L_LINKS, L_L2P, L_VALID, L_FREE_MASK, L_FREE_Q, L_P2L,
+  L_RETIRED,
   kLayoutWords
 };
 
@@ -169,7 +190,8 @@ enum Lay {
 // kernels/replay_scan.py.
 enum Scalar {
   S_BUSY, S_ROW, S_DRAM_BUSY, S_WPB, S_WPP, S_NFREE, S_FQ_HEAD, S_FQ_COUNT,
-  S_GCS, S_BAD, S_C_HR, S_C_HW, S_C_GW, S_C_GE, kNumScalars
+  S_GCS, S_BAD, S_C_HR, S_C_HW, S_C_GW, S_C_GE, S_RD_SEQ, S_ER_SEQ, S_C_RR,
+  S_C_RB, kNumScalars
 };
 
 struct Args {
@@ -180,15 +202,18 @@ struct Layout {
   long long v[kLayoutWords];
 };
 
-// Device pointers of one replay.  The trace and the per-access outputs;
-// `tables` holds hop_port, hop_occ and hop_after (routes x hops each) and
-// the per-port QoS mask; `totals` receives qacc then qthr (ports each);
-// `scal` the state's scalars; `scratch` the map and links that the layout
-// leaves in device memory.  The rest are the state's arrays.
+// Device pointers of one replay.  The trace (`routes` is the ECMP route
+// or the faulted lane's path id, `retries` that lane's CRC retries, one
+// byte a hop) and the per-access outputs; `tables` holds hop_port,
+// hop_occ and hop_after (routes or paths x hops each) and the per-port
+// QoS mask; `totals` receives qacc then qthr (ports each); `scal` the
+// state's scalars; `scratch` the map, links and retired bitmap that the
+// layout leaves in device memory.  The rest are the state's arrays.
 struct Ptrs {
   const long long* addrs;
   const uint8_t* writes;
   const int32_t* routes;
+  const uint8_t* retries;
   const long long* tables;
   long long* issues;
   long long* dones;
@@ -204,6 +229,7 @@ struct Ptrs {
   int32_t* valid;
   int32_t* free_q;
   uint8_t* free_mask;
+  uint8_t* rtr_mask;
   long long* die_busy;
   long long* die_prog;
   long long* chan_busy;
@@ -271,7 +297,10 @@ __device__ __forceinline__ T* placed(char* sm, long long off, T* dev) {
 }
 
 // ------------------------------------------------------------ the chain
-// Thread 0's registers and the state's arrays.
+// Thread 0's registers and the state's arrays.  NAND: the stack carries
+// NAND fault statics (its own instance, so that a fault-free flash chain
+// holds none of their registers).
+template <bool NAND>
 struct Chain {
   // argument fields
   int H, nf, nm, nw, nm8, nw8, nb, depth, leaves;
@@ -280,9 +309,11 @@ struct Chain {
       lat_wh, hil_ov, xfer_page, read_t, prog_t, sus_t, erase_t, internal,
       hit_lat, line_xfer, page_xfer, pack10, watermark, ppb;
   Div C, D, PPB;
+  // the NAND decisions' folded seed keys, thresholds and retry maximum
+  unsigned long long rd_key, rd_thresh, rd_max, er_key, er_thresh;
   // the state's scalars
   long long busy, row, dram_busy, wpb, wpp, nfree, fq_head, fq_count, gcs,
-      bad, c_hr, c_hw, c_gw, c_ge;
+      bad, c_hr, c_hw, c_gw, c_ge, rd_seq, er_seq, c_rr, c_rb;
   // the frames' fill pointer and recency list; the LFB winner; the next
   // issue floor
   int fill, head, tail;
@@ -291,14 +322,40 @@ struct Chain {
   long long now;
   // arrays
   longlong2* tree;
-  long long *pb, *qacc, *qthr, *mready, *wtick;
+  long long *pb, *qacc, *qthr, *vft, *mready, *wtick;
   int32_t* mpage;       // the MSHR's pages, int32 here (-1: free)
   const long long *hop_port, *hop_occ, *hop_after, *qos;
   long long *die_busy, *die_prog, *chan_busy, *frames;
   int32_t *where, *l2p, *p2l, *valid, *free_q;
   int2* links;
   uint8_t* free_mask;
+  uint32_t* retired;    // bitmap of the blocks a failed erase retired
   SCAN_PHASE_MEMBERS
+
+  // ---------------------------------------------------- NAND faults
+  // fault_hash(seed, salt, 0, seq) of faults/plan.py: the seed-side mixes
+  // come folded in `key`; splitmix64's finalizer over seq ^ key
+  __device__ __forceinline__ static unsigned long long fault_mix(
+      unsigned long long key, long long seq) {
+    unsigned long long x = static_cast<unsigned long long>(seq) ^ key;
+    x += 0x9E3779B97F4A7C15ull;
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+    x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+    return x ^ (x >> 31);
+  }
+
+  // FaultPlan.nand_read_retries(rd_seq): the low 32 bits gate the event,
+  // the high ones pick the burst, 1..rd_max
+  __device__ __forceinline__ long long read_retries() const {
+    const unsigned long long h = fault_mix(rd_key, rd_seq);
+    return (h & 0xffffffffull) < rd_thresh
+               ? static_cast<long long>(1 + (h >> 32) % rd_max)
+               : 0;
+  }
+
+  __device__ __forceinline__ bool erase_fails() const {
+    return (fault_mix(er_key, er_seq) & 0xffffffffull) < er_thresh;
+  }
 
   // ---------------------------------------------------------- PAL
   __device__ __forceinline__ void die_of(long long ppn, uint32_t* ch,
@@ -313,11 +370,20 @@ struct Chain {
     die_of(ppn, &ch, &i);
     const long long dbi = die_busy[i], dpi = die_prog[i];
     const long long cbi = chan_busy[ch];
+    long long rd = read_t, xfer = xfer_page;
+    if (NAND) {
+      // 1 + k sense and transfer rounds; the sequence moves once a read
+      const long long k = read_retries();
+      rd *= 1 + k;
+      xfer *= 1 + k;
+      rd_seq += 1;
+      c_rr += k;
+    }
     long long ds = max64(t, dbi);
     if (dpi > ds) ds = min64(dpi, ds + sus_t);
-    const long long array_done = ds + read_t;
-    const long long new_dp = dpi > ds ? dpi + read_t : dpi;
-    const long long done = max64(array_done, cbi) + xfer_page;
+    const long long array_done = ds + rd;
+    const long long new_dp = dpi > ds ? dpi + rd : dpi;
+    const long long done = max64(array_done, cbi) + xfer;
     die_busy[i] = done;
     die_prog[i] = new_dp;
     chan_busy[ch] = done;
@@ -367,12 +433,13 @@ struct Chain {
   // ------------------------------------------------------- FTL + GC
   __device__ long long collect(long long now_) {
     // greedy victim: fewest valid pages among blocks that are neither the
-    // write block nor free, ties to the lowest block id
+    // write block nor free nor retired, ties to the lowest block id
     long long best = kInt32Max + 1;
     int victim = 0;
     bool any_cand = false;
     for (int b = 0; b < nb; ++b) {
-      const bool cand = b != wpb && !free_mask[b];
+      const bool cand = b != wpb && !free_mask[b] &&
+                        !(NAND && ((retired[b >> 5] >> (b & 31)) & 1u));
       any_cand |= cand;
       const long long score = cand ? valid[b] : kInt32Max;
       if (score < best) {
@@ -406,7 +473,19 @@ struct Chain {
     if (any_cand) {
       t = pal_erase(t, base);
       c_ge += 1;
-      free_append(victim);
+      // FTL._collect's erase-fail consult: a failed erase retires the
+      // victim instead of returning it to the pool
+      bool fail = false;
+      if (NAND) {
+        fail = erase_fails();
+        er_seq += 1;
+      }
+      if (fail) {
+        retired[victim >> 5] |= 1u << (victim & 31);
+        c_rb += 1;
+      } else {
+        free_append(victim);
+      }
     }
     return t;
   }
@@ -802,15 +881,44 @@ struct Chain {
     return t + rt_extra;
   }
 
+  // The faulted lane's hops (engine.py::_transport_cols): path `path` of
+  // the path table, whose port -1 marks a hop the path does not have (a
+  // no-op); hop h occupies its port for occ * (1 + rt[h]) ticks, and a
+  // weighted port's virtual clock vft advances by the clean occ: retries
+  // stretch the serialization, not the origin's entitlement.
+  __device__ __forceinline__ long long fault_hops(long long t, int path,
+                                                  const uint8_t* rt) {
+    const long long row_ = static_cast<long long>(path) * H;
+#pragma unroll 1
+    for (int h = 0; h < H; ++h) {
+      const long long pi = hop_port[row_ + h];
+      if (pi < 0) continue;
+      const long long occ_h = hop_occ[row_ + h], after_h = hop_after[row_ + h];
+      const long long b = pb[pi], acc = qacc[pi];
+      if (qos[pi]) {
+        const long long prev = vft[pi];
+        qthr[pi] += prev > t ? 1 : 0;
+        vft[pi] = max64(prev, t) + occ_h;
+      }
+      const long long st = max64(t, b);
+      qacc[pi] = acc + (st - t);
+      const long long done = st + occ_h * (1 + rt[h]);
+      pb[pi] = done;
+      t = done + after_h;
+    }
+    return t + rt_extra;
+  }
+
   // ------------------------------------------------------- the walk
   // Thread 0 replays the m staged accesses of a chunk whose first has
   // index `base`.  In: key (PMEM row, buffer / cache page), aux (write |
-  // route << 1) and the direct-mapped frame; out: issue, done, flags.
-  template <int KIND>
+  // route or path << 1), the direct-mapped frame and the faulted lane's
+  // retry bytes (H an access); out: issue, done, flags.
+  template <int KIND, bool FAULTED>
   __device__ void walk(int m, long long base, const long long* in_key,
                        const int32_t* in_aux, const int32_t* in_set,
-                       long long* o_issue, long long* o_done,
-                       int32_t* o_flags) {
+                       const uint8_t* in_rt, long long* o_issue,
+                       long long* o_done, int32_t* o_flags) {
     constexpr bool kFlash = KIND == kSsdBuf || KIND == kSsdCache;
     // each access loads the next one's input, and for the flash its
     // l2p[page] (after its own stores, before the next one's)
@@ -823,7 +931,8 @@ struct Chain {
       SCAN_PHASE_DEP(P_LOAD, key + aux + early_ppn);
       const long long issue = max64(now, win.x);
       const bool posted = wr && posted_writes;
-      const long long t = hops(issue, aux >> 1);
+      const long long t = FAULTED ? fault_hops(issue, aux >> 1, in_rt + j * H)
+                                  : hops(issue, aux >> 1);
       SCAN_PHASE_DEP(P_HOPS, t);
       const long long ctr = base + j + 1;          // stamp counter: 1, 2, ...
       int flags = 0;
@@ -855,8 +964,11 @@ struct Chain {
   }
 };
 
-// The block: prologue, the chunks, epilogue.
-template <int KIND>
+// The block: prologue, the chunks, epilogue.  NAND: the stack carries
+// NAND fault statics; FAULTED: its transport is the faulted lane's path
+// table and retry bytes.  Each is an instance of its own, so that a
+// fault-free replay runs the same code as before the faulted lane.
+template <int KIND, bool NAND, bool FAULTED>
 __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
                        char* sm) {
   const long long* a = args.v;
@@ -865,7 +977,9 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   const int K = static_cast<int>(a[A_OUTSTANDING]);
   const int P = static_cast<int>(a[A_PORTS]);
   const int H = static_cast<int>(a[A_HOPS]);
-  const int R = static_cast<int>(a[A_ROUTES]);
+  // rows of the route tables: ECMP routes, the faulted lane's paths, or 1
+  const int R = static_cast<int>(a[A_PATHS]);
+  constexpr bool faulted = FAULTED;
   const int nm = static_cast<int>(a[A_MSHR]), nw = static_cast<int>(a[A_WB]);
   // the tables padded to whole blocks: free pads (page -1, ready kBig)
   const int nm8 = (nm + kBlock - 1) / kBlock * kBlock;
@@ -881,12 +995,15 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   constexpr bool kFlash = KIND == kSsdBuf || KIND == kSsdCache;
   const bool assoc = KIND == kSsdBuf || (KIND == kSsdCache && a[A_ASSOC]);
   const bool gc = kFlash && a[A_GC];
+  const bool nand = kFlash && NAND;
+  const int rwords = (nb + 31) / 32;     // the retired bitmap's words
 
-  Chain c;
+  Chain<NAND> c;
   c.tree = reinterpret_cast<longlong2*>(sm + L[L_TREE]);
   c.pb = reinterpret_cast<long long*>(sm + L[L_PB]);
   c.qacc = reinterpret_cast<long long*>(sm + L[L_QACC]);
   c.qthr = reinterpret_cast<long long*>(sm + L[L_QTHR]);
+  c.vft = reinterpret_cast<long long*>(sm + L[L_VFT]);
   long long* tables = reinterpret_cast<long long*>(sm + L[L_TABLES]);
   c.hop_port = tables;
   c.hop_occ = tables + R * H;
@@ -908,6 +1025,8 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   c.free_mask = placed(sm, L[L_FREE_MASK], ptrs.free_mask);
   c.free_q = placed(sm, L[L_FREE_Q], ptrs.free_q);
   c.p2l = placed(sm, L[L_P2L], ptrs.p2l);
+  c.retired = placed(sm, L[L_RETIRED], reinterpret_cast<uint32_t*>(
+                                           ptrs.scratch - 1 - L[L_RETIRED]));
 
   // prologue (engine.py::_init_carry): LFB slots at start, ports idle;
   // the tables and the placed state copied in, the map emptied
@@ -925,7 +1044,10 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     lo -= leaves;
     c.tree[i] = make_longlong2(lo < K ? start : kBig, lo);
   }
-  for (int i = tid; i < P; i += kThreads) c.pb[i] = c.qacc[i] = c.qthr[i] = 0;
+  for (int i = tid; i < P; i += kThreads) {
+    c.pb[i] = c.qacc[i] = c.qthr[i] = 0;
+    if (faulted) c.vft[i] = 0;
+  }
   for (long long i = tid; i < 3 * T + P; i += kThreads)
     tables[i] = ptrs.tables[i];
   for (int i = tid; i < nm8; i += kThreads) {
@@ -963,6 +1085,14 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     if (L[L_P2L] >= 0)
       for (long long i = tid; i < nb * ppb; i += kThreads)
         c.p2l[i] = ptrs.p2l[i];
+    if (nand) {
+      for (int w = tid; w < rwords; w += kThreads) {
+        uint32_t bits = 0;
+        for (int b = 0; b < 32 && 32 * w + b < nb; ++b)
+          bits |= static_cast<uint32_t>(ptrs.rtr_mask[32 * w + b] != 0) << b;
+        c.retired[w] = bits;
+      }
+    }
   }
 
   // thread 0's registers
@@ -978,7 +1108,13 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     int depth = 0;
     while ((1LL << depth) < leaves) ++depth;
     c.depth = depth;
-    c.ecmp = R > 1;
+    c.ecmp = !faulted && R > 1;
+    c.rd_key = static_cast<unsigned long long>(a[A_RD_KEY]);
+    c.rd_thresh = static_cast<unsigned long long>(a[A_RD_THRESH]);
+    c.rd_max = static_cast<unsigned long long>(a[A_RD_MAX] > 0 ? a[A_RD_MAX]
+                                                              : 1);
+    c.er_key = static_cast<unsigned long long>(a[A_ER_KEY]);
+    c.er_thresh = static_cast<unsigned long long>(a[A_ER_THRESH]);
     c.posted_writes = a[A_POSTED] != 0;
     c.assoc = assoc;
     c.lru = KIND == kSsdBuf || a[A_IS_LRU] != 0;
@@ -1023,6 +1159,10 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     c.c_hw = s[S_C_HW];
     c.c_gw = s[S_C_GW];
     c.c_ge = s[S_C_GE];
+    c.rd_seq = s[S_RD_SEQ];
+    c.er_seq = s[S_ER_SEQ];
+    c.c_rr = s[S_C_RR];
+    c.c_rb = s[S_C_RB];
     c.fill = 0;
     c.head = c.tail = -1;
     c.mmin = kBig;
@@ -1037,6 +1177,7 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   long long* in_key = reinterpret_cast<long long*>(sm + L[L_IN_KEY]);
   int32_t* in_aux = reinterpret_cast<int32_t*>(sm + L[L_IN_AUX]);
   int32_t* in_set = reinterpret_cast<int32_t*>(sm + L[L_IN_SET]);
+  uint8_t* in_rt = reinterpret_cast<uint8_t*>(sm + L[L_IN_RT]);
   long long* o_issue = reinterpret_cast<long long*>(sm + L[L_OUT_ISSUE]);
   long long* o_done = reinterpret_cast<long long*>(sm + L[L_OUT_DONE]);
   int32_t* o_flags = reinterpret_cast<int32_t*>(sm + L[L_OUT_FLAGS]);
@@ -1060,6 +1201,9 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
       in_aux[b + j] = (ptrs.writes[g + j] != 0 ? 1 : 0) |
                       (ptrs.routes ? ptrs.routes[g + j] << 1 : 0);
       in_set[b + j] = direct ? static_cast<int32_t>(key % cap) : 0;
+      if (faulted)
+        for (int h = 0; h < H; ++h)
+          in_rt[(b + j) * H + h] = ptrs.retries[(g + j) * H + h];
     }
   };
   auto flush = [&](long long q) {
@@ -1078,8 +1222,10 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   for (long long q = 0; q < chunks; ++q) {
     if (tid == 0) {
       const int b = static_cast<int>(q & 1) * chunk;
-      c.walk<KIND>(span(q), q * chunk, in_key + b, in_aux + b, in_set + b,
-                   o_issue + b, o_done + b, o_flags + b);
+      c.template walk<KIND, FAULTED>(
+          span(q), q * chunk, in_key + b, in_aux + b, in_set + b,
+          in_rt + static_cast<long long>(b) * H, o_issue + b, o_done + b,
+          o_flags + b);
     } else if (tid >= 32) {
       if (q + 1 < chunks) stage(q + 1);
       if (q > 0) flush(q - 1);
@@ -1126,6 +1272,9 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     if (L[L_P2L] >= 0)
       for (long long i = tid; i < nb * ppb; i += kThreads)
         ptrs.p2l[i] = c.p2l[i];
+    if (nand)
+      for (int i = tid; i < nb; i += kThreads)
+        ptrs.rtr_mask[i] = (c.retired[i >> 5] >> (i & 31)) & 1u;
   }
   if (tid == 0) {
     long long* s = ptrs.scal;
@@ -1143,29 +1292,52 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     s[S_C_HW] = c.c_hw;
     s[S_C_GW] = c.c_gw;
     s[S_C_GE] = c.c_ge;
+    s[S_RD_SEQ] = c.rd_seq;
+    s[S_ER_SEQ] = c.er_seq;
+    s[S_C_RR] = c.c_rr;
+    s[S_C_RB] = c.c_rb;
   }
 }
 
 #ifndef REPLAY_SCAN_EMULATE
 // One block of four warps an SM: the minimum of 1 lets ptxas give the
 // walking thread the registers it wants.
-template <int KIND>
+template <int KIND, bool NAND, bool FAULTED>
 __global__ void __launch_bounds__(kThreads, 1)
 replay_scan_kernel(const __grid_constant__ Args args,
                    const __grid_constant__ Layout lay, const Ptrs ptrs) {
   extern __shared__ __align__(16) char smem[];
-  replay<KIND>(args, lay, ptrs, smem);
+  replay<KIND, NAND, FAULTED>(args, lay, ptrs, smem);
 }
 
-template <int KIND>
+template <int KIND, bool NAND, bool FAULTED>
 int launch(const Args& a, const Layout& lay, const Ptrs& p, int smem_bytes,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      replay_scan_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      replay_scan_kernel<KIND, NAND, FAULTED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  replay_scan_kernel<KIND><<<1, kThreads, smem_bytes, stream>>>(a, lay, p);
+  replay_scan_kernel<KIND, NAND, FAULTED>
+      <<<1, kThreads, smem_bytes, stream>>>(a, lay, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of the stack's kind (NAND statics only on the flash kinds).
+template <bool FAULTED>
+int launch_kind(const Args& a, const Layout& lay, const Ptrs& p,
+                int smem_bytes, cudaStream_t s) {
+  const bool nand = a.v[A_NAND] != 0;
+  switch (a.v[A_KIND]) {
+    case kDram: return launch<kDram, false, FAULTED>(a, lay, p, smem_bytes, s);
+    case kPmem: return launch<kPmem, false, FAULTED>(a, lay, p, smem_bytes, s);
+    case kSsdBuf:
+      return nand ? launch<kSsdBuf, true, FAULTED>(a, lay, p, smem_bytes, s)
+                  : launch<kSsdBuf, false, FAULTED>(a, lay, p, smem_bytes, s);
+    default:
+      return nand
+                 ? launch<kSsdCache, true, FAULTED>(a, lay, p, smem_bytes, s)
+                 : launch<kSsdCache, false, FAULTED>(a, lay, p, smem_bytes, s);
+  }
 }
 #endif
 
@@ -1182,28 +1354,26 @@ extern "C" {
 int replay_scan_launch(const long long* args, const long long* layout,
                        const long long* tables, const long long* addrs,
                        const uint8_t* writes, const int32_t* routes,
-                       long long* issues, long long* dones, int32_t* flags,
+                       const uint8_t* retries, long long* issues,
+                       long long* dones, int32_t* flags,
                        long long* totals, long long* scal, long long* frames,
                        long long* mpage, long long* mready, long long* wtick,
                        int32_t* l2p, int32_t* p2l, int32_t* valid,
                        int32_t* free_q, uint8_t* free_mask,
-                       long long* die_busy, long long* die_prog,
-                       long long* chan_busy, char* scratch, int smem_bytes,
-                       void* stream) {
+                       uint8_t* rtr_mask, long long* die_busy,
+                       long long* die_prog, long long* chan_busy,
+                       char* scratch, int smem_bytes, void* stream) {
   Args a;
   memcpy(a.v, args, sizeof(a.v));
   Layout lay;
   memcpy(lay.v, layout, sizeof(lay.v));
-  const Ptrs p{addrs, writes, routes, tables, issues, dones, flags, totals,
-               scal, frames, mpage, mready, wtick, l2p, p2l, valid, free_q,
-               free_mask, die_busy, die_prog, chan_busy, scratch};
+  const Ptrs p{addrs, writes, routes, retries, tables, issues, dones, flags,
+               totals, scal, frames, mpage, mready, wtick, l2p, p2l, valid,
+               free_q, free_mask, rtr_mask, die_busy, die_prog, chan_busy,
+               scratch};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (a.v[A_KIND]) {
-    case kDram: return launch<kDram>(a, lay, p, smem_bytes, s);
-    case kPmem: return launch<kPmem>(a, lay, p, smem_bytes, s);
-    case kSsdBuf: return launch<kSsdBuf>(a, lay, p, smem_bytes, s);
-    default: return launch<kSsdCache>(a, lay, p, smem_bytes, s);
-  }
+  return a.v[A_FAULT_HOPS] ? launch_kind<true>(a, lay, p, smem_bytes, s)
+                           : launch_kind<false>(a, lay, p, smem_bytes, s);
 }
 
 // The argument block's and the layout's lengths, for the wrapper to check.

@@ -6,7 +6,10 @@ port busy-until transport, the media, the flash backend with greedy GC)
 and returns per-access ``(issues, dones, flags)`` plus the per-port
 queueing and QoS-throttle totals, updating the stack state in place.  It
 is tick-identical to the JAX package's ``ReplayEngine`` scan (its
-``_scan_chunk`` over ``stack.step``).  For CUDA tensors it launches
+``_scan_chunk`` over ``stack.step``), its faulted lane included: NAND
+read retries and erase-fail retirement from the stack's fault statics,
+and link CRC retries and down-port failover from a path table and a
+per-access path id and retry bytes.  For CUDA tensors it launches
 ``csrc/replay_scan.cu`` once for the whole trace; for CPU tensors it runs
 :func:`replay_scan_plain`, the loop of ``_scan_chunk`` over
 :func:`repro_torch.core.replay.stack.step`.  Nothing falls back from one
@@ -50,22 +53,27 @@ ARGS = ("kind", "n", "start_tick", "outstanding", "posted_writes",
         "lat_read_miss", "lat_read_hit", "lat_write_miss", "lat_write_hit",
         "hil_ov", "xfer_page", "read_t", "prog_t", "sus_t", "erase_t",
         "internal", "hit_lat", "line_xfer", "page_xfer", "pack10", "is_lru",
-        "cap")
+        "cap", "fault_hops", "paths", "nand", "rd_key", "rd_thresh",
+        "rd_max", "er_key", "er_thresh")
 # the kernel's layout (`enum Lay`): the chunk's accesses, the LFB tree's
 # leaves, then byte offsets into shared memory; a placed array (`where`
 # and after) at an offset < 0 lives in device memory
-LAYOUT = ("chunk", "leaves", "in_key", "in_aux", "in_set", "out_issue",
-          "out_done", "out_flags", "tree", "pb", "qacc", "qthr", "tables",
-          "mpage", "mready", "wtick", "die_busy", "die_prog", "chan_busy",
-          "where", "frames", "links", "l2p", "valid", "free_mask", "free_q",
-          "p2l")
+LAYOUT = ("chunk", "leaves", "in_key", "in_aux", "in_set", "in_rt",
+          "out_issue", "out_done", "out_flags", "tree", "pb", "qacc",
+          "qthr", "vft", "tables", "mpage", "mready", "wtick", "die_busy",
+          "die_prog", "chan_busy", "where", "frames", "links", "l2p",
+          "valid", "free_mask", "free_q", "p2l", "retired")
 PLACED = LAYOUT[LAYOUT.index("where"):]
 # the state's scalars, in and out of the kernel (`enum Scalar`)
 SCALARS = ("busy", "row", "dram_busy", "wpb", "wpp", "nfree", "fq_head",
-           "fq_count", "gcs", "bad", "c_hr", "c_hw", "c_gw", "c_ge")
+           "fq_count", "gcs", "bad", "c_hr", "c_hw", "c_gw", "c_ge",
+           "rd_seq", "er_seq", "c_rr", "c_rb")
 MEDIA_ARRAYS = ("frames", "mpage", "mready", "wtick")
-FLASH_ARRAYS = ("l2p", "p2l", "valid", "free_q", "free_mask", "die_busy",
-                "die_prog", "chan_busy")
+FLASH_ARRAYS = ("l2p", "p2l", "valid", "free_q", "free_mask", "rtr_mask",
+                "die_busy", "die_prog", "chan_busy")
+# placed arrays that live in the scratch tensor when shared memory does
+# not hold them (the state has none of them: a map, links, a bitmap)
+SCRATCH = ("where", "links", "retired")
 MAX_OUTSTANDING = 4096      # LFB slots of the kernel's tournament tree
 CHUNK = 256                 # accesses a staged chunk
 
@@ -75,8 +83,17 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def num_paths(cfg: StackConfig, params: Dict) -> int:
+    """Rows of the route tables: the paths of a faulted stack's path
+    table, the ECMP routes, or 1 on a fixed route."""
+    if cfg.fault_hops:
+        return int(np.asarray(params["hop_port"]).shape[0])
+    return cfg.num_routes
+
+
 def _check(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
-           writes: torch.Tensor, routes: Optional[torch.Tensor]) -> None:
+           writes: torch.Tensor, routes: Optional[torch.Tensor],
+           retries: Optional[torch.Tensor]) -> None:
     n = addrs.shape[0] if addrs.dim() == 1 else -1
     if addrs.dtype != torch.int64 or addrs.dim() != 1 or n < 1:
         raise ValueError(f"addrs must be a non-empty (N,) int64 tensor, got "
@@ -87,10 +104,14 @@ def _check(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
     if writes.dtype != torch.bool or tuple(writes.shape) != (n,):
         raise ValueError(f"writes must be a ({n},) bool tensor, got "
                          f"{writes.dtype} {tuple(writes.shape)}")
-    if (cfg.num_routes > 1) != (routes is not None):
+    if (cfg.num_routes > 1 or cfg.fault_hops) != (routes is not None):
         raise ValueError("a per-access route column goes with an ECMP stack "
-                         "(num_routes > 1) and only with one")
-    tensors = [writes] + ([routes] if routes is not None else [])
+                         "(num_routes > 1) or a faulted one (fault_hops), "
+                         "and only with one")
+    if cfg.fault_hops != (retries is not None):
+        raise ValueError("per-access retry bytes go with a faulted stack "
+                         "(fault_hops) and only with one")
+    tensors = [writes] + [x for x in (routes, retries) if x is not None]
     for part in ("media", "flash"):
         tensors += list((state[part] or {}).values())
     for x in tensors:
@@ -99,20 +120,31 @@ def _check(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
     if routes is not None and (routes.dtype != torch.int32
                                or tuple(routes.shape) != (n,)):
         raise ValueError(f"routes must be a ({n},) int32 tensor")
+    if retries is not None and (retries.dtype != torch.uint8 or tuple(
+            retries.shape) != (n, cfg.num_hops)):
+        raise ValueError(f"retries must be a ({n}, {cfg.num_hops}) uint8 "
+                         "tensor")
 
 
-def _check_values(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
-                  routes: Optional[torch.Tensor]) -> None:
+def _check_values(cfg: StackConfig, params: Dict, state: Dict,
+                  addrs: torch.Tensor, routes: Optional[torch.Tensor],
+                  retries: Optional[torch.Tensor]) -> None:
     """The checks that read the tensors (one read from their device): the
     kernel indexes its page map and l2p by the page, and its route tables
-    by the route, unchecked, and takes a fresh cache only."""
+    by the route or path, unchecked, charges the retry bytes of a path's
+    hops only, and takes a fresh cache only."""
     top = cfg.num_pages * cfg.page_bytes if stack.has_flash(cfg) else None
+    rows = num_paths(cfg, params)
     checks = {"addresses": addrs.min() < 0}
     if top is not None:
         checks["addresses"] |= addrs.max() >= top
     if routes is not None:
-        checks["routes"] = ((routes.min() < 0)
-                            | (routes.max() >= cfg.num_routes))
+        checks["routes"] = (routes.min() < 0) | (routes.max() >= rows)
+    if retries is not None:
+        # a retry byte on a hop that the access's path does not have
+        off = torch.from_numpy(np.asarray(params["hop_port"]) < 0).to(
+            routes.device)[routes.clamp(0, rows - 1).long()]
+        checks["retries"] = (off & (retries != 0)).any()
     if fully_associative(cfg):
         checks["frames"] = (state["media"]["frames"] != stack.FREE).any()
     failed = dict(zip(checks, torch.stack(list(checks.values())).tolist()))
@@ -121,7 +153,10 @@ def _check_values(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
             "" if top is None else f" and below {top} ({cfg.num_pages} pages, "
             "as build_stack sizes l2p)"))
     if failed.get("routes"):
-        raise ValueError(f"routes must lie in [0, {cfg.num_routes})")
+        raise ValueError(f"routes must lie in [0, {rows})")
+    if failed.get("retries"):
+        raise ValueError("retry bytes must be 0 on the hops an access's "
+                         "path does not have (hop_port -1)")
     if failed.get("frames"):
         raise ValueError(
             "replay_scan starts from a fresh cache: every frame free (-1), "
@@ -139,12 +174,18 @@ def fully_associative(cfg: StackConfig) -> bool:
 def replay_scan(cfg: StackConfig, params: Dict, state: Dict,
                 addrs: torch.Tensor, writes: torch.Tensor,
                 routes: Optional[torch.Tensor] = None, *,
-                start_tick: int = 0):
+                start_tick: int = 0, retries: Optional[torch.Tensor] = None):
     """Replay ``addrs`` / ``writes`` (``(N,)`` int64 / bool) through the
     stack ``cfg`` / ``params`` from ``state``
     (:func:`repro_torch.core.replay.stack.init_state` on the trace's
     device), which ends as the final state.  ``routes`` is the per-access
-    ECMP choice (int32) of a stack with ``num_routes > 1``.
+    ECMP choice (int32) of a stack with ``num_routes > 1``.  A faulted
+    stack (``cfg.fault_hops``) takes its path table in ``params``
+    (``hop_port``, -1 on a hop the path does not have, ``hop_occ`` and
+    ``hop_after``, paths x hops), the access's path id in ``routes`` and
+    its CRC retries a hop in ``retries`` (``(N, num_hops)`` uint8): hop
+    *h* then occupies its port for ``occ * (1 + retries[h])`` ticks, and a
+    weighted port's virtual clock advances by ``occ``.
 
     Returns ``(issues, dones, flags, qacc, qthr)``: int64 issue and
     completion ticks and int32 flags per access (bit 0 hit, bit 1 dirty
@@ -152,15 +193,17 @@ def replay_scan(cfg: StackConfig, params: Dict, state: Dict,
     queueing ticks and QoS throttle events of each port.
 
     Raises ``ValueError`` on addresses below 0 or past the stack's
-    ``num_pages``, on routes outside ``num_routes``, and on the frames of
-    a page-register buffer or a fully associative cache that are not all
-    free: the kernel's victim order starts from a fresh cache."""
-    _check(cfg, state, addrs, writes, routes)
+    ``num_pages``, on routes outside the route tables, on retry bytes of
+    hops a path does not have, and on the frames of a page-register
+    buffer or a fully associative cache that are not all free: the
+    kernel's victim order starts from a fresh cache."""
+    _check(cfg, state, addrs, writes, routes, retries)
     if addrs.device.type == "cpu":
-        _check_values(cfg, state, addrs, routes)
+        _check_values(cfg, params, state, addrs, routes, retries)
         return replay_scan_plain(cfg, params, state, addrs, writes, routes,
-                                 start_tick=start_tick)
-    return _launch(cfg, params, state, addrs, writes, routes, start_tick)
+                                 start_tick=start_tick, retries=retries)
+    return _launch(cfg, params, state, addrs, writes, routes, retries,
+                   start_tick)
 
 
 def host_params(params: Dict) -> Dict:
@@ -176,20 +219,24 @@ def host_params(params: Dict) -> Dict:
 def replay_scan_plain(cfg: StackConfig, params: Dict, state: Dict,
                       addrs: torch.Tensor, writes: torch.Tensor,
                       routes: Optional[torch.Tensor] = None, *,
-                      start_tick: int = 0):
+                      start_tick: int = 0,
+                      retries: Optional[torch.Tensor] = None):
     """Plain version of :func:`replay_scan`: the JAX package's
-    ``_scan_chunk`` step (LFB slot recycle, then ``_transport`` or
-    ``_transport_ecmp`` with the qacc / qthr totals) one access per loop
-    step over :func:`repro_torch.core.replay.stack.step`.  Runs on any
-    device's tensors; the card's main path launches the kernel instead."""
+    ``_scan_chunk`` step (LFB slot recycle, then ``_transport``,
+    ``_transport_ecmp`` or the faulted ``_transport_cols`` with the qacc /
+    qthr totals) one access per loop step over
+    :func:`repro_torch.core.replay.stack.step`.  Runs on any device's
+    tensors; the card's main path launches the kernel instead."""
     p = host_params(params)
     a, w = addrs.tolist(), writes.tolist()
     r = routes.tolist() if routes is not None else None
-    ecmp = cfg.num_routes > 1
+    rt = retries.tolist() if retries is not None else None
+    routed = cfg.num_routes > 1 or cfg.fault_hops
     qos = set(cfg.qos_ports)
     bits = FLAG_EVENT_BITS[cfg.kind]
     slots = [start_tick] * cfg.outstanding          # LFB slots
     pb = [0] * cfg.num_ports                         # port busy-until
+    vft = [0] * cfg.num_ports                        # QoS virtual finish
     qacc = [0] * cfg.num_ports
     qthr = [0] * cfg.num_ports
     now = start_tick
@@ -199,12 +246,21 @@ def replay_scan_plain(cfg: StackConfig, params: Dict, state: Dict,
         issue = max(now, slots[k])
         t = issue
         for h in range(cfg.num_hops):
-            if ecmp:
+            if routed:
                 pi = p["hop_port"][r[i]][h]
                 occ, after = p["hop_occ"][r[i]][h], p["hop_after"][r[i]][h]
             else:
                 pi, occ, after = h, p["hop_occ"][h], p["hop_after"][h]
-            if pi in qos and pb[pi] > t:
+            if pi < 0:                   # a hop this path does not have
+                continue
+            if cfg.fault_hops:
+                # retries stretch the serialization, never the origin's
+                # entitlement: the virtual clock moves by the clean occ
+                if pi in qos:
+                    qthr[pi] += vft[pi] > t
+                    vft[pi] = max(vft[pi], t) + occ
+                occ *= 1 + rt[i][h]
+            elif pi in qos and pb[pi] > t:
                 qthr[pi] += 1
             start = max(t, pb[pi])
             qacc[pi] += start - t
@@ -236,10 +292,24 @@ def replay_scan_plain(cfg: StackConfig, params: Dict, state: Dict,
 def arg_block(cfg: StackConfig, params: Dict, n: int,
               start_tick: int) -> np.ndarray:
     """The kernel's argument block (:data:`ARGS`), int64."""
+    from repro_torch.core.faults.plan import (SALT_NAND_ERASE,
+                                              SALT_NAND_READ, folded_key)
+    from repro_torch.core.u64 import const
+
     p = host_params(params)
     lat = p.get("lat", [[0, 0], [0, 0]])
+    nand = {}
+    if cfg.faults:
+        # the NAND decision hashes' seed-side mixes, folded here: the
+        # kernel xors the sequence number in and runs the last mix
+        seed, rd_thresh, rd_max, er_thresh = cfg.faults
+        nand = dict(nand=1, rd_key=const(folded_key(seed, SALT_NAND_READ)),
+                    rd_thresh=rd_thresh, rd_max=rd_max,
+                    er_key=const(folded_key(seed, SALT_NAND_ERASE)),
+                    er_thresh=er_thresh)
     vals = dict(
         kind=KINDS.index(cfg.kind), n=n, start_tick=start_tick,
+        fault_hops=int(cfg.fault_hops), paths=num_paths(cfg, params), **nand,
         **{f: int(getattr(cfg, f)) for f in (
             "outstanding", "posted_writes", "num_hops", "num_ports",
             "num_routes", "page_bytes", "cache_frames", "cache_assoc",
@@ -255,11 +325,11 @@ def arg_block(cfg: StackConfig, params: Dict, n: int,
 
 
 def route_tables(cfg: StackConfig, params: Dict) -> np.ndarray:
-    """``hop_port``, ``hop_occ`` and ``hop_after`` (routes x hops each; on
-    a fixed route hop h is port h), then the per-port QoS mask, as one
-    int64 array."""
-    H, K = cfg.num_hops, cfg.num_routes
-    if K > 1:
+    """``hop_port``, ``hop_occ`` and ``hop_after`` (routes or paths x hops
+    each; on a fixed route hop h is port h; on a path, port -1 is a hop it
+    does not have), then the per-port QoS mask, as one int64 array."""
+    H, K = cfg.num_hops, num_paths(cfg, params)
+    if K > 1 or cfg.fault_hops:
         port = np.asarray(params["hop_port"], np.int64).reshape(K, H)
         occ = np.asarray(params["hop_occ"], np.int64).reshape(K, H)
         after = np.asarray(params["hop_after"], np.int64).reshape(K, H)
@@ -291,7 +361,8 @@ def _placed_bytes(cfg: StackConfig, params: Dict) -> Dict[str, int]:
     """Bytes of each placed array the stack has, in the order shared
     memory takes them: the frames' map, packed frames and links (the
     recency list of an LRU buffer or cache), then the flash's l2p, and
-    the GC's valid counts, free mask, free queue and p2l."""
+    the GC's valid counts, free mask, free queue and p2l, and the bitmap
+    of blocks a failed erase retired."""
     out = {}
     if fully_associative(cfg):
         frames = cfg.buf_entries if cfg.kind == SSD_BUF else cfg.cache_frames
@@ -307,15 +378,19 @@ def _placed_bytes(cfg: StackConfig, params: Dict) -> Dict[str, int]:
         nb = cfg.num_blocks
         out.update(valid=4 * nb, free_mask=nb, free_q=4 * nb,
                    p2l=4 * nb * cfg.pages_per_block)
+        if cfg.faults:
+            out["retired"] = 4 * -(-nb // 32)
     return out
 
 
 def layout(cfg: StackConfig, params: Dict, budget: int, *,
            chunk: int = CHUNK, placed: bool = True) -> Layout:
     """The kernel's layout for ``cfg`` within ``budget`` bytes of shared
-    memory: the staging buffers (two chunks of inputs and outputs), the
-    LFB tree, the ports, route tables, MSHR and writeback tables (padded
-    to blocks of 8 entries) and the die / channel busy-untils always; then
+    memory: the staging buffers (two chunks of inputs, a faulted stack's
+    retry bytes among them, and outputs), the LFB tree, the ports (with a
+    faulted stack's QoS virtual clocks), route tables, MSHR and writeback
+    tables (padded to blocks of 8 entries) and the die / channel
+    busy-untils always; then
     each placed array, in the order of :func:`_placed_bytes`, while it
     fits (none when ``placed`` is False: the device-memory layout).  The
     kernel reads ``chunk`` accesses a staged chunk.  Raises ``ValueError``
@@ -324,7 +399,7 @@ def layout(cfg: StackConfig, params: Dict, budget: int, *,
     if stack.has_flash(cfg) and frames < 1:
         raise ValueError("the kernel's buffer or cache needs >= 1 frame")
     leaves = 1 << (max(1, cfg.outstanding) - 1).bit_length()
-    R, H, P = cfg.num_routes, cfg.num_hops, cfg.num_ports
+    R, H, P = num_paths(cfg, params), cfg.num_hops, cfg.num_ports
     dies = cfg.channels * cfg.dies_per_channel
     words = {"chunk": chunk, "leaves": leaves}
     off = 0
@@ -334,12 +409,15 @@ def layout(cfg: StackConfig, params: Dict, budget: int, *,
         at, off = off, off + -(-nbytes // 16) * 16
         return at
 
+    rt = H if cfg.fault_hops else 0
     for name, size in (("in_key", 8), ("in_aux", 4), ("in_set", 4),
-                       ("out_issue", 8), ("out_done", 8), ("out_flags", 4)):
+                       ("in_rt", rt), ("out_issue", 8), ("out_done", 8),
+                       ("out_flags", 4)):
         words[name] = take(2 * chunk * size)
     words["tree"] = take(2 * leaves * 16)
     for name in ("pb", "qacc", "qthr"):
         words[name] = take(8 * P)
+    words["vft"] = take(8 * P if cfg.fault_hops else 0)
     words["tables"] = take(8 * (3 * R * H + P))
     nm8, nw8 = (-(-x // 8) * 8 for x in (cfg.mshr_entries, cfg.wb_slots))
     words["mpage"] = take(4 * nm8)              # int32 pages in the kernel
@@ -358,7 +436,7 @@ def layout(cfg: StackConfig, params: Dict, budget: int, *,
         elif placed and off + -(-sizes[name] // 16) * 16 <= budget:
             words[name] = take(sizes[name])
             in_smem.append(name)
-        elif name in ("where", "links"):
+        elif name in SCRATCH:
             words[name] = -1 - scratch
             scratch += -(-sizes[name] // 16) * 16
         else:
@@ -385,7 +463,7 @@ def _smem_optin(lib, index: int) -> int:
     return _SMEM_OPTIN[index]
 
 
-def _launch(cfg, params, state, addrs, writes, routes, start_tick):
+def _launch(cfg, params, state, addrs, writes, routes, retries, start_tick):
     """Launch the kernel on the tensors' card, on PyTorch's current
     stream."""
     from repro_torch.kernels import _build
@@ -396,7 +474,7 @@ def _launch(cfg, params, state, addrs, writes, routes, start_tick):
     if cfg.outstanding > MAX_OUTSTANDING:
         raise ValueError(f"outstanding={cfg.outstanding} exceeds the "
                          f"kernel's {MAX_OUTSTANDING} LFB slots")
-    _check_values(cfg, state, addrs, routes)
+    _check_values(cfg, params, state, addrs, routes, retries)
     lib = _build.library("replay_scan")
     if (lib.replay_scan_num_args(), lib.replay_scan_layout_words()) != (
             len(ARGS), len(LAYOUT)):
@@ -409,14 +487,15 @@ def _launch(cfg, params, state, addrs, writes, routes, start_tick):
         lay = layout(cfg, params, optin)
         err, out = call_launch(lib, cfg, params, state, addrs, writes, routes,
                                start_tick, lay,
-                               torch.cuda.current_stream(dev).cuda_stream)
+                               torch.cuda.current_stream(dev).cuda_stream,
+                               retries=retries)
         _raise_on(lib, err, "replay_scan kernel launch")
         LAUNCHES["replay_scan"] += 1
     return out
 
 
 def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
-                lay: Layout, stream):
+                lay: Layout, stream, retries=None):
     """Pack one replay's arguments and layout, call
     ``lib.replay_scan_launch`` on them and its tensors' device, and copy
     the state's scalars back.  Returns the call's return code and
@@ -442,13 +521,16 @@ def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
         for k in SCALARS])
     w8 = writes.view(torch.uint8)
     addrs = addrs.contiguous()
+    if retries is not None:
+        retries = retries.contiguous()
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     err = lib.replay_scan_launch(
         args.ctypes.data, words.ctypes.data, tables.data_ptr(),
-        addrs.data_ptr(), w8.data_ptr(), ptr(routes), issues.data_ptr(),
+        addrs.data_ptr(), w8.data_ptr(), ptr(routes), ptr(retries),
+        issues.data_ptr(),
         dones.data_ptr(), flags.data_ptr(), totals.data_ptr(),
         scal.data_ptr(), *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
         *(ptr(fl.get(k)) for k in FLASH_ARRAYS), scratch.data_ptr(),

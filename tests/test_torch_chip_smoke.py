@@ -327,13 +327,19 @@ def test_scan_row_carries_the_contract_keys(smoke):
             "bound": {d: (0.01, "bytes") for d in devs},
             "serial": {d: 1.0 for d in devs},
             "plain_ms": {d: 3.0 for d in devs}}
-    row = smoke.scan_row(scan, 1 << 20)
+    faulted = {name: {"launches": 1, "ms": 4.0, "accesses": 1 << 20,
+                      "bytes_per_access": 29, "bound_ms": 0.01,
+                      "bound_by": "operations", "serial_chain_ms": 1.0,
+                      "reads": 10, "column_s": 0.0}
+               for name in ("nand", "gc", "link")}
+    row = smoke.scan_row(scan, faulted, 1 << 20)
     assert row["serial_chain_ms_by_device"] == scan["serial"]
     for key in ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"):
         assert key in row, key
-    assert row["launches"] == 5 and row["library_ms"] is None
+    assert row["faulted"] == faulted
+    assert row["launches"] == 8 and row["library_ms"] is None
     assert row["route"] == "cuda"
     assert (REPO / row["source"]).exists()
     path, line = row["replaces"].split(":")
@@ -357,3 +363,97 @@ def test_scan_phase_runs_after_the_serving_and_prefill_paths(smoke):
     src = inspect.getsource(smoke.main)
     assert (src.index("serve_phase(") < src.index("prefill_phase(")
             < src.index("scan_phase("))
+
+
+# -------------------------------------------- the faults and assoc phases
+def test_faults_and_assoc_phases_run_after_the_scan_phase(smoke):
+    import inspect
+
+    src = inspect.getsource(smoke.main)
+    assert (src.index("scan_phase(") < src.index("faults_phase(")
+            < src.index("assoc_phase(") < src.index('{"kernels"'))
+
+
+def test_the_phases_take_the_tests_constants(smoke):
+    from test_torch_assoc import ASSOC_PINS, ASSOC_SWEEPS
+    from test_torch_faults_scan import GC_TRACE
+
+    assert smoke.FAULT_GC_TRACE == GC_TRACE
+    assert smoke.ASSOC_SWEEPS == ASSOC_SWEEPS
+    assert list(smoke.ASSOC_DEVICES) == ["dram", "cxl-dram", "pmem"]
+    assert sorted(f"{d}@{a}" for d in smoke.ASSOC_DEVICES
+                  for a in ("direct", "fabric", "stream")
+                  if (d, a) != ("cxl-dram", "stream")) == sorted(ASSOC_PINS)
+
+
+@pytest.mark.parametrize("case", ["nand", "link"])
+def test_flag_tap_sees_the_faulted_lanes_flags(smoke, case):
+    """Under the faults phase's plans (a short trace, the down window
+    moved into it), the tap's python lane gives the scan lane's latencies,
+    hit, dirty-evict and poison flags, metrics and availability."""
+    import json
+
+    import numpy as np
+
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.replay import metrics as M
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.workloads.traces import make_trace
+
+    def make():
+        if case == "nand":
+            dev = make_device("cxl-ssd-cache")
+            install(FaultPlan(FaultConfig(**smoke.FAULT_NAND),
+                              seed=smoke.FAULT_NAND_SEED), [dev])
+            return dev
+        mount = Fabric.build("spine_leaf", **smoke.FAULT_FABRIC).mount(
+            "h0", "d0", make_device("cxl-ssd-cache"))
+        install(FaultPlan(FaultConfig(
+            **dict(smoke.FAULT_LINK, down_links=(("s0", "sp0", 500, 900),))),
+            seed=smoke.FAULT_LINK_SEED), [mount])
+        return mount
+
+    trace = make_trace(6, n=3000, pages=6000)
+    want, bundle, tap = smoke.python_lane(make(), trace)
+    got = ReplayEngine(make(), metrics=M.MetricsSpec(),
+                       torch_device="cpu").run(trace)
+    assert got.latency_ticks.tolist() == tap.latency
+    assert got.hit_flags.tolist() == tap.hit
+    assert got.evict_flags.tolist() == tap.evict
+    assert json.dumps(got.metrics.to_jsonable()) == json.dumps(
+        bundle.to_jsonable())
+    if case == "nand":
+        assert got.poison_flags.tolist() == tap.poison and any(tap.poison)
+    else:
+        assert any(tap.degraded) and any(tap.failover)
+        avail = M.availability_series(
+            np.asarray(tap.issue), np.asarray(tap.issue)
+            + np.asarray(tap.latency), np.asarray(tap.degraded),
+            np.asarray(tap.failover), spec=M.MetricsSpec())
+        assert got.availability == avail
+
+
+def test_fault_bound_adds_the_fault_terms(smoke):
+    from repro_torch.core.replay.spec import StackConfig
+
+    base = dict(kind="ssd-cache", outstanding=32, posted_writes=True,
+                num_hops=4, num_ports=6, num_pages=16384, cache_frames=4096)
+    n = 1 << 20
+    clean = smoke.fault_bound(
+        {"cfg": StackConfig(**base), "accesses": n, "reads": 1000},
+        smoke.INT32_LANES_PER_SM * 132 * 1980e6, 23.0, 1980.0)
+    link = smoke.fault_bound(
+        {"cfg": StackConfig(**base, fault_hops=True), "accesses": n,
+         "reads": 1000}, smoke.INT32_LANES_PER_SM * 132 * 1980e6, 23.0,
+        1980.0)
+    nand = smoke.fault_bound(
+        {"cfg": StackConfig(**base, faults=(0, 1, 2, 3)), "accesses": n,
+         "reads": 1000}, smoke.INT32_LANES_PER_SM * 132 * 1980e6, 23.0,
+        1980.0)
+    assert clean["bytes_per_access"] == nand["bytes_per_access"] == 29
+    assert link["bytes_per_access"] == 29 + 4 + 4
+    assert link["serial_chain_ms"] > clean["serial_chain_ms"]
+    assert nand["int64_ops"] == clean["int64_ops"] + 13 * 1000
+    assert nand["serial_chain_ms"] > clean["serial_chain_ms"]

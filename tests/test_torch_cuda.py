@@ -428,31 +428,29 @@ def _scan_both(dev_fn, trace, outstanding, posted=True, start=0,
     ``call_launch``; else through the wrapper, one counted launch.
     Returns the stack's ``(cfg, params)`` and the twin's final state."""
     from repro_torch.core.replay import stack
-    from repro_torch.core.replay.spec import (access_route_choices,
-                                              build_stack, trace_to_arrays)
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.spec import trace_to_arrays
     from repro_torch.kernels import _build
     from repro_torch.kernels import replay_scan as rs
 
     addrs, writes, size = trace_to_arrays(trace)
-    dev = dev_fn()
-    cfg, params = build_stack(dev, size=size, outstanding=outstanding,
-                              issue_overhead_ns=0.5, posted_writes=posted,
-                              n_accesses=addrs.size,
-                              max_addr=int(addrs.max()), counters=True)
-    routes = None
-    if cfg.num_routes > 1:
-        routes = torch.from_numpy(
-            access_route_choices(dev, addrs).astype(np.int32))
+    cfg, params, routes, retries, _ = ReplayEngine(
+        dev_fn(), outstanding=outstanding, posted_writes=posted,
+        metrics=MetricsSpec()).prepare(addrs, size=size)
+    routes = None if routes is None else torch.from_numpy(routes)
+    retries = None if retries is None else torch.from_numpy(retries)
     a, w = torch.from_numpy(addrs), torch.from_numpy(writes)
     cpu_state = stack.init_state(cfg, "cpu")
     gpu_state = stack.init_state(cfg, "cuda")
     want = rs.replay_scan(cfg, params, cpu_state, a, w, routes,
-                          start_tick=start)
+                          start_tick=start, retries=retries)
     r = None if routes is None else routes.cuda()
+    rt = None if retries is None else retries.cuda()
     if placed is None and chunk is None:
         before = rs.LAUNCHES["replay_scan"]
         got = rs.replay_scan(cfg, params, gpu_state, a.cuda(), w.cuda(), r,
-                             start_tick=start)
+                             start_tick=start, retries=rt)
         assert rs.LAUNCHES["replay_scan"] == before + 1
     else:
         lib = _build.library("replay_scan")
@@ -460,7 +458,8 @@ def _scan_both(dev_fn, trace, outstanding, posted=True, start=0,
                         chunk=chunk or rs.CHUNK, placed=placed is not False)
         err, got = rs.call_launch(lib, cfg, params, gpu_state, a.cuda(),
                                   w.cuda(), r, start, lay,
-                                  torch.cuda.current_stream().cuda_stream)
+                                  torch.cuda.current_stream().cuda_stream,
+                                  retries=rt)
         assert err == 0
     torch.cuda.synchronize()
     for g, x in zip(got, want):
@@ -590,17 +589,91 @@ def test_scan_lane_on_the_card_equals_the_python_lane(card):
 
 
 def test_scan_lane_on_the_card_refuses_faults_and_streaming(card):
+    """A fault plan runs on the card in one launch, equal to the python
+    lane; what the lane refuses is a retry burst too long for its one-byte
+    code, streaming, and more LFB slots than the kernel has."""
+    from repro_torch.core.fabric import Fabric
     from repro_torch.core.faults import FaultConfig, FaultPlan, install
     from repro_torch.core.replay.engine import ReplayEngine
     from repro_torch.core.replay.spec import ReplayUnsupported
+    from repro_torch.core.workloads.driver import TraceDriver
+    from repro_torch.core.workloads.traces import make_trace
     from repro_torch.kernels import replay_scan as rs
 
-    dev = make_device("cxl-ssd-cache")
-    install(FaultPlan(FaultConfig(nand_read_retry_rate=0.5)), [dev])
-    with pytest.raises(ReplayUnsupported, match="item 5b"):
-        ReplayEngine(dev).run([(0, 64, False)])
+    def nand():
+        dev = make_device("cxl-ssd-cache")
+        install(FaultPlan(FaultConfig(nand_read_retry_rate=0.5,
+                                      poison_rate=0.2)), [dev])
+        return dev
+
+    trace = make_trace(3, n=3000, pages=4096)
+    want = TraceDriver(nand()).run(trace)
+    before = rs.LAUNCHES["replay_scan"]
+    got = ReplayEngine(nand()).run(trace)
+    assert rs.LAUNCHES["replay_scan"] == before + 1
+    assert (got.sum_latency_ticks, got.end_tick) == (want.sum_latency_ticks,
+                                                     want.end_tick)
+    assert got.poison_flags.any()
+    fab = Fabric.build("two_level", num_hosts=2, num_devices=2, num_leaves=2)
+    mount = fab.mount("h0", "d0", make_device("dram"))
+    install(FaultPlan(FaultConfig(link_retry_rate=1.0, link_retry_max=1000),
+                      seed=2), [mount])
+    with pytest.raises(ReplayUnsupported, match="one-byte code"):
+        ReplayEngine(mount).run(trace[:64])
     with pytest.raises(ReplayUnsupported, match="item 12"):
         ReplayEngine(make_device("dram")).run([(0, 64, False)], chunk_size=1)
     with pytest.raises(ValueError, match="LFB slots"):
         ReplayEngine(make_device("dram"),
                      outstanding=rs.MAX_OUTSTANDING + 1).run([(0, 64, False)])
+
+
+FAULTED = ["faults-linkretry@spine_leaf", "faults-portdown-failover@mesh",
+           "faults-nand-retry@direct", "nand-gc/cxl-ssd-cache",
+           "nand-gc/cxl-ssd", "link/cxl-dram", "down-ecmp/dram",
+           "qos-retry/cxl-ssd-cache", "qos-retry-fixed/pmem"]
+
+
+@pytest.mark.parametrize("placed", [None, False])
+@pytest.mark.parametrize("name", FAULTED)
+def test_replay_scan_equals_its_twin_under_faults(card, name, placed):
+    from torch_scenarios import fault_case, make_target, scenario_trace
+
+    if "@" in name:
+        _scan_both(lambda: make_target(name), scenario_trace(name), 8,
+                   placed=placed)
+    else:
+        _scan_both(lambda: fault_case(name)[0], fault_case(name)[1], 8,
+                   placed=placed)
+
+
+def test_assoc_lane_on_the_card_equals_the_host_solve(card):
+    from repro_torch.core.maxplus import busy_until, port_busy_until
+    from repro_torch.core.replay.assoc import AssocReplayEngine
+    from repro_torch.core.workloads.traces import make_trace
+
+    from repro_torch.core.replay.spec import ReplayUnsupported
+
+    def outcome(**kw):
+        try:
+            res = AssocReplayEngine(make_device(device), **kw).run(trace)
+        except ReplayUnsupported as e:
+            return str(e)
+        return res.latency_ticks.tolist(), res.end_tick
+
+    trace = make_trace(5, n=20000, pages=4096)
+    for device in ("dram", "cxl-dram", "pmem"):
+        assert outcome() == outcome(torch_device="cpu"), device
+    rng = np.random.default_rng(0)
+    arr = np.sort(rng.integers(0, 10**6, 5000))
+    svc = rng.integers(1, 500, 5000)
+    act = rng.random(5000) < 0.6
+    ports = rng.integers(0, 4, 5000)
+    for fn, args in ((busy_until, (svc, act, 7)),
+                     (port_busy_until, (svc, ports, 4))):
+        want = fn(torch.from_numpy(arr), *[
+            torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+            for x in args])
+        got = fn(torch.from_numpy(arr).cuda(), *[
+            torch.from_numpy(x).cuda() if isinstance(x, np.ndarray) else x
+            for x in args])
+        assert torch.equal(got.cpu(), want)

@@ -18,9 +18,10 @@ from repro_torch.core.cache.dram_cache import DRAMCacheConfig
 from repro_torch.core.devices import make_device
 from repro_torch.core.replay.cuda_engine import cuda_params, run_cuda
 from repro_torch.core.replay.spec import ReplayUnsupported
-from repro_torch.core.workloads.driver import TraceDriver
+from repro_torch.core.workloads.driver import MultiHostDriver, TraceDriver
 from repro_torch.core.workloads.traces import hash_seed, make_trace
 from test_torch_reference import golden, run_reference
+import torch_scenarios as sc_port
 
 POLICIES = ("lru", "fifo", "direct")
 FRAMES = 64
@@ -171,10 +172,13 @@ def test_cuda_lane_refuses_uncached_devices_by_name():
                     torch_device="cpu").run([(0, 64, False)])
 
 
-@pytest.mark.parametrize("engine,item", [("assoc", "item 6")])
+@pytest.mark.parametrize("engine,item", [("scan", "item 10")])
 def test_unported_lanes_name_their_roadmap_items(engine, item):
+    """The fused multi-host replay (the multi-host fault scenarios'
+    lane) is not ported: it refuses, naming its ROADMAP item."""
+    targets = sc_port.make_multi_targets("faults-portdown@multihost_x2")
     with pytest.raises(NotImplementedError, match=item):
-        TraceDriver(_cached(), engine=engine)
+        MultiHostDriver(targets, engine=engine)
 
 
 def test_empty_trace_takes_the_python_lane():

@@ -381,17 +381,42 @@ PLANS = {"link": dict(link_retry_rate=0.25),
          "down": dict(down_links=(("s0", "s_root", 2, 9),)),
          "nand": dict(nand_read_retry_rate=0.3),
          "poison": dict(poison_rate=0.1)}
+CLASS_NAMES = {"link": "link-retry", "down": "port-down", "nand": "NAND",
+               "poison": "poison"}
 
 
 @pytest.mark.parametrize("plan", sorted(PLANS))
 def test_an_active_fault_plan_is_refused_by_name(plan):
-    fab = Fabric.build("two_level", num_hosts=2, num_devices=2, num_leaves=2)
-    dev = fab.mount("h0", "d0", make_device("cxl-ssd-cache"))
-    if plan == "nand":
-        dev = make_device("cxl-ssd-cache")
-    install(FaultPlan(FaultConfig(**PLANS[plan]), seed=1), [dev])
-    _refuses(lambda: TraceDriver(dev, engine="scan", torch_device="cpu").run(
-        make_trace(1, n=16)), r"item 5b\).*engine='python'")
+    """The scan lane replays every fault class as the python lane does
+    (both raise DeviceUnreachable where the down window cuts every
+    route); the assoc and cuda lanes refuse the plan, naming its class."""
+    from repro_torch.core.faults import DeviceUnreachable
+
+    def target():
+        fab = Fabric.build("two_level", num_hosts=2, num_devices=2,
+                           num_leaves=2)
+        dev = fab.mount("h0", "d0", make_device("cxl-ssd-cache"))
+        if plan == "nand":
+            dev = make_device("cxl-ssd-cache")
+        install(FaultPlan(FaultConfig(**PLANS[plan]), seed=1), [dev])
+        return dev
+
+    trace = make_trace(1, n=16)
+    if plan == "down":
+        for engine in ("python", "scan"):
+            with pytest.raises(DeviceUnreachable):
+                TraceDriver(target(), engine=engine,
+                            torch_device="cpu").run(trace)
+    else:
+        want = TraceDriver(target()).run(trace)
+        got = TraceDriver(target(), engine="scan",
+                          torch_device="cpu").run(trace)
+        assert (got.sum_latency_ticks, got.elapsed_ticks, got.end_tick) == (
+            want.sum_latency_ticks, want.elapsed_ticks, want.end_tick)
+    for engine in ("assoc", "cuda"):
+        _refuses(lambda: TraceDriver(target(), engine=engine,
+                                     torch_device="cpu").run(trace),
+                 rf"active fault plan \({CLASS_NAMES[plan]}\)")
 
 
 def test_streaming_is_refused_by_name():
@@ -404,10 +429,18 @@ def test_streaming_is_refused_by_name():
 
 
 def test_fault_scenarios_are_refused(reference):
+    """The single-host fault scenarios replay on the scan lane (their
+    pins, in tests/test_torch_faults_scan.py); the associative lane
+    refuses each of them, naming the engine that replays it."""
     for name in sc.FAULT_SCENARIOS:
         _refuses(lambda: TraceDriver(
-            make_target(name), engine="scan", torch_device="cpu").run(
-            scenario_trace(name)), "item 5b")
+            make_target(name), engine="assoc", torch_device="cpu").run(
+            scenario_trace(name)), "use engine='scan'")
+        res = TraceDriver(make_target(name), engine="scan",
+                          outstanding=sc.scenario_outstanding(name),
+                          torch_device="cpu").run(scenario_trace(name))
+        assert res.latency_ticks.tolist() == \
+            golden(name)["python_scan"]["latency_ticks"]
 
 
 def test_block_size_belongs_to_the_scan_lane():
@@ -469,8 +502,8 @@ def test_stack_extraction_equals_the_reference(name, reference):
 
     dev = make_target(name) if "@" in name else mount(name)
     want = json.loads(str(reference[f"stack/{name}"]))
-    # the reference's transport-fault flag belongs to its faulted lane
-    assert want["cfg"].pop("fault_hops") is False
+    # the transport-fault flag is set by the faulted lane only
+    assert want["cfg"]["fault_hops"] is False
     got = _stack_json(*build_stack(
         dev, size=64, outstanding=8, issue_overhead_ns=0.5,
         posted_writes=False, n_accesses=5000, max_addr=123456,
@@ -480,7 +513,6 @@ def test_stack_extraction_equals_the_reference(name, reference):
     refused = str(reference[f"media/{name}"])
     if refused == "none":
         want = json.loads(str(reference[f"media_ok/{name}"]))
-        want["cfg"].pop("fault_hops")
         assert _stack_json(*media_stack(
             inner, size=64, outstanding=4, posted_writes=True,
             n_accesses=70000, max_addr=99 * 4096)) == want

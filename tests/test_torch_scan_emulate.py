@@ -11,7 +11,11 @@ writes, on Table I's cached CXL-SSD past its 4096 frames (and past 2^14
 accesses over 16,384 pages), under FIFO and direct mapping, on the other
 devices at 2000 accesses, in the shared-memory and the device-memory
 layout, on traces that wrap the staging buffers many times or end inside
-a chunk, and on ECMP and QoS mounts.  ASan aborts on any index the kernel
+a chunk, on ECMP and QoS mounts, and under fault plans: the three
+single-host golden fault scenarios and the faulted mounts of
+``torch_scenarios.FAULT_CASES`` (NAND read retries with GC retirement, a
+down window with failover inside an ECMP set, a CXL-DRAM's private hop,
+weighted QoS ports under CRC retries), each in both layouts.  ASan aborts on any index the kernel
 forms outside its array.  The library only loads into a process that
 starts with ASan's runtime, so the cases run in one child process for
 this file.
@@ -38,11 +42,13 @@ from repro_torch.core.cache.dram_cache import DRAMCacheConfig
 from repro_torch.core.devices import make_device
 from repro_torch.core.fabric import Fabric
 from repro_torch.core.replay import stack
-from repro_torch.core.replay.spec import (access_route_choices, build_stack,
-                                          trace_to_arrays)
+from repro_torch.core.replay.engine import ReplayEngine
+from repro_torch.core.replay.metrics import MetricsSpec
+from repro_torch.core.replay.spec import trace_to_arrays
 from repro_torch.kernels import _build
 from repro_torch.kernels import replay_scan as rs
-from torch_scenarios import (DEVICES, make_target, scenario_outstanding,
+from torch_scenarios import (DEVICES, FAULT_CASES, FAULT_SCENARIOS,
+                             fault_case, make_target, scenario_outstanding,
                              scenario_trace)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -82,6 +88,10 @@ CASES = (SCAN_SCENARIOS + ["ssd-gc@direct/global"]
          + [c[0] for c in CHUNKED]
          + ["table1/16461/global", "table1-fifo/8000/global",
             "table1-direct/8000/global", "gc/chunk16", "gc/chunk16/global"])
+# under fault plans, in both layouts
+FAULTED = [f"{name}{lay}" for name in (*FAULT_SCENARIOS, *FAULT_CASES)
+           for lay in ("", "/global")]
+CASES = CASES + FAULTED
 
 
 def _trace(n: int, pages: int, write_frac: float, seed: int):
@@ -97,7 +107,10 @@ def _case(name: str):
     device-memory layout."""
     base = name.removesuffix("/global")
     placed = base == name
-    if base in SCAN_SCENARIOS:
+    if base in FAULT_CASES:
+        return (lambda: fault_case(base)[0], fault_case(base)[1], 8, True, 0,
+                placed, rs.CHUNK)
+    if base in SCAN_SCENARIOS or base in FAULT_SCENARIOS:
         return (lambda: make_target(base), scenario_trace(base),
                 scenario_outstanding(base), True, 0, placed, rs.CHUNK)
     if base == "gc/chunk16":
@@ -153,28 +166,25 @@ def _case(name: str):
 def run_case(lib, name: str) -> dict:
     """The emulated kernel and the plain twin on case ``name``, each from a
     fresh state: the outputs and state tensors that differ, and the twin's
-    hit and dirty-eviction counts."""
+    hit and dirty-eviction counts, and the fault counts (NAND read
+    retries, retired blocks, link retries) of the stack."""
     make, trace, outstanding, posted, start, placed, chunk = _case(name)
     addrs, writes, size = trace_to_arrays(trace)
-    dev = make()
-    cfg, params = build_stack(dev, size=size, outstanding=outstanding,
-                              issue_overhead_ns=0.5, posted_writes=posted,
-                              n_accesses=addrs.size,
-                              max_addr=int(addrs.max()), counters=True)
+    cfg, params, routes, retries, builder = ReplayEngine(
+        make(), outstanding=outstanding, posted_writes=posted,
+        metrics=MetricsSpec()).prepare(addrs, size=size)
     assert (cfg.num_routes > 1) == name.startswith("ecmp"), name
-    routes = None
-    if cfg.num_routes > 1:
-        routes = torch.from_numpy(
-            access_route_choices(dev, addrs).astype(np.int32))
+    routes = None if routes is None else torch.from_numpy(routes)
+    retries = None if retries is None else torch.from_numpy(retries)
     a, w = torch.from_numpy(addrs), torch.from_numpy(writes)
     want_state, got_state = (stack.init_state(cfg, "cpu"),
                              stack.init_state(cfg, "cpu"))
     want = rs.replay_scan_plain(cfg, params, want_state, a, w, routes,
-                                start_tick=start)
+                                start_tick=start, retries=retries)
     lay = rs.layout(cfg, params, H100_SMEM_OPTIN, chunk=chunk,
                     placed=placed)
     err, got = rs.call_launch(lib, cfg, params, got_state, a, w, routes,
-                              start, lay, None)
+                              start, lay, None, retries=retries)
     differ = [k for k, g, x in zip(
         ("issues", "dones", "flags", "qacc", "qthr"), got, want)
         if not torch.equal(g, x)]
@@ -182,9 +192,17 @@ def run_case(lib, name: str) -> dict:
         differ += [f"{part}.{k}" for k, x in (want_state[part] or {}).items()
                    if not torch.equal(got_state[part][k], x)]
     flags = want[2]
+    rr, rb = stack.fault_counters(want_state)
     return {"err": err, "differ": differ, "accesses": len(trace),
             "hits": int((flags & 1).sum()),
-            "evicts": int(((flags >> 1) & 1).sum())}
+            "evicts": int(((flags >> 1) & 1).sum()),
+            "read_retries": rr, "retired": rb,
+            "link_retries": (builder.fstats["link_retries"]
+                             if builder is not None else 0),
+            "failovers": (builder.fstats["failovers"]
+                          if builder is not None else 0),
+            "qthr": int(want[4].sum()),
+            "in_smem": list(lay.in_smem)}
 
 
 def _child(lib_path: str, out_path: str) -> None:
@@ -245,6 +263,30 @@ def test_table1_case_fills_and_evicts(emulated):
 def test_chunked_and_policy_cases_fill_and_evict(emulated, name):
     got = emulated["cases"][name]
     assert got["hits"] > 0 and got["evicts"] > 0, got
+
+
+# what each faulted case must exercise: (NAND read retries, retired
+# blocks, link retries, failovers, QoS throttles) that must be nonzero
+EXERCISES = {"faults-linkretry@spine_leaf": ("link_retries",),
+             "faults-portdown-failover@mesh": ("failovers",),
+             "faults-nand-retry@direct": ("read_retries", "retired"),
+             "nand-gc/cxl-ssd-cache": ("read_retries",),
+             "nand-gc/cxl-ssd": ("read_retries", "retired"),
+             "link/cxl-dram": ("link_retries",),
+             "down-ecmp/dram": ("link_retries", "failovers"),
+             "qos-retry/cxl-ssd-cache": ("link_retries", "failovers",
+                                         "qthr"),
+             "qos-retry-fixed/pmem": ("link_retries", "qthr")}
+
+
+@pytest.mark.parametrize("name", FAULTED)
+def test_faulted_cases_exercise_their_faults(emulated, name):
+    got = emulated["cases"][name]
+    base = name.removesuffix("/global")
+    assert all(got[k] > 0 for k in EXERCISES[base]), got
+    # the device-memory layout keeps no placed array in shared memory
+    if name.endswith("/global"):
+        assert got["in_smem"] == [], got
 
 
 if __name__ == "__main__":

@@ -58,6 +58,24 @@ unsigned __umulhi(unsigned a, unsigned b) {
 
 #include "replay_scan.cu"
 
+// The instance of replay() that the CUDA library's dispatch launches.
+template <bool FAULTED>
+void run(const Args& a, const Layout& lay, const Ptrs& p, char* sm) {
+  const bool nand = a.v[A_NAND] != 0;
+  switch (a.v[A_KIND]) {
+    case kDram: replay<kDram, false, FAULTED>(a, lay, p, sm); break;
+    case kPmem: replay<kPmem, false, FAULTED>(a, lay, p, sm); break;
+    case kSsdBuf:
+      if (nand) replay<kSsdBuf, true, FAULTED>(a, lay, p, sm);
+      else replay<kSsdBuf, false, FAULTED>(a, lay, p, sm);
+      break;
+    default:
+      if (nand) replay<kSsdCache, true, FAULTED>(a, lay, p, sm);
+      else replay<kSsdCache, false, FAULTED>(a, lay, p, sm);
+      break;
+  }
+}
+
 extern "C" {
 
 // The CUDA library's replay_scan_launch, argument for argument, on host
@@ -65,22 +83,24 @@ extern "C" {
 int replay_scan_launch(const long long* args, const long long* layout,
                        const long long* tables, const long long* addrs,
                        const uint8_t* writes, const int32_t* routes,
-                       long long* issues, long long* dones, int32_t* flags,
+                       const uint8_t* retries, long long* issues,
+                       long long* dones, int32_t* flags,
                        long long* totals, long long* scal, long long* frames,
                        long long* mpage, long long* mready, long long* wtick,
                        int32_t* l2p, int32_t* p2l, int32_t* valid,
                        int32_t* free_q, uint8_t* free_mask,
-                       long long* die_busy, long long* die_prog,
-                       long long* chan_busy, char* scratch, int smem_bytes,
-                       void* stream) {
+                       uint8_t* rtr_mask, long long* die_busy,
+                       long long* die_prog, long long* chan_busy,
+                       char* scratch, int smem_bytes, void* stream) {
   (void)stream;
   Args a;
   memcpy(a.v, args, sizeof(a.v));
   Layout lay;
   memcpy(lay.v, layout, sizeof(lay.v));
-  const Ptrs p{addrs, writes, routes, tables, issues, dones, flags, totals,
-               scal, frames, mpage, mready, wtick, l2p, p2l, valid, free_q,
-               free_mask, die_busy, die_prog, chan_busy, scratch};
+  const Ptrs p{addrs, writes, routes, retries, tables, issues, dones, flags,
+               totals, scal, frames, mpage, mready, wtick, l2p, p2l, valid,
+               free_q, free_mask, rtr_mask, die_busy, die_prog, chan_busy,
+               scratch};
   std::vector<longlong2> smem((smem_bytes + 15) / 16,
                               longlong2{0x5a5a5a5a5a5aLL, 0x5a5a5a5a5a5aLL});
   char* sm = reinterpret_cast<char*>(smem.data());
@@ -90,12 +110,8 @@ int replay_scan_launch(const long long* args, const long long* layout,
   for (int t = 0; t < kThreads; ++t)
     threads.emplace_back([&, t] {
       tl_thread = t;
-      switch (a.v[A_KIND]) {
-        case kDram: replay<kDram>(a, lay, p, sm); break;
-        case kPmem: replay<kPmem>(a, lay, p, sm); break;
-        case kSsdBuf: replay<kSsdBuf>(a, lay, p, sm); break;
-        default: replay<kSsdCache>(a, lay, p, sm); break;
-      }
+      if (a.v[A_FAULT_HOPS]) run<true>(a, lay, p, sm);
+      else run<false>(a, lay, p, sm);
     });
   for (auto& t : threads) t.join();
   return 0;

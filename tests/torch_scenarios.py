@@ -166,3 +166,88 @@ def scenario_trace(name: str):
                       for k in range(24)]
         return trace
     return make_trace(hash_seed(name))
+
+
+# Faulted mounts beyond the golden scenarios, one source for both packages
+# (exec'd here and in the JAX reference's child): NAND read retries with
+# GC retirement on both flash devices, down windows that reroute an ECMP
+# set onto a longer failover path, a CXL-DRAM's private hop behind a
+# faulted fabric, and weighted QoS ports under CRC retries (with and
+# without ECMP).
+FAULT_CASES_SRC = '''
+def make_fault_case(name, make_device, Fabric, DRAMCacheConfig, FaultConfig,
+                    FaultPlan, install, SSDConfig, NANDTiming):
+    def gc_flash(pages):
+        return SSDConfig(capacity_bytes=pages * 4096, page_bytes=4096,
+                         channels=2, dies_per_channel=2, pages_per_block=8,
+                         timing=NANDTiming.low_latency(),
+                         hil_overhead_ns=1000.0)
+    cached = dict(policy="lru", capacity_bytes=16 * 4096, mshr_entries=4,
+                  writeback_buffer=2)
+    kind, shape = name.split("/")
+    if kind == "nand-gc":
+        dev = (make_device(shape, ssd_cfg=gc_flash(800),
+                           cache_cfg=DRAMCacheConfig(
+                               capacity_bytes=8 * 4096, mshr_entries=4,
+                               writeback_buffer=2))
+               if shape == "cxl-ssd-cache"
+               else make_device(shape, ssd_cfg=gc_flash(800)))
+        install(FaultPlan(FaultConfig(nand_read_retry_rate=0.4,
+                                      erase_fail_rate=0.5, poison_rate=0.1),
+                          seed=3), [dev])
+        return dev
+    if kind == "link":
+        fab = Fabric.build("two_level", num_hosts=2, num_devices=2,
+                           num_leaves=2)
+        tgt = fab.mount("h1", "d0", make_device(shape), detach_link=False)
+        install(FaultPlan(FaultConfig(link_retry_rate=0.3), seed=5), [tgt])
+        return tgt
+    qos = {"h0": 3.0, "h1": 1.0} if kind.startswith("qos") else None
+    if kind == "qos-retry-fixed":
+        fab = Fabric.build("two_level", num_hosts=2, num_devices=2,
+                           num_leaves=2, qos_weights=qos)
+        cfg = FaultConfig(link_retry_rate=0.3, link_retry_max=4)
+    elif kind == "down-ecmp":
+        # h0 on leaf s0, d0 on leaf s2: while both windows are down every
+        # equal-cost path is, and the failover route detours through s1
+        # (six hops against four)
+        fab = Fabric.build("spine_leaf", num_hosts=2, num_devices=2,
+                           num_leaves=3, num_spines=2, ecmp=True)
+        cfg = FaultConfig(link_retry_rate=0.2,
+                          down_links=(("s0", "sp1", 40, 120),
+                                      ("s2", "sp0", 80, 160)))
+    else:
+        fab = Fabric.build("spine_leaf", num_hosts=2, num_devices=2,
+                           num_leaves=2, num_spines=2, ecmp=True,
+                           qos_weights=qos)
+        cfg = FaultConfig(link_retry_rate=0.2,
+                          down_links=(("s0", "sp0", 40, 120),))
+    dev = (make_device(shape, cache_cfg=DRAMCacheConfig(**cached))
+           if shape == "cxl-ssd-cache" else make_device(shape))
+    tgt = fab.mount("h0", "d0", dev)
+    install(FaultPlan(cfg, seed=9), [tgt])
+    return tgt
+
+
+def fault_case_trace(name, make_trace):
+    if name.startswith("nand-gc/"):
+        trace = [(p * 4096, 64, True) for p in range(750)]
+        trace += [(((k * 13) % 750) * 4096 + (k % 64) * 64, 64, k % 5 != 0)
+                  for k in range(120)]
+        return trace
+    return make_trace(sum(map(ord, name)) % 997, n=400, pages=48,
+                      write_frac=0.4)
+'''
+exec(FAULT_CASES_SRC)
+FAULT_CASES = ["nand-gc/cxl-ssd-cache", "nand-gc/cxl-ssd", "link/cxl-dram",
+               "down-ecmp/dram", "qos-retry/cxl-ssd-cache",
+               "qos-retry-fixed/pmem"]
+
+
+def fault_case(name: str):
+    """Fresh port target and trace of the faulted mount ``name`` of
+    :data:`FAULT_CASES`."""
+    return (make_fault_case(name, make_device, Fabric, DRAMCacheConfig,
+                            FaultConfig, FaultPlan, install, SSDConfig,
+                            NANDTiming),
+            fault_case_trace(name, make_trace))

@@ -112,7 +112,22 @@ and ``nvcc``.  Phases, each printing one or more lines:
    path's trace for dram, cxl-dram and pmem, each equal to phase 12's
    python lane or refused where the JAX package's numpy backend refuses
    (pinned: cxl-dram's trace is latency-bound); its wall, sweeps and
-   device time by kind; the golden ``assoc_supported`` pins.
+   device time by kind; the golden ``assoc_supported`` pins;
+15. multihost: the fused multi-host replay, each replay one launch of
+   ``replay_scan``'s multi-host instance held against the python lane on
+   this host on every field (each host's latency ticks, hit, dirty-evict
+   and poison flags, elapsed, end and latency-sum ticks, the span, GC
+   runs, the metrics bundle with its fault counters, each host's
+   availability series): ``MultiHostDriver(targets, engine="scan")`` over
+   four Table I cached CXL-SSDs privately mounted on a two-level tree at
+   4 x 2^18 accesses (the full-width path), three hosts on the golden
+   ``multihost-qos-ecmp`` fabric pooling two DRAM devices at 2^20
+   accesses, and two Table I devices on a 2 x 2 spine-leaf with ECMP
+   under the ``faults-portdown@multihost_x2`` down window scaled to
+   2 x 2^18 accesses (with the fault-column builder's host time); each
+   with its kernel time, walls, bound and serial-chain model; the six
+   golden multi-host pins and metrics; the kernel against its twin on
+   them in both layouts and on the full-width targets.
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -254,6 +269,54 @@ FAULT_HOP_TRIPS = 1
 FAULT_HOP_OPS = 3
 NAND_HASH_STEPS = 13
 ALU_STEP_CYCLES = 4
+# the multihost phase: four Table I cached CXL-SSDs privately mounted h_i ->
+# d_i on a two-level tree (benchmarks/replay_bench.py::_multi_targets(4)),
+# 4 x 2^18 accesses; the golden multihost-qos-ecmp fabric (3 hosts, a
+# 2 x 2 spine-leaf, ECMP, QoS weights 3:1:1) pooling two DRAM devices at
+# 2^20 accesses in all; two Table I devices on a 2 x 2 spine-leaf with ECMP
+# under the faults-portdown@multihost_x2 down window (s0-sp0 over
+# accesses 20-90 of 160), scaled to 2 x 2^18 accesses; the six golden
+# multi-host scenarios
+MULTI_HOSTS = 4
+MULTI_PER_HOST = 1 << 18
+MULTI_FABRIC = dict(num_leaves=2)
+MULTI_QOS = dict(num_hosts=3, num_devices=2, num_leaves=2, num_spines=2,
+                 ecmp=True, qos_weights={"h0": 3.0, "h1": 1.0, "h2": 1.0})
+MULTI_DOWN = dict(num_hosts=2, num_devices=2, num_leaves=2, num_spines=2,
+                  ecmp=True)
+MULTI_DOWN_WINDOW = ("s0", "sp0", 20, 90, 160)     # (u, v, from, to, of)
+MULTI_DOWN_SEED = 11
+MULTI_SCENARIOS = ["multihost-qos-ecmp", "multihost-ssd-mounts",
+                   "multihost-ssd-pool", "multihost-ssd-sharedflash",
+                   "faults-portdown@multihost_x2",
+                   "faults-linkretry@spine_leaf_x4"]
+MULTI_TWIN_PER_HOST = 1024      # the full-width targets against the twin
+MULTI_KERNEL = "replay_multi_kernel"
+MULTI_REPLACES = "src/repro/core/replay/multihost.py:349"
+# bytes of one multi-host step through device memory: address (8) and
+# route row with the write flag (4) in, host (4), issue and completion
+# ticks (8 + 8) and flags (4) out; a faulted step moves its packed retry
+# bytes (8) too
+MULTI_IO_BYTES = 36
+MULTI_FAULT_BYTES = 8
+# int64 operations a step adds to the single-host walk's: the host race, a
+# compare and select a host (2 x hosts), the staged access and its
+# successor's loads and the host's cursor, clock and candidate (6), and the
+# lane switch's pointers and scalars when the lane changes (24); a weighted
+# port's QoS mirror adds its membership tests (2 x hosts) and the vft,
+# last-arrival, pace and floor updates (8), its float64 adds, divide and
+# multiply apart
+MULTI_STEP_OPS = 6
+MULTI_LANE_OPS = 24
+MULTI_QOS_OPS = 8
+# dependent shared-memory round trips a step adds to the single-host
+# model: the race over the hosts' candidates (1), the host's staged
+# access and tree root (1), the lane's scalars (1); a weighted hop adds its
+# vft and last-arrival reads (1).  The lanes' arrays in device memory (the
+# map, links and l2p at full width) are L2 round trips the model leaves
+# out.
+MULTI_STEP_TRIPS = 3
+MULTI_QOS_TRIPS = 1
 # the assoc phase: which of the main path's replays the associative lane
 # certifies (True) or refuses (False), as the JAX package's numpy backend
 # does (tests/test_torch_assoc.py holds the two equal)
@@ -1384,12 +1447,14 @@ class FlagTap:
     eviction (cache or page-register hits and dirty evictions, PMEM row
     hits); behind a fabric, whether the fabric counted the access degraded
     and failed over; under a poison plan, the plan's verdict on it (the
-    python driver's own, per access).  ``dev`` may be a device, a fabric
-    mount or a metrics tap over either; other attributes are the
+    python driver's own, per access, keyed on ``host``, the target's index
+    in its driver).  ``dev`` may be a device, a fabric mount, a pool view
+    or a metrics tap over any of them; other attributes are the
     target's."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, host: int = 0):
         self._dev = dev
+        self.host = host
         self.issue, self.latency, self.hit, self.evict = [], [], [], []
         self.degraded, self.failover, self.poison = [], [], []
 
@@ -1419,7 +1484,7 @@ class FlagTap:
         self.degraded.append(dg)
         self.failover.append(fo)
         self.poison.append(plan is not None and plan.has_poison and bool(
-            plan.poisoned(0, len(self.issue) - 1, write)))
+            plan.poisoned(self.host, len(self.issue) - 1, write)))
         return done
 
 
@@ -1633,16 +1698,18 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
             "python": python}
 
 
-def scan_row(scan: dict, faults: dict, n: int) -> dict:
+def scan_row(scan: dict, faults: dict, multi: dict, n: int) -> dict:
     """The kernels line's ``replay_scan`` row: the Table I cached CXL-SSD's
-    numbers, with every device's and the faulted replays' beside them."""
+    numbers, with every device's, the faulted replays' and the multi-host
+    replays' beside them."""
     main = "cxl-ssd-cache"
     b_ms, b_by = scan["bound"][main]
     return {
         "name": "replay_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES,
         "launches": sum(scan["launches"].values())
-        + sum(run["launches"] for run in faults.values()),
+        + sum(run["launches"] for run in faults.values())
+        + sum(run["launches"] for run in multi.values()),
         "max_abs_err": 0, "tolerance": 0,
         "ms": scan["kernel_ms"][main], "plain_ms": scan["plain_ms"][main],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1657,6 +1724,12 @@ def scan_row(scan: dict, faults: dict, n: int) -> dict:
             "launches", "ms", "accesses", "bytes_per_access", "bound_ms",
             "bound_by", "serial_chain_ms", "reads", "column_s")}
             for name, run in faults.items()},
+        "multihost": {name: {k: run[k] for k in (
+            "launches", "ms", "hosts", "accesses", "bytes_per_step",
+            "bound_ms", "bound_by", "serial_chain_ms", "wall_s",
+            "column_s") + (("plain_ms",) if "plain_ms" in run else ())}
+            for name, run in multi.items()},
+        "multihost_replaces": MULTI_REPLACES,
     }
 
 
@@ -1939,6 +2012,347 @@ def assoc_phase(torch, trace, scan: dict) -> dict:
     return out
 
 
+def multi_inputs(torch, prep, dev):
+    """``(addrs, writes, lens, devs, routes)`` and the retry bytes of a
+    prepared multi-host replay as tensors on ``dev`` (None where the
+    replay has none)."""
+    def t(x):
+        return None if x is None else torch.from_numpy(x).to(dev)
+
+    return ([t(x) for x in (prep.addrs, prep.writes, prep.lens, prep.devs,
+                            prep.routes)], t(prep.retries))
+
+
+def multi_python_lane(targets, traces):
+    """The python lane over ``targets`` with metrics taps and a
+    :class:`FlagTap` a host: ``(result, bundle, taps)``."""
+    from repro_torch.core.replay import metrics as M
+    from repro_torch.core.workloads.driver import MultiHostDriver
+
+    metric_taps = M.attach_taps(targets)
+    taps = [FlagTap(t, host=i) for i, t in enumerate(metric_taps)]
+    res = MultiHostDriver(taps, outstanding=32).run(traces)
+    bundle = M.collect_python(M.MetricsSpec(), targets, metric_taps,
+                              poisoned=sum(sum(t.poison) for t in taps))
+    return res, bundle, taps
+
+
+def multi_same(res, want, bundle, taps) -> dict:
+    """Whether a multi-host replay equals the python lane field by field:
+    each host's latencies, hit, dirty-evict and poison flags, elapsed,
+    end and latency-sum ticks, the cluster span, GC runs, the metrics
+    bundle (fault counters included) and, under transport faults, each
+    host's availability series."""
+    from repro_torch.core.replay import metrics as M
+
+    hosts = list(zip(res.per_host, want.per_host, taps))
+
+    def flags(r, t, name):
+        got = getattr(r, name + "_flags")
+        if got is None:
+            got = np.zeros(r.accesses, bool)
+        return np.array_equal(got, np.asarray(getattr(t, name), bool))
+
+    same = {
+        "latency": all(np.array_equal(r.latency_ticks,
+                                      np.asarray(t.latency, np.int64))
+                       for r, _, t in hosts),
+        "hit": all(flags(r, t, "hit") for r, _, t in hosts),
+        "evict": all(flags(r, t, "evict") for r, _, t in hosts),
+        "poison": all(flags(r, t, "poison") for r, _, t in hosts),
+        "ticks": res.elapsed_ticks == want.elapsed_ticks and all(
+            getattr(r, f) == getattr(w, f) for r, w, _ in hosts
+            for f in ("accesses", "elapsed_ticks", "end_tick",
+                      "sum_latency_ticks")),
+        "gc_runs": res.per_host[0].gc_runs == sum(
+            f["gc_runs"] for f in bundle.flash),
+        "metrics": (json.loads(json.dumps(res.metrics.to_jsonable()))
+                    == json.loads(json.dumps(bundle.to_jsonable()))),
+    }
+    if res.per_host[0].availability is not None:
+        same["availability"] = all(
+            json.loads(json.dumps(r.availability)) == json.loads(json.dumps(
+                M.availability_series(
+                    np.asarray(t.issue, np.int64),
+                    np.asarray(t.issue, np.int64)
+                    + np.asarray(t.latency, np.int64),
+                    np.asarray(t.degraded), np.asarray(t.failover),
+                    spec=M.MetricsSpec())))
+            for r, _, t in hosts)
+    return same
+
+
+def multi_kernel_run(torch, prep) -> tuple[float, str, np.ndarray]:
+    """Device milliseconds of one multi-host ``replay_scan`` launch on the
+    prepared inputs, how they were timed, and the run's per-step hosts."""
+    from repro_torch.core.replay import stack
+    from repro_torch.kernels import replay_scan as rs
+
+    cfg = prep.cfg
+    ins, rt = multi_inputs(torch, prep, "cuda")
+    out = {}
+
+    def run():
+        out["who"] = rs.replay_multi(
+            cfg, prep.params, stack.init_lanes(cfg.stack, cfg.num_devs,
+                                               cfg.n_flash, "cuda"),
+            *ins, retries=rt)[0]
+
+    acts = [e for e in device_events(
+        torch, run, lambda acts: any(MULTI_KERNEL in e.name for e in acts))
+        if MULTI_KERNEL in e.name]
+    if acts:
+        ms, how = acts[0].device_time_total / 1e3, "profiler"
+    else:
+        EVENT_TIMED.append(MULTI_KERNEL)
+        say("timing", fallback="CUDA events", what=MULTI_KERNEL,
+            reason=f"the profiler recorded no device activity in "
+                   f"{PROFILE_TRIES} sessions")
+        ms, how = cuda_ms(torch, run), "CUDA events"
+    return ms, how, out["who"].cpu().numpy()
+
+
+def multi_bound(torch, prep, who, reads: int, int32_ops_per_s: float,
+                smem_cycles: float, sm_clock_mhz: float) -> dict:
+    """A multi-host replay's bytes a step, roofline bound and serial-chain
+    model from this run's inputs and hosts: the single-host terms of its
+    kind, plus the race over the hosts, the step's bookkeeping, each lane
+    switch the run made, each weighted hop's QoS mirror, a faulted run's
+    retry bytes and hop terms, and its NAND decisions."""
+    from repro_torch.core.replay.multihost import step_ordinals
+    from repro_torch.kernels import replay_scan as rs
+
+    cfg, n, H = prep.cfg, int(prep.lens.sum()), prep.cfg.num_hosts
+    ords = step_ordinals(who, H)
+    rows = rs.multi_rows(cfg, torch.from_numpy(prep.devs), None
+                         if prep.routes is None else torch.from_numpy(
+                             prep.routes)).numpy()[who, ords]
+    tab = rs.multi_tables(cfg, prep.params)
+    real = (tab["port"] >= 0)
+    hops = int(real.sum(1)[rows].sum())
+    qos_on = (np.asarray(prep.params["qos_on"]) if cfg.qos
+              else np.zeros(cfg.num_ports, bool))
+    weighted = int((real & qos_on[np.maximum(tab["port"], 0)]).sum(1)[
+        rows].sum())
+    lanes = tab["dev"][rows]
+    switches = int((lanes[1:] != lanes[:-1]).sum()) + 1
+    io = MULTI_IO_BYTES + (MULTI_FAULT_BYTES if cfg.fault_hops else 0)
+    kind = cfg.stack.kind
+    ops = (n * (SCAN_OPS[kind] + 2 * H + MULTI_STEP_OPS)
+           + switches * MULTI_LANE_OPS
+           + weighted * (2 * H + MULTI_QOS_OPS)
+           + (hops * FAULT_HOP_OPS if cfg.fault_hops else 0)
+           + (NAND_HASH_STEPS * reads if cfg.stack.faults else 0))
+    state = cfg.num_devs * (2 * 4 * cfg.stack.num_pages
+                            + 2 * 8 * cfg.stack.cache_frames)
+    b_ms, b_by = bound_ms(n, 2 * ops / n, io, state, int32_ops_per_s)
+    trips = (n * (MULTI_STEP_TRIPS + SCAN_ROUND_TRIPS[kind])
+             + SCAN_HOP_TRIPS * hops + MULTI_QOS_TRIPS * weighted
+             + (FAULT_HOP_TRIPS * hops if cfg.fault_hops else 0))
+    cycles = trips * smem_cycles + (
+        reads * NAND_HASH_STEPS * ALU_STEP_CYCLES if cfg.stack.faults else 0)
+    return {"bytes_per_step": io, "bound_ms": b_ms, "bound_by": b_by,
+            "serial_chain_ms": cycles / (sm_clock_mhz * 1e3),
+            "lane_switches": switches, "weighted_hops": weighted,
+            "int64_ops": ops}
+
+
+def multi_against_twin(torch, targets, traces, outstanding, placed=True):
+    """The multi-host instance on the card against its plain twin on CPU
+    tensors of this process, from fresh lanes, in the shared-memory layout
+    (``placed``) or the device-memory one: the elements that differ over
+    every output and every final state tensor, and the twin's wall
+    milliseconds."""
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    prep = MultiHostReplay(targets, outstanding=outstanding,
+                           metrics=MetricsSpec()).prepare(traces)
+    cfg = prep.cfg
+    cpu_ins, cpu_rt = multi_inputs(torch, prep, "cpu")
+    ins, rt = multi_inputs(torch, prep, "cuda")
+    cpu = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, "cpu")
+    card = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, "cuda")
+    t0 = time.perf_counter()
+    want = rs.replay_multi(cfg, prep.params, cpu, *cpu_ins, retries=cpu_rt)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    lib = _build.library("replay_scan")
+    lay = rs.layout_multi(cfg, prep.params, rs._smem_optin(lib, 0),
+                          placed=placed)
+    err, got = rs.call_launch_multi(
+        lib, cfg, prep.params, card, *ins, 0, lay,
+        torch.cuda.current_stream().cuda_stream, retries=rt)
+    check(err == 0, f"replay_scan (multi-host) launch failed: {err}")
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want))
+    for part in ("media", "flash"):
+        pairs += [(card[part][k], x) for k, x in (cpu[part] or {}).items()]
+    return sum(int((g.cpu() != x).sum()) for g, x in pairs), plain_ms
+
+
+def multi_cases(seed: int, per_host: int) -> dict:
+    """The [multihost] phase's replays, ``{name: (make_targets,
+    traces)}``, at ``per_host`` accesses a host of the full-width one:
+    ``table1x4`` (the full-width path), ``qos-pool`` (as many accesses in
+    all over three hosts) and ``down`` (two hosts, the down window scaled
+    to their length).  Traces are the main path's kind, host i from seed
+    ``seed + i``."""
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.fabric import Fabric, MemoryPool
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.workloads.traces import make_trace
+
+    def table1_mounts():
+        fab = Fabric.build("two_level", num_hosts=MULTI_HOSTS,
+                           num_devices=MULTI_HOSTS, **MULTI_FABRIC)
+        return [fab.mount(f"h{i}", f"d{i}", make_device("cxl-ssd-cache"))
+                for i in range(MULTI_HOSTS)]
+
+    def qos_pool():
+        fab = Fabric.build("spine_leaf", **MULTI_QOS)
+        pool = MemoryPool(fab, {"d0": make_device("dram"),
+                                "d1": make_device("dram")})
+        return pool.views([f"h{i}" for i in range(MULTI_QOS["num_hosts"])])
+
+    def down_mounts():
+        fab = Fabric.build("spine_leaf", **MULTI_DOWN)
+        tgts = [fab.mount(f"h{i}", f"d{i}", make_device("cxl-ssd-cache"))
+                for i in range(MULTI_DOWN["num_hosts"])]
+        u, v, lo, hi, of = MULTI_DOWN_WINDOW
+        install(FaultPlan(FaultConfig(down_links=(
+            (u, v, lo * per_host // of, hi * per_host // of),)),
+            seed=MULTI_DOWN_SEED), tgts)
+        return tgts
+
+    def traces_of(lengths):
+        return [make_trace(seed + i, n=n, pages=16384)
+                for i, n in enumerate(lengths)]
+
+    total = MULTI_HOSTS * per_host
+    nq = MULTI_QOS["num_hosts"]
+    return {
+        "table1x4": (table1_mounts, traces_of([per_host] * MULTI_HOSTS)),
+        "qos-pool": (qos_pool, traces_of([total // nq + (i < total % nq)
+                                          for i in range(nq)])),
+        "down": (down_mounts, traces_of([per_host]
+                                        * MULTI_DOWN["num_hosts"])),
+    }
+
+
+def multihost_phase(torch, seed: int, smem_cycles: float,
+                    sm_clock_mhz: float, int32_ops_per_s: float) -> dict:
+    """[multihost]: the fused multi-host replay on the card, each replay
+    one launch equal to the python lane on every field; the six golden
+    multi-host pins and metrics; the kernel against its twin."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenarios import make_multi_targets, multi_traces
+
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    from repro_torch.core.workloads.driver import MultiHostDriver
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    log = _build.build_log.get("replay_scan", "")
+    say("multihost", kernel=MULTI_KERNEL,
+        spill_bytes=ptxas_spills(log, MULTI_KERNEL))
+
+    cases = multi_cases(seed, MULTI_PER_HOST)
+    runs = {}
+    for name, (make, traces) in cases.items():
+        rs.reset_launches()
+        eng = MultiHostReplay(make(), outstanding=32, metrics=MetricsSpec())
+        t0 = time.perf_counter()
+        if name == "down":
+            res = eng.run(traces)
+        else:       # the entry point a user calls
+            res = MultiHostDriver(eng.targets, outstanding=32, engine="scan",
+                                  metrics=MetricsSpec()).run(traces)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        column_s = eng.last_column_seconds
+        launches = rs.LAUNCHES["replay_scan"]
+        check(launches == 1, f"[multihost] {name}: {launches} launches")
+        t0 = time.perf_counter()
+        want, bundle, taps = multi_python_lane(make(), traces)
+        py_wall = time.perf_counter() - t0
+        same = multi_same(res, want, bundle, taps)
+        for field, ok in same.items():
+            check(ok, f"[multihost] {name}: {field} differs from the python "
+                      "lane")
+        prep = eng.prepare(traces)
+        ms, how, who = multi_kernel_run(torch, prep)
+        reads = sum(f["host_reads"] + f["gc_writes"] for f in bundle.flash)
+        run = {"launches": launches, "ms": ms, "timing": how,
+               "wall_s": wall, "python_wall_s": py_wall,
+               "column_s": column_s,
+               "accesses": int(prep.lens.sum()),
+               "hosts": prep.cfg.num_hosts, "gc_runs": res.per_host[0].gc_runs,
+               "faults": dict(res.metrics.faults or {})}
+        run.update(multi_bound(torch, prep, who, reads, int32_ops_per_s,
+                               smem_cycles, sm_clock_mhz))
+        runs[name] = run
+        say("multihost", case=name, hosts=run["hosts"],
+            accesses=run["accesses"], equal_to_python=",".join(same),
+            launches=launches, kernel_ms=f"{ms:.3f}", timing=how,
+            ns_per_access=f"{ms * 1e6 / run['accesses']:.1f}",
+            driver_wall_s=f"{wall:.3f}", host_s=f"{wall - ms / 1e3:.3f}",
+            python_wall_s=f"{py_wall:.3f}",
+            column_builder_s=f"{column_s:.3f}",
+            hit_rate=f"{sum(r.hits for r in res.per_host) / run['accesses']:.6f}",
+            gc_runs=run["gc_runs"], lane_switches=run["lane_switches"],
+            weighted_hops=run["weighted_hops"],
+            bytes_per_step=run["bytes_per_step"],
+            bound_ms=f"{run['bound_ms']:.6f}", bound_by=run["bound_by"],
+            serial_chain_ms=f"{run['serial_chain_ms']:.3f}",
+            faults=json.dumps(run["faults"], separators=(",", ":")))
+    f = runs["down"]["faults"]
+    check(f.get("degraded_accesses", 0) > 0 and f.get("failovers", 0) > 0,
+          f"the down window degraded nothing: {f}")
+    check(runs["table1x4"]["accesses"] == MULTI_HOSTS * MULTI_PER_HOST,
+          "the full-width replay's length")
+
+    # the golden multi-host pins and metrics blocks on the card
+    for name in MULTI_SCENARIOS:
+        res = MultiHostDriver(make_multi_targets(name), outstanding=8,
+                              engine="scan", metrics=MetricsSpec()).run(
+            multi_traces(name))
+        pins = golden_pin(name, "python_scan")
+        check(len(pins) == len(res.per_host) and all(
+            r.latency_ticks.tolist() == p["latency_ticks"]
+            and all(getattr(r, k) == p[k] for k in (
+                "elapsed_ticks", "sum_latency_ticks", "end_tick"))
+            for r, p in zip(res.per_host, pins)),
+            f"multi-host pin {name} on the card")
+        check(json.loads(json.dumps(res.metrics.to_jsonable()))
+              == golden_pin(name, "metrics"), f"multi-host metrics {name}")
+    say("multihost", pins=len(MULTI_SCENARIOS), python_scan="equal",
+        metrics="equal")
+
+    # the kernel against its twin: the pins' scenarios in both layouts,
+    # then the full-width targets over their traces' first accesses
+    mismatches = 0
+    for name in MULTI_SCENARIOS:
+        for placed in (True, False):
+            bad, _ = multi_against_twin(torch, make_multi_targets(name),
+                                        multi_traces(name), 8, placed)
+            mismatches += bad
+    make, traces = cases["table1x4"]
+    bad, plain_ms = multi_against_twin(
+        torch, make(), [t[:MULTI_TWIN_PER_HOST] for t in traces], 32)
+    mismatches += bad
+    check(mismatches == 0, f"the multi-host instance differs from its twin "
+                           f"in {mismatches} elements")
+    say("multihost", twin_checks=2 * len(MULTI_SCENARIOS) + 1, mismatches=0,
+        twin_accesses=MULTI_HOSTS * MULTI_TWIN_PER_HOST,
+        twin_ms=f"{plain_ms:.3f}")
+    runs["table1x4"]["plain_ms"] = plain_ms
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2183,6 +2597,8 @@ def main() -> int:
     faults = faults_phase(torch, trace, smem_cycles, sm_clock_mhz,
                           int32_ops_per_s)
     assoc_phase(torch, trace, scan)
+    multi = multihost_phase(torch, args.seed, smem_cycles, sm_clock_mhz,
+                            int32_ops_per_s)
 
     # kernels line -------------------------------------------------------
     rows = []
@@ -2206,7 +2622,7 @@ def main() -> int:
         })
     print(card, flush=True)
     print(json.dumps({"kernels": rows + serve_rows + [
-        prefill_row, scan_row(scan, faults, n)]}), flush=True)
+        prefill_row, scan_row(scan, faults, multi, n)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

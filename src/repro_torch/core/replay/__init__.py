@@ -4,9 +4,13 @@
   paper devices, directly attached or fabric-mounted, one launch of the
   ``replay_scan`` kernel per trace (its plain twin on the CPU),
   tick-identical to the python driver.
-* :mod:`repro_torch.core.replay.stack` — the device-state layer it
-  replays (``init_state(cfg, device)`` / ``step(cfg, p, state, access)``,
-  greedy FTL GC included).
+* :class:`MultiHostReplay` (``MultiHostDriver(engine="scan")``) — several
+  hosts over fabric mounts or a memory pool, interleaved in issue order
+  over shared ports and device state (QoS, ECMP, shared flash, fault
+  plans), one launch of the kernel's multi-host instance per replay.
+* :mod:`repro_torch.core.replay.stack` — the device-state layer they
+  replay (``init_state(cfg, device)`` / ``step(cfg, p, state, access)``,
+  greedy FTL GC included; ``init_lanes`` for the multi-host lanes).
 * :mod:`repro_torch.core.replay.metrics` — :class:`MetricsSpec`-configured
   telemetry (latency histograms with p50/p95/p99, component counters,
   tick-windowed series), schema- and value-identical between the python
@@ -19,8 +23,8 @@
 * :mod:`repro_torch.core.replay.cuda_engine` — the cached CXL-SSD kernel
   lane (``engine="cuda"``, analytic latency).
 
-The multi-host, sweep and streaming lanes are later slices (ROADMAP Queue
-A items 10, 11 and 12).  Importing this package loads no torch: the state
+The sweep and streaming lanes are later slices (ROADMAP Queue A items 11
+and 12).  Importing this package loads no torch: the state
 layer's names load it on first use.
 """
 
@@ -30,6 +34,7 @@ from repro_torch.core.maxplus import busy_until, port_busy_until
 from repro_torch.core.replay.assoc import AssocReplayEngine
 from repro_torch.core.replay.engine import ReplayEngine, ReplayResult
 from repro_torch.core.replay.metrics import MetricsBundle, MetricsSpec
+from repro_torch.core.replay.multihost import MultiHostReplay
 from repro_torch.core.replay.spec import (
     ReplayUnsupported,
     StackConfig,
@@ -40,7 +45,8 @@ from repro_torch.core.replay.spec import (
     validate_block_size,
 )
 
-_STACK_NAMES = ("init_state", "media_init", "media_step", "step")
+_STACK_NAMES = ("init_lanes", "init_state", "media_init", "media_step",
+                "step")
 
 
 def __getattr__(name):
@@ -53,12 +59,14 @@ __all__ = [
     "AssocReplayEngine",
     "MetricsBundle",
     "MetricsSpec",
+    "MultiHostReplay",
     "ReplayEngine",
     "ReplayResult",
     "ReplayUnsupported",
     "StackConfig",
     "build_stack",
     "busy_until",
+    "init_lanes",
     "init_state",
     "media_init",
     "media_stack",

@@ -21,11 +21,12 @@ Parity is the contract: :func:`collect_python` builds the bundle from the
 interpreted objects, :func:`bundle_single_deferred` from the scan lane's
 per-access ``(issue, done, flags)`` columns (each media event packed into
 the flags word, :data:`FLAG_EVENT_BITS`) plus its per-port queueing and
-QoS-throttle totals, and the golden pins hold the two equal.  Per-port
-byte/packet/occupancy totals are pure functions of the route choices, so
-they are reconstructed on the host with numpy.  The streaming
-accumulators and the multi-host assembler come with the streaming and
-multi-host lanes (ROADMAP Queue A items 12 and 10).
+QoS-throttle totals, and :func:`bundle_multi_deferred` from the
+multi-host replay's per-step ``(who, issue, done, flags)`` columns; the
+golden pins hold them equal.  Per-port byte/packet/occupancy totals are
+pure functions of the route choices, so they are reconstructed on the
+host with numpy.  The streaming accumulators come with the streaming
+lane (ROADMAP Queue A item 12).
 
 Histogram bucketing: values below 8 index themselves (exact small-latency
 buckets); otherwise with ``e = bit_length(v) - 1`` the index is
@@ -672,6 +673,129 @@ def bundle_single_deferred(spec: MetricsSpec, device, cfg, issues, dones,
 
     return MetricsBundle(
         spec=spec, hosts=[host_label], devices=[dev_label],
+        flash=_flash_dicts(flash_cnt), ports=ports, ecmp=ecmp,
+        deferred=fold, faults=faults)
+
+
+def bundle_multi_deferred(spec: MetricsSpec, meta: Dict, mcfg, who, issues,
+                          dones, flags, step_ord, writes, queued, qthr,
+                          flash_cnt, devs: np.ndarray,
+                          routes: Optional[np.ndarray], lens: np.ndarray,
+                          size: int, params: Dict,
+                          faults: Optional[Dict[str, int]] = None,
+                          faulted: Optional[Dict] = None) -> MetricsBundle:
+    """Assemble the bundle after a multi-host replay from its per-step
+    ``(who, issue, done, flags)`` columns: the JAX package's
+    ``bundle_multi_fused`` over the in-scan accumulators, folded here on
+    the host instead.  ``step_ord`` is each step's ordinal in its host's
+    trace, which reads the step's device and write flag from the
+    ``(H, L)`` ``devs`` / ``writes`` columns.  Per-host histograms and
+    windows, per-device histograms and media counters (from the flags'
+    event bits) are deferred to first access.  Per-port byte / packet /
+    occupancy totals and per-host attribution are reconstructed from the
+    hop tables and route choices (numpy, exact); ``queued`` / ``qthr`` are
+    the replay's per-port queueing and QoS-throttle totals.  ``faulted``
+    (the transport-fault code's totals, over the same global sorted port
+    set) overrides the clean reconstruction."""
+    hosts, nodes = meta["hosts"], meta["nodes"]
+    fabric = meta["fabric"]
+    H, D = len(hosts), len(nodes)
+    lens = np.asarray(lens)
+    devs = np.asarray(devs)
+    routes = (np.zeros(devs.shape, np.int32) if routes is None
+              else np.asarray(routes))
+    ecmp: Dict[str, List[int]] = {}
+    if faulted is not None:
+        port_keys = list(faulted["port_keys"])
+        P = len(port_keys)
+        npkts = np.asarray(faulted["packets"], np.int64)
+        nbytes = np.asarray(faulted["bytes"], np.int64)
+        nocc = np.asarray(faulted["occupied"], np.int64)
+        by_host = np.asarray(faulted["by_host"], np.int64)
+        ecmp = {k: list(v) for k, v in sorted(faulted["ecmp"].items())}
+    else:
+        port_keys = sorted(fabric.ports)
+        P = len(port_keys)
+        nbytes = np.zeros(P, np.int64)
+        npkts = np.zeros(P, np.int64)
+        nocc = np.zeros(P, np.int64)
+        by_host = np.zeros((P, H), np.int64)
+        hop_port, hop_occ = params["hop_port"], params["hop_occ"]
+        hop_on = params["hop_on"]
+        for i in range(H):
+            n = int(lens[i])
+            if not n:
+                continue
+            d, r = devs[i, :n], routes[i, :n]
+            for h in range(mcfg.max_hops):
+                on = hop_on[i, d, r, h]
+                pi = hop_port[i, d, r, h][on]
+                np.add.at(npkts, pi, 1)
+                np.add.at(nbytes, pi, size)
+                np.add.at(nocc, pi, hop_occ[i, d, r, h][on])
+                np.add.at(by_host[:, i], pi, size)
+    queued = np.asarray(queued).reshape(-1)
+    qthr = (np.asarray(qthr).reshape(-1) if qthr is not None
+            else np.zeros(P, np.int64))
+    ports: Dict[str, Dict] = {}
+    for j, key in enumerate(port_keys):
+        if not npkts[j]:
+            continue
+        ports[f"{key[0]}->{key[1]}"] = {
+            "bytes": int(nbytes[j]), "packets": int(npkts[j]),
+            "occupied_ticks": int(nocc[j]),
+            "queued_ticks": int(queued[j]),
+            "qos_throttle_events": int(qthr[j]),
+            "bytes_by_host": {hosts[i]: int(by_host[j, i])
+                              for i in range(H) if by_host[j, i]},
+        }
+    if faulted is None:
+        route_count = meta["route_count"]
+        for i in range(H):
+            n = int(lens[i])
+            if not n:
+                continue
+            d_col, r_col = devs[i, :n], routes[i, :n]
+            for d in np.unique(d_col):
+                K = int(route_count[i, d])
+                if K <= 1:
+                    continue
+                counts = np.bincount(r_col[d_col == d], minlength=K)
+                key = f"{hosts[i]}->{nodes[d]}"
+                prev = ecmp.get(key)
+                ecmp[key] = ([int(c) for c in counts] if prev is None
+                             else [int(a + b) for a, b in zip(prev, counts)])
+
+    def fold():
+        NB, W = spec.hist_buckets, spec.num_windows
+        w_ = np.asarray(who, np.int64)
+        iss = np.asarray(issues, np.int64)
+        dn = np.asarray(dones, np.int64)
+        f = np.asarray(flags)
+        lat = dn - iss
+        b = bucket_index(lat, NB)
+        dev = devs[w_, step_ord]
+        wr = np.asarray(writes, bool)[w_, step_ord]
+        hist = np.zeros((H, NB), np.int64)
+        np.add.at(hist, (w_, b), 1)
+        dev_hist = np.zeros((D, NB), np.int64)
+        np.add.at(dev_hist, (dev, b), 1)
+        wdx = np.clip(dn // spec.window_ticks, 0, W - 1)
+        windows = np.zeros((H, W, 4), np.int64)
+        np.add.at(windows[:, :, 0], (w_, wdx), size)
+        np.add.at(windows[:, :, 1], (w_, wdx), lat)
+        np.add.at(windows[:, :, 2], (w_, wdx), 1)
+        np.add.at(windows[:, :, 3], (w_, wdx), (f & 1).astype(np.int64))
+        kind = mcfg.stack.kind
+        media = [dict(zip(MEDIA_COUNTERS[kind], (int(x) for x in
+                                                 media_from_flags(
+                                                     kind, wr[dev == d],
+                                                     f[dev == d]))))
+                 for d in range(D)]
+        return hist, windows, dev_hist, media
+
+    return MetricsBundle(
+        spec=spec, hosts=list(hosts), devices=list(nodes),
         flash=_flash_dicts(flash_cnt), ports=ports, ecmp=ecmp,
         deferred=fold, faults=faults)
 

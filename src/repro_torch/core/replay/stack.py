@@ -518,11 +518,34 @@ def media_init(cfg: StackConfig, device) -> Dict:
 
 def init_state(cfg: StackConfig, device="cpu") -> Dict:
     """``{"media": ..., "flash": ...}`` of one single-host stack on
-    ``device`` (``flash`` is ``None`` for flash-less kinds).  The JAX
-    package stacks a leading lane axis for its multi-host replay; the
-    port's single-host lane has one lane and no such axis."""
+    ``device`` (``flash`` is ``None`` for flash-less kinds): one lane and
+    no lane axis.  The multi-host replay's state is :func:`init_lanes`."""
     return {"media": media_init(cfg, device),
             "flash": flash_init(cfg, device) if has_flash(cfg) else None}
+
+
+def init_lanes(cfg: StackConfig, num_devs: int, n_flash: int,
+               device="cpu") -> Dict:
+    """The multi-host replay's state: every tensor of :func:`init_state`
+    with a leading lane axis, ``num_devs`` media lanes (one per mounted or
+    pooled device) and ``n_flash`` flash lanes (one per distinct HIL:
+    fewer than ``num_devs`` when front ends share one flash).  ``flash``
+    is ``None`` for flash-less kinds."""
+    def stacked(parts):
+        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+    flash = None
+    if has_flash(cfg):
+        flash = stacked([flash_init(cfg, device) for _ in range(n_flash)])
+    return {"media": stacked([media_init(cfg, device)
+                              for _ in range(num_devs)]),
+            "flash": flash}
+
+
+def lane(part: Optional[Dict], i: int) -> Optional[Dict]:
+    """Lane ``i`` of a lane-stacked media or flash dict, as views: the
+    in-place steps of :func:`media_step` write through to the stack."""
+    return None if part is None else {k: v[i] for k, v in part.items()}
 
 
 def media_step(cfg: StackConfig, p: Dict, md: Dict, f: Optional[Dict], t: int,
@@ -548,31 +571,34 @@ def step(cfg: StackConfig, p: Dict, state: Dict, access: Dict) -> Dict:
 
 
 def flash_health(state: Dict) -> Tuple[bool, int]:
-    """``(bad, gc_runs)`` of the flash lane — ``bad`` is the sticky
-    certify-or-refuse bit (both zero for flash-less or log-append
-    stacks)."""
+    """``(bad, gc_runs)`` over every flash lane — ``bad`` is the sticky
+    certify-or-refuse bit of any lane, ``gc_runs`` the lanes' GC runs
+    summed (both zero for flash-less or log-append stacks)."""
     flash = state["flash"]
     if flash is None or "bad" not in flash:
         return False, 0
-    return bool(flash["bad"]), int(flash["gcs"])
+    return bool(flash["bad"].any()), int(flash["gcs"].sum())
 
 
 def flash_counters(state: Dict):
-    """:data:`~repro_torch.core.replay.metrics.FLASH_COUNTERS` of the flash
-    lane as a ``(1, 5)`` list — ``None`` when the stack carries no counters
+    """:data:`~repro_torch.core.replay.metrics.FLASH_COUNTERS` of each
+    flash lane, an ``(n_flash, 5)`` list (``(1, 5)`` for a single-host
+    stack) — ``None`` when the stack carries no counters
     (``StackConfig.counters=False``) or no flash at all."""
     flash = state["flash"]
     if flash is None or "c_hr" not in flash:
         return None
-    return [[int(flash.get(k, 0)) for k in
-             ("c_hr", "c_hw", "c_gw", "c_ge", "gcs")]]
+    z = torch.zeros_like(flash["c_hr"])
+    cols = [flash.get(k, z) for k in ("c_hr", "c_hw", "c_gw", "c_ge", "gcs")]
+    return torch.stack(cols, -1).reshape(-1, 5).tolist()
 
 
 def fault_counters(state: Dict) -> Tuple[int, int]:
-    """``(nand_read_retries, retired_blocks)`` of the flash lane — kept out
-    of :func:`flash_counters` so the pinned metrics shape is untouched;
-    both zero for stacks built without NAND fault statics."""
+    """``(nand_read_retries, retired_blocks)`` summed over the flash lanes
+    — kept out of :func:`flash_counters` so the pinned metrics shape is
+    untouched; both zero for stacks built without NAND fault statics."""
     flash = state["flash"]
     if flash is None or "c_rr" not in flash:
         return 0, 0
-    return int(flash["c_rr"]), int(flash.get("c_rb", 0))
+    retired = int(flash["c_rb"].sum()) if "c_rb" in flash else 0
+    return int(flash["c_rr"].sum()), retired

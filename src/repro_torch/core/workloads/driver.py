@@ -93,13 +93,14 @@ class TraceDriver:
                  twin), tick-identical to ``python`` for all five devices,
                  attached directly or fabric-mounted (fixed route or ECMP,
                  with or without QoS), greedy FTL GC included, under any
-                 installed fault plan, metrics on request; other shapes
-                 raise
+                 installed fault plan, metrics on request.  A shape it
+                 refuses (a pool view, say) is retried in the multi-host
+                 replay
+                 (:class:`~repro_torch.core.replay.multihost.MultiHostReplay`)
+                 as its one host; if that refuses too, the single-host
                  :class:`~repro_torch.core.replay.spec.ReplayUnsupported`
-                 (the JAX package retries those in its multi-host replay,
-                 which is not ported yet, ROADMAP Queue A item 10: the
-                 port raises the single-host reason).  ``block_size`` is
-                 accepted and tick-invisible: the kernel ignores it;
+                 is raised.  ``block_size`` is accepted and
+                 tick-invisible: the kernel ignores it;
     ``assoc``    the associative lane
                  (:class:`~repro_torch.core.replay.assoc.AssocReplayEngine`):
                  stateless DRAM/PMEM media on a single route, solved by
@@ -168,12 +169,27 @@ class TraceDriver:
                 torch_device=self.torch_device).run(rows, start_tick)
         if self.engine == "scan":
             from repro_torch.core.replay.engine import ReplayEngine
-            return ReplayEngine(
-                self.device, outstanding=self.outstanding,
-                issue_overhead_ns=self.issue_overhead_ns,
-                posted_writes=self.posted_writes,
-                block_size=self.block_size, metrics=self.metrics,
-                torch_device=self.torch_device).run(rows, start_tick)
+            from repro_torch.core.replay.multihost import MultiHostReplay
+            from repro_torch.core.replay.spec import ReplayUnsupported
+
+            kw = dict(outstanding=self.outstanding,
+                      issue_overhead_ns=self.issue_overhead_ns,
+                      posted_writes=self.posted_writes,
+                      block_size=self.block_size, metrics=self.metrics,
+                      torch_device=self.torch_device)
+            try:
+                return ReplayEngine(self.device, **kw).run(rows, start_tick)
+            except ReplayUnsupported as single_host_reason:
+                # pool views and shared-fabric targets live in the
+                # multi-host replay; a single host is its degenerate case
+                try:
+                    return MultiHostReplay([self.device], **kw).run(
+                        [rows], start_tick).per_host[0]
+                except ReplayUnsupported:
+                    # the single-host diagnosis (e.g. an unsupported
+                    # policy) is the actionable one; the retry's would
+                    # mask it
+                    raise single_host_reason from None
         from repro_torch.core.replay.cuda_engine import run_cuda
         from repro_torch.core.replay.spec import trace_to_arrays
 
@@ -267,21 +283,27 @@ class MultiHostDriver:
     next issue tick goes first (ties break on host index).  Running host
     traces back-to-back instead would serialize them through the shared
     busy-until state and hide all contention — the interleave is the point.
-    Only the python lane exists here: the fused multi-host replay is
-    ROADMAP Queue A item 10.
+
+    ``engine="scan"`` dispatches to the fused
+    :class:`~repro_torch.core.replay.multihost.MultiHostReplay`: one
+    launch of the ``replay_scan`` kernel's multi-host instance on the
+    card (``torch_device="cpu"`` runs its plain twin), tick-identical to
+    the python lane for every media the stack layer models — DRAM-class,
+    PMEM, CXL-SSD, and cached CXL-SSD (private mounts, pool views, or
+    per-host caches over a shared flash built with
+    ``CachedCXLSSDDevice(hil=...)``), greedy FTL GC, QoS, ECMP and fault
+    plans included — and refuses anything else with the actionable lane
+    name.
     """
 
     def __init__(self, targets: Sequence[MemDevice], outstanding: int = 32,
                  issue_overhead_ns: float = 0.5,
                  posted_writes: bool = True, engine: str = "python",
-                 block_size: int = 1, metrics=None) -> None:
+                 block_size: int = 1, metrics=None,
+                 torch_device="cuda") -> None:
         if not targets:
             raise ValueError("need at least one host target")
-        if engine == "scan":
-            raise NotImplementedError(
-                "multi-host engine='scan' is not ported yet (ROADMAP Queue A "
-                "item 10); use engine='python'")
-        if engine != "python":
+        if engine not in ("python", "scan"):
             raise ValueError(f"multi-host engine must be python|scan, "
                              f"got {engine!r}")
         from repro_torch.core.replay.spec import validate_block_size
@@ -293,12 +315,22 @@ class MultiHostDriver:
         self.engine = engine
         self.block_size = validate_block_size(block_size)
         self.metrics = metrics        # Optional[MetricsSpec]
-        if self.block_size > 1:
+        self.torch_device = torch_device
+        if self.block_size > 1 and engine != "scan":
             raise ValueError(
                 f"block_size applies to engine='scan', not {engine!r}")
 
     def run(self, traces: Sequence[Iterable[Access]],
             start_tick: int = 0) -> MultiHostResult:
+        if self.engine == "scan":
+            from repro_torch.core.replay.multihost import MultiHostReplay
+            return MultiHostReplay(
+                self.targets, outstanding=self.outstanding,
+                issue_overhead_ns=self.issue_overhead_ns,
+                posted_writes=self.posted_writes,
+                block_size=self.block_size, metrics=self.metrics,
+                torch_device=self.torch_device).run(
+                    [list(t) for t in traces], start_tick)
         if len(traces) != len(self.targets):
             raise ValueError(f"{len(traces)} traces for "
                              f"{len(self.targets)} host targets")

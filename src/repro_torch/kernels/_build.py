@@ -58,8 +58,11 @@ SIGNATURES = {
     },
     "replay_scan": {
         "replay_scan_launch": (_I, [_P] * 26 + [_I, _P]),
+        "replay_scan_launch_multi": (_I, [_P] * 27 + [_I, _P]),
         "replay_scan_num_args": (_I, []),
         "replay_scan_layout_words": (_I, []),
+        "replay_scan_num_margs": (_I, []),
+        "replay_scan_layout_multi_words": (_I, []),
         "replay_scan_smem_optin": (_I, [_I, ctypes.POINTER(_I)]),
         "replay_scan_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -11,7 +11,9 @@
 // `_ftl_invalidate`, greedy GC `_collect`, the free-block FIFO and
 // `_pal_read` / `_pal_prog` / `_pal_erase`.  Its plain twin, line for line
 // the same arithmetic, is repro_torch/core/replay/stack.py::step under the
-// loop of repro_torch/kernels/replay_scan.py::replay_scan_plain.
+// loop of repro_torch/kernels/replay_scan.py::replay_scan_plain.  A
+// multi-host instance of its own (`replay_multi`, after the single-host
+// block) replaces src/repro/core/replay/multihost.py::_make_multi_step.
 //
 // What bounds it on this card: the serial chain.  Every access starts from
 // the state the previous one left (LFB slots, port busy-untils, frames,
@@ -1299,6 +1301,608 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   }
 }
 
+// ------------------------------------------------ the multi-host replay
+// The JAX package's multi-host replay (src/repro/core/replay/multihost.py,
+// `_make_multi_step` :349, a lax.scan and no Pallas kernel): several hosts'
+// traces interleaved in issue order over shared ports and lane-stacked
+// media and flash state.  Its plain twin is
+// kernels/replay_scan.py::replay_multi_plain.  Thread 0 walks every step:
+//   1. the host race: the earliest candidate max(now, LFB root), an
+//      exhausted host at kBig, ties to the lowest host (a linear pass over
+//      the hosts' candidates in shared memory);
+//   2. that host's staged access (loaded from device memory the step it
+//      became the host's next, so its latency hides behind that step) and
+//      the root of its own LFB tree;
+//   3. its route row: per hop the shared port's busy-until, with the QoS
+//      mirror of SwitchPort.qos_update on a weighted port (the weight sum
+//      in sorted-host order, __dadd_rn / __ddiv_rn / __dmul_rn, which nvcc
+//      may neither contract nor reorder; the floor binds the final
+//      acknowledgment only; the virtual clock paces on the clean
+//      occupancy while the port charges the retries);
+//   4. the target's media lane and that lane's flash lane, by moving the
+//      chain's array pointers and scalars to them (saved back when the
+//      lane changes), with one global stamp counter;
+//   5. who, issue, done and flags of the step, stored straight to device
+//      memory.
+// The lanes' MSHR and writeback tables, die and channel busy-untils and
+// scalars stay in shared memory; each placed array kind (map, frames,
+// links, l2p, GC state) is in shared memory for every lane or for none, so
+// no host's chain is cheaper than another's.  At full width (four Table I
+// devices over a 64 MB footprint) only the frames fit; the rest stays in
+// device memory, L2-resident.  Per-host staged windows and the lanes in a
+// cluster's distributed shared memory are later work.
+
+// The multi-host argument block, field for field `MARGS` in
+// kernels/replay_scan.py.
+enum MArg { M_HOSTS, M_LANES, M_FLASH, M_STRIDE, M_QOS, M_ROWS, M_WINDOW,
+            kNumMArgs };
+
+// Its layout, field for field `LAYOUT_MULTI`: the trees' leaves, then byte
+// offsets into dynamic shared memory; placed arrays as in Lay.
+enum LayM {
+  LM_LEAVES, LM_TREE, LM_HOST, LM_NEXT, LM_PB, LM_QACC, LM_QTHR, LM_VFT,
+  LM_LAST, LM_MTAB, LM_MSCAL, LM_FSCAL, LM_MPAGE, LM_MREADY, LM_WTICK,
+  LM_DIE_BUSY, LM_DIE_PROG, LM_CHAN_BUSY, LM_WHERE, LM_FRAMES, LM_LINKS,
+  LM_L2P, LM_VALID, LM_FREE_MASK, LM_FREE_Q, LM_P2L, LM_RETIRED,
+  kLayoutMultiWords
+};
+
+// A media lane's scalars in shared memory (MEDIA_SCALARS in the wrapper).
+enum MScal { MS_BUSY, MS_ROW, MS_DRAM_BUSY, MS_FILL, MS_HEAD, MS_TAIL,
+             MS_MMIN, kMScal = 8 };
+
+constexpr long long kNever = -(1LL << 61);   // multihost.py's NEVER
+
+struct MArgs {
+  long long v[kNumMArgs];
+};
+
+struct LayoutM {
+  long long v[kLayoutMultiWords];
+};
+
+// Device pointers of one multi-host replay.  The trace columns are (hosts,
+// stride): device-local addresses, `aux` (route row << 1 | write) and, on
+// the faulted lane, each access's retry bytes packed into an int64 (byte h
+// for hop h); `mtab` the table (`multi_table` in the wrapper); the
+// per-step outputs; `totals` qacc then qthr; `scal` the lanes' scalars (a
+// row of kNumScalars a media lane, then a row a flash lane); the state's
+// arrays, lane-stacked; `scratch` the map, links and retired bitmaps that
+// the layout leaves in device memory.
+struct MultiPtrs {
+  const long long* addrs;
+  const int32_t* aux;
+  const long long* rt;
+  const long long* mtab;
+  int32_t* who;
+  long long* issues;
+  long long* dones;
+  int32_t* flags;
+  long long* totals;
+  long long* scal;
+  long long* frames;
+  long long* mpage;
+  long long* mready;
+  long long* wtick;
+  int32_t* l2p;
+  int32_t* p2l;
+  int32_t* valid;
+  int32_t* free_q;
+  uint8_t* free_mask;
+  uint8_t* rtr_mask;
+  long long* die_busy;
+  long long* die_prog;
+  long long* chan_busy;
+  char* scratch;
+};
+
+template <int KIND, bool NAND, bool FAULTED>
+__device__ void replay_multi(const Args& args, const MArgs& margs,
+                             const LayoutM& lay, const MultiPtrs& ptrs,
+                             char* sm) {
+  const long long* a = args.v;
+  const long long* ma = margs.v;
+  const long long* L = lay.v;
+  const int tid = thread_id();
+  const int K = static_cast<int>(a[A_OUTSTANDING]);
+  const int P = static_cast<int>(a[A_PORTS]);
+  const int FH = static_cast<int>(a[A_HOPS]);
+  const int NH = static_cast<int>(ma[M_HOSTS]);
+  const int ND = static_cast<int>(ma[M_LANES]);
+  const int NF = static_cast<int>(ma[M_FLASH]);
+  const int R = static_cast<int>(ma[M_ROWS]);
+  const long long stride = ma[M_STRIDE];
+  const long long window = ma[M_WINDOW];
+  const bool qos = ma[M_QOS] != 0;
+  const int nm = static_cast<int>(a[A_MSHR]), nw = static_cast<int>(a[A_WB]);
+  const int nm8 = (nm + kBlock - 1) / kBlock * kBlock;
+  const int nw8 = (nw + kBlock - 1) / kBlock * kBlock;
+  const int nf = static_cast<int>(KIND == kSsdBuf ? a[A_BUF] : a[A_FRAMES]);
+  const int dies = static_cast<int>(a[A_CHANNELS] * a[A_DIES]);
+  const int chans = static_cast<int>(a[A_CHANNELS]);
+  const int nb = static_cast<int>(a[A_NUM_BLOCKS]);
+  const long long num_pages = a[A_NUM_PAGES];
+  const long long n = a[A_N], start = a[A_START];
+  const long long leaves = L[LM_LEAVES];
+  const long long ppb = a[A_PPB];
+  constexpr bool kFlash = KIND == kSsdBuf || KIND == kSsdCache;
+  const bool assoc = KIND == kSsdBuf || (KIND == kSsdCache && a[A_ASSOC]);
+  const bool gc = kFlash && a[A_GC];
+  const bool nand = kFlash && NAND;
+  const int rwords = (nb + 31) / 32;
+
+  // the table, copied to shared memory: lengths, host order, the lanes'
+  // flash lanes and DRAM timing, rows' lanes, the rows, QoS mask and
+  // weights
+  long long* mt = reinterpret_cast<long long*>(sm + L[LM_MTAB]);
+  const long long mwords = 2LL * NH + 4LL * ND + R + 3LL * R * FH + P +
+                           static_cast<long long>(P) * NH;
+  const long long* lens = mt;
+  const long long* host_order = mt + NH;
+  const long long* flash_of = mt + 2 * NH;
+  const long long* dev_occ = flash_of + ND;
+  const long long* dev_load = dev_occ + ND;
+  const long long* dev_pack = dev_load + ND;
+  const long long* row_dev = dev_pack + ND;
+  const long long* hop_port = row_dev + R;
+  const long long* hop_occ = hop_port + static_cast<long long>(R) * FH;
+  const long long* hop_after = hop_occ + static_cast<long long>(R) * FH;
+  const long long* qos_on = hop_after + static_cast<long long>(R) * FH;
+  const double* qos_w = reinterpret_cast<const double*>(qos_on + P);
+
+  longlong2* trees = reinterpret_cast<longlong2*>(sm + L[LM_TREE]);
+  long long* h_now = reinterpret_cast<long long*>(sm + L[LM_HOST]);
+  long long* h_idx = h_now + NH;
+  long long* h_cand = h_idx + NH;
+  long long* x_addr = reinterpret_cast<long long*>(sm + L[LM_NEXT]);
+  long long* x_aux = x_addr + NH;
+  long long* x_rt = x_aux + NH;
+  long long* pb = reinterpret_cast<long long*>(sm + L[LM_PB]);
+  long long* qacc = reinterpret_cast<long long*>(sm + L[LM_QACC]);
+  long long* qthr = reinterpret_cast<long long*>(sm + L[LM_QTHR]);
+  long long* vft = reinterpret_cast<long long*>(sm + L[LM_VFT]);
+  long long* last = reinterpret_cast<long long*>(sm + L[LM_LAST]);
+  long long* mscal = reinterpret_cast<long long*>(sm + L[LM_MSCAL]);
+  long long* fscal = reinterpret_cast<long long*>(sm + L[LM_FSCAL]);
+  int32_t* mpage_b = reinterpret_cast<int32_t*>(sm + L[LM_MPAGE]);
+  long long* mready_b = reinterpret_cast<long long*>(sm + L[LM_MREADY]);
+  long long* wtick_b = reinterpret_cast<long long*>(sm + L[LM_WTICK]);
+  long long* die_busy_b = reinterpret_cast<long long*>(sm + L[LM_DIE_BUSY]);
+  long long* die_prog_b = reinterpret_cast<long long*>(sm + L[LM_DIE_PROG]);
+  long long* chan_busy_b =
+      reinterpret_cast<long long*>(sm + L[LM_CHAN_BUSY]);
+  int32_t* where_b = placed(sm, L[LM_WHERE], reinterpret_cast<int32_t*>(
+                                                 ptrs.scratch - 1 -
+                                                 L[LM_WHERE]));
+  long long* frames_b = placed(sm, L[LM_FRAMES], ptrs.frames);
+  int2* links_b = placed(sm, L[LM_LINKS], reinterpret_cast<int2*>(
+                                              ptrs.scratch - 1 -
+                                              L[LM_LINKS]));
+  int32_t* l2p_b = placed(sm, L[LM_L2P], ptrs.l2p);
+  int32_t* valid_b = placed(sm, L[LM_VALID], ptrs.valid);
+  uint8_t* free_mask_b = placed(sm, L[LM_FREE_MASK], ptrs.free_mask);
+  int32_t* free_q_b = placed(sm, L[LM_FREE_Q], ptrs.free_q);
+  int32_t* p2l_b = placed(sm, L[LM_P2L], ptrs.p2l);
+  uint32_t* retired_b = placed(sm, L[LM_RETIRED], reinterpret_cast<uint32_t*>(
+                                                      ptrs.scratch - 1 -
+                                                      L[LM_RETIRED]));
+
+  // prologue: the table; every host's tree at `start` (engine.py's
+  // _init_carry, per host), clock, cursor, candidate and first access;
+  // ports idle and QoS tables empty; the lanes' state copied in
+  for (long long i = tid; i < mwords; i += kThreads) mt[i] = ptrs.mtab[i];
+  for (long long i = tid; i < NH * 2 * leaves; i += kThreads) {
+    const long long node = i % (2 * leaves);
+    if (node == 0) {             // past the root: read, never used
+      trees[i] = make_longlong2(kBig, 0);
+      continue;
+    }
+    long long lo = node;
+    while (lo < leaves) lo <<= 1;
+    lo -= leaves;
+    trees[i] = make_longlong2(lo < K ? start : kBig, lo);
+  }
+  for (int h = tid; h < NH; h += kThreads) {
+    const long long len = ptrs.mtab[h];
+    h_now[h] = start;
+    h_idx[h] = 0;
+    h_cand[h] = len > 0 ? start : kBig;
+    x_addr[h] = len > 0 ? ptrs.addrs[h * stride] : 0;
+    x_aux[h] = len > 0 ? ptrs.aux[h * stride] : 0;
+    x_rt[h] = len > 0 && FAULTED ? ptrs.rt[h * stride] : 0;
+  }
+  for (int i = tid; i < P; i += kThreads) pb[i] = qacc[i] = qthr[i] = 0;
+  if (qos) {
+    for (long long i = tid; i < static_cast<long long>(P) * NH;
+         i += kThreads) {
+      vft[i] = 0;
+      last[i] = kNever;
+    }
+  }
+  for (int i = tid; i < ND * nm8; i += kThreads) {
+    const int d = i / nm8, e = i % nm8;
+    mpage_b[i] = e < nm ? static_cast<int32_t>(ptrs.mpage[d * nm + e]) : -1;
+    mready_b[i] = e < nm ? ptrs.mready[d * nm + e] : kBig;
+  }
+  for (int i = tid; i < ND * nw8; i += kThreads) {
+    const int d = i / nw8, e = i % nw8;
+    wtick_b[i] = e < nw ? ptrs.wtick[d * nw + e] : kFree;
+  }
+  for (int i = tid; i < NF * dies; i += kThreads) {
+    die_busy_b[i] = ptrs.die_busy[i];
+    die_prog_b[i] = ptrs.die_prog[i];
+  }
+  for (int i = tid; i < NF * chans; i += kThreads)
+    chan_busy_b[i] = ptrs.chan_busy[i];
+  if (assoc) {
+    for (long long i = tid; i < ND * num_pages; i += kThreads)
+      where_b[i] = -1;
+  }
+  if (KIND == kSsdCache || assoc) {
+    if (L[LM_FRAMES] >= 0)
+      for (long long i = tid; i < static_cast<long long>(ND) * nf;
+           i += kThreads)
+        frames_b[i] = ptrs.frames[i];
+  }
+  if (kFlash) {
+    if (L[LM_L2P] >= 0)
+      for (long long i = tid; i < NF * num_pages; i += kThreads)
+        l2p_b[i] = ptrs.l2p[i];
+  }
+  if (gc) {
+    if (L[LM_VALID] >= 0)
+      for (int i = tid; i < NF * nb; i += kThreads) valid_b[i] = ptrs.valid[i];
+    if (L[LM_FREE_MASK] >= 0)
+      for (int i = tid; i < NF * nb; i += kThreads)
+        free_mask_b[i] = ptrs.free_mask[i];
+    if (L[LM_FREE_Q] >= 0)
+      for (int i = tid; i < NF * nb; i += kThreads)
+        free_q_b[i] = ptrs.free_q[i];
+    if (L[LM_P2L] >= 0)
+      for (long long i = tid; i < NF * nb * ppb; i += kThreads)
+        p2l_b[i] = ptrs.p2l[i];
+    if (nand) {
+      for (int w = tid; w < NF * rwords; w += kThreads) {
+        const int f = w / rwords, w0 = w % rwords;
+        uint32_t bits = 0;
+        for (int b = 0; b < 32 && 32 * w0 + b < nb; ++b)
+          bits |= static_cast<uint32_t>(
+                      ptrs.rtr_mask[f * nb + 32 * w0 + b] != 0)
+                  << b;
+        retired_b[w] = bits;
+      }
+    }
+  }
+  for (int d = tid; d < ND; d += kThreads) {
+    long long* m = mscal + d * kMScal;
+    const long long* s = ptrs.scal + d * kNumScalars;
+    m[MS_BUSY] = s[S_BUSY];
+    m[MS_ROW] = s[S_ROW];
+    m[MS_DRAM_BUSY] = s[S_DRAM_BUSY];
+    m[MS_FILL] = 0;
+    m[MS_HEAD] = m[MS_TAIL] = -1;
+    long long mmin = kBig;
+    for (int e = 0; e < nm; ++e) mmin = min64(mmin, ptrs.mready[d * nm + e]);
+    m[MS_MMIN] = mmin;
+  }
+  for (int i = tid; i < NF * kNumScalars; i += kThreads)
+    fscal[i] = ptrs.scal[ND * kNumScalars + i];
+  block_sync();
+
+  if (tid == 0) {
+    Chain<NAND> c;
+    c.H = FH;
+    c.nf = nf;
+    c.nm = nm;
+    c.nw = nw;
+    c.nm8 = nm8;
+    c.nw8 = nw8;
+    c.nb = nb;
+    c.leaves = static_cast<int>(leaves);
+    int depth = 0;
+    while ((1LL << depth) < leaves) ++depth;
+    c.depth = depth;
+    c.ecmp = false;
+    c.rd_key = static_cast<unsigned long long>(a[A_RD_KEY]);
+    c.rd_thresh = static_cast<unsigned long long>(a[A_RD_THRESH]);
+    c.rd_max = static_cast<unsigned long long>(a[A_RD_MAX] > 0 ? a[A_RD_MAX]
+                                                              : 1);
+    c.er_key = static_cast<unsigned long long>(a[A_ER_KEY]);
+    c.er_thresh = static_cast<unsigned long long>(a[A_ER_THRESH]);
+    c.posted_writes = a[A_POSTED] != 0;
+    c.assoc = assoc;
+    c.lru = KIND == kSsdBuf || a[A_IS_LRU] != 0;
+    c.gc = gc;
+    c.issue_ov = a[A_ISSUE_OV];
+    c.rt_extra = a[A_RT_EXTRA];
+    c.occ = a[A_OCC];
+    c.load = a[A_LOAD];
+    c.pack = a[A_PACK];
+    c.lat_rm = a[A_LAT_R_MISS];
+    c.lat_rh = a[A_LAT_R_HIT];
+    c.lat_wm = a[A_LAT_W_MISS];
+    c.lat_wh = a[A_LAT_W_HIT];
+    c.hil_ov = a[A_HIL_OV];
+    c.xfer_page = a[A_XFER_PAGE];
+    c.read_t = a[A_READ_T];
+    c.prog_t = a[A_PROG_T];
+    c.sus_t = a[A_SUS_T];
+    c.erase_t = a[A_ERASE_T];
+    c.internal = a[A_INTERNAL];
+    c.hit_lat = a[A_HIT_LAT];
+    c.line_xfer = a[A_LINE_XFER];
+    c.page_xfer = a[A_PAGE_XFER];
+    c.pack10 = a[A_PACK10];
+    c.watermark = a[A_WATERMARK];
+    c.ppb = ppb;
+    c.C.set(a[A_CHANNELS]);
+    c.D.set(a[A_DIES]);
+    c.PPB.set(ppb);
+    c.pb = pb;
+    c.qacc = qacc;
+    c.qthr = qthr;
+    const long long page_bytes = a[A_PAGE_BYTES], row_bytes = a[A_ROW_BYTES];
+    const long long cap = a[A_CAP];
+
+    // the chain's lane: its array pointers and scalars move with it
+    auto load_media = [&](int d) {
+      c.frames = frames_b + static_cast<long long>(d) * nf;
+      c.where = where_b + d * num_pages;
+      c.links = links_b + static_cast<long long>(d) * nf;
+      c.mpage = mpage_b + d * nm8;
+      c.mready = mready_b + d * nm8;
+      c.wtick = wtick_b + d * nw8;
+      const long long* m = mscal + d * kMScal;
+      c.busy = m[MS_BUSY];
+      c.row = m[MS_ROW];
+      c.dram_busy = m[MS_DRAM_BUSY];
+      c.fill = static_cast<int>(m[MS_FILL]);
+      c.head = static_cast<int>(m[MS_HEAD]);
+      c.tail = static_cast<int>(m[MS_TAIL]);
+      c.mmin = m[MS_MMIN];
+      if (KIND == kDram) {
+        c.occ = dev_occ[d];
+        c.load = dev_load[d];
+        c.pack = dev_pack[d];
+      }
+    };
+    auto save_media = [&](int d) {
+      long long* m = mscal + d * kMScal;
+      m[MS_BUSY] = c.busy;
+      m[MS_ROW] = c.row;
+      m[MS_DRAM_BUSY] = c.dram_busy;
+      m[MS_FILL] = c.fill;
+      m[MS_HEAD] = c.head;
+      m[MS_TAIL] = c.tail;
+      m[MS_MMIN] = c.mmin;
+    };
+    auto load_flash = [&](int f) {
+      c.l2p = l2p_b + f * num_pages;
+      c.p2l = p2l_b + f * nb * ppb;
+      c.valid = valid_b + f * nb;
+      c.free_q = free_q_b + f * nb;
+      c.free_mask = free_mask_b + f * nb;
+      c.retired = retired_b + f * rwords;
+      c.die_busy = die_busy_b + f * dies;
+      c.die_prog = die_prog_b + f * dies;
+      c.chan_busy = chan_busy_b + f * chans;
+      const long long* s = fscal + f * kNumScalars;
+      c.wpb = s[S_WPB];
+      c.wpp = s[S_WPP];
+      c.nfree = s[S_NFREE];
+      c.fq_head = s[S_FQ_HEAD];
+      c.fq_count = s[S_FQ_COUNT];
+      c.gcs = s[S_GCS];
+      c.bad = s[S_BAD];
+      c.c_hr = s[S_C_HR];
+      c.c_hw = s[S_C_HW];
+      c.c_gw = s[S_C_GW];
+      c.c_ge = s[S_C_GE];
+      c.rd_seq = s[S_RD_SEQ];
+      c.er_seq = s[S_ER_SEQ];
+      c.c_rr = s[S_C_RR];
+      c.c_rb = s[S_C_RB];
+    };
+    auto save_flash = [&](int f) {
+      long long* s = fscal + f * kNumScalars;
+      s[S_WPB] = c.wpb;
+      s[S_WPP] = c.wpp;
+      s[S_NFREE] = c.nfree;
+      s[S_FQ_HEAD] = c.fq_head;
+      s[S_FQ_COUNT] = c.fq_count;
+      s[S_GCS] = c.gcs;
+      s[S_BAD] = c.bad;
+      s[S_C_HR] = c.c_hr;
+      s[S_C_HW] = c.c_hw;
+      s[S_C_GW] = c.c_gw;
+      s[S_C_GE] = c.c_ge;
+      s[S_RD_SEQ] = c.rd_seq;
+      s[S_ER_SEQ] = c.er_seq;
+      s[S_C_RR] = c.c_rr;
+      s[S_C_RB] = c.c_rb;
+    };
+
+    int cm = -1, cf = -1;       // the chain's media and flash lanes
+    for (long long s = 0; s < n; ++s) {
+      // 1. the host race: the earliest candidate, the lowest host on ties
+      int i = 0;
+      long long issue = h_cand[0];
+      for (int h = 1; h < NH; ++h) {
+        const long long v = h_cand[h];
+        if (v < issue) {
+          issue = v;
+          i = h;
+        }
+      }
+      // 2. its staged access and its tree; its next access loads now
+      c.tree = trees + i * 2 * leaves;
+      c.win = c.tree[1];
+      const long long addr = x_addr[i];
+      const int aux = static_cast<int>(x_aux[i]);
+      const unsigned long long rtp = static_cast<unsigned long long>(x_rt[i]);
+      const long long j = h_idx[i] + 1;
+      const bool more = j < lens[i];
+      long long n_addr = 0, n_aux = 0, n_rt = 0;
+      if (more) {
+        n_addr = ptrs.addrs[i * stride + j];
+        n_aux = ptrs.aux[i * stride + j];
+        if (FAULTED) n_rt = ptrs.rt[i * stride + j];
+      }
+      const bool wr = (aux & 1) != 0;
+      const long long row = aux >> 1;
+      // 3. the route over the shared ports, with the QoS mirror
+      long long t = issue, floor = 0;
+      for (int h = 0; h < FH; ++h) {
+        const long long pi = hop_port[row * FH + h];
+        if (pi < 0) continue;
+        const long long occ_c = hop_occ[row * FH + h];
+        const long long after_h = hop_after[row * FH + h];
+        const long long occ_h =
+            FAULTED ? occ_c * (1 + static_cast<long long>(
+                                       (rtp >> (8 * h)) & 0xffull))
+                    : occ_c;
+        if (qos && qos_on[pi]) {
+          const long long* last_p = last + pi * NH;
+          const long long prev = vft[pi * NH + i];
+          const long long win = occ_c * window;
+          double w_active = 0.0;
+          for (int o = 0; o < NH; ++o) {
+            const long long j_ = host_order[o];
+            if (j_ == i || last_p[j_] + win > t)
+              w_active = __dadd_rn(w_active, qos_w[pi * NH + j_]);
+          }
+          const long long pace = static_cast<long long>(__dmul_rn(
+              static_cast<double>(occ_c),
+              __ddiv_rn(w_active, qos_w[pi * NH + i])));
+          if (prev > t) {
+            floor = max64(floor, prev + pace);
+            qthr[pi] += 1;
+          }
+          vft[pi * NH + i] = max64(prev, t) + pace;
+          last[pi * NH + i] = t;
+        }
+        const long long st = max64(t, pb[pi]);
+        qacc[pi] += st - t;
+        pb[pi] = st + occ_h;
+        t = st + occ_h + after_h;
+      }
+      t += c.rt_extra;
+      // 4. the target's media lane and its flash lane
+      const int d = static_cast<int>(row_dev[row]);
+      if (d != cm) {
+        if (cm >= 0) save_media(cm);
+        load_media(d);
+        cm = d;
+      }
+      if (kFlash) {
+        const int f = static_cast<int>(flash_of[d]);
+        if (f != cf) {
+          if (cf >= 0) save_flash(cf);
+          load_flash(f);
+          cf = f;
+        }
+      }
+      const bool posted = wr && c.posted_writes;
+      const long long ctr = s + 1;                 // stamp counter: 1, 2, ...
+      int flags = 0;
+      long long done;
+      if (KIND == kDram) {
+        done = c.dram_step(t, posted);
+      } else if (KIND == kPmem) {
+        done = c.pmem_step(t, addr / row_bytes, wr, posted, &flags);
+      } else {
+        const long long page = addr / page_bytes;
+        const long long early_ppn = c.l2p[page];
+        if (KIND == kSsdBuf) {
+          done = c.buf_step(t, page, wr, ctr, early_ppn, &flags);
+        } else {
+          const int set = static_cast<int>(assoc ? 0 : page % cap);
+          done = c.cache_step(t, page, set, wr, posted, ctr, early_ppn,
+                              &flags);
+        }
+      }
+      if (qos) done = max64(done, floor);   // the ack floor alone
+      // 5. the step's outputs; the host's commit and next candidate
+      ptrs.who[s] = i;
+      ptrs.issues[s] = issue;
+      ptrs.dones[s] = done;
+      ptrs.flags[s] = flags;
+      c.lfb_commit(done);
+      const long long now_i = issue + c.issue_ov;
+      h_now[i] = now_i;
+      h_idx[i] = j;
+      h_cand[i] = more ? max64(now_i, c.win.x) : kBig;
+      if (more) {
+        x_addr[i] = n_addr;
+        x_aux[i] = n_aux;
+        x_rt[i] = n_rt;
+      }
+    }
+    if (cm >= 0) save_media(cm);
+    if (kFlash && cf >= 0) save_flash(cf);
+  }
+  block_sync();
+
+  // epilogue: the totals, the lanes' shared-memory state and scalars out
+  for (int i = tid; i < P; i += kThreads) {
+    ptrs.totals[i] = qacc[i];
+    ptrs.totals[P + i] = qthr[i];
+  }
+  for (int i = tid; i < ND * nm; i += kThreads) {
+    const int d = i / nm, e = i % nm;
+    ptrs.mpage[i] = mpage_b[d * nm8 + e];
+    ptrs.mready[i] = mready_b[d * nm8 + e];
+  }
+  for (int i = tid; i < ND * nw; i += kThreads) {
+    const int d = i / nw, e = i % nw;
+    ptrs.wtick[i] = wtick_b[d * nw8 + e];
+  }
+  for (int i = tid; i < NF * dies; i += kThreads) {
+    ptrs.die_busy[i] = die_busy_b[i];
+    ptrs.die_prog[i] = die_prog_b[i];
+  }
+  for (int i = tid; i < NF * chans; i += kThreads)
+    ptrs.chan_busy[i] = chan_busy_b[i];
+  if (KIND == kSsdCache || assoc) {
+    if (L[LM_FRAMES] >= 0)
+      for (long long i = tid; i < static_cast<long long>(ND) * nf;
+           i += kThreads)
+        ptrs.frames[i] = frames_b[i];
+  }
+  if (kFlash) {
+    if (L[LM_L2P] >= 0)
+      for (long long i = tid; i < NF * num_pages; i += kThreads)
+        ptrs.l2p[i] = l2p_b[i];
+  }
+  if (gc) {
+    if (L[LM_VALID] >= 0)
+      for (int i = tid; i < NF * nb; i += kThreads) ptrs.valid[i] = valid_b[i];
+    if (L[LM_FREE_MASK] >= 0)
+      for (int i = tid; i < NF * nb; i += kThreads)
+        ptrs.free_mask[i] = free_mask_b[i];
+    if (L[LM_FREE_Q] >= 0)
+      for (int i = tid; i < NF * nb; i += kThreads)
+        ptrs.free_q[i] = free_q_b[i];
+    if (L[LM_P2L] >= 0)
+      for (long long i = tid; i < NF * nb * ppb; i += kThreads)
+        ptrs.p2l[i] = p2l_b[i];
+    if (nand)
+      for (int i = tid; i < NF * nb; i += kThreads) {
+        const int f = i / nb, b = i % nb;
+        ptrs.rtr_mask[i] = (retired_b[f * rwords + (b >> 5)] >> (b & 31)) & 1u;
+      }
+  }
+  for (int d = tid; d < ND; d += kThreads) {
+    long long* s = ptrs.scal + d * kNumScalars;
+    const long long* m = mscal + d * kMScal;
+    s[S_BUSY] = m[MS_BUSY];
+    s[S_ROW] = m[MS_ROW];
+    s[S_DRAM_BUSY] = m[MS_DRAM_BUSY];
+  }
+  for (int i = tid; i < NF * kNumScalars; i += kThreads)
+    ptrs.scal[ND * kNumScalars + i] = fscal[i];
+}
+
 #ifndef REPLAY_SCAN_EMULATE
 // One block of four warps an SM: the minimum of 1 lets ptxas give the
 // walking thread the registers it wants.
@@ -1339,6 +1943,52 @@ int launch_kind(const Args& a, const Layout& lay, const Ptrs& p,
                  : launch<kSsdCache, false, FAULTED>(a, lay, p, smem_bytes, s);
   }
 }
+
+// The multi-host instances: a kernel of their own, so that a single-host
+// replay runs exactly the code it ran before.
+template <int KIND, bool NAND, bool FAULTED>
+__global__ void __launch_bounds__(kThreads, 1)
+replay_multi_kernel(const __grid_constant__ Args args,
+                    const __grid_constant__ MArgs margs,
+                    const __grid_constant__ LayoutM lay,
+                    const MultiPtrs ptrs) {
+  extern __shared__ __align__(16) char smem[];
+  replay_multi<KIND, NAND, FAULTED>(args, margs, lay, ptrs, smem);
+}
+
+template <int KIND, bool NAND, bool FAULTED>
+int launch_multi(const Args& a, const MArgs& m, const LayoutM& lay,
+                 const MultiPtrs& p, int smem_bytes, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      replay_multi_kernel<KIND, NAND, FAULTED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  replay_multi_kernel<KIND, NAND, FAULTED>
+      <<<1, kThreads, smem_bytes, stream>>>(a, m, lay, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool FAULTED>
+int launch_multi_kind(const Args& a, const MArgs& m, const LayoutM& lay,
+                      const MultiPtrs& p, int smem_bytes, cudaStream_t s) {
+  const bool nand = a.v[A_NAND] != 0;
+  switch (a.v[A_KIND]) {
+    case kDram:
+      return launch_multi<kDram, false, FAULTED>(a, m, lay, p, smem_bytes, s);
+    case kPmem:
+      return launch_multi<kPmem, false, FAULTED>(a, m, lay, p, smem_bytes, s);
+    case kSsdBuf:
+      return nand ? launch_multi<kSsdBuf, true, FAULTED>(a, m, lay, p,
+                                                          smem_bytes, s)
+                  : launch_multi<kSsdBuf, false, FAULTED>(a, m, lay, p,
+                                                           smem_bytes, s);
+    default:
+      return nand ? launch_multi<kSsdCache, true, FAULTED>(a, m, lay, p,
+                                                            smem_bytes, s)
+                  : launch_multi<kSsdCache, false, FAULTED>(a, m, lay, p,
+                                                             smem_bytes, s);
+  }
+}
 #endif
 
 }  // namespace
@@ -1376,9 +2026,40 @@ int replay_scan_launch(const long long* args, const long long* layout,
                            : launch_kind<false>(a, lay, p, smem_bytes, s);
 }
 
-// The argument block's and the layout's lengths, for the wrapper to check.
+// Launch a multi-host replay (one block) on `stream`: `args`, `margs` and
+// `layout` are host arrays (kNumArgs, kNumMArgs and kLayoutMultiWords
+// fields); every other pointer is on the card (MultiPtrs, field for field).
+int replay_scan_launch_multi(
+    const long long* args, const long long* margs, const long long* layout,
+    const long long* mtab, const long long* addrs, const int32_t* aux,
+    const long long* rt, int32_t* who, long long* issues, long long* dones,
+    int32_t* flags, long long* totals, long long* scal, long long* frames,
+    long long* mpage, long long* mready, long long* wtick, int32_t* l2p,
+    int32_t* p2l, int32_t* valid, int32_t* free_q, uint8_t* free_mask,
+    uint8_t* rtr_mask, long long* die_busy, long long* die_prog,
+    long long* chan_busy, char* scratch, int smem_bytes, void* stream) {
+  Args a;
+  memcpy(a.v, args, sizeof(a.v));
+  MArgs m;
+  memcpy(m.v, margs, sizeof(m.v));
+  LayoutM lay;
+  memcpy(lay.v, layout, sizeof(lay.v));
+  const MultiPtrs p{addrs, aux, rt, mtab, who, issues, dones, flags, totals,
+                    scal, frames, mpage, mready, wtick, l2p, p2l, valid,
+                    free_q, free_mask, rtr_mask, die_busy, die_prog,
+                    chan_busy, scratch};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.v[A_FAULT_HOPS] ? launch_multi_kind<true>(a, m, lay, p, smem_bytes,
+                                                     s)
+                           : launch_multi_kind<false>(a, m, lay, p,
+                                                      smem_bytes, s);
+}
+
+// The argument blocks' and the layouts' lengths, for the wrapper to check.
 int replay_scan_num_args() { return kNumArgs; }
 int replay_scan_layout_words() { return kLayoutWords; }
+int replay_scan_num_margs() { return kNumMArgs; }
+int replay_scan_layout_multi_words() { return kLayoutMultiWords; }
 
 // Largest dynamic shared memory a block may opt in to on `device`.
 int replay_scan_smem_optin(int device, int* bytes) {

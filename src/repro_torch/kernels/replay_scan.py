@@ -15,6 +15,12 @@ per-access path id and retry bytes.  For CUDA tensors it launches
 :func:`repro_torch.core.replay.stack.step`.  Nothing falls back from one
 to the other.
 
+:func:`replay_multi` is the same for the JAX package's multi-host replay
+(``multihost.py``'s ``_make_multi_step``): several hosts' traces
+interleaved in issue order over shared ports and lane-stacked media and
+flash state, one launch of the kernel's multi-host instance, or on the
+CPU :func:`replay_multi_plain`.
+
 The ``LAUNCHES`` counter counts kernel launches only, so a run can show
 that it went through the kernel.
 """
@@ -22,6 +28,7 @@ that it went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -76,6 +83,16 @@ FLASH_ARRAYS = ("l2p", "p2l", "valid", "free_q", "free_mask", "rtr_mask",
 SCRATCH = ("where", "links", "retired")
 MAX_OUTSTANDING = 4096      # LFB slots of the kernel's tournament tree
 CHUNK = 256                 # accesses a staged chunk
+# the multi-host instance's own argument block (`enum MArg`): hosts, media
+# lanes, flash lanes, the trace columns' row stride, QoS on, route or path
+# table rows, and the QoS activity window in serialization quanta
+MARGS = ("hosts", "lanes", "flash_lanes", "stride", "qos", "rows", "window")
+# its layout (`enum LayM`): the trees' leaves, then byte offsets into
+# shared memory; placed arrays as in LAYOUT, every lane's or none
+LAYOUT_MULTI = ("leaves", "tree", "host", "next", "pb", "qacc", "qthr",
+                "vft", "last", "mtab", "mscal", "fscal", "mpage", "mready",
+                "wtick", "die_busy", "die_prog", "chan_busy") + PLACED
+MEDIA_SCALARS = 8           # a media lane's scalars in shared memory
 
 
 def reset_launches() -> None:
@@ -357,12 +374,14 @@ class Layout:
     in_smem: tuple
 
 
-def _placed_bytes(cfg: StackConfig, params: Dict) -> Dict[str, int]:
+def _placed_bytes(cfg: StackConfig, params: Dict, lanes: int = 1,
+                  flash_lanes: int = 1) -> Dict[str, int]:
     """Bytes of each placed array the stack has, in the order shared
     memory takes them: the frames' map, packed frames and links (the
     recency list of an LRU buffer or cache), then the flash's l2p, and
     the GC's valid counts, free mask, free queue and p2l, and the bitmap
-    of blocks a failed erase retired."""
+    of blocks a failed erase retired; the media arrays for ``lanes``
+    lanes, the flash arrays for ``flash_lanes``."""
     out = {}
     if fully_associative(cfg):
         frames = cfg.buf_entries if cfg.kind == SSD_BUF else cfg.cache_frames
@@ -380,7 +399,9 @@ def _placed_bytes(cfg: StackConfig, params: Dict) -> Dict[str, int]:
                    p2l=4 * nb * cfg.pages_per_block)
         if cfg.faults:
             out["retired"] = 4 * -(-nb // 32)
-    return out
+    media = ("where", "frames", "links")
+    return {k: v * (lanes if k in media else flash_lanes)
+            for k, v in out.items()}
 
 
 def layout(cfg: StackConfig, params: Dict, budget: int, *,
@@ -428,20 +449,31 @@ def layout(cfg: StackConfig, params: Dict, budget: int, *,
         raise ValueError(f"the kernel's staging buffers and tables need {off} "
                          f"B of shared memory, more than the {budget} B a "
                          f"block may use")
+    return _place(words, _placed_bytes(cfg, params), off, budget, placed,
+                  LAYOUT)
+
+
+def _place(words: Dict, sizes: Dict[str, int], off: int, budget: int,
+           placed: bool, order: tuple) -> Layout:
+    """Place the arrays of ``sizes`` after ``off`` bytes of shared memory,
+    in :data:`PLACED` order, each while it fits (none unless ``placed``);
+    the map, links and retired bitmap that do not fit go to the scratch
+    tensor, the rest stay in their state tensors.  ``words`` gets each
+    one's offset; returns the :class:`Layout` of ``order``."""
     scratch, in_smem = 0, []
-    sizes = _placed_bytes(cfg, params)
     for name in PLACED:
+        size = -(-sizes.get(name, 0) // 16) * 16
         if name not in sizes:
             words[name] = -1
-        elif placed and off + -(-sizes[name] // 16) * 16 <= budget:
-            words[name] = take(sizes[name])
+        elif placed and off + size <= budget:
+            words[name], off = off, off + size
             in_smem.append(name)
         elif name in SCRATCH:
             words[name] = -1 - scratch
-            scratch += -(-sizes[name] // 16) * 16
+            scratch += size
         else:
             words[name] = -1
-    return Layout(tuple(words[k] for k in LAYOUT), off, scratch,
+    return Layout(tuple(words[k] for k in order), off, scratch,
                   tuple(in_smem))
 
 
@@ -541,3 +573,444 @@ def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
             if k in part:
                 part[k].copy_(scal[i])
     return err, (issues, dones, flags, totals[:P], totals[P:])
+
+
+# ------------------------------------------------------ the multi-host replay
+def multi_tables(cfg, params: Dict) -> Dict[str, np.ndarray]:
+    """The multi-host replay's route rows: ``port`` (-1 on a hop the row
+    does not have), ``occ``, ``after`` (rows x ``cfg.max_hops``, int64)
+    and ``dev`` (each row's media lane).  A fault-free replay's rows are
+    its ``(host, device, route)`` hop tables flattened (row ``(i * NDEV +
+    d) * K + r``); a faulted one's are its path table."""
+    if cfg.fault_hops:
+        return {"port": np.asarray(params["path_port"], np.int64),
+                "occ": np.asarray(params["path_occ"], np.int64),
+                "after": np.asarray(params["path_after"], np.int64),
+                "dev": np.asarray(params["path_dev"], np.int64)}
+    on = np.asarray(params["hop_on"], bool)
+    H, D, K, FH = on.shape
+    return {"port": np.where(on, params["hop_port"], -1).reshape(-1, FH)
+            .astype(np.int64),
+            "occ": np.where(on, params["hop_occ"], 0).reshape(-1, FH),
+            "after": np.where(on, params["hop_after"], 0).reshape(-1, FH),
+            "dev": np.broadcast_to(np.arange(D)[None, :, None],
+                                   (H, D, K)).reshape(-1).astype(np.int64)}
+
+
+def multi_rows(cfg, devs: torch.Tensor,
+               routes: Optional[torch.Tensor]) -> torch.Tensor:
+    """Each access's row of :func:`multi_tables` (``(H, L)`` int32): the
+    path id of a faulted replay, else ``(i * NDEV + dev) * K + route``."""
+    if cfg.fault_hops:
+        return routes.to(torch.int32)
+    host = torch.arange(cfg.num_hosts, device=devs.device)[:, None]
+    rows = (host * cfg.num_devs + devs.long()) * cfg.max_routes
+    if routes is not None:
+        rows = rows + routes.long()
+    return rows.to(torch.int32)
+
+
+def _check_multi(cfg, params: Dict, state: Dict, addrs, writes, lens, devs,
+                 routes, retries) -> int:
+    """The shape, type and value checks of :func:`replay_multi`; returns
+    the number of steps, ``sum(lens)``."""
+    H = cfg.num_hosts
+    if addrs.dtype != torch.int64 or addrs.dim() != 2 or addrs.shape[0] != H:
+        raise ValueError(f"addrs must be an ({H}, L) int64 tensor, got "
+                         f"{addrs.dtype} {tuple(addrs.shape)}")
+    shape = tuple(addrs.shape)
+    if writes.dtype != torch.bool or tuple(writes.shape) != shape:
+        raise ValueError(f"writes must be a {shape} bool tensor")
+    if devs.dtype != torch.int32 or tuple(devs.shape) != shape:
+        raise ValueError(f"devs must be a {shape} int32 tensor")
+    if lens.dtype != torch.int64 or tuple(lens.shape) != (H,):
+        raise ValueError(f"lens must be an ({H},) int64 tensor")
+    if (cfg.max_routes > 1 or cfg.fault_hops) != (routes is not None):
+        raise ValueError("a per-access route column goes with ECMP "
+                         "(max_routes > 1) or transport faults (fault_hops),"
+                         " and only with them")
+    if routes is not None and (routes.dtype != torch.int32
+                               or tuple(routes.shape) != shape):
+        raise ValueError(f"routes must be a {shape} int32 tensor")
+    if cfg.fault_hops != (retries is not None):
+        raise ValueError("retry bytes go with transport faults (fault_hops)"
+                         " and only with them")
+    if retries is not None and (retries.dtype != torch.uint8 or tuple(
+            retries.shape) != shape + (cfg.max_hops,)):
+        raise ValueError(f"retries must be a {shape + (cfg.max_hops,)} "
+                         "uint8 tensor")
+    tensors = [writes, lens, devs] + [x for x in (routes, retries)
+                                      if x is not None]
+    for part in ("media", "flash"):
+        tensors += list((state[part] or {}).values())
+    for x in tensors:
+        if x.device != addrs.device:
+            raise ValueError(f"tensors on {x.device} and {addrs.device}")
+    lens_ = lens.tolist()
+    n = int(sum(lens_))
+    if min(lens_) < 0 or max(lens_) > shape[1] or n < 1:
+        raise ValueError(f"lens must lie in [0, {shape[1]}] and sum to >= 1,"
+                         f" got {lens_}")
+    if stack.has_flash(cfg.stack) and n > MAX_ACCESSES:
+        raise ValueError(f"{n} accesses exceed the packed stamp's "
+                         f"{MAX_ACCESSES}")
+    tab = multi_tables(cfg, params)
+    rows = multi_rows(cfg, devs, routes)
+    live = torch.arange(shape[1], device=addrs.device)[None, :] \
+        < lens[:, None]
+    top = (cfg.stack.num_pages * cfg.stack.page_bytes
+           if stack.has_flash(cfg.stack) else None)
+    checks = {"addresses": ((addrs < 0) & live).any(),
+              "rows": (((rows < 0) | (rows >= tab["port"].shape[0]))
+                       & live).any(),
+              "devs": (((devs < 0) | (devs >= cfg.num_devs)) & live).any()}
+    if top is not None:
+        checks["addresses"] |= ((addrs >= top) & live).any()
+    if retries is not None:
+        off = torch.from_numpy(tab["port"] < 0).to(addrs.device)[
+            rows.clamp(0, tab["port"].shape[0] - 1).long()]
+        checks["retries"] = (off & (retries != 0) & live[..., None]).any()
+    if fully_associative(cfg.stack):
+        checks["frames"] = (state["media"]["frames"] != stack.FREE).any()
+    failed = dict(zip(checks, torch.stack(list(checks.values())).tolist()))
+    if failed["addresses"]:
+        raise ValueError("addresses must be >= 0" + (
+            "" if top is None else f" and below {top}"))
+    if failed["rows"] or failed["devs"]:
+        raise ValueError("devices and routes must lie inside the route "
+                         "tables")
+    if failed.get("retries"):
+        raise ValueError("retry bytes must be 0 on the hops an access's "
+                         "path does not have (port -1)")
+    if failed.get("frames"):
+        raise ValueError(
+            "replay_multi starts from fresh caches: every frame free (-1), "
+            "as stack.init_lanes makes them")
+    return n
+
+
+def replay_multi(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
+                 writes: torch.Tensor, lens: torch.Tensor,
+                 devs: torch.Tensor, routes: Optional[torch.Tensor] = None,
+                 *, start_tick: int = 0,
+                 retries: Optional[torch.Tensor] = None):
+    """Replay ``H`` hosts' traces, interleaved as the JAX package's
+    ``MultiHostReplay`` interleaves them, through the multi-host stack
+    ``cfg`` (a :class:`~repro_torch.core.replay.multihost.MultiCfg`) /
+    ``params`` from the lane-stacked ``state``
+    (:func:`repro_torch.core.replay.stack.init_lanes` on the traces'
+    device), which ends as the final state.
+
+    ``addrs`` / ``writes`` / ``devs`` are ``(H, L)`` (device-local int64
+    addresses, bool, int32 media lanes), ``lens`` the ``(H,)`` int64
+    trace lengths.  ``routes`` (``(H, L)`` int32) is the ECMP route of an
+    ``max_routes > 1`` replay or, under transport faults
+    (``cfg.fault_hops``), the access's path id into the path table in
+    ``params`` (``path_port``, -1 on a hop the path does not have,
+    ``path_occ``, ``path_after``, ``path_dev``), with ``retries``
+    (``(H, L, max_hops)`` uint8) its CRC retries a hop.
+
+    Returns ``(who, issues, dones, flags, qacc, qthr)`` in step order,
+    ``sum(lens)`` steps: the host of each step (int32), its issue and
+    completion ticks (int64), its flags (int32: bit 0 hit, bit 1 dirty
+    evict, then the kind's :data:`FLAG_EVENT_BITS`), and the int64
+    queueing ticks and QoS throttle events of each port.
+
+    Raises ``ValueError`` on addresses below 0 or past the stack's pages,
+    on devices or routes outside the tables, on retry bytes of hops a
+    path does not have, and on caches that are not all free."""
+    n = _check_multi(cfg, params, state, addrs, writes, lens, devs, routes,
+                     retries)
+    if addrs.device.type == "cpu":
+        return replay_multi_plain(cfg, params, state, addrs, writes, lens,
+                                  devs, routes, start_tick=start_tick,
+                                  retries=retries)
+    return _launch_multi(cfg, params, state, addrs, writes, lens, devs,
+                         routes, retries, start_tick, n)
+
+
+def replay_multi_plain(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
+                       writes: torch.Tensor, lens: torch.Tensor,
+                       devs: torch.Tensor,
+                       routes: Optional[torch.Tensor] = None, *,
+                       start_tick: int = 0,
+                       retries: Optional[torch.Tensor] = None):
+    """Plain version of :func:`replay_multi`: the JAX package's
+    ``_make_multi_step`` (the host race, LFB slot recycle, the route walk
+    over the shared ports with the QoS mirror, the media step of the
+    target lane and its flash lane, the acknowledgment floor) one step
+    per loop iteration over :func:`repro_torch.core.replay.stack.
+    media_step`, for ``sum(lens)`` steps: the reference's padded steps
+    after that change nothing its results read.  Runs on any device's
+    tensors; the card's main path launches the kernel instead."""
+    from repro_torch.core.fabric.switch import ACTIVE_WINDOW_OCC
+    from repro_torch.core.replay.multihost import BIG, NEVER
+
+    p = host_params({k: v for k, v in params.items()
+                     if not k.startswith(("hop_", "path_"))})
+    tab = {k: v.tolist() for k, v in multi_tables(cfg, params).items()}
+    a, w = addrs.tolist(), writes.tolist()
+    rows = multi_rows(cfg, devs, routes).tolist()
+    rt = retries.tolist() if retries is not None else None
+    n_of = lens.tolist()
+    H, P = cfg.num_hosts, cfg.num_ports
+    kind = cfg.stack.kind
+    bits = FLAG_EVENT_BITS[kind]
+    slots = [[start_tick] * cfg.outstanding for _ in range(H)]
+    now = [start_tick] * H
+    idx = [0] * H
+    pb, qacc, qthr = [0] * P, [0] * P, [0] * P
+    vft = [[0] * H for _ in range(P)]
+    last = [[NEVER] * H for _ in range(P)]
+    flash_of = p["flash_of"]
+    who, issues, dones, flags = [], [], [], []
+    for s in range(sum(n_of)):
+        cand = [max(now[i], min(slots[i])) if idx[i] < n_of[i] else BIG
+                for i in range(H)]
+        i = cand.index(min(cand))                    # ties -> lowest host
+        k = slots[i].index(min(slots[i]))            # ties -> lowest slot
+        issue = max(now[i], slots[i][k])
+        j = idx[i]
+        r = rows[i][j]
+        t, floor = issue, 0
+        for h in range(cfg.max_hops):
+            pi = tab["port"][r][h]
+            if pi < 0:                   # a hop this row does not have
+                continue
+            occ_c, after_h = tab["occ"][r][h], tab["after"][r][h]
+            occ_h = occ_c * (1 + rt[i][j][h]) if rt is not None else occ_c
+            if cfg.qos and p["qos_on"][pi]:
+                # SwitchPort.qos_update at arrival tick t: the weight sum in
+                # sorted-host order, int(occ * (W / w)) truncation
+                prev = vft[pi][i]
+                win = occ_c * ACTIVE_WINDOW_OCC
+                w_active = 0.0
+                for o in cfg.host_order:
+                    if o == i or last[pi][o] + win > t:
+                        w_active = w_active + p["qos_w"][pi][o]
+                pace = int(occ_c * (w_active / p["qos_w"][pi][i]))
+                if prev > t:
+                    floor = max(floor, prev + pace)
+                    qthr[pi] += 1
+                vft[pi][i] = max(prev, t) + pace
+                last[pi][i] = t
+            start = max(t, pb[pi])
+            qacc[pi] += start - t
+            pb[pi] = start + occ_h
+            t = pb[pi] + after_h
+        t += p["rt_extra"]
+        d = tab["dev"][r]
+        p_med = p
+        if kind == DRAM:
+            p_med = {"occ": p["dev_occ"][d], "load": p["dev_load"][d],
+                     "pack": p["dev_pack"][d]}
+        done, ex = stack.media_step(
+            cfg.stack, p_med, stack.lane(state["media"], d),
+            stack.lane(state["flash"], flash_of[d]), t, a[i][j], w[i][j],
+            w[i][j] and cfg.posted_writes, s + 1)
+        if cfg.qos:
+            done = max(done, floor)      # ack floor, data path untouched
+        f = int(ex.get("hit", False)) | int(ex.get("evict", False)) << 1
+        for bit, key in bits:
+            f |= int(ex[key]) << bit
+        who.append(i)
+        issues.append(issue)
+        dones.append(done)
+        flags.append(f)
+        slots[i][k] = done
+        now[i] = issue + p["issue_ov"]
+        idx[i] += 1
+    dev = addrs.device
+
+    def i64(x):
+        return torch.tensor(x, dtype=torch.int64, device=dev)
+
+    return (torch.tensor(who, dtype=torch.int32, device=dev), i64(issues),
+            i64(dones), torch.tensor(flags, dtype=torch.int32, device=dev),
+            i64(qacc), i64(qthr))
+
+
+def multi_arg_blocks(cfg, params: Dict, n: int, start_tick: int,
+                     stride: int):
+    """The multi-host instance's argument block (:data:`ARGS`: the media
+    statics, ``n`` steps, the row tables' hops and the ports) and its own
+    (:data:`MARGS`), int64 each."""
+    from repro_torch.core.fabric.switch import ACTIVE_WINDOW_OCC
+
+    tab = multi_tables(cfg, params)
+    scfg = dataclasses.replace(cfg.stack, num_hops=cfg.max_hops,
+                               num_ports=cfg.num_ports, num_routes=1,
+                               fault_hops=False, qos_ports=())
+    args = arg_block(scfg, {k: v for k, v in params.items()
+                            if not k.startswith(("hop_", "path_"))},
+                     n, start_tick)
+    args[ARGS.index("fault_hops")] = int(cfg.fault_hops)
+    args[ARGS.index("paths")] = tab["port"].shape[0]
+    margs = dict(hosts=cfg.num_hosts, lanes=cfg.num_devs,
+                 flash_lanes=cfg.n_flash, stride=stride, qos=int(cfg.qos),
+                 rows=tab["port"].shape[0], window=ACTIVE_WINDOW_OCC)
+    return args, np.asarray([margs[k] for k in MARGS], np.int64)
+
+
+def kernel_table(cfg, params: Dict, lens) -> np.ndarray:
+    """The kernel's table (int64, copied to shared memory): trace lengths,
+    hosts in sorted-name order, the lanes' flash lanes and DRAM timing
+    (occupancy, load, posted ack), each row's lane, the rows' port, occ
+    and after, the per-port QoS mask and the float64 QoS weights (ports x
+    hosts, as their bits)."""
+    H, D, P = cfg.num_hosts, cfg.num_devs, cfg.num_ports
+    tab = multi_tables(cfg, params)
+    zeros = np.zeros(D, np.int64)
+    order = list(cfg.host_order) if cfg.qos else list(range(H))
+    qos_on = (np.asarray(params["qos_on"], np.int64) if cfg.qos
+              else np.zeros(P, np.int64))
+    qos_w = (np.asarray(params["qos_w"], np.float64) if cfg.qos
+             else np.ones((P, H), np.float64))
+    parts = [np.asarray(lens, np.int64), np.asarray(order, np.int64),
+             np.asarray(params["flash_of"], np.int64)]
+    parts += [np.asarray(params.get(k, zeros), np.int64)
+              for k in ("dev_occ", "dev_load", "dev_pack")]
+    parts += [tab["dev"], tab["port"].ravel(), tab["occ"].ravel(),
+              tab["after"].ravel(), qos_on, qos_w.ravel().view(np.int64)]
+    return np.concatenate(parts)
+
+
+def layout_multi(cfg, params: Dict, budget: int, *,
+                 placed: bool = True) -> Layout:
+    """The multi-host instance's layout within ``budget`` bytes of shared
+    memory (:data:`LAYOUT_MULTI`): the hosts' LFB trees, clocks, cursors
+    and candidates, and their prefetched next accesses, the ports (with
+    the QoS tables, ports x hosts), the kernel's table, every lane's
+    scalars, MSHR and writeback tables and die / channel busy-untils
+    always; then each placed array kind, every lane's at once, in the
+    order of :func:`_placed_bytes`, while it fits (none when ``placed``
+    is False).  Raises ``ValueError`` when the rest alone exceeds
+    ``budget``."""
+    scfg = cfg.stack
+    frames = scfg.buf_entries if scfg.kind == SSD_BUF else scfg.cache_frames
+    if stack.has_flash(scfg) and frames < 1:
+        raise ValueError("the kernel's buffer or cache needs >= 1 frame")
+    H, D, F, P = cfg.num_hosts, cfg.num_devs, cfg.n_flash, cfg.num_ports
+    leaves = 1 << (max(1, cfg.outstanding) - 1).bit_length()
+    dies = scfg.channels * scfg.dies_per_channel
+    words = {"leaves": leaves}
+    off = 0
+
+    def take(nbytes: int) -> int:
+        nonlocal off
+        at, off = off, off + -(-nbytes // 16) * 16
+        return at
+
+    words["tree"] = take(H * 2 * leaves * 16)
+    words["host"] = take(3 * 8 * H)
+    words["next"] = take(3 * 8 * H)
+    for name in ("pb", "qacc", "qthr"):
+        words[name] = take(8 * P)
+    for name in ("vft", "last"):
+        words[name] = take(8 * P * H if cfg.qos else 0)
+    words["mtab"] = take(8 * kernel_table(cfg, params, np.zeros(H)).size)
+    words["mscal"] = take(8 * MEDIA_SCALARS * D)
+    words["fscal"] = take(8 * len(SCALARS) * F)
+    nm8, nw8 = (-(-x // 8) * 8 for x in (scfg.mshr_entries, scfg.wb_slots))
+    words["mpage"] = take(4 * nm8 * D)
+    for name, count in (("mready", nm8 * D), ("wtick", nw8 * D),
+                        ("die_busy", dies * F), ("die_prog", dies * F),
+                        ("chan_busy", scfg.channels * F)):
+        words[name] = take(8 * count)
+    if off > budget:
+        raise ValueError(f"the multi-host replay's tables need {off} B of "
+                         f"shared memory, more than the {budget} B a block "
+                         "may use")
+    return _place(words, _placed_bytes(scfg, params, lanes=D,
+                                       flash_lanes=max(F, 1)),
+                  off, budget, placed, LAYOUT_MULTI)
+
+
+def _launch_multi(cfg, params, state, addrs, writes, lens, devs, routes,
+                  retries, start_tick, n):
+    """Launch the multi-host instance on the tensors' card, on PyTorch's
+    current stream."""
+    from repro_torch.kernels import _build
+
+    dev = addrs.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if cfg.outstanding > MAX_OUTSTANDING:
+        raise ValueError(f"outstanding={cfg.outstanding} exceeds the "
+                         f"kernel's {MAX_OUTSTANDING} LFB slots")
+    lib = _build.library("replay_scan")
+    if (lib.replay_scan_num_margs(), lib.replay_scan_layout_multi_words()) \
+            != (len(MARGS), len(LAYOUT_MULTI)):
+        raise RuntimeError("the kernel's multi-host argument block or layout"
+                           " differs from the wrapper's")
+    with torch.cuda.device(dev):
+        lay = layout_multi(cfg, params,
+                           _smem_optin(lib, torch.cuda.current_device()))
+        err, out = call_launch_multi(
+            lib, cfg, params, state, addrs, writes, lens, devs, routes,
+            start_tick, lay, torch.cuda.current_stream(dev).cuda_stream,
+            retries=retries, n=n)
+        _raise_on(lib, err, "replay_scan (multi-host) kernel launch")
+        LAUNCHES["replay_scan"] += 1
+    return out
+
+
+def call_launch_multi(lib, cfg, params, state, addrs, writes, lens, devs,
+                      routes, start_tick, lay: Layout, stream, retries=None,
+                      n=None):
+    """Pack one multi-host replay's arguments, layout and table, call
+    ``lib.replay_scan_launch_multi`` on them and its tensors' device, and
+    copy the lanes' scalars back.  Returns the call's return code and
+    ``(who, issues, dones, flags, qacc, qthr)``.  :func:`_launch_multi`
+    calls it with the CUDA library; a host build of the same source
+    (``REPLAY_SCAN_EMULATE``) takes CPU tensors."""
+    dev = addrs.device
+    H, L = addrs.shape
+    if n is None:
+        n = int(lens.sum())
+    P, D, F = cfg.num_ports, cfg.num_devs, cfg.n_flash
+    md, fl = state["media"], state["flash"] or {}
+    lens_np = lens.cpu().numpy()
+    args, margs = multi_arg_blocks(cfg, params, n, start_tick, L)
+    words = np.asarray(lay.words, np.int64)
+    mtab = torch.from_numpy(kernel_table(cfg, params, lens_np)).to(dev)
+    aux = ((multi_rows(cfg, devs, routes).long() << 1)
+           | writes.long()).to(torch.int32).contiguous()
+    rt = None
+    if retries is not None:
+        shifts = 8 * torch.arange(cfg.max_hops, device=dev, dtype=torch.int64)
+        rt = (retries.long() << shifts).sum(-1).contiguous()
+    who = torch.empty(n, dtype=torch.int32, device=dev)
+    issues = torch.empty(n, dtype=torch.int64, device=dev)
+    dones = torch.empty(n, dtype=torch.int64, device=dev)
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    totals = torch.empty(2 * P, dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(16, lay.scratch_bytes), dtype=torch.uint8,
+                          device=dev)
+    # the lanes' scalars: a row a media lane, then a row a flash lane
+    scal = torch.zeros(D + F, len(SCALARS), dtype=torch.int64, device=dev)
+    for c, k in enumerate(SCALARS):
+        if k in md:
+            scal[:D, c] = md[k]
+        elif k in fl:
+            scal[D:, c] = fl[k].to(torch.int64)
+    addrs = addrs.contiguous()
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = lib.replay_scan_launch_multi(
+        args.ctypes.data, margs.ctypes.data, words.ctypes.data,
+        mtab.data_ptr(), addrs.data_ptr(), aux.data_ptr(), ptr(rt),
+        who.data_ptr(), issues.data_ptr(), dones.data_ptr(),
+        flags.data_ptr(), totals.data_ptr(), scal.data_ptr(),
+        *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
+        *(ptr(fl.get(k)) for k in FLASH_ARRAYS), scratch.data_ptr(),
+        lay.smem_bytes, stream)
+    if err == 0:
+        for c, k in enumerate(SCALARS):
+            if k in md:
+                md[k].copy_(scal[:D, c])
+            elif k in fl:
+                fl[k].copy_(scal[D:, c])
+    return err, (who, issues, dones, flags, totals[:P], totals[P:])

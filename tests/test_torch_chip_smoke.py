@@ -13,6 +13,7 @@ import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 import torch.profiler
@@ -332,19 +333,29 @@ def test_scan_row_carries_the_contract_keys(smoke):
                       "bound_by": "operations", "serial_chain_ms": 1.0,
                       "reads": 10, "column_s": 0.0}
                for name in ("nand", "gc", "link")}
-    row = smoke.scan_row(scan, faulted, 1 << 20)
+    multi = {name: {"launches": 1, "ms": 5.0, "hosts": 4,
+                    "accesses": 1 << 20, "bytes_per_step": 36,
+                    "bound_ms": 0.02, "bound_by": "operations",
+                    "serial_chain_ms": 2.0, "wall_s": 9.0,
+                    "column_s": 0.0}
+             for name in ("table1x4", "qos-pool", "down")}
+    row = smoke.scan_row(scan, faulted, multi, 1 << 20)
     assert row["serial_chain_ms_by_device"] == scan["serial"]
+    assert row["multihost"] == multi
     for key in ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"):
         assert key in row, key
     assert row["faulted"] == faulted
-    assert row["launches"] == 8 and row["library_ms"] is None
+    assert row["launches"] == 11 and row["library_ms"] is None
     assert row["route"] == "cuda"
     assert (REPO / row["source"]).exists()
     path, line = row["replaces"].split(":")
     src = (REPO / path).read_text().splitlines()
     assert src[int(line) - 1].startswith("def _scan_chunk")
+    path, line = row["multihost_replaces"].split(":")
+    src = (REPO / path).read_text().splitlines()
+    assert src[int(line) - 1].startswith("def _make_multi_step")
 
 
 def test_scan_churn_trace_fills_table1s_cache(smoke):
@@ -457,3 +468,69 @@ def test_fault_bound_adds_the_fault_terms(smoke):
     assert link["serial_chain_ms"] > clean["serial_chain_ms"]
     assert nand["int64_ops"] == clean["int64_ops"] + 13 * 1000
     assert nand["serial_chain_ms"] > clean["serial_chain_ms"]
+
+
+# ------------------------------------------------------- the multihost phase
+def test_multihost_phase_runs_last(smoke):
+    import inspect
+
+    src = inspect.getsource(smoke.main)
+    assert (src.index("assoc_phase(") < src.index("multihost_phase(")
+            < src.index('{"kernels"'))
+
+
+def test_the_multihost_phase_takes_the_scenarios_constants(smoke):
+    import torch_scenarios as ts
+
+    assert sorted(smoke.MULTI_SCENARIOS) == sorted(
+        ["multihost-qos-ecmp", *ts.MULTI_SSD_HOSTS, *ts.MULTI_FAULT_HOSTS])
+    qos = dict(smoke.MULTI_QOS)
+    assert qos.pop("qos_weights") == ts.MULTI["qos_weights"]
+    assert qos["num_hosts"] == ts.MULTI["num_hosts"]
+    # the golden down window over accesses 20-90 of 160, and its seed
+    tgts = ts.make_multi_targets("faults-portdown@multihost_x2")
+    plan = tgts[0].fault_plan
+    u, v, lo, hi, of = smoke.MULTI_DOWN_WINDOW
+    assert plan.config.down_links == ((u, v, lo, hi),) and of == 160
+    assert plan.seed == smoke.MULTI_DOWN_SEED
+    cases = smoke.multi_cases(0, 1 << 18)
+    assert [len(t) for t in cases["qos-pool"][1]] == [349526, 349525,
+                                                       349525]
+    down = cases["down"][0]()[0].fault_plan
+    assert down.config.down_links == (("s0", "sp0", 32768, 147456),)
+
+
+@pytest.mark.parametrize("case", ["table1x4", "qos-pool", "down"])
+def test_multi_python_lane_equals_the_twin_on_every_field(smoke, case):
+    """At 300 accesses a host, the phase's python lane with its taps and
+    its field-by-field comparison hold the multi-host twin equal; the
+    bound and model count this run's lane switches and weighted hops."""
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.multihost import MultiHostReplay
+
+    make, traces = smoke.multi_cases(3, 300)[case]
+    eng = MultiHostReplay(make(), outstanding=32, metrics=MetricsSpec(),
+                          torch_device="cpu")
+    res = eng.run(traces)
+    want, bundle, taps = smoke.multi_python_lane(make(), traces)
+    same = smoke.multi_same(res, want, bundle, taps)
+    assert all(same.values()), same
+    assert ("availability" in same) == (case == "down")
+    # a broken latency is seen
+    res.per_host[1].latency_ticks[7] += 1
+    assert not smoke.multi_same(res, want, bundle, taps)["latency"]
+    prep = eng.prepare(traces)
+    who = np.concatenate([np.full(int(n), i) for i, n in
+                          enumerate(prep.lens)])      # any order of hosts
+    b = smoke.multi_bound(torch, prep, who, 0,
+                          smoke.INT32_LANES_PER_SM * 132 * 1980e6, 23.0,
+                          1980.0)
+    assert b["bytes_per_step"] == 36 + (8 if case == "down" else 0)
+    assert b["lane_switches"] >= prep.cfg.num_hosts
+    assert (b["weighted_hops"] > 0) == (case == "qos-pool")
+    assert b["serial_chain_ms"] > 0 and b["bound_ms"] > 0
+    if case == "down":
+        f = res.metrics.faults
+        assert f["degraded_accesses"] > 0 and f["failovers"] > 0
+    if case == "table1x4":
+        assert any(any(t.hit) for t in taps)

@@ -646,6 +646,114 @@ def test_replay_scan_equals_its_twin_under_faults(card, name, placed):
                    placed=placed)
 
 
+MULTI = ["multihost-qos-ecmp", "multihost-ssd-mounts", "multihost-ssd-pool",
+         "multihost-ssd-sharedflash", "faults-portdown@multihost_x2",
+         "faults-linkretry@spine_leaf_x4"]
+
+
+def _multi_both(targets, traces, placed=None):
+    """The multi-host instance on the card and its plain twin on the CPU,
+    from fresh lanes: every output and every final state tensor.  With
+    ``placed=False`` every placed array kind sits in device memory
+    (through ``call_launch_multi``); else the wrapper launches once."""
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    prep = MultiHostReplay(targets, outstanding=8,
+                           metrics=MetricsSpec()).prepare(traces)
+    cfg = prep.cfg
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+
+    ins = [t(x) for x in (prep.addrs, prep.writes, prep.lens, prep.devs,
+                          prep.routes)]
+    rt = t(prep.retries)
+    cpu_state = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, "cpu")
+    gpu_state = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash,
+                                 "cuda")
+    want = rs.replay_multi(cfg, prep.params, cpu_state, *ins, retries=rt)
+    gins = [None if x is None else x.cuda() for x in ins]
+    grt = None if rt is None else rt.cuda()
+    if placed is None:
+        before = rs.LAUNCHES["replay_scan"]
+        got = rs.replay_multi(cfg, prep.params, gpu_state, *gins,
+                              retries=grt)
+        assert rs.LAUNCHES["replay_scan"] == before + 1
+    else:
+        lib = _build.library("replay_scan")
+        lay = rs.layout_multi(cfg, prep.params, rs._smem_optin(lib, 0),
+                              placed=placed)
+        assert placed or lay.in_smem == ()
+        err, got = rs.call_launch_multi(
+            lib, cfg, prep.params, gpu_state, *gins, 0, lay,
+            torch.cuda.current_stream().cuda_stream, retries=grt)
+        assert err == 0
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), x)
+    for part in ("media", "flash"):
+        for k, x in (cpu_state[part] or {}).items():
+            assert torch.equal(gpu_state[part][k].cpu(), x), (part, k)
+    return want
+
+
+@pytest.mark.parametrize("placed", [None, False])
+@pytest.mark.parametrize("name", MULTI)
+def test_replay_multi_equals_its_twin(card, name, placed):
+    from torch_scenarios import make_multi_targets, multi_traces
+
+    _multi_both(make_multi_targets(name), multi_traces(name), placed)
+
+
+def test_multi_host_lane_on_the_card_equals_the_python_lane(card):
+    """Three Table I devices privately mounted, 3 x 4000 accesses: one
+    launch, every host's latencies, the result and the metrics equal the
+    python lane's; a pool view through TraceDriver's retry too."""
+    from test_torch_scenarios import ServiceTap
+    from repro_torch.core.fabric import Fabric, MemoryPool
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.workloads.driver import MultiHostDriver, TraceDriver
+    from repro_torch.core.workloads.traces import make_trace
+    from repro_torch.kernels import replay_scan as rs
+
+    def mounts():
+        fab = Fabric.build("two_level", num_hosts=3, num_devices=3,
+                           num_leaves=2)
+        return [fab.mount(f"h{i}", f"d{i}", make_device("cxl-ssd-cache"))
+                for i in range(3)]
+
+    traces = [make_trace(30 + h, n=4000, pages=2048) for h in range(3)]
+    taps = [ServiceTap(m) for m in mounts()]
+    MultiHostDriver(taps).run(traces)
+    want = MultiHostDriver(mounts(), metrics=MetricsSpec()).run(traces)
+    before = rs.LAUNCHES["replay_scan"]
+    got = MultiHostDriver(mounts(), engine="scan",
+                          metrics=MetricsSpec()).run(traces)
+    assert rs.LAUNCHES["replay_scan"] == before + 1
+    for g, w, tap in zip(got.per_host, want.per_host, taps):
+        assert g.latency_ticks.tolist() == tap.latencies
+        assert (g.elapsed_ticks, g.end_tick) == (w.elapsed_ticks, w.end_tick)
+    assert got.elapsed_ticks == want.elapsed_ticks
+    assert got.metrics.to_jsonable() == want.metrics.to_jsonable()
+
+    def view():
+        fab = Fabric.build("two_level", num_hosts=2, num_devices=2,
+                           num_leaves=2)
+        return MemoryPool(fab, {"d0": make_device("dram"),
+                                "d1": make_device("dram")}).view("h0")
+
+    before = rs.LAUNCHES["replay_scan"]
+    got = TraceDriver(view(), engine="scan").run(traces[0])
+    assert rs.LAUNCHES["replay_scan"] == before + 1
+    want = TraceDriver(view()).run(traces[0])
+    assert (got.sum_latency_ticks, got.end_tick) == (want.sum_latency_ticks,
+                                                     want.end_tick)
+
+
 def test_assoc_lane_on_the_card_equals_the_host_solve(card):
     from repro_torch.core.maxplus import busy_until, port_busy_until
     from repro_torch.core.replay.assoc import AssocReplayEngine

@@ -172,13 +172,22 @@ def test_cuda_lane_refuses_uncached_devices_by_name():
                     torch_device="cpu").run([(0, 64, False)])
 
 
-@pytest.mark.parametrize("engine,item", [("scan", "item 10")])
+@pytest.mark.parametrize("engine,item", [("scan", "item 12")])
 def test_unported_lanes_name_their_roadmap_items(engine, item):
-    """The fused multi-host replay (the multi-host fault scenarios'
-    lane) is not ported: it refuses, naming its ROADMAP item."""
-    targets = sc_port.make_multi_targets("faults-portdown@multihost_x2")
-    with pytest.raises(NotImplementedError, match=item):
-        MultiHostDriver(targets, engine=engine)
+    """The fused multi-host replay runs (here its twin, on a multi-host
+    fault scenario, equal to the golden pin); its streaming half is not
+    ported and refuses, naming its ROADMAP item."""
+    name = "faults-portdown@multihost_x2"
+    res = MultiHostDriver(sc_port.make_multi_targets(name), outstanding=8,
+                          engine=engine, torch_device="cpu").run(
+        sc_port.multi_traces(name))
+    assert [r.latency_ticks.tolist() for r in res.per_host] == [
+        pin["latency_ticks"] for pin in golden(name)["python_scan"]]
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    with pytest.raises(ReplayUnsupported, match=item):
+        MultiHostReplay(sc_port.make_multi_targets(name),
+                        torch_device="cpu").run(sc_port.multi_traces(name),
+                                                chunk_size=64)
 
 
 def test_empty_trace_takes_the_python_lane():

@@ -15,8 +15,12 @@ a chunk, on ECMP and QoS mounts, and under fault plans: the three
 single-host golden fault scenarios and the faulted mounts of
 ``torch_scenarios.FAULT_CASES`` (NAND read retries with GC retirement, a
 down window with failover inside an ECMP set, a CXL-DRAM's private hop,
-weighted QoS ports under CRC retries), each in both layouts.  ASan aborts on any index the kernel
-forms outside its array.  The library only loads into a process that
+weighted QoS ports under CRC retries), each in both layouts.  The
+multi-host instance (``replay_scan.call_launch_multi``) meets its twin
+(``replay_multi_plain``) on the six golden multi-host scenarios, on
+PMEM, CXL-SSD and NAND-faulted shared-flash mounts and on a trace whose
+first host runs out long before the others, each in both layouts.  ASan
+aborts on any index the kernel forms outside its array.  The library only loads into a process that
 starts with ASan's runtime, so the cases run in one child process for
 this file.
 
@@ -44,11 +48,13 @@ from repro_torch.core.fabric import Fabric
 from repro_torch.core.replay import stack
 from repro_torch.core.replay.engine import ReplayEngine
 from repro_torch.core.replay.metrics import MetricsSpec
+from repro_torch.core.replay.multihost import MultiHostReplay
 from repro_torch.core.replay.spec import trace_to_arrays
 from repro_torch.kernels import _build
 from repro_torch.kernels import replay_scan as rs
 from torch_scenarios import (DEVICES, FAULT_CASES, FAULT_SCENARIOS,
-                             fault_case, make_target, scenario_outstanding,
+                             fault_case, gc_ssd_cfg, make_multi_targets,
+                             make_target, multi_traces, scenario_outstanding,
                              scenario_trace)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -92,6 +98,17 @@ CASES = (SCAN_SCENARIOS + ["ssd-gc@direct/global"]
 FAULTED = [f"{name}{lay}" for name in (*FAULT_SCENARIOS, *FAULT_CASES)
            for lay in ("", "/global")]
 CASES = CASES + FAULTED
+# the multi-host instance, in both layouts: the golden multi-host
+# scenarios, then mounts of the kinds and statics they do not reach and a
+# host that runs out of trace early
+MULTI_SCENARIOS = ["multihost-qos-ecmp", "multihost-ssd-mounts",
+                   "multihost-ssd-pool", "multihost-ssd-sharedflash",
+                   "faults-portdown@multihost_x2",
+                   "faults-linkretry@spine_leaf_x4"]
+MULTI_EXTRA = ["multi/pmem", "multi/cxl-ssd", "multi/nand-shared",
+               "multi/exhaust"]
+MULTI_CASES = [f"{name}{lay}" for name in (*MULTI_SCENARIOS, *MULTI_EXTRA)
+               for lay in ("", "/global")]
 
 
 def _trace(n: int, pages: int, write_frac: float, seed: int):
@@ -205,15 +222,98 @@ def run_case(lib, name: str) -> dict:
             "in_smem": list(lay.in_smem)}
 
 
+def _multi_case(name: str):
+    """``(targets, traces)`` of multi-host case ``name`` (fresh)."""
+    if name in MULTI_SCENARIOS:
+        return make_multi_targets(name), multi_traces(name)
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.ssd.hil import HIL
+
+    fab = Fabric.build("two_level", num_hosts=3, num_devices=3,
+                       num_leaves=2)
+    kind = name.split("/")[1]
+    if kind == "nand-shared":
+        # two cached front ends over one GC-pressured flash under NAND
+        # read retries and erase fails
+        hil = HIL(gc_ssd_cfg(64))
+        tgts = [fab.mount(f"h{i}", f"d{i}", make_device(
+            "cxl-ssd-cache", hil=hil, cache_cfg=DRAMCacheConfig(
+                capacity_bytes=8 * 4096, mshr_entries=4,
+                writeback_buffer=2))) for i in range(2)]
+        install(FaultPlan(FaultConfig(nand_read_retry_rate=0.4,
+                                      erase_fail_rate=0.5), seed=3), tgts)
+        return tgts, [_trace(300, 40, 0.8, 20 + h) for h in range(2)]
+    device = {"pmem": "pmem", "cxl-ssd": "cxl-ssd"}.get(kind, "cxl-ssd-cache")
+    kw = ({"cache_cfg": DRAMCacheConfig(capacity_bytes=16 * 4096,
+                                        mshr_entries=3, writeback_buffer=2)}
+          if device == "cxl-ssd-cache" else {})
+    tgts = [fab.mount(f"h{i}", f"d{i}", make_device(device, **kw))
+            for i in range(3)]
+    lens = (20, 400, 300) if kind == "exhaust" else (250, 250, 250)
+    return tgts, [_trace(n, 48, 0.4, 10 + h) for h, n in enumerate(lens)]
+
+
+def run_multi_case(lib, name: str) -> dict:
+    """The emulated multi-host instance and its plain twin on case
+    ``name``, each from fresh lanes: the outputs and state tensors that
+    differ, and what the case exercised."""
+    base = name.removesuffix("/global")
+    targets, traces = _multi_case(base)
+    eng = MultiHostReplay(targets, outstanding=8, metrics=MetricsSpec(),
+                          torch_device="cpu")
+    prep = eng.prepare(traces)
+    cfg = prep.cfg
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+
+    ins = [t(x) for x in (prep.addrs, prep.writes, prep.lens, prep.devs,
+                          prep.routes)]
+    want_state, got_state = (
+        stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, "cpu")
+        for _ in range(2))
+    want = rs.replay_multi_plain(cfg, prep.params, want_state, *ins,
+                                 retries=t(prep.retries))
+    lay = rs.layout_multi(cfg, prep.params, H100_SMEM_OPTIN,
+                          placed=base == name)
+    err, got = rs.call_launch_multi(lib, cfg, prep.params, got_state, *ins,
+                                    0, lay, None, retries=t(prep.retries))
+    differ = [k for k, g, x in zip(
+        ("who", "issues", "dones", "flags", "qacc", "qthr"), got, want)
+        if not torch.equal(g, x)]
+    for part in ("media", "flash"):
+        differ += [f"{part}.{k}" for k, x in (want_state[part] or {}).items()
+                   if not torch.equal(got_state[part][k], x)]
+    flags = want[3]
+    rr, rb = stack.fault_counters(want_state)
+    lens = prep.lens.tolist()
+    # the step at which the first host to run out took its last access
+    who = want[0].tolist()
+    first_out = min(max(s for s, w in enumerate(who) if w == h)
+                    for h in range(len(lens)) if lens[h])
+    return {"err": err, "differ": differ, "steps": len(who),
+            "hits": int((flags & 1).sum()),
+            "evicts": int(((flags >> 1) & 1).sum()),
+            "gc_runs": stack.flash_health(want_state)[1],
+            "read_retries": rr, "retired": rb, "qthr": int(want[5].sum()),
+            "first_out": first_out, "in_smem": list(lay.in_smem)}
+
+
 def _child(lib_path: str, out_path: str) -> None:
     lib = ctypes.CDLL(lib_path)
-    for fn in ("replay_scan_launch", "replay_scan_num_args",
-               "replay_scan_layout_words"):
+    for fn in ("replay_scan_launch", "replay_scan_launch_multi",
+               "replay_scan_num_args", "replay_scan_layout_words",
+               "replay_scan_num_margs", "replay_scan_layout_multi_words"):
         restype, argtypes = _build.SIGNATURES["replay_scan"][fn]
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
     out = {"num_args": lib.replay_scan_num_args(), "args": len(rs.ARGS),
-           "cases": {name: run_case(lib, name) for name in CASES}}
+           "num_margs": lib.replay_scan_num_margs(), "margs": len(rs.MARGS),
+           "layout_multi": [lib.replay_scan_layout_multi_words(),
+                            len(rs.LAYOUT_MULTI)],
+           "cases": {name: run_case(lib, name) for name in CASES},
+           "multi": {name: run_multi_case(lib, name)
+                     for name in MULTI_CASES}}
     Path(out_path).write_text(json.dumps(out))
 
 
@@ -287,6 +387,43 @@ def test_faulted_cases_exercise_their_faults(emulated, name):
     # the device-memory layout keeps no placed array in shared memory
     if name.endswith("/global"):
         assert got["in_smem"] == [], got
+
+
+def test_the_emulation_takes_the_multi_host_blocks(emulated):
+    assert emulated["num_margs"] == emulated["margs"]
+    assert emulated["layout_multi"][0] == emulated["layout_multi"][1]
+
+
+@pytest.mark.parametrize("name", MULTI_CASES)
+def test_multi_host_instance_equals_its_twin(emulated, name):
+    got = emulated["multi"][name]
+    assert got["err"] == 0
+    assert got["differ"] == [], f"{name}: {got['differ']} differ"
+    # the device-memory layout keeps no placed array in shared memory
+    if name.endswith("/global"):
+        assert got["in_smem"] == [], got
+
+
+# what each multi-host case must exercise
+MULTI_EXERCISES = {"multihost-qos-ecmp": ("qthr",),
+                   "multihost-ssd-mounts": ("hits", "evicts"),
+                   "multihost-ssd-pool": ("hits",),
+                   "multihost-ssd-sharedflash": ("gc_runs",),
+                   "multi/nand-shared": ("gc_runs", "read_retries",
+                                         "retired"),
+                   "multi/cxl-ssd": ("hits",), "multi/pmem": ("hits",)}
+
+
+@pytest.mark.parametrize("name", sorted(MULTI_EXERCISES))
+def test_multi_host_cases_exercise_their_paths(emulated, name):
+    got = emulated["multi"][name]
+    assert all(got[k] > 0 for k in MULTI_EXERCISES[name]), got
+
+
+def test_multi_host_case_runs_one_host_out_early(emulated):
+    got = emulated["multi"]["multi/exhaust"]
+    # host 0's 20 accesses end in the first tenth of the 720 steps
+    assert got["first_out"] < got["steps"] // 10, got
 
 
 if __name__ == "__main__":

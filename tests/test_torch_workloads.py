@@ -14,6 +14,7 @@ import pytest
 
 from repro_torch.core.devices import DEVICE_NAMES, DRAMDevice, make_device
 from repro_torch.core.replay.metrics import MetricsSpec
+from repro_torch.core.replay.spec import ReplayUnsupported
 from repro_torch.core.workloads import (MultiHostDriver, run_membench,
                                         run_stream)
 from test_torch_reference import REPO
@@ -63,5 +64,10 @@ def test_multihost_driver_takes_the_reference_keywords():
         [[(0, 64, False), (64, 64, True)]])
     assert res.metrics.media == [{"accesses": 2, "reads": 1, "writes": 1}]
     assert res.per_host[0].metrics is res.metrics
-    with pytest.raises(NotImplementedError, match="item 10"):
-        MultiHostDriver([DRAMDevice()], engine="scan")
+    # the scan lane takes the keywords too, and refuses a bare device with
+    # the JAX package's words
+    drv = MultiHostDriver([DRAMDevice()], engine="scan", torch_device="cpu")
+    with pytest.raises(ReplayUnsupported,
+                       match="supports FabricAttachedDevice / HostPortView "
+                             "targets, got DRAMDevice"):
+        drv.run([[(0, 64, False)]])

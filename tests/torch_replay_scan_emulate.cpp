@@ -3,8 +3,10 @@
 // CUDA thread.
 //
 // REPLAY_SCAN_EMULATE leaves the block primitives (thread_id, block_sync),
-// the intrinsics (__popc, __ffs, __umulhi), the CUDA keywords and the vector
-// types (int2, int4, longlong2) to this file.
+// the intrinsics (__popc, __ffs, __umulhi, and the multi-host QoS mirror's
+// __dadd_rn, __ddiv_rn, __dmul_rn: the host's IEEE double operations,
+// which g++ does not contract without -ffast-math or an FMA target), the
+// CUDA keywords and the vector types (int2, int4, longlong2) to this file.
 // __syncthreads() becomes a barrier of the kThreads threads, so every
 // thread sees the others' shared-memory stores exactly where the card's
 // would.  Dynamic shared memory is a host buffer filled with a pattern, so
@@ -53,6 +55,9 @@ int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 unsigned __umulhi(unsigned a, unsigned b) {
   return static_cast<unsigned>((static_cast<uint64_t>(a) * b) >> 32);
 }
+double __dadd_rn(double a, double b) { return a + b; }
+double __ddiv_rn(double a, double b) { return a / b; }
+double __dmul_rn(double a, double b) { return a * b; }
 
 }  // namespace
 
@@ -74,6 +79,43 @@ void run(const Args& a, const Layout& lay, const Ptrs& p, char* sm) {
       else replay<kSsdCache, false, FAULTED>(a, lay, p, sm);
       break;
   }
+}
+
+// The multi-host instance that the CUDA library's dispatch launches.
+template <bool FAULTED>
+void run_multi(const Args& a, const MArgs& m, const LayoutM& lay,
+               const MultiPtrs& p, char* sm) {
+  const bool nand = a.v[A_NAND] != 0;
+  switch (a.v[A_KIND]) {
+    case kDram: replay_multi<kDram, false, FAULTED>(a, m, lay, p, sm); break;
+    case kPmem: replay_multi<kPmem, false, FAULTED>(a, m, lay, p, sm); break;
+    case kSsdBuf:
+      if (nand) replay_multi<kSsdBuf, true, FAULTED>(a, m, lay, p, sm);
+      else replay_multi<kSsdBuf, false, FAULTED>(a, m, lay, p, sm);
+      break;
+    default:
+      if (nand) replay_multi<kSsdCache, true, FAULTED>(a, m, lay, p, sm);
+      else replay_multi<kSsdCache, false, FAULTED>(a, m, lay, p, sm);
+      break;
+  }
+}
+
+// The block of kThreads threads over a patterned host buffer as shared
+// memory, each running `body`.
+template <typename F>
+void run_block(int smem_bytes, F body) {
+  std::vector<longlong2> smem((smem_bytes + 15) / 16,
+                              longlong2{0x5a5a5a5a5a5aLL, 0x5a5a5a5a5a5aLL});
+  char* sm = reinterpret_cast<char*>(smem.data());
+  std::barrier<> b(kThreads);
+  block = &b;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < kThreads; ++t)
+    threads.emplace_back([&, t] {
+      tl_thread = t;
+      body(sm);
+    });
+  for (auto& t : threads) t.join();
 }
 
 extern "C" {
@@ -101,23 +143,45 @@ int replay_scan_launch(const long long* args, const long long* layout,
                totals, scal, frames, mpage, mready, wtick, l2p, p2l, valid,
                free_q, free_mask, rtr_mask, die_busy, die_prog, chan_busy,
                scratch};
-  std::vector<longlong2> smem((smem_bytes + 15) / 16,
-                              longlong2{0x5a5a5a5a5a5aLL, 0x5a5a5a5a5a5aLL});
-  char* sm = reinterpret_cast<char*>(smem.data());
-  std::barrier<> b(kThreads);
-  block = &b;
-  std::vector<std::thread> threads;
-  for (int t = 0; t < kThreads; ++t)
-    threads.emplace_back([&, t] {
-      tl_thread = t;
-      if (a.v[A_FAULT_HOPS]) run<true>(a, lay, p, sm);
-      else run<false>(a, lay, p, sm);
-    });
-  for (auto& t : threads) t.join();
+  run_block(smem_bytes, [&](char* sm) {
+    if (a.v[A_FAULT_HOPS]) run<true>(a, lay, p, sm);
+    else run<false>(a, lay, p, sm);
+  });
+  return 0;
+}
+
+// The CUDA library's replay_scan_launch_multi, argument for argument, on
+// host pointers; `stream` is ignored.
+int replay_scan_launch_multi(
+    const long long* args, const long long* margs, const long long* layout,
+    const long long* mtab, const long long* addrs, const int32_t* aux,
+    const long long* rt, int32_t* who, long long* issues, long long* dones,
+    int32_t* flags, long long* totals, long long* scal, long long* frames,
+    long long* mpage, long long* mready, long long* wtick, int32_t* l2p,
+    int32_t* p2l, int32_t* valid, int32_t* free_q, uint8_t* free_mask,
+    uint8_t* rtr_mask, long long* die_busy, long long* die_prog,
+    long long* chan_busy, char* scratch, int smem_bytes, void* stream) {
+  (void)stream;
+  Args a;
+  memcpy(a.v, args, sizeof(a.v));
+  MArgs m;
+  memcpy(m.v, margs, sizeof(m.v));
+  LayoutM lay;
+  memcpy(lay.v, layout, sizeof(lay.v));
+  const MultiPtrs p{addrs, aux, rt, mtab, who, issues, dones, flags, totals,
+                    scal, frames, mpage, mready, wtick, l2p, p2l, valid,
+                    free_q, free_mask, rtr_mask, die_busy, die_prog,
+                    chan_busy, scratch};
+  run_block(smem_bytes, [&](char* sm) {
+    if (a.v[A_FAULT_HOPS]) run_multi<true>(a, m, lay, p, sm);
+    else run_multi<false>(a, m, lay, p, sm);
+  });
   return 0;
 }
 
 int replay_scan_num_args() { return kNumArgs; }
 int replay_scan_layout_words() { return kLayoutWords; }
+int replay_scan_num_margs() { return kNumMArgs; }
+int replay_scan_layout_multi_words() { return kLayoutMultiWords; }
 
 }  // extern "C"

@@ -88,10 +88,9 @@ and ``nvcc``.  Phases, each printing one or more lines:
    fault-free golden ``python_scan`` pins and ``metrics`` blocks (GC
    included); the kernel against its plain twin (CPU tensors of this
    process) on the pins' traces, 4096 accesses of each device and 2^14
-   of Table I's cached CXL-SSD (its cache filled and evicting);
-   ``chunk_size`` refused with ``ReplayUnsupported``.  It runs after the
-   host-bound serving loop, so that its 2^20-access python-lane replays
-   leave no load on that loop's host;
+   of Table I's cached CXL-SSD (its cache filled and evicting).  It runs
+   after the host-bound serving loop, so that its 2^20-access python-lane
+   replays leave no load on that loop's host;
 13. faults: the faulted scan lane, each replay one ``replay_scan`` launch
    held access for access against the python lane on this host (latency
    ticks, hit, dirty-evict and poison flags, elapsed and end ticks, GC
@@ -127,7 +126,25 @@ and ``nvcc``.  Phases, each printing one or more lines:
    2 x 2^18 accesses (with the fault-column builder's host time); each
    with its kernel time, walls, bound and serial-chain model; the six
    golden multi-host pins and metrics; the kernel against its twin on
-   them in both layouts and on the full-width targets.
+   them in both layouts and on the full-width targets;
+16. stream: the streaming forms of the scan lane, one ``replay_scan``
+   launch a chunk through a carry kept on the card, ``ceil(n / chunk)``
+   launches each, every replay equal to its one-shot on every field:
+   (a) ``replay_stream`` over a ``TraceStore`` of
+   ``results/BENCH_replay.json``'s 1.2 M-access DRAM stream at chunks
+   32768 and 131072 (prefetch depth 2, ``return_latencies=False``)
+   against that file's one-shot sums, with each run's peak device memory;
+   (b) the main path's trace through Table I's cached CXL-SSD streamed at
+   chunks 2^10, 2^14 and 2^16 (latencies, flags and bundles equal to the
+   [scan] phase's one-shot) and at 2^16 with bounded outputs, the kernel
+   time summed over the launches and the wall beside the one-shot's; (c)
+   Table I under the golden ``faults-nand-retry@direct`` plan over 2^18
+   accesses, checkpointed every two chunks of 2^14, crashed after five
+   and resumed from 4 x 2^14, byte-identical to the uninterrupted run;
+   (d) the [faults] phase's spine-leaf mount with its down window scaled
+   to accesses 2^14-2^15 of 2^16, streamed at chunk 3000 (seams inside
+   the window), availability included; (e) the [multihost] phase's four
+   Table I mounts at 4 x 2^16 steps, chunk 2^14, in both output modes.
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -317,6 +334,28 @@ MULTI_QOS_OPS = 8
 # out.
 MULTI_STEP_TRIPS = 3
 MULTI_QOS_TRIPS = 1
+# the stream phase: resumable replay_scan, one launch a chunk.  (a)
+# results/BENCH_replay.json's streaming lane: 1.2 M DRAM accesses as
+# benchmarks/replay_bench.py::_stream_trace_arrays builds them (1024
+# pages, 30% writes, default_rng(5)), streamed from a TraceStore at its
+# chunks with bounded outputs, and its one-shot oracle; (b) the main path's
+# trace through Table I's cached CXL-SSD at three chunk sizes; (c) Table I
+# under the golden faults-nand-retry@direct plan, crashed after five
+# chunks and resumed from its checkpoint of two chunks ago; (d) the
+# [faults] phase's spine-leaf mount with its down window scaled into
+# 2^16 accesses, seams inside it; (e) the [multihost] phase's four Table I
+# mounts at 2^16 accesses a host
+STREAM_N = 1_200_000
+STREAM_PAGES = 1024
+STREAM_WRITE_FRAC = 0.3
+STREAM_SEED = 5
+STREAM_CHUNKS = (32768, 131072)
+STREAM_DEPTH = 2
+STREAM_ORACLE = {"sum_latency_ticks": 127862809067, "end_tick": 3999680000}
+STREAM_MAIN_CHUNKS = (1 << 10, 1 << 14, 1 << 16)
+STREAM_CRASH = dict(accesses=1 << 18, chunk=1 << 14, every=2, die_after=5)
+STREAM_LINK = dict(accesses=1 << 16, window=(1 << 14, 1 << 15), chunk=3000)
+STREAM_MULTI = dict(per_host=1 << 16, chunk=1 << 14)
 # the assoc phase: which of the main path's replays the associative lane
 # certifies (True) or refuses (False), as the JAX package's numpy backend
 # does (tests/test_torch_assoc.py holds the two equal)
@@ -1570,9 +1609,8 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
                                  scenario_trace)
 
     from repro_torch.core.devices import make_device
-    from repro_torch.core.replay.engine import ReplayEngine
     from repro_torch.core.replay.metrics import MetricsSpec
-    from repro_torch.core.replay.spec import ReplayUnsupported, build_stack
+    from repro_torch.core.replay.spec import build_stack
     from repro_torch.core.workloads.driver import TraceDriver
     from repro_torch.kernels import _build
     from repro_torch.kernels import replay_scan as rs
@@ -1687,18 +1725,332 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
         churn_accesses=SCAN_CHURN_ACCESSES, churn_hits=churn_hits,
         churn_dirty_evictions=churn_evicts, churn_twin_ms=f"{churn_ms:.3f}")
 
-    # the lane's refusal on the card
-    check(refuses(lambda: ReplayEngine(make_device("dram")).run(
-        trace[:16], chunk_size=4), ReplayUnsupported),
-        "the scan lane streamed a chunked replay")
-    say("scan", chunk_size="refused")
     return {"launches": launches, "kernel_ms": kernel_ms, "bound": bound,
             "serial": serial, "plain_ms": plain_ms,
             "walls": {d: runs[d][1] for d in SCAN_DEVICES},
-            "python": python}
+            "python": python, "table1": runs["cxl-ssd-cache"][0]}
 
 
-def scan_row(scan: dict, faults: dict, multi: dict, n: int) -> dict:
+def stream_trace_arrays(n: int):
+    """``benchmarks/replay_bench.py::_stream_trace_arrays``: ``n`` DRAM
+    accesses over 1024 pages, 30% writes, from ``default_rng(5)``."""
+    rng = np.random.default_rng(STREAM_SEED)
+    pages = rng.integers(0, STREAM_PAGES, n)
+    addrs = pages * 4096 + rng.integers(0, 64, n) * 64
+    writes = rng.random(n) < STREAM_WRITE_FRAC
+    return addrs.astype(np.int64), writes
+
+
+class Crashy:
+    """A store whose chunk iterator fails after ``die_after`` chunks: a
+    crash in the middle of a streamed replay."""
+
+    def __init__(self, store, die_after: int) -> None:
+        self._s = store
+        self.die_after = die_after
+
+    def __getattr__(self, name):
+        return getattr(self._s, name)
+
+    def chunks(self, chunk_size, start=0):
+        for k, item in enumerate(self._s.chunks(chunk_size, start=start)):
+            if k == self.die_after:
+                raise RuntimeError("simulated crash")
+            yield item
+
+
+def stream_run(torch, run, *, profile: bool = True) -> tuple:
+    """``run()`` with the launch count at 0: its result and ``{launches,
+    wall_s, peak_bytes}`` (the device memory it allocated above what was
+    allocated before it), then, with ``profile``, ``kernel_ms`` summed over
+    the launches of a second run under the profiler (CUDA events around
+    the whole run when the profiler records nothing) and ``host_s``."""
+    from repro_torch.kernels import replay_scan as rs
+
+    def mine(acts):
+        return [e for e in acts
+                if SCAN_KERNEL in e.name or MULTI_KERNEL in e.name]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rs.reset_launches()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - t0,
+           "launches": rs.LAUNCHES["replay_scan"],
+           "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    if profile:
+        acts = mine(device_events(torch, run, lambda a: bool(mine(a))))
+        if acts:
+            out["kernel_ms"] = sum(e.device_time_total for e in acts) / 1e3
+            out["timing"] = "profiler"
+            out["profiled_launches"] = len(acts)
+        else:
+            EVENT_TIMED.append("streamed " + SCAN_KERNEL)
+            say("timing", fallback="CUDA events", what="a streamed replay",
+                reason=f"the profiler recorded no device activity in "
+                       f"{PROFILE_TRIES} sessions")
+            out["kernel_ms"] = cuda_ms(torch, run)
+            out["timing"] = "CUDA events"
+        out["host_s"] = out["wall_s"] - out["kernel_ms"] / 1e3
+    return res, out
+
+
+def same_replay(got, want, bounded: bool = False) -> dict:
+    """Which fields of a streamed single-host replay equal its one-shot:
+    per-access latencies, hit, dirty-evict and poison flags and the
+    availability series (unless ``bounded``), the scalars, GC runs and the
+    metrics bundle (where the one-shot has one)."""
+    def bundle(r):
+        return None if r.metrics is None else json.loads(json.dumps(
+            r.metrics.to_jsonable()))
+
+    same = {"ticks": all(getattr(got, f) == getattr(want, f) for f in (
+        "accesses", "elapsed_ticks", "sum_latency_ticks", "end_tick",
+        "gc_runs"))}
+    if want.metrics is not None:
+        same["metrics"] = bundle(got) == bundle(want)
+    if bounded:
+        same["bounded"] = got.latency_ticks is None
+        return same
+    same["latency"] = np.array_equal(got.latency_ticks, want.latency_ticks)
+    same["flags"] = (np.array_equal(got.hit_flags, want.hit_flags)
+                     and np.array_equal(got.evict_flags, want.evict_flags))
+    if want.poison_flags is not None:
+        same["poison"] = np.array_equal(got.poison_flags, want.poison_flags)
+    if want.availability is not None:
+        same["availability"] = json.dumps(
+            got.availability, sort_keys=True, default=str) == json.dumps(
+            want.availability, sort_keys=True, default=str)
+    return same
+
+
+def stream_phase(torch, trace, scan: dict, seed: int) -> dict:
+    """[stream]: the streaming forms of the scan lane on the card, one
+    ``replay_scan`` launch a chunk, each replay equal to its one-shot on
+    every field: the BENCH_replay.json streaming oracle, the main path's
+    trace at three chunk sizes, a crash and its resume, transport faults
+    with seams in the down window, and the multi-host replay."""
+    import tempfile
+
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+    from repro_torch.core.replay import replay_stream
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    from repro_torch.core.replay.spec import trace_to_arrays
+    from repro_torch.data import TraceStore
+
+    spec = MetricsSpec()
+    runs = {}
+    t_phase = time.perf_counter()
+
+    def need(same: dict, what: str) -> str:
+        for field, ok in same.items():
+            check(ok, f"[stream] {what}: {field} differs from the one-shot")
+        return ",".join(same)
+
+    def launches_are(out: dict, n: int, chunk: int, what: str) -> None:
+        want = -(-n // chunk)
+        check(out["launches"] == want,
+              f"[stream] {what}: {out['launches']} launches, not {want}")
+
+    tmp = tempfile.TemporaryDirectory()
+    with tmp:
+        # (a) the BENCH_replay.json streaming lane and its oracle
+        addrs, writes = stream_trace_arrays(STREAM_N)
+        one, out = stream_run(torch, lambda: ReplayEngine(
+            make_device("dram")).run_arrays(addrs, writes))
+        launches_are(out, 1, 1, "(a) one-shot")
+        check({k: getattr(one, k) for k in STREAM_ORACLE} == STREAM_ORACLE,
+              f"[stream] the one-shot DRAM stream: {one.sum_latency_ticks}, "
+              f"{one.end_tick}")
+        runs["a/oneshot"] = out
+        say("stream", case="a", chunk="one-shot", accesses=STREAM_N,
+            launches=out["launches"], kernel_ms=f"{out['kernel_ms']:.3f}",
+            wall_s=f"{out['wall_s']:.3f}", host_s=f"{out['host_s']:.3f}",
+            peak_device_bytes=out["peak_bytes"],
+            sum_latency_ticks=one.sum_latency_ticks, end_tick=one.end_tick)
+        store = TraceStore.write(Path(tmp.name) / "a.store", addrs, writes)
+        for chunk in STREAM_CHUNKS:
+            stats = {}
+            got, out = stream_run(torch, lambda: replay_stream(
+                store, make_device("dram"), chunk_size=chunk,
+                prefetch_depth=STREAM_DEPTH, return_latencies=False,
+                stats=stats))
+            launches_are(out, STREAM_N, chunk, f"(a) chunk {chunk}")
+            check({k: getattr(got, k) for k in STREAM_ORACLE}
+                  == STREAM_ORACLE, f"[stream] (a) chunk {chunk}: "
+                  f"{got.sum_latency_ticks}, {got.end_tick}")
+            check(stats["peak_buffered_bytes"]
+                  <= stats["peak_input_bound_bytes"],
+                  f"[stream] (a) chunk {chunk}: {stats}")
+            need(same_replay(got, one, bounded=True), f"(a) chunk {chunk}")
+            runs[f"a/{chunk}"] = out
+            say("stream", case="a", chunk=chunk, accesses=STREAM_N,
+                equal_to_oneshot="sum_latency_ticks,end_tick,elapsed_ticks",
+                oracle="equal", launches=out["launches"],
+                kernel_ms=f"{out['kernel_ms']:.3f}",
+                wall_s=f"{out['wall_s']:.3f}", host_s=f"{out['host_s']:.3f}",
+                peak_device_bytes=out["peak_bytes"],
+                stats=json.dumps(stats, separators=(",", ":")))
+
+        # (b) the main path's trace through Table I's cached CXL-SSD
+        n = len(trace)
+        table1 = scan["table1"]
+        one, out = stream_run(torch, lambda: ReplayEngine(
+            make_device("cxl-ssd-cache"), metrics=spec).run(trace))
+        launches_are(out, 1, 1, "(b) one-shot")
+        need(same_replay(one, table1), "(b) one-shot")
+        runs["b/oneshot"] = out
+        say("stream", case="b", chunk="one-shot", accesses=n,
+            launches=out["launches"], kernel_ms=f"{out['kernel_ms']:.3f}",
+            wall_s=f"{out['wall_s']:.3f}", host_s=f"{out['host_s']:.3f}",
+            peak_device_bytes=out["peak_bytes"])
+        a, w, _ = trace_to_arrays(trace)
+        store = TraceStore.write(Path(tmp.name) / "b.store", a, w)
+        for chunk, lat in [(c, True) for c in STREAM_MAIN_CHUNKS] + [
+                (STREAM_MAIN_CHUNKS[-1], False)]:
+            got, out = stream_run(torch, lambda: replay_stream(
+                store, make_device("cxl-ssd-cache"), chunk_size=chunk,
+                metrics=spec, return_latencies=lat))
+            launches_are(out, n, chunk, f"(b) chunk {chunk}")
+            fields = need(same_replay(got, one, bounded=not lat),
+                          f"(b) chunk {chunk}")
+            if lat:
+                need(same_replay(got, table1),
+                     f"(b) chunk {chunk} against the [scan] one-shot")
+            key = f"b/{chunk}" + ("" if lat else "/bounded")
+            runs[key] = out
+            say("stream", case="b", chunk=chunk, latencies=lat, accesses=n,
+                equal_to_oneshot=fields, launches=out["launches"],
+                kernel_ms=f"{out['kernel_ms']:.3f}",
+                kernel_vs_oneshot=f"{out['kernel_ms'] / runs['b/oneshot']['kernel_ms']:.4f}",
+                wall_s=f"{out['wall_s']:.3f}", host_s=f"{out['host_s']:.3f}",
+                host_us_per_launch=f"{(out['wall_s'] - runs['b/oneshot']['wall_s']) * 1e6 / out['launches']:.1f}",
+                peak_device_bytes=out["peak_bytes"])
+
+        # (c) a crash and its resume, under NAND faults
+        def nand():
+            dev = make_device("cxl-ssd-cache")
+            install(FaultPlan(FaultConfig(**FAULT_NAND),
+                              seed=FAULT_NAND_SEED), [dev])
+            return dev
+
+        c = STREAM_CRASH
+        a, w, _ = trace_to_arrays(trace[:c["accesses"]])
+        store = TraceStore.write(Path(tmp.name) / "c.store", a, w)
+        ck = str(Path(tmp.name) / "c.ckpt")
+        whole, _ = stream_run(torch, lambda: replay_stream(
+            store, nand(), chunk_size=c["chunk"], metrics=spec),
+            profile=False)
+        crashed = refuses(lambda: replay_stream(
+            Crashy(store, c["die_after"]), nand(), chunk_size=c["chunk"],
+            metrics=spec, checkpoint_dir=ck, checkpoint_every=c["every"]),
+            RuntimeError)
+        check(crashed, "[stream] (c) the crashing run did not crash")
+        stats = {}
+        got, out = stream_run(torch, lambda: replay_stream(
+            store, nand(), chunk_size=c["chunk"], metrics=spec,
+            checkpoint_dir=ck, resume=True, stats=stats), profile=False)
+        resumed = c["die_after"] // c["every"] * c["every"] * c["chunk"]
+        check(stats["resumed_from"] == resumed,
+              f"[stream] (c) resumed from {stats['resumed_from']}")
+        launches_are(out, c["accesses"] - resumed, c["chunk"], "(c) resume")
+        fields = need(same_replay(got, whole), "(c) resumed")
+        check(whole.poison_flags.any() and whole.metrics.faults[
+            "nand_read_retries"] > 0, "[stream] (c) no NAND fault fired")
+        runs["c/resume"] = out
+        say("stream", case="c", accesses=c["accesses"], chunk=c["chunk"],
+            crashed_after_chunks=c["die_after"],
+            resumed_from=stats["resumed_from"], equal_to_uninterrupted=fields,
+            launches=out["launches"], wall_s=f"{out['wall_s']:.3f}",
+            stats=json.dumps(stats, separators=(",", ":")))
+
+        # (d) transport faults, seams inside the down window
+        d = STREAM_LINK
+
+        def link():
+            mount = Fabric.build("spine_leaf", **FAULT_FABRIC).mount(
+                "h0", "d0", make_device("cxl-ssd-cache"))
+            install(FaultPlan(FaultConfig(
+                link_retry_rate=FAULT_LINK["link_retry_rate"],
+                down_links=(("s0", "sp0") + d["window"],)),
+                seed=FAULT_LINK_SEED), [mount])
+            return mount
+
+        part = trace[:d["accesses"]]
+        one, _ = stream_run(torch, lambda: ReplayEngine(
+            link(), metrics=spec).run(part), profile=False)
+        a, w, _ = trace_to_arrays(part)
+        store = TraceStore.write(Path(tmp.name) / "d.store", a, w)
+        got, out = stream_run(torch, lambda: replay_stream(
+            store, link(), chunk_size=d["chunk"], metrics=spec),
+            profile=False)
+        launches_are(out, d["accesses"], d["chunk"], "(d)")
+        fields = need(same_replay(got, one), "(d)")
+        f = got.metrics.faults
+        check(f["degraded_accesses"] > 0 and f["link_retries"] > 0,
+              f"[stream] (d) the window degraded nothing: {f}")
+        seams = [k * d["chunk"] for k in range(1, d["accesses"] // d["chunk"]
+                                               + 1)]
+        inside = sum(d["window"][0] < x < d["window"][1] for x in seams)
+        runs[f"d/{d['chunk']}"] = out
+        say("stream", case="d", accesses=d["accesses"], chunk=d["chunk"],
+            window=f"{d['window'][0]}-{d['window'][1]}",
+            seams_in_window=inside, equal_to_oneshot=fields,
+            launches=out["launches"], wall_s=f"{out['wall_s']:.3f}",
+            faults=json.dumps(f, separators=(",", ":")))
+
+        # (e) the multi-host replay
+        e = STREAM_MULTI
+        make, traces = multi_cases(seed, e["per_host"])["table1x4"]
+        steps = sum(len(t) for t in traces)
+        (one, lat0), out = stream_run(torch, lambda: MultiHostReplay(
+            make(), metrics=spec).run_recorded(traces))
+        launches_are(out, 1, 1, "(e) one-shot")
+        runs["e/oneshot"] = out
+        say("stream", case="e", chunk="one-shot", steps=steps,
+            launches=out["launches"], kernel_ms=f"{out['kernel_ms']:.3f}",
+            wall_s=f"{out['wall_s']:.3f}")
+        want = json.dumps(one.metrics.to_jsonable(), sort_keys=True)
+        for lat in (True, False):
+            def run():
+                eng = MultiHostReplay(make(), metrics=spec)
+                if lat:
+                    return eng.run_recorded(traces, chunk_size=e["chunk"])
+                return eng.run(traces, chunk_size=e["chunk"],
+                               return_latencies=False), None
+
+            (got, lat1), out = stream_run(torch, run)
+            launches_are(out, steps, e["chunk"], f"(e) latencies={lat}")
+            same = {"ticks": got.elapsed_ticks == one.elapsed_ticks and all(
+                (g.accesses, g.sum_latency_ticks, g.end_tick,
+                 g.elapsed_ticks) == (w_.accesses, w_.sum_latency_ticks,
+                                      w_.end_tick, w_.elapsed_ticks)
+                for g, w_ in zip(got.per_host, one.per_host)),
+                "metrics": json.dumps(got.metrics.to_jsonable(),
+                                      sort_keys=True) == want}
+            if lat:
+                same["latency"] = all(np.array_equal(x, y)
+                                      for x, y in zip(lat1, lat0))
+            fields = need(same, f"(e) latencies={lat}")
+            runs[f"e/{e['chunk']}" + ("" if lat else "/bounded")] = out
+            say("stream", case="e", chunk=e["chunk"], latencies=lat,
+                steps=steps, equal_to_oneshot=fields,
+                launches=out["launches"], kernel_ms=f"{out['kernel_ms']:.3f}",
+                wall_s=f"{out['wall_s']:.3f}", host_s=f"{out['host_s']:.3f}")
+    say("stream", cases=5, equal="every field",
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    return runs
+
+
+def scan_row(scan: dict, faults: dict, multi: dict, n: int,
+             stream: dict) -> dict:
     """The kernels line's ``replay_scan`` row: the Table I cached CXL-SSD's
     numbers, with every device's, the faulted replays' and the multi-host
     replays' beside them."""
@@ -1709,7 +2061,8 @@ def scan_row(scan: dict, faults: dict, multi: dict, n: int) -> dict:
         "replaces": SCAN_REPLACES,
         "launches": sum(scan["launches"].values())
         + sum(run["launches"] for run in faults.values())
-        + sum(run["launches"] for run in multi.values()),
+        + sum(run["launches"] for run in multi.values())
+        + sum(run["launches"] for run in stream.values()),
         "max_abs_err": 0, "tolerance": 0,
         "ms": scan["kernel_ms"][main], "plain_ms": scan["plain_ms"][main],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1730,6 +2083,10 @@ def scan_row(scan: dict, faults: dict, multi: dict, n: int) -> dict:
             "column_s") + (("plain_ms",) if "plain_ms" in run else ())}
             for name, run in multi.items()},
         "multihost_replaces": MULTI_REPLACES,
+        "resumable": True,
+        "streamed": {name: {k: run[k] for k in (
+            "launches", "kernel_ms", "wall_s", "host_s", "peak_bytes")
+            if k in run} for name, run in stream.items()},
     }
 
 
@@ -2599,6 +2956,7 @@ def main() -> int:
     assoc_phase(torch, trace, scan)
     multi = multihost_phase(torch, args.seed, smem_cycles, sm_clock_mhz,
                             int32_ops_per_s)
+    stream = stream_phase(torch, trace, scan, args.seed)
 
     # kernels line -------------------------------------------------------
     rows = []
@@ -2622,7 +2980,8 @@ def main() -> int:
         })
     print(card, flush=True)
     print(json.dumps({"kernels": rows + serve_rows + [
-        prefill_row, scan_row(scan, faults, multi, n)]}), flush=True)
+        prefill_row, scan_row(scan, faults, multi, n, stream)]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

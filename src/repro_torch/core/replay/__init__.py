@@ -20,12 +20,18 @@
   media on a single route, certified Kleene iteration over closed-form
   prefix scans (:func:`busy_until`, :func:`port_busy_until`, from
   :mod:`repro_torch.core.maxplus`) on an explicit torch device.
+* :func:`replay_stream` — the scan lane straight from an on-disk
+  :class:`~repro_torch.data.trace_store.TraceStore`, one ``replay_scan``
+  launch a chunk resuming the carry the last one left on the device, with
+  bounded outputs (``return_latencies=False``) and crash-safe checkpoints
+  (``ReplayEngine.run_arrays(chunk_size=)`` and
+  ``MultiHostReplay.run(chunk_size=)`` chunk an in-memory trace alike).
 * :mod:`repro_torch.core.replay.cuda_engine` — the cached CXL-SSD kernel
   lane (``engine="cuda"``, analytic latency).
 
-The sweep and streaming lanes are later slices (ROADMAP Queue A items 11
-and 12).  Importing this package loads no torch: the state
-layer's names load it on first use.
+The sweep lanes are a later slice (ROADMAP Queue A item 11).  Importing
+this package loads no torch: the state layer's names load it on first
+use.
 """
 
 import importlib
@@ -35,6 +41,7 @@ from repro_torch.core.replay.assoc import AssocReplayEngine
 from repro_torch.core.replay.engine import ReplayEngine, ReplayResult
 from repro_torch.core.replay.metrics import MetricsBundle, MetricsSpec
 from repro_torch.core.replay.multihost import MultiHostReplay
+from repro_torch.core.replay.stream import replay_stream
 from repro_torch.core.replay.spec import (
     ReplayUnsupported,
     StackConfig,
@@ -72,6 +79,7 @@ __all__ = [
     "media_stack",
     "media_step",
     "port_busy_until",
+    "replay_stream",
     "require_metrics_lane",
     "step",
     "trace_to_arrays",

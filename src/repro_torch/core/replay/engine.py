@@ -35,8 +35,18 @@ selection the python driver uses; poison as bit 6 of the flags, from
 counters (in the metrics bundle), the per-access poison flags and, under
 transport faults, the availability series.
 
-Cut from this lane, refused with :class:`ReplayUnsupported`: streaming
-(``chunk_size``, ``return_latencies=False``, ROADMAP Queue A item 12).
+Streaming: ``chunk_size=`` replays the trace as a sequence of launches,
+one a chunk, that carry the whole replay state from one to the next on
+the replay's device (:class:`repro_torch.kernels.replay_scan.Carry`; a
+ragged last chunk is shorter, never padded into the state), equal to the
+one-launch replay at any chunk size.  ``return_latencies=False`` keeps no
+per-access outputs: each chunk folds into O(buckets + windows)
+accumulators on the device (:class:`~repro_torch.core.replay.metrics.
+StreamFold`).  :meth:`ReplayEngine.run_store` streams straight from an
+on-disk :class:`~repro_torch.data.trace_store.TraceStore`, building the
+route and fault columns chunk by chunk, and hands out a snapshot of the
+whole resumable state after each chunk
+(:func:`repro_torch.core.replay.stream.replay_stream` checkpoints it).
 
 Ticks are int64 (1 tick = 1 ps); int32 would overflow after 2.1 ms of
 simulated time.  Nothing here imports torch until a replay runs, so the
@@ -46,6 +56,7 @@ python lane stays torch-free.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -113,9 +124,14 @@ class _FaultColumnBuilder:
     not have, occupancy and extra, with a CXL-DRAM's private hop at the
     last column), per access the path id and one retry count a hop;
     :func:`expand_fault_codes` turns it into the JAX package's five hop
-    columns."""
+    columns.  The path table depends on the plan's down segments only, so
+    columns for any ordinal range come without the rest of the trace:
+    a streamed run builds them chunk by chunk, and the accumulated
+    totals round-trip through :meth:`state` / :meth:`load_state` so a
+    checkpointed run resumes mid-trace."""
 
-    def __init__(self, device, plan, size: int, n: int) -> None:
+    def __init__(self, device, plan, size: int, n: int,
+                 keep_flags: bool = True) -> None:
         from repro_torch.core.devices import CXLDRAMDevice
 
         self.fab = device.fabric
@@ -123,6 +139,7 @@ class _FaultColumnBuilder:
         self.host, self.node = device.host, device.device_node
         self.size = int(size)
         self.n = int(n)
+        self.keep_flags = keep_flags
         fab = self.fab
         segs = (plan.down_segments(self.n) if plan.has_down
                 else [(0, self.n, frozenset())])
@@ -160,8 +177,8 @@ class _FaultColumnBuilder:
         self._link_retries = 0
         self._failovers = 0
         self._degraded = 0
-        self._deg = np.zeros(0, bool)
-        self._fo = np.zeros(0, bool)
+        self._deg_parts: List[np.ndarray] = []
+        self._fo_parts: List[np.ndarray] = []
 
     def path_table(self) -> Dict[str, np.ndarray]:
         """``hop_port`` (int32, -1 where the path has no such hop),
@@ -181,11 +198,12 @@ class _FaultColumnBuilder:
                 occ[i, H - 1], after[i, H - 1] = self._ih[0][1:]
         return {"hop_port": port, "hop_occ": occ, "hop_after": after}
 
-    def columns(self, addrs: np.ndarray) -> Dict[str, np.ndarray]:
-        """The hops of every access of ``addrs`` (ordinals from 0) as the
-        compact code: ``path`` (int32) and ``retries`` (uint8, accesses x
-        hops).  Updates the port / ECMP / counter totals and the
-        per-access degraded / failover flags."""
+    def columns(self, addrs: np.ndarray, lo: int = 0) -> Dict[str, np.ndarray]:
+        """The hops of the accesses ``addrs``, ordinals ``[lo, lo +
+        len(addrs))``, as the compact code: ``path`` (int32) and
+        ``retries`` (uint8, accesses x hops).  Updates the port / ECMP /
+        counter totals and (with ``keep_flags``) the per-access degraded
+        / failover flags."""
         from repro_torch.core.fabric.fabric import LINE_BYTES
         from repro_torch.core.fabric.routing import flow_hash
 
@@ -198,8 +216,9 @@ class _FaultColumnBuilder:
         deg = np.zeros(m, bool)
         fo = np.zeros(m, bool)
         for r in range(m):
+            j = lo + r
             line_addr = int(addrs[r]) // LINE_BYTES
-            path, dg, fv = fab.select_faulted(host, node, line_addr, r)
+            path, dg, fv = fab.select_faulted(host, node, line_addr, j)
             if dg:
                 deg[r] = True
                 self._degraded += 1
@@ -215,7 +234,7 @@ class _FaultColumnBuilder:
             key = tuple(path)
             path_ids[r] = self._path_id[key]
             for h, (pk, occ, _) in enumerate(self._occ[key]):
-                rt = plan.link_retries(pk, r) if plan.has_link else 0
+                rt = plan.link_retries(pk, j) if plan.has_link else 0
                 if rt > MAX_RETRY_CODE:
                     raise ReplayUnsupported(
                         f"{rt} link retries on one hop exceed the scan "
@@ -226,7 +245,9 @@ class _FaultColumnBuilder:
                 retries[r, h] = rt
                 self._pkts[i] += 1
                 self._occt[i] += occ * (1 + rt)
-        self._deg, self._fo = deg, fo
+        if self.keep_flags:
+            self._deg_parts.append(deg)
+            self._fo_parts.append(fo)
         return {"path": path_ids, "retries": retries}
 
     @property
@@ -246,8 +267,39 @@ class _FaultColumnBuilder:
         }
 
     def flags(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Per-access ``(degraded, failover)`` availability flags."""
-        return self._deg, self._fo
+        """Per-access ``(degraded, failover)`` availability flags over
+        every ordinal range built so far (empty without ``keep_flags``)."""
+        if not self._deg_parts:
+            z = np.zeros(0, bool)
+            return z, z
+        return (np.concatenate(self._deg_parts),
+                np.concatenate(self._fo_parts))
+
+    # ------------------------------------------------- checkpoint support
+    def state(self) -> Dict:
+        """The accumulated totals and flags as flat arrays."""
+        deg, fo = self.flags()
+        return {"pkts": self._pkts.copy(), "occt": self._occt.copy(),
+                "ecmp": {k: np.asarray(v, np.int64)
+                         for k, v in self._ecmp.items()},
+                "counters": np.asarray(
+                    [self._link_retries, self._failovers, self._degraded],
+                    np.int64),
+                "deg": deg, "fo": fo}
+
+    def load_state(self, st: Dict) -> None:
+        self._pkts = np.asarray(st["pkts"], np.int64).copy()
+        self._occt = np.asarray(st["occt"], np.int64).copy()
+        self._ecmp = {k: [int(x) for x in np.asarray(v)]
+                      for k, v in st["ecmp"].items()}
+        c = np.asarray(st["counters"], np.int64)
+        self._link_retries = int(c[0])
+        self._failovers = int(c[1])
+        self._degraded = int(c[2])
+        deg = np.asarray(st["deg"], bool)
+        fo = np.asarray(st["fo"], bool)
+        self._deg_parts = [deg.copy()] if deg.size else []
+        self._fo_parts = [fo.copy()] if fo.size else []
 
 
 def expand_fault_codes(table: Dict[str, np.ndarray], path: np.ndarray,
@@ -330,6 +382,31 @@ class ReplayEngine:
             plan = None
         return plan
 
+    def _stack(self, n: int, max_addr: int, size: int, keep_flags=True):
+        """``(cfg, params, builder)`` of a replay of ``n`` accesses below
+        ``max_addr``: under transport faults a :class:`_FaultColumnBuilder`
+        whose path table replaces the static route tensors (raises
+        DeviceUnreachable exactly where the python driver would), else
+        ``None``."""
+        cfg, params = build_stack(
+            self.device, size=size, outstanding=self.outstanding,
+            issue_overhead_ns=self.issue_overhead_ns,
+            posted_writes=self.posted_writes, n_accesses=n,
+            max_addr=max_addr, counters=self.metrics is not None)
+        plan = self._active_plan()
+        if (plan is None or not (plan.has_link or plan.has_down)
+                or not isinstance(self.device, FabricAttachedDevice)):
+            return cfg, params, None
+        builder = _FaultColumnBuilder(self.device, plan, size, n,
+                                      keep_flags=keep_flags)
+        qp = tuple(i for i, key in enumerate(builder.port_keys)
+                   if self.device.fabric.ports[key].qos_enabled)
+        cfg = dataclasses.replace(cfg, fault_hops=True,
+                                  num_hops=builder.num_hops,
+                                  num_ports=builder.num_ports,
+                                  num_routes=1, qos_ports=qp)
+        return cfg, {**params, **builder.path_table()}, builder
+
     def prepare(self, addrs: np.ndarray, *, size: int = 64):
         """The replay's inputs besides the trace: ``(cfg, params, routes,
         retries, builder)``.  ``routes`` is the per-access ECMP route or,
@@ -337,37 +414,15 @@ class ReplayEngine:
         route); ``retries`` the faulted lane's retry bytes (uint8 numpy,
         accesses x hops, else ``None``) and ``builder`` its
         :class:`_FaultColumnBuilder` (its path table in ``params``)."""
-        import time
-
         addrs = np.asarray(addrs, np.int64)
-        cfg, params = build_stack(
-            self.device, size=size, outstanding=self.outstanding,
-            issue_overhead_ns=self.issue_overhead_ns,
-            posted_writes=self.posted_writes, n_accesses=addrs.size,
-            max_addr=int(addrs.max(initial=0)),
-            counters=self.metrics is not None)
-        plan = self._active_plan()
+        cfg, params, builder = self._stack(
+            int(addrs.size), int(addrs.max(initial=0)), size)
         self.last_column_seconds = 0.0
-        if (plan is not None and (plan.has_link or plan.has_down)
-                and isinstance(self.device, FabricAttachedDevice)):
-            # transport faults: a path table replaces the static route
-            # tensors, and each access carries its path and retry bytes
-            # (raises DeviceUnreachable exactly where the python driver
-            # would)
+        if builder is not None:
             t0 = time.perf_counter()
-            builder = _FaultColumnBuilder(self.device, plan, size,
-                                          int(addrs.size))
             code = builder.columns(addrs)
             self.last_column_seconds = time.perf_counter() - t0
-            qp = tuple(
-                i for i, key in enumerate(builder.port_keys)
-                if self.device.fabric.ports[key].qos_enabled)
-            cfg = dataclasses.replace(cfg, fault_hops=True,
-                                      num_hops=builder.num_hops,
-                                      num_ports=builder.num_ports,
-                                      num_routes=1, qos_ports=qp)
-            return (cfg, {**params, **builder.path_table()}, code["path"],
-                    code["retries"], builder)
+            return cfg, params, code["path"], code["retries"], builder
         routes = None
         if cfg.num_routes > 1:
             routes = access_route_choices(self.device, addrs).astype(
@@ -386,16 +441,39 @@ class ReplayEngine:
 
         addrs = np.asarray(addrs, np.int64)
         writes = np.asarray(writes, bool)
-        self._common_refusals(int(addrs.size), start_tick)
+        n = int(addrs.size)
+        self._common_refusals(n, start_tick)
         if chunk_size is not None and int(chunk_size) < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size!r}")
         # build_stack's refusals come first, as in the reference
         cfg, params, routes, retries, builder = self.prepare(addrs, size=size)
+        plan = self._active_plan()
+        poisoned = None
+        if plan is not None and plan.has_poison:
+            poisoned = plan.poisoned_np(0, np.arange(n, dtype=np.int64),
+                                        writes)
+        # the bundle reconstructs the ports from the ECMP choices; a path
+        # id is no route
+        port_routes = None if builder else routes
         if chunk_size is not None or not return_latencies:
-            raise ReplayUnsupported(
-                "streaming replay (chunk_size=, return_latencies=False) is "
-                "not ported yet (ROADMAP Queue A item 12); use "
-                "engine='python' or replay the whole trace")
+            chunk = n if chunk_size is None else int(chunk_size)
+
+            def feed():
+                for lo in range(0, n, chunk):
+                    hi = min(lo + chunk, n)
+                    yield lo, hi, {
+                        "addr": addrs[lo:hi], "wr": writes[lo:hi],
+                        "route": None if routes is None else routes[lo:hi],
+                        "retries": (None if retries is None
+                                    else retries[lo:hi])}
+
+            out = self._stream(cfg, params, feed(), n=n, size=size,
+                               start_tick=start_tick,
+                               want_lat=bool(return_latencies))
+            return self._finish(cfg, size=size, start_tick=start_tick,
+                                writes=writes, poisoned=poisoned, plan=plan,
+                                builder=builder, n=n, routes=port_routes,
+                                **out)
         dev = _td.resolve(self.torch_device)
 
         def on_card(x):
@@ -406,30 +484,222 @@ class ReplayEngine:
             cfg, params, state, on_card(addrs), on_card(writes),
             on_card(routes), start_tick=start_tick,
             retries=on_card(retries))
-        return self._finish(cfg, state, size=size, start_tick=start_tick,
+        return self._finish(cfg, state=state, size=size,
+                            start_tick=start_tick,
                             issues=issues.cpu().numpy(),
                             dones=dones.cpu().numpy(),
                             flags=flags.cpu().numpy(),
                             qacc=qacc.cpu().numpy(), qthr=qthr.cpu().numpy(),
-                            writes=writes,
-                            routes=None if builder else routes,
-                            plan=self._active_plan(), builder=builder)
+                            writes=writes, poisoned=poisoned, plan=plan,
+                            builder=builder, routes=port_routes)
+
+    def run_store(self, store, *, chunk_size: int, start_tick: int = 0,
+                  return_latencies: bool = True, chunk_iter=None,
+                  resume_state: Optional[Dict] = None,
+                  on_chunk=None) -> ReplayResult:
+        """Streaming replay from an on-disk columnar trace
+        (:class:`~repro_torch.data.trace_store.TraceStore`, or anything
+        duck-typed like one: ``n``, ``size``, ``max_addr``, ``writes()``
+        and ``chunks(chunk_size, start=...)``).  Input residency is
+        O(chunk): each chunk's columns (optionally through a prefetching
+        ``chunk_iter``; see :func:`repro_torch.core.replay.stream.
+        replay_stream`) go to the device for one launch, and the carry
+        stays there.  With ``return_latencies=True`` the per-access
+        *outputs* are still materialized (inherently O(trace)); pass
+        ``return_latencies=False`` for bounded memory end to end.
+
+        Every active fault class streams, transport included: the ECMP
+        choices, the hop code (:class:`_FaultColumnBuilder`) and the
+        poison status are built chunk by chunk from the absolute access
+        ordinals, equal to the one-shot lane.
+
+        ``on_chunk(seen, snapshot)`` fires after each chunk lands;
+        ``snapshot()`` captures the whole resumable state (the carry, the
+        stack state, the streaming accumulators, the per-access output
+        parts, the feed's accumulators) as host numpy.  Passing a
+        captured snapshot back as ``resume_state`` (with ``chunk_iter``
+        starting at ``resume_state['seen']``, or ``None`` to let the store
+        seek) continues the run bit-exactly."""
+        from repro_torch.core.fabric.fabric import LINE_BYTES
+        from repro_torch.core.fabric.routing import flow_choices
+
+        n = int(store.n)
+        size = int(store.size)
+        chunk = int(chunk_size)
+        if chunk < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size!r}")
+        self._common_refusals(n, start_tick)
+        want_lat = bool(return_latencies)
+        plan = self._active_plan()
+        cfg, params, builder = self._stack(n, int(store.max_addr), size,
+                                           keep_flags=want_lat)
+        K = 0
+        route_counts = None
+        if cfg.num_routes > 1:
+            K = len(self.device.fabric.paths(self.device.host,
+                                             self.device.device_node))
+            route_counts = np.zeros(K, np.int64)
+        has_poison = plan is not None and plan.has_poison
+        feed_state = {"psum": 0, "poison_parts": []}
+        seen0 = 0
+        if resume_state is not None:
+            seen0 = int(resume_state["seen"])
+            if not 0 <= seen0 <= n:
+                raise ValueError(
+                    f"resume cursor {seen0} outside trace of {n} accesses")
+            feed_state["psum"] = int(resume_state.get("psum", 0))
+            feed_state["poison_parts"] = [
+                np.asarray(x, bool)
+                for x in resume_state.get("poison_parts", [])]
+            if route_counts is not None and \
+                    resume_state.get("route_counts") is not None:
+                route_counts[:] = np.asarray(resume_state["route_counts"])
+            if builder is not None and \
+                    resume_state.get("builder") is not None:
+                builder.load_state(resume_state["builder"])
+        if chunk_iter is not None:
+            src = chunk_iter
+        elif seen0:
+            src = store.chunks(chunk, start=seen0)
+        else:
+            src = store.chunks(chunk)   # duck-typed stores may lack start=
+
+        def feed():
+            for lo, hi, cols in src:
+                d = {"addr": np.asarray(cols["addr"], np.int64),
+                     "wr": np.asarray(cols["wr"], bool),
+                     "route": None, "retries": None}
+                if builder is not None:
+                    code = builder.columns(d["addr"], lo)
+                    d["route"], d["retries"] = code["path"], code["retries"]
+                elif route_counts is not None:
+                    r = flow_choices(self.device.host,
+                                     self.device.device_node,
+                                     d["addr"] // LINE_BYTES, K)
+                    route_counts[:] += np.bincount(r, minlength=K)
+                    d["route"] = np.asarray(r, np.int32)
+                if has_poison:
+                    pz = plan.poisoned_np(
+                        0, np.arange(lo, hi, dtype=np.int64), d["wr"])
+                    feed_state["psum"] += int(pz.sum())
+                    if want_lat:
+                        feed_state["poison_parts"].append(pz)
+                yield lo, hi, d
+
+        def feed_snapshot():
+            # the feed builds columns lazily, one pulled chunk at a time,
+            # so its accumulators are in step with the carry
+            return {"psum": int(feed_state["psum"]),
+                    "route_counts": (None if route_counts is None
+                                     else route_counts.copy()),
+                    "poison_parts": list(feed_state["poison_parts"]),
+                    "builder": (builder.state() if builder is not None
+                                else None)}
+
+        out = self._stream(
+            cfg, params, feed(), n=n, size=size, start_tick=start_tick,
+            want_lat=want_lat, resume_state=resume_state, on_chunk=on_chunk,
+            feed_snapshot=feed_snapshot)
+        return self._finish(
+            cfg, size=size, start_tick=start_tick,
+            writes=(store.writes() if self.metrics is not None and want_lat
+                    else None),
+            routes=None, plan=plan, builder=builder,
+            poisoned=(np.concatenate(feed_state["poison_parts"])
+                      if has_poison and want_lat else None),
+            poison_total=feed_state["psum"] if has_poison else None,
+            n=n, route_counts=route_counts, **out)
+
+    def _stream(self, cfg, params, feed, *, n, size, start_tick, want_lat,
+                resume_state=None, on_chunk=None, feed_snapshot=None
+                ) -> Dict:
+        """The chunk loop of every streamed replay: one ``replay_scan``
+        launch a chunk of ``feed`` (``(lo, hi, columns)`` in order,
+        covering the accesses from the resume point to ``n``) through one
+        carry and one stack state on the replay's device, the outputs
+        kept as host parts (``want_lat``) or folded into a
+        :class:`~repro_torch.core.replay.metrics.StreamFold`.  Returns
+        :meth:`_finish`'s replay arguments: the final ``state``, the
+        port totals and the outputs or the ``fold``."""
+        import torch
+
+        from repro_torch import torch_device as _td
+        from repro_torch.core.replay import stack
+        from repro_torch.core.replay.metrics import StreamFold
+        from repro_torch.kernels import replay_scan as rs
+
+        dev = _td.resolve(self.torch_device)
+        state = stack.init_state(cfg, dev)
+        carry = rs.new_carry(cfg, params, dev, start_tick)
+        fold = (None if want_lat else
+                StreamFold(self.metrics, cfg.kind, dev, size=size,
+                           start_tick=start_tick))
+        parts: List[Tuple[np.ndarray, ...]] = []
+        if resume_state is not None:
+            _restore(resume_state["carry"], state, carry, fold)
+            if want_lat:
+                parts = [tuple(np.asarray(a) for a in t)
+                         for t in resume_state["parts"]]
+        seen = carry.seen
+
+        def on_card(x):
+            return None if x is None else torch.from_numpy(
+                np.ascontiguousarray(x)).to(dev)
+
+        for lo, hi, cols in feed:
+            if not 0 < hi - lo or lo != seen:
+                raise AssertionError(
+                    f"chunk iterator out of order: [{lo}, {hi}) after {seen}")
+            w = on_card(cols["wr"])
+            iss, dn, fl, _, _ = rs.replay_scan(
+                cfg, params, state, on_card(cols["addr"]), w,
+                on_card(cols["route"]), start_tick=start_tick,
+                retries=on_card(cols["retries"]), carry=carry)
+            if want_lat:
+                parts.append((iss.cpu().numpy(), dn.cpu().numpy(),
+                              fl.cpu().numpy()))
+            else:
+                fold.update(iss, dn, fl, w)
+            seen = hi
+            if on_chunk is not None:
+                on_chunk(seen, lambda: {
+                    "seen": seen,
+                    "carry": _carry_leaves(state, carry, fold),
+                    "parts": list(parts),
+                    **(feed_snapshot() if feed_snapshot else {})})
+        if seen != n:
+            raise AssertionError(
+                f"chunk iterator produced {seen} of {n} accesses")
+
+        qacc, qthr = rs.carry_ports(cfg, carry)
+        issues = dones = flags = None
+        if want_lat:
+            issues, dones, flags = (np.concatenate([t[j] for t in parts])
+                                    for j in range(3))
+        return dict(state=state, issues=issues, dones=dones, flags=flags,
+                    qacc=qacc, qthr=qthr, fold=fold)
 
     # post-processing: health check, poison bit, fault counters, metrics
-    # bundle, availability, result assembly
-    def _finish(self, cfg, state, *, size, start_tick, issues, dones, flags,
-                qacc, qthr, writes, routes, plan, builder):
+    # bundle, availability, result assembly (one-shot, chunked and
+    # store-streamed alike)
+    def _finish(self, cfg, *, state, size, start_tick, issues, dones, flags,
+                qacc, qthr, writes, routes, plan, builder, poisoned=None,
+                poison_total=None, fold=None, n=None, route_counts=None):
+        from repro_torch.core.replay import metrics as _metrics
         from repro_torch.core.replay import stack
 
         bad, gcs = stack.flash_health(state)
-        if self.metrics is None:
-            flags = flags & 3            # event bits ride only with metrics
-        poisoned = None
-        if plan is not None and plan.has_poison:
-            # status bit only: the histogram and media folds read bits 0-5
-            poisoned = plan.poisoned_np(
-                0, np.arange(issues.size, dtype=np.int64), writes)
-            flags = flags | (poisoned.astype(np.int32) << POISON_BIT)
+        want_lat = fold is None
+        n = int(issues.size) if n is None else n
+        if want_lat:
+            if self.metrics is None:
+                flags = flags & 3        # event bits ride only with metrics
+            if poisoned is not None:
+                # status bit only: the histogram and media folds read
+                # bits 0-5
+                flags = flags | (poisoned.astype(np.int32) << POISON_BIT)
+        if poison_total is None and poisoned is not None:
+            poison_total = int(poisoned.sum())
         fdict = None
         if plan is not None:
             rr, rb = stack.fault_counters(state)
@@ -438,43 +708,97 @@ class ReplayEngine:
             if builder is not None:
                 fdict.update(builder.fstats)
             fdict.update(nand_read_retries=rr, retired_blocks=rb,
-                         poisoned_reads=int(poisoned.sum())
-                         if poisoned is not None else 0)
+                         poisoned_reads=poison_total or 0)
         mb = None
         if self.metrics is not None:
-            from repro_torch.core.replay import metrics as _metrics
-            mb = _metrics.bundle_single_deferred(
-                self.metrics, self.device, cfg, issues, dones, flags,
-                writes, qacc, stack.flash_counters(state), routes, size,
-                qthr=qthr, faults=fdict,
-                faulted=builder.faulted() if builder is not None else None)
+            common = dict(qthr=qthr, faults=fdict,
+                          faulted=(builder.faulted() if builder is not None
+                                   else None),
+                          route_counts=route_counts)
+            if want_lat:
+                mb = _metrics.bundle_single_deferred(
+                    self.metrics, self.device, cfg, issues, dones, flags,
+                    writes, qacc, stack.flash_counters(state), routes, size,
+                    **common)
+            else:
+                mb = _metrics.bundle_single_fused(
+                    self.metrics, self.device, cfg, fold.acc.cpu().numpy(),
+                    fold.med.cpu().numpy(), qacc,
+                    stack.flash_counters(state), routes, n, size, **common)
         if bad:
             raise ReplayUnsupported(
                 "FTL ran out of free blocks during GC (device overfilled) — "
                 "the interpreted path raises there too; shrink the trace or "
                 "use engine='python' for the exact error")
         avail = None
-        if builder is not None:
-            from repro_torch.core.replay import metrics as _metrics
+        if builder is not None and want_lat:
             deg, fo = builder.flags()
             avail = _metrics.availability_series(
                 issues, dones, deg, fo, spec=self.metrics,
                 start_tick=start_tick)
-        n = int(issues.size)
-        first = int(issues[0])
-        last = max(int(dones.max(initial=0)), start_tick)
+        if want_lat:
+            first = int(issues[0])
+            last = max(int(dones.max(initial=0)), start_tick)
+            lat_sum = int((dones - issues).sum())
+        else:
+            first, last, lat_sum = (int(fold.first[0]), int(fold.last[0]),
+                                    int(fold.sum[0]))
+            last = max(last, start_tick)
         return ReplayResult(
             accesses=n,
             bytes_moved=n * size,
             elapsed_ticks=last - first,
-            sum_latency_ticks=int((dones - issues).sum()),
+            sum_latency_ticks=lat_sum,
             end_tick=last,
-            latency_ticks=dones - issues,
-            hit_flags=(flags & 1).astype(bool),
-            evict_flags=(flags & 2).astype(bool),
+            latency_ticks=dones - issues if want_lat else None,
+            hit_flags=(flags & 1).astype(bool) if want_lat else None,
+            evict_flags=(flags & 2).astype(bool) if want_lat else None,
             gc_runs=gcs,
             poison_flags=(((flags >> POISON_BIT) & 1).astype(bool)
-                          if poisoned is not None else None),
+                          if want_lat and poisoned is not None else None),
             availability=avail,
             metrics=mb,
         )
+
+
+# ------------------------------------------------------------ resumption
+def _carry_leaves(state: Dict, carry, fold) -> Dict[str, np.ndarray]:
+    """The whole resumable state of a streamed replay as host arrays, by
+    name: the carry, the stack state's tensors and the streaming
+    accumulators."""
+    out = {f"scan/{k}": v for k, v in carry.leaves().items()}
+    for part in ("media", "flash"):
+        for k, v in (state[part] or {}).items():
+            out[f"state/{part}/{k}"] = v.cpu().numpy()
+    if fold is not None:
+        out.update({f"fold/{k}": v for k, v in fold.leaves().items()})
+    return out
+
+
+def _restore(flat: Dict[str, np.ndarray], state: Dict, carry, fold) -> None:
+    """Load a snapshot's carry leaves (:func:`_carry_leaves`) into a fresh
+    ``state`` / ``carry`` / ``fold``, leaf by leaf against their names and
+    shapes, so that a snapshot of another replay configuration fails
+    loudly, never silently."""
+    import torch
+
+    template = _carry_leaves(state, carry, fold)
+    for key, tmpl in template.items():
+        arr = flat.get(key)
+        if arr is None:
+            raise KeyError(f"resume state missing carry leaf {key!r}")
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(tmpl.shape):
+            raise ValueError(
+                f"resume carry leaf {key!r} has shape {arr.shape}, "
+                f"expected {tuple(tmpl.shape)} — snapshot from a "
+                "different replay configuration?")
+    for part in ("media", "flash"):
+        for k, v in (state[part] or {}).items():
+            v.copy_(torch.from_numpy(np.asarray(
+                flat[f"state/{part}/{k}"]).astype(template[
+                    f"state/{part}/{k}"].dtype)))
+    carry.load({k: np.asarray(flat[f"scan/{k}"]) for k in ("words", "maps")})
+    if fold is not None:
+        fold.load({k[len("fold/"):]: np.asarray(v) for k, v in flat.items()
+                   if k.startswith("fold/")})

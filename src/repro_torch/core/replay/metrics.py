@@ -25,8 +25,12 @@ QoS-throttle totals, and :func:`bundle_multi_deferred` from the
 multi-host replay's per-step ``(who, issue, done, flags)`` columns; the
 golden pins hold them equal.  Per-port byte/packet/occupancy totals are
 pure functions of the route choices, so they are reconstructed on the
-host with numpy.  The streaming accumulators come with the streaming
-lane (ROADMAP Queue A item 12).
+host with numpy.  A streamed replay that keeps no per-access outputs
+(``return_latencies=False``) folds each chunk's columns on the replay's
+device into O(buckets + windows) int64 accumulators (:class:`StreamFold`,
+the JAX package's in-scan ``acc_update`` / ``media_increments``, the same
+integers by construction), which :func:`bundle_single_fused` and
+:func:`bundle_multi_fused` turn into the bundle.
 
 Histogram bucketing: values below 8 index themselves (exact small-latency
 buckets); otherwise with ``e = bit_length(v) - 1`` the index is
@@ -36,7 +40,8 @@ two, continuous across octave boundaries.  :func:`bucket_index` derives
 208 (indices above that are only reachable past 2^53 ticks ~ 100 days of
 simulated time).
 
-Numpy only: the python lane collects metrics without torch.
+Numpy only at import: the python lane collects metrics without torch;
+the streaming fold loads it on first use.
 """
 
 from __future__ import annotations
@@ -203,6 +208,172 @@ def media_from_flags(kind: str, writes, flags) -> np.ndarray:
     else:
         raise ValueError(kind)
     return np.asarray(cols, np.int64)
+
+
+# ------------------------------------------------- streaming accumulators
+BIG_TICK = 1 << 62          # an empty host's first issue (never below it)
+
+
+def bucket_index_torch(lat, num_buckets: int):
+    """torch twin of :func:`bucket_index` (and of the JAX package's
+    ``clz``-based ``bucket_index_jnp``), exact at any int64: the bit
+    length comes from a binary search over shifts, not from a float."""
+    import torch
+
+    v = torch.clamp(lat.to(torch.int64), min=0)
+    vv = torch.clamp(v, min=1)
+    e = torch.zeros_like(vv)                         # bit_length(vv) - 1
+    for shift in (32, 16, 8, 4, 2, 1):
+        e = torch.where((vv >> (e + shift)) > 0, e + shift, e)
+    sub = (vv >> torch.clamp(e - 2, min=0)) & 3
+    idx = torch.where(v < 8, v, 4 * e + sub - 4)
+    return torch.clamp(idx, max=num_buckets - 1)
+
+
+def acc_rows(spec: MetricsSpec, n_hosts: int, n_devs: int) -> int:
+    """Row count of the combined accumulator: per-host histogram +
+    windows, plus a per-device histogram block when devices != hosts."""
+    rows = n_hosts * (spec.hist_buckets + spec.num_windows)
+    if n_devs > 1:
+        rows += n_devs * spec.hist_buckets
+    return rows
+
+
+def split_acc(spec: MetricsSpec, acc, n_hosts: int, n_devs: int):
+    """Decode the combined accumulator into ``(hist (H,NB), windows
+    (H,W,4), dev_hist (D,NB))`` numpy arrays."""
+    NB, W = spec.hist_buckets, spec.num_windows
+    acc = np.asarray(acc)
+    per = acc[:n_hosts * (NB + W)].reshape(n_hosts, NB + W, 4)
+    hist = per[:, :NB, 0].copy()
+    windows = per[:, NB:, :].copy()
+    if n_devs > 1:
+        dev_hist = acc[n_hosts * (NB + W):].reshape(n_devs, NB, 4)[:, :, 0]
+        dev_hist = dev_hist.copy()
+    else:
+        dev_hist = hist.sum(axis=0, keepdims=True)
+    return hist, windows, dev_hist
+
+
+def media_increments(kind: str, wr, flags):
+    """Per-access increments of :data:`MEDIA_COUNTERS`\\ [kind] (int64,
+    accesses x counters) from the write column and the flags word's
+    event bits: the torch form of the JAX package's ``media_increments``,
+    summed by :func:`media_from_flags`."""
+    import torch
+
+    wr = wr.to(torch.bool)
+    one = torch.ones_like(flags, dtype=torch.int64)
+
+    def bit(b):
+        return (flags >> b) & 1
+
+    rd, wrt = (~wr).to(torch.int64), wr.to(torch.int64)
+    if kind == DRAM:
+        cols = [one, rd, wrt]
+    elif kind == PMEM:
+        cols = [one, rd, wrt, bit(0)]
+    elif kind == SSD_BUF:
+        fill = bit(2).to(torch.bool)
+        cols = [one, rd, wrt, bit(0), (fill & ~wr).to(torch.int64),
+                (fill & wr).to(torch.int64), bit(1)]
+    elif kind == SSD_CACHE:
+        miss = bit(2)
+        cols = [one, rd, wrt, bit(0), miss, bit(3), bit(4), miss, bit(1),
+                bit(5), bit(1)]
+    else:
+        raise ValueError(kind)
+    return torch.stack([c.to(torch.int64) for c in cols], dim=-1)
+
+
+class StreamFold:
+    """The streaming accumulators of a replay that keeps no per-access
+    outputs, on the replay's device: the combined histogram / window
+    accumulator of :func:`acc_rows` rows (``acc``, none without a spec),
+    the media counters a device (``med``) and a host each the first issue,
+    last completion, latency sum and step count.  :meth:`update` folds
+    one chunk's columns in: ``bincount`` / ``index_add_`` on int64, the
+    same integers as the JAX package's per-access ``acc_update`` in any
+    chunking."""
+
+    def __init__(self, spec: Optional[MetricsSpec], kind: str, device, *,
+                 n_hosts: int = 1, n_devs: int = 1, size: int = 64,
+                 start_tick: int = 0) -> None:
+        import torch
+
+        self.spec, self.kind, self.size = spec, kind, int(size)
+        self.n_hosts, self.n_devs = n_hosts, n_devs
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=device)
+
+        self.acc = (z(acc_rows(spec, n_hosts, n_devs), 4)
+                    if spec is not None else z(0, 4))
+        self.med = z(n_devs, len(MEDIA_COUNTERS[kind]))
+        self.first = torch.full((n_hosts,), BIG_TICK, dtype=torch.int64,
+                                device=device)
+        self.last = torch.full((n_hosts,), int(start_tick),
+                               dtype=torch.int64, device=device)
+        self.sum = z(n_hosts)
+        self.cnt = z(n_hosts)
+
+    def leaves(self) -> Dict[str, np.ndarray]:
+        """The accumulators as host arrays (a checkpoint's leaves)."""
+        return {k: getattr(self, k).cpu().numpy()
+                for k in ("acc", "med", "first", "last", "sum", "cnt")}
+
+    def load(self, leaves: Dict[str, np.ndarray]) -> None:
+        import torch
+
+        for k, v in leaves.items():
+            getattr(self, k).copy_(torch.from_numpy(np.asarray(v)))
+
+    def update(self, issues, dones, flags, writes, host=None,
+               dev=None) -> None:
+        """Fold one chunk: per-access ``issues`` / ``dones`` (int64),
+        ``flags`` (int32, event bits included) and ``writes`` (bool), and
+        for a multi-host replay each step's ``host`` and media ``dev``
+        (int64; ``None`` is host 0, device 0)."""
+        import torch
+
+        lat = dones - issues
+        H = self.n_hosts
+        if host is None:
+            self.first[0] = torch.minimum(self.first[0], issues.min())
+            self.last[0] = torch.maximum(self.last[0], dones.max())
+            self.sum[0] += lat.sum()
+            self.cnt[0] += lat.numel()
+        else:
+            self.first.scatter_reduce_(0, host, issues, "amin")
+            self.last.scatter_reduce_(0, host, dones, "amax")
+            self.sum.index_add_(0, host, lat)
+            self.cnt += torch.bincount(host, minlength=H)
+        inc = media_increments(self.kind, writes, flags)
+        if dev is None:
+            self.med[0] += inc.sum(0)
+        else:
+            self.med.index_add_(0, dev, inc)
+        if self.spec is None:
+            return
+        NB, W = self.spec.hist_buckets, self.spec.num_windows
+        b = bucket_index_torch(lat, NB)
+        wdx = torch.clamp(dones // self.spec.window_ticks, 0, W - 1)
+        h = torch.zeros_like(b) if host is None else host
+        rows = torch.cat([h * (NB + W) + b, h * (NB + W) + NB + wdx])
+        vals = torch.zeros(2 * b.numel(), 4, dtype=torch.int64,
+                           device=b.device)
+        vals[:b.numel(), 0] = 1
+        vals[b.numel():, 0] = self.size
+        vals[b.numel():, 1] = lat
+        vals[b.numel():, 2] = 1
+        vals[b.numel():, 3] = flags & 1
+        if self.n_devs > 1:
+            rows = torch.cat([rows, H * (NB + W) + dev * NB + b])
+            extra = torch.zeros(b.numel(), 4, dtype=torch.int64,
+                                device=b.device)
+            extra[:, 0] = 1
+            vals = torch.cat([vals, extra])
+        self.acc.index_add_(0, rows, vals)
 
 
 # --------------------------------------------------------------- the bundle
@@ -574,7 +745,8 @@ def _flash_dicts(flash_cnt) -> List[Dict[str, int]]:
 
 
 def _single_ports(device, queued, routes: Optional[np.ndarray], n: int,
-                  size: int, qthr=None, faulted=None):
+                  size: int, qthr=None, faulted=None,
+                  route_counts: Optional[np.ndarray] = None):
     """``(host_label, dev_label, ports, ecmp)`` for a single-host scan run
     of ``n`` accesses: port byte/packet/occupancy totals and ECMP choice
     counts are reconstructed from the route choices on the host (pure
@@ -584,7 +756,8 @@ def _single_ports(device, queued, routes: Optional[np.ndarray], n: int,
     ``routes`` is the per-access ECMP choice column, ``None`` on a fixed
     route.  ``faulted`` (the fault-column builder's totals) overrides the
     clean reconstruction when transport faults rerouted accesses or
-    charged retry serializations."""
+    charged retry serializations.  A streamed run that never holds the
+    route column passes its choices' counts, ``route_counts``, instead."""
     ports: Dict[str, Dict] = {}
     ecmp: Dict[str, List[int]] = {}
     if not isinstance(device, FabricAttachedDevice):
@@ -606,7 +779,7 @@ def _single_ports(device, queued, routes: Optional[np.ndarray], n: int,
                 "bytes_by_host": {host: int(faulted["bytes"][j])}}
         ecmp = {k: list(v) for k, v in sorted(faulted["ecmp"].items())}
         return host, node, ports, ecmp
-    if routes is None:
+    if routes is None and route_counts is None:
         for h, (key, occ, _aft) in enumerate(
                 fab.route_occupancy(host, node, size)):
             ports[f"{key[0]}->{key[1]}"] = {
@@ -622,7 +795,8 @@ def _single_ports(device, queued, routes: Optional[np.ndarray], n: int,
     # same port-union indexing as spec._fabric_route_tensors
     port_keys = sorted({key for hops in per_route for key, _, _ in hops})
     pidx = {key: i for i, key in enumerate(port_keys)}
-    counts = np.bincount(np.asarray(routes), minlength=K)
+    counts = (np.asarray(route_counts, np.int64) if route_counts is not None
+              else np.bincount(np.asarray(routes), minlength=K))
     nb = np.zeros(len(port_keys), np.int64)
     pk = np.zeros(len(port_keys), np.int64)
     occt = np.zeros(len(port_keys), np.int64)
@@ -646,11 +820,38 @@ def _single_ports(device, queued, routes: Optional[np.ndarray], n: int,
     return host, node, ports, ecmp
 
 
+def bundle_single_fused(spec: MetricsSpec, device, cfg, acc, med, queued,
+                        flash_cnt, routes: Optional[np.ndarray], n: int,
+                        size: int, qthr=None,
+                        faults: Optional[Dict[str, int]] = None,
+                        faulted=None,
+                        route_counts: Optional[np.ndarray] = None
+                        ) -> MetricsBundle:
+    """Assemble the bundle after a single-host streamed run of ``n``
+    accesses that kept no per-access outputs (``return_latencies=False``):
+    ``acc`` / ``med`` are its :class:`StreamFold` accumulators
+    (O(buckets + windows)); the rest as in
+    :func:`bundle_single_deferred`."""
+    hist, windows, dev_hist = split_acc(spec, acc, 1, 1)
+    media = [dict(zip(MEDIA_COUNTERS[cfg.kind],
+                      (int(x) for x in np.asarray(med).reshape(-1))))]
+    host_label, dev_label, ports, ecmp = _single_ports(
+        device, queued, routes, n, size, qthr=qthr, faulted=faulted,
+        route_counts=route_counts)
+    return MetricsBundle(
+        spec=spec, hosts=[host_label], devices=[dev_label], hist=hist,
+        dev_hist=dev_hist, windows=windows, media=media,
+        flash=_flash_dicts(flash_cnt), ports=ports, ecmp=ecmp,
+        faults=faults)
+
+
 def bundle_single_deferred(spec: MetricsSpec, device, cfg, issues, dones,
                            flags, writes, queued, flash_cnt,
                            routes: Optional[np.ndarray], size: int,
                            qthr=None, faults: Optional[Dict[str, int]] = None,
-                           faulted=None) -> MetricsBundle:
+                           faulted=None,
+                           route_counts: Optional[np.ndarray] = None
+                           ) -> MetricsBundle:
     """Assemble the bundle after a single-host scan run.  The
     histogram/window fold and the counter vector are pure functions of the
     materialized ``(issue, done, flags)`` columns (the scan packs every
@@ -661,7 +862,7 @@ def bundle_single_deferred(spec: MetricsSpec, device, cfg, issues, dones,
     fault-column builder's port totals (see :func:`_single_ports`)."""
     host_label, dev_label, ports, ecmp = _single_ports(
         device, queued, routes, int(np.asarray(issues).size), size,
-        qthr=qthr, faulted=faulted)
+        qthr=qthr, faulted=faulted, route_counts=route_counts)
 
     def fold():
         hist, windows, dev_hist = fold_arrays(
@@ -677,29 +878,18 @@ def bundle_single_deferred(spec: MetricsSpec, device, cfg, issues, dones,
         deferred=fold, faults=faults)
 
 
-def bundle_multi_deferred(spec: MetricsSpec, meta: Dict, mcfg, who, issues,
-                          dones, flags, step_ord, writes, queued, qthr,
-                          flash_cnt, devs: np.ndarray,
-                          routes: Optional[np.ndarray], lens: np.ndarray,
-                          size: int, params: Dict,
-                          faults: Optional[Dict[str, int]] = None,
-                          faulted: Optional[Dict] = None) -> MetricsBundle:
-    """Assemble the bundle after a multi-host replay from its per-step
-    ``(who, issue, done, flags)`` columns: the JAX package's
-    ``bundle_multi_fused`` over the in-scan accumulators, folded here on
-    the host instead.  ``step_ord`` is each step's ordinal in its host's
-    trace, which reads the step's device and write flag from the
-    ``(H, L)`` ``devs`` / ``writes`` columns.  Per-host histograms and
-    windows, per-device histograms and media counters (from the flags'
-    event bits) are deferred to first access.  Per-port byte / packet /
-    occupancy totals and per-host attribution are reconstructed from the
-    hop tables and route choices (numpy, exact); ``queued`` / ``qthr`` are
-    the replay's per-port queueing and QoS-throttle totals.  ``faulted``
-    (the transport-fault code's totals, over the same global sorted port
-    set) overrides the clean reconstruction."""
+def _multi_ports(meta: Dict, mcfg, queued, qthr, devs: np.ndarray,
+                 routes: Optional[np.ndarray], lens: np.ndarray, size: int,
+                 params: Dict, faulted: Optional[Dict] = None):
+    """``(ports, ecmp)`` of a multi-host replay: per-port byte / packet /
+    occupancy totals and per-host attribution reconstructed from the hop
+    tables and route choices (numpy, exact); ``queued`` / ``qthr`` are the
+    replay's per-port queueing and QoS-throttle totals.  ``faulted`` (the
+    transport-fault code's totals, over the same global sorted port set)
+    overrides the clean reconstruction."""
     hosts, nodes = meta["hosts"], meta["nodes"]
     fabric = meta["fabric"]
-    H, D = len(hosts), len(nodes)
+    H = len(hosts)
     lens = np.asarray(lens)
     devs = np.asarray(devs)
     routes = (np.zeros(devs.shape, np.int32) if routes is None
@@ -765,6 +955,55 @@ def bundle_multi_deferred(spec: MetricsSpec, meta: Dict, mcfg, who, issues,
                 prev = ecmp.get(key)
                 ecmp[key] = ([int(c) for c in counts] if prev is None
                              else [int(a + b) for a, b in zip(prev, counts)])
+    return ports, ecmp
+
+
+def bundle_multi_fused(spec: MetricsSpec, meta: Dict, mcfg, acc, med,
+                       queued, qthr, flash_cnt, devs: np.ndarray,
+                       routes: Optional[np.ndarray], lens: np.ndarray,
+                       size: int, params: Dict,
+                       faults: Optional[Dict[str, int]] = None,
+                       faulted: Optional[Dict] = None) -> MetricsBundle:
+    """Assemble the bundle after a multi-host streamed replay that kept
+    no per-step outputs: ``acc`` / ``med`` are its :class:`StreamFold`
+    accumulators (hosts and devices), the ports as in
+    :func:`bundle_multi_deferred`."""
+    hosts, nodes = meta["hosts"], meta["nodes"]
+    H, D = len(hosts), len(nodes)
+    hist, windows, dev_hist = split_acc(spec, acc, H, D)
+    med = np.asarray(med)
+    names = MEDIA_COUNTERS[mcfg.stack.kind]
+    media = [dict(zip(names, (int(x) for x in med[d]))) for d in range(D)]
+    ports, ecmp = _multi_ports(meta, mcfg, queued, qthr, devs, routes, lens,
+                               size, params, faulted)
+    return MetricsBundle(
+        spec=spec, hosts=list(hosts), devices=list(nodes), hist=hist,
+        dev_hist=dev_hist, windows=windows, media=media,
+        flash=_flash_dicts(flash_cnt), ports=ports, ecmp=ecmp,
+        faults=faults)
+
+
+def bundle_multi_deferred(spec: MetricsSpec, meta: Dict, mcfg, who, issues,
+                          dones, flags, step_ord, writes, queued, qthr,
+                          flash_cnt, devs: np.ndarray,
+                          routes: Optional[np.ndarray], lens: np.ndarray,
+                          size: int, params: Dict,
+                          faults: Optional[Dict[str, int]] = None,
+                          faulted: Optional[Dict] = None) -> MetricsBundle:
+    """Assemble the bundle after a multi-host replay from its per-step
+    ``(who, issue, done, flags)`` columns: the JAX package's
+    ``bundle_multi_fused`` over the in-scan accumulators, folded here on
+    the host instead.  ``step_ord`` is each step's ordinal in its host's
+    trace, which reads the step's device and write flag from the
+    ``(H, L)`` ``devs`` / ``writes`` columns.  Per-host histograms and
+    windows, per-device histograms and media counters (from the flags'
+    event bits) are deferred to first access; the ports come from
+    :func:`_multi_ports`."""
+    hosts, nodes = meta["hosts"], meta["nodes"]
+    H, D = len(hosts), len(nodes)
+    devs = np.asarray(devs)
+    ports, ecmp = _multi_ports(meta, mcfg, queued, qthr, devs, routes, lens,
+                               size, params, faulted)
 
     def fold():
         NB, W = spec.hist_buckets, spec.num_windows

@@ -59,9 +59,15 @@ scrambles the per-host fault ordinals); an unreachable down segment raises
 :class:`~repro_torch.core.faults.DeviceUnreachable` at prepare, matching
 the first access the python driver would fail on.
 
-Cut from this lane, refused with :class:`ReplayUnsupported`: streaming
-(``chunk_size``, ``return_latencies=False``, ROADMAP Queue A item 12).
-``block_size`` is validated and tick-invisible.  Nothing here imports
+Streaming: ``chunk_size=`` replays the steps as a sequence of launches
+that carry every host's LFB slots, clock and cursor, the shared ports and
+QoS tables and every lane's state from one to the next on the device; a
+launch takes each host's window of ``chunk`` accesses from its cursor and
+replays at most ``chunk`` steps, so no host outruns its window.
+``return_latencies=False`` folds each launch's ``(who, issue, done,
+flags)`` columns into per-host and per-device accumulators on the device
+(:class:`~repro_torch.core.replay.metrics.StreamFold`) and returns the
+per-host scalars only.  ``block_size`` is validated and tick-invisible.  Nothing here imports
 torch until a replay runs.
 """
 
@@ -663,8 +669,10 @@ class MultiHostReplay:
 
     def _execute_prepared(self, prep: Prepared, start_tick: int,
                           want_lat: bool = True, chunk_size=None):
-        """The replay of prepared inputs: ``(who, issues, dones, flags)``
-        in step order (numpy), after the health check; sets
+        """The replay of prepared inputs, after the health check: with
+        ``want_lat`` ``(who, issues, dones, flags)`` in step order (numpy)
+        then ``step_ord, lens, size, bundle``; else the
+        :class:`MultiHostResult` of the per-host scalars.  Sets
         :attr:`last_gc_runs` and :attr:`last_metrics`."""
         import torch
 
@@ -679,23 +687,26 @@ class MultiHostReplay:
                 "arrival sentinels assume non-negative ticks)")
         if chunk_size is not None and int(chunk_size) < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size!r}")
-        if chunk_size is not None or not want_lat:
-            raise ReplayUnsupported(
-                "streaming replay (chunk_size=, return_latencies=False) is "
-                "not ported yet (ROADMAP Queue A item 12); use "
-                "engine='python' or replay the whole trace")
         dev = _td.resolve(self.torch_device)
 
         def on_dev(x):
             return None if x is None else torch.from_numpy(x).to(dev)
 
         state = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, dev)
-        out = replay_multi(
-            cfg, prep.params, state, on_dev(prep.addrs), on_dev(prep.writes),
-            on_dev(prep.lens), on_dev(prep.devs), on_dev(prep.routes),
-            start_tick=start_tick, retries=on_dev(prep.retries))
-        who, issues, dones, flags, qacc, qthr = (x.cpu().numpy()
-                                                 for x in out)
+        fold = None
+        if chunk_size is None and want_lat:
+            out = replay_multi(
+                cfg, prep.params, state, on_dev(prep.addrs),
+                on_dev(prep.writes), on_dev(prep.lens), on_dev(prep.devs),
+                on_dev(prep.routes), start_tick=start_tick,
+                retries=on_dev(prep.retries))
+            who, issues, dones, flags, qacc, qthr = (x.cpu().numpy()
+                                                     for x in out)
+        else:
+            who, issues, dones, flags, qacc, qthr, fold = self._chunked(
+                prep, state, dev, start_tick, want_lat,
+                int(prep.lens.sum()) if chunk_size is None
+                else int(chunk_size))
         bad, gcs = stack.flash_health(state)
         self.last_gc_runs = gcs
         if bad:
@@ -703,26 +714,38 @@ class MultiHostReplay:
                 "FTL ran out of free blocks during GC (device overfilled) — "
                 "the interpreted path raises there too; shrink the traces "
                 "or use engine='python' for the exact error")
+        meta = self._meta
+        bundle = None
+        fdict = None
+        if self.metrics is not None and (meta.get("fault_plan") is not None
+                                         or meta.get("poisoned_reads")):
+            rr, rb = stack.fault_counters(state)
+            fs = meta.get("fault_stats") or {}
+            fdict = {"link_retries": fs.get("link_retries", 0),
+                     "failovers": fs.get("failovers", 0),
+                     "degraded_accesses": fs.get("degraded_accesses", 0),
+                     "nand_read_retries": rr,
+                     "retired_blocks": rb,
+                     "poisoned_reads": int(meta.get("poisoned_reads", 0))}
+        if fold is not None:
+            if self.metrics is not None:
+                from repro_torch.core.replay import metrics as _metrics
+                bundle = _metrics.bundle_multi_fused(
+                    self.metrics, meta, cfg, fold.acc.cpu().numpy(),
+                    fold.med.cpu().numpy(), qacc, qthr if cfg.qos else None,
+                    stack.flash_counters(state), prep.devs, prep.routes,
+                    prep.lens, prep.size, prep.params, faults=fdict,
+                    faulted=meta.get("faulted"))
+            self.last_metrics = bundle
+            return self._attach(self.aggregate_scalars(
+                fold, prep.lens, prep.size, start_tick), bundle)
         if self.metrics is None:
             flags = flags & 3            # event bits ride only with metrics
-        meta = self._meta
         step_ord = step_ordinals(who, cfg.num_hosts)
         flags = flags | (meta["poison"][who, step_ord].astype(np.int32)
                          << POISON_BIT)
-        bundle = None
         if self.metrics is not None:
             from repro_torch.core.replay import metrics as _metrics
-            fdict = None
-            if (meta.get("fault_plan") is not None
-                    or meta.get("poisoned_reads")):
-                rr, rb = stack.fault_counters(state)
-                fs = meta.get("fault_stats") or {}
-                fdict = {"link_retries": fs.get("link_retries", 0),
-                         "failovers": fs.get("failovers", 0),
-                         "degraded_accesses": fs.get("degraded_accesses", 0),
-                         "nand_read_retries": rr,
-                         "retired_blocks": rb,
-                         "poisoned_reads": int(meta.get("poisoned_reads", 0))}
             bundle = _metrics.bundle_multi_deferred(
                 self.metrics, meta, cfg, who, issues, dones, flags,
                 step_ord, prep.writes, qacc,
@@ -732,6 +755,98 @@ class MultiHostReplay:
         self.last_metrics = bundle
         return who, issues, dones, flags, step_ord, prep.lens, prep.size, \
             bundle
+
+    def _chunked(self, prep: Prepared, state: Dict, dev, start_tick: int,
+                 want_lat: bool, chunk: int):
+        """The chunked replay: launches of at most ``chunk`` steps over
+        each host's window of ``chunk`` accesses from its cursor, through
+        one carry (the JAX package's ``_run_chunked``).  Returns ``(who,
+        issues, dones, flags, qacc, qthr, fold)``: the step columns
+        (numpy, ``None`` without ``want_lat``) and the
+        :class:`~repro_torch.core.replay.metrics.StreamFold` of a replay
+        that keeps none."""
+        import torch
+
+        from repro_torch.core.replay.metrics import StreamFold
+        from repro_torch.kernels import replay_scan as rs
+
+        cfg = prep.cfg
+        H, total = cfg.num_hosts, int(prep.lens.sum())
+        carry = rs.new_multi_carry(cfg, prep.params, dev, start_tick)
+        fold = (None if want_lat else
+                StreamFold(self.metrics, cfg.stack.kind, dev, n_hosts=H,
+                           n_devs=cfg.num_devs, size=prep.size,
+                           start_tick=start_tick))
+        lens = torch.from_numpy(prep.lens).to(dev)
+        cols = (prep.addrs, prep.writes, prep.devs, prep.routes, prep.retries)
+        parts = []
+        while carry.seen < total:
+            base = rs.cursors(carry, H)
+            win = []
+            for x in cols:
+                if x is None:
+                    win.append(None)
+                    continue
+                w = np.zeros((H, chunk) + x.shape[2:], x.dtype)
+                for i in range(H):
+                    b = int(base[i])
+                    e = min(b + chunk, int(prep.lens[i]))
+                    w[i, :max(e - b, 0)] = x[i, b:e]
+                win.append(torch.from_numpy(w).to(dev))
+            addrs, writes, devs, routes, retries = win
+            out = rs.replay_multi(
+                cfg, prep.params, state, addrs, writes, lens, devs, routes,
+                start_tick=start_tick, retries=retries, carry=carry,
+                base=base)
+            who, issues, dones, flags, qacc, qthr = out
+            if want_lat:
+                parts.append([x.cpu().numpy() for x in (who, issues, dones,
+                                                        flags)])
+                continue
+            # each step's place in its host's window: the host's steps
+            # of this launch take its accesses in order from the cursor
+            host = who.long()
+            order = torch.sort(host, stable=True).indices
+            counts = torch.bincount(host, minlength=H)
+            starts = torch.cumsum(counts, 0) - counts
+            pos = torch.empty_like(host)
+            pos[order] = (torch.arange(host.numel(), device=host.device)
+                          - starts[host[order]])
+            fold.update(issues, dones, flags, writes[host, pos], host=host,
+                        dev=devs[host, pos].long())
+        qacc, qthr = qacc.cpu().numpy(), qthr.cpu().numpy()
+        if not want_lat:
+            return None, None, None, None, qacc, qthr, fold
+        who, issues, dones, flags = (np.concatenate([p[j] for p in parts])
+                                     for j in range(4))
+        return who, issues, dones, flags, qacc, qthr, None
+
+    @staticmethod
+    def aggregate_scalars(fold, lens, size: int,
+                          start_tick: int = 0) -> MultiHostResult:
+        """The ``return_latencies=False`` twin of :meth:`aggregate`: fold
+        the per-host first / last / sum / count scalars of a
+        :class:`~repro_torch.core.replay.metrics.StreamFold` (O(hosts),
+        never O(trace)) into the same result shape."""
+        firsts, lasts, sums, cnts = (getattr(fold, k).cpu().numpy()
+                                     for k in ("first", "last", "sum", "cnt"))
+        per_host: List[TraceResult] = []
+        first_list, last_list = [], []
+        for i in range(np.asarray(lens).size):
+            n = int(cnts[i])
+            first = int(firsts[i]) if n else None
+            last = max(int(lasts[i]), start_tick) if n else start_tick
+            per_host.append(TraceResult(
+                accesses=n, bytes_moved=n * size,
+                elapsed_ticks=(last - first) if first is not None else 0,
+                sum_latency_ticks=int(sums[i]),
+                end_tick=last))
+            if first is not None:
+                first_list.append(first)
+            last_list.append(last)
+        first_all = min(first_list, default=start_tick)
+        return MultiHostResult(per_host=per_host,
+                               elapsed_ticks=max(last_list) - first_all)
 
     def _results(self, who, issues, dones, flags, step_ord, lens, size,
                  bundle, start_tick: int) -> MultiHostResult:
@@ -781,6 +896,8 @@ class MultiHostReplay:
         out = self._execute_prepared(self.prepare(traces), start_tick,
                                      want_lat=bool(return_latencies),
                                      chunk_size=chunk_size)
+        if not return_latencies:
+            return out
         return self._results(*out, start_tick=start_tick)
 
     def run_arrays(self, addrs, writes, *, lens=None, size: int = 64,
@@ -792,6 +909,8 @@ class MultiHostReplay:
         out = self._execute_prepared(prep, start_tick,
                                      want_lat=bool(return_latencies),
                                      chunk_size=chunk_size)
+        if not return_latencies:
+            return out
         return self._results(*out, start_tick=start_tick)
 
     def run_recorded(self, traces: Sequence, start_tick: int = 0,

@@ -53,7 +53,7 @@ class ReplayUnsupported(ValueError):
     message names the widest lane that still covers the shape.  The port's
     ladder: ``python`` (everything) > ``scan`` (all five devices, single
     host, directly attached or fabric-mounted with ECMP and QoS, greedy
-    GC, every fault class; no streaming) > ``assoc`` (stateless DRAM/PMEM
+    GC, every fault class, one-shot or streamed) > ``assoc`` (stateless DRAM/PMEM
     media on a single route, bandwidth-bound traces) and ``cuda`` (the
     cached CXL-SSD, with an analytic latency model).
     """

@@ -57,8 +57,8 @@ SIGNATURES = {
         "page_gather_error_string": (ctypes.c_char_p, [_I]),
     },
     "replay_scan": {
-        "replay_scan_launch": (_I, [_P] * 26 + [_I, _P]),
-        "replay_scan_launch_multi": (_I, [_P] * 27 + [_I, _P]),
+        "replay_scan_launch": (_I, [_P] * 28 + [_I, _P]),
+        "replay_scan_launch_multi": (_I, [_P] * 29 + [_I, _P]),
         "replay_scan_num_args": (_I, []),
         "replay_scan_layout_words": (_I, []),
         "replay_scan_num_margs": (_I, []),

@@ -48,9 +48,9 @@
 //     dirty) are kept as the reference keeps them, so the state comes out
 //     word for word.  This equals the reference's argmin over the packed
 //     words only from a fresh cache (every frame free, as init_state makes
-//     it and ReplayEngine passes it): the stamp counter restarts at 1, and
-//     the wrapper refuses any other frames.  Direct-mapped takes
-//     page % cap, staged.
+//     it and ReplayEngine passes it) or from the carry of the replay it
+//     resumes (below): the wrapper refuses any other frames.
+//     Direct-mapped takes page % cap, staged.
 //   * MSHR and writeback tables: padded to blocks of eight free entries and
 //     read a block at a time (16-byte loads, then bit masks: the lookup's
 //     first match, occupancy and first free slot in one pass; MSHR pages
@@ -90,6 +90,22 @@
 // stays in shared memory.  Mounted on chip_smoke.py's faulted 2 x 2
 // spine-leaf (four hops, six ports, two paths) it takes 219,376: the
 // retry bytes' staging, the path table and vft add 2,400.
+//
+// Resumable: a replay can run as a sequence of launches, one a chunk of
+// the trace, that carry the whole replay state from one to the next in
+// device memory (`Carry`, field for field `CARRY` in the wrapper): the
+// accesses already replayed (the stamp base), the issue clock, the fill
+// pointer and recency head and tail, the LFB slot ticks, and a port each
+// the busy-until, queueing and throttle totals and QoS virtual clock; the
+// page map and recency links go back to their home in `maps` at the
+// epilogue and come from it at the prologue; the rest of the state (the
+// frames, MSHR, writeback, flash and retired blocks) round-trips through
+// the state tensors as in every launch.  A resumed launch builds its
+// tournament tree from the carried slots, lowest slot on ties.  Without
+// a carry a launch runs as a one-launch replay always did.  The
+// multi-host instance carries every host's slots, clock and cursor, the
+// QoS tables and every lane's victim order alike, over windows of each
+// host's trace from its cursor.
 //
 // Where the JAX reference's semantics need care:
 //   * Ties.  jnp.argmin / argmax return the lowest index among ties: the
@@ -196,6 +212,13 @@ enum Scalar {
   S_C_RB, kNumScalars
 };
 
+// The carry of a resumable replay, field for field `CARRY` in
+// kernels/replay_scan.py: the accesses already replayed (the stamp base),
+// the issue clock, the victim order's fill pointer and recency head and
+// tail; then the K LFB slot ticks and, a port each, the busy-untils, the
+// queueing and throttle totals and the QoS virtual clocks.
+enum Carry { C_SEEN, C_NOW, C_FILL, C_HEAD, C_TAIL, kCarryHead };
+
 struct Args {
   long long v[kNumArgs];
 };
@@ -210,7 +233,10 @@ struct Layout {
 // hop_occ and hop_after (routes or paths x hops each) and the per-port
 // QoS mask; `totals` receives qacc then qthr (ports each); `scal` the
 // state's scalars; `scratch` the map, links and retired bitmap that the
-// layout leaves in device memory.  The rest are the state's arrays.
+// layout leaves in device memory.  The rest are the state's arrays, then
+// the carry of a resumable replay (null for a one-launch replay) and the
+// home of its page map and recency links (`maps`: the map, then the links
+// at the next 16 bytes), where they live between launches.
 struct Ptrs {
   const long long* addrs;
   const uint8_t* writes;
@@ -236,7 +262,15 @@ struct Ptrs {
   long long* die_prog;
   long long* chan_busy;
   char* scratch;
+  long long* carry;
+  char* maps;
 };
+
+// The home of a resumable replay's links in `maps`, past its map of
+// `map_words` int32 entries.
+__device__ __forceinline__ long long links_home(long long map_words) {
+  return (4 * map_words + 15) / 16 * 16;
+}
 
 // Defining REPLAY_SCAN_EMULATE leaves these primitives, the CUDA keywords
 // and the vector types to the file that includes this one: a host compiler
@@ -968,9 +1002,12 @@ struct Chain {
 
 // The block: prologue, the chunks, epilogue.  NAND: the stack carries
 // NAND fault statics; FAULTED: its transport is the faulted lane's path
-// table and retry bytes.  Each is an instance of its own, so that a
-// fault-free replay runs the same code as before the faulted lane.
-template <int KIND, bool NAND, bool FAULTED>
+// table and retry bytes; CARRY: the replay is resumable (a launch of a
+// chunked replay, `ptrs.carry` set).  Each is an instance of its own, so
+// that a fault-free replay runs the same code as before the faulted lane
+// and a one-launch replay the same code as before the carry (a runtime
+// branch on either cost the walk 1-11% on the card).
+template <int KIND, bool NAND, bool FAULTED, bool CARRY>
 __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
                        char* sm) {
   const long long* a = args.v;
@@ -999,6 +1036,16 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   const bool gc = kFlash && a[A_GC];
   const bool nand = kFlash && NAND;
   const int rwords = (nb + 31) / 32;     // the retired bitmap's words
+  const bool lru_links = KIND == kSsdBuf || (assoc && a[A_IS_LRU] != 0);
+  // a resumable replay: its carry; `seen` accesses replayed before this
+  // launch (the stamp base), resumed from the carry when > 0
+  long long* carry = CARRY ? ptrs.carry : nullptr;
+  const long long seen = CARRY ? carry[C_SEEN] : 0;
+  const bool resume = CARRY && seen > 0;
+  long long* cslots = CARRY ? carry + kCarryHead : nullptr;
+  int32_t* home_where = reinterpret_cast<int32_t*>(ptrs.maps);
+  int2* home_links =
+      reinterpret_cast<int2*>(ptrs.maps + links_home(num_pages));
 
   Chain<NAND> c;
   c.tree = reinterpret_cast<longlong2*>(sm + L[L_TREE]);
@@ -1017,11 +1064,17 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   c.die_busy = reinterpret_cast<long long*>(sm + L[L_DIE_BUSY]);
   c.die_prog = reinterpret_cast<long long*>(sm + L[L_DIE_PROG]);
   c.chan_busy = reinterpret_cast<long long*>(sm + L[L_CHAN_BUSY]);
-  c.where = placed(sm, L[L_WHERE], reinterpret_cast<int32_t*>(
-                                       ptrs.scratch - 1 - L[L_WHERE]));
+  // the map and links not in shared memory live in the scratch tensor, or
+  // in their home when the replay is resumable
+  c.where = placed(sm, L[L_WHERE],
+                   CARRY ? home_where
+                         : reinterpret_cast<int32_t*>(ptrs.scratch - 1 -
+                                                      L[L_WHERE]));
   c.frames = placed(sm, L[L_FRAMES], ptrs.frames);
-  c.links = placed(sm, L[L_LINKS], reinterpret_cast<int2*>(
-                                       ptrs.scratch - 1 - L[L_LINKS]));
+  c.links = placed(sm, L[L_LINKS],
+                   CARRY ? home_links
+                         : reinterpret_cast<int2*>(ptrs.scratch - 1 -
+                                                   L[L_LINKS]));
   c.l2p = placed(sm, L[L_L2P], ptrs.l2p);
   c.valid = placed(sm, L[L_VALID], ptrs.valid);
   c.free_mask = placed(sm, L[L_FREE_MASK], ptrs.free_mask);
@@ -1031,7 +1084,8 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
                                            ptrs.scratch - 1 - L[L_RETIRED]));
 
   // prologue (engine.py::_init_carry): LFB slots at start, ports idle;
-  // the tables and the placed state copied in, the map emptied
+  // the tables and the placed state copied in, the map emptied.  A
+  // resumed replay takes the slots, ports, map and links from its carry.
   const long long T = R * H;
   const long long ppb = a[A_PPB];
   for (long long i = tid; i < 2 * leaves; i += kThreads) {
@@ -1041,14 +1095,33 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     }
     // node i covers the leaves from its leftmost one, lo; every real slot
     // starts at `start`, so its winner is lo when lo is a real slot
-    long long lo = i;
-    while (lo < leaves) lo <<= 1;
+    long long lo = i, span = 1;
+    while (lo < leaves) {
+      lo <<= 1;
+      span <<= 1;
+    }
     lo -= leaves;
-    c.tree[i] = make_longlong2(lo < K ? start : kBig, lo);
+    if (!resume) {
+      c.tree[i] = make_longlong2(lo < K ? start : kBig, lo);
+      continue;
+    }
+    // resumed: the earliest carried tick of the node's slots, the lowest
+    // slot on ties (engine.py:461's argmin)
+    longlong2 best = make_longlong2(kBig, lo);
+    for (long long k = lo; k < lo + span && k < K; ++k)
+      if (cslots[k] < best.x) best = make_longlong2(cslots[k], k);
+    c.tree[i] = best;
   }
   for (int i = tid; i < P; i += kThreads) {
     c.pb[i] = c.qacc[i] = c.qthr[i] = 0;
     if (faulted) c.vft[i] = 0;
+    if (resume) {
+      const long long* cp = cslots + K;
+      c.pb[i] = cp[i];
+      c.qacc[i] = cp[P + i];
+      c.qthr[i] = cp[2 * P + i];
+      if (faulted) c.vft[i] = cp[3 * P + i];
+    }
   }
   for (long long i = tid; i < 3 * T + P; i += kThreads)
     tables[i] = ptrs.tables[i];
@@ -1064,8 +1137,17 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   }
   for (int i = tid; i < chans; i += kThreads)
     c.chan_busy[i] = ptrs.chan_busy[i];
-  if (assoc) {
+  if (assoc && !resume) {
     for (long long i = tid; i < num_pages; i += kThreads) c.where[i] = -1;
+    // a resumable replay's links start defined, so that its carry does
+    if (CARRY && lru_links)
+      for (int i = tid; i < nf; i += kThreads) c.links[i] = make_int2(-1, -1);
+  } else if (assoc) {
+    if (L[L_WHERE] >= 0)
+      for (long long i = tid; i < num_pages; i += kThreads)
+        c.where[i] = home_where[i];
+    if (lru_links && L[L_LINKS] >= 0)
+      for (int i = tid; i < nf; i += kThreads) c.links[i] = home_links[i];
   }
   if (KIND == kSsdCache || assoc) {
     if (L[L_FRAMES] >= 0)
@@ -1171,6 +1253,15 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     for (int i = 0; i < nm; ++i) c.mmin = min64(c.mmin, ptrs.mready[i]);
     c.win = make_longlong2(start, 0);
     c.now = start;
+    if (resume) {
+      c.fill = static_cast<int>(carry[C_FILL]);
+      c.head = static_cast<int>(carry[C_HEAD]);
+      c.tail = static_cast<int>(carry[C_TAIL]);
+      c.win = make_longlong2(cslots[0], 0);     // the tree's root
+      for (int k = 1; k < K; ++k)
+        if (cslots[k] < c.win.x) c.win = make_longlong2(cslots[k], k);
+      c.now = carry[C_NOW];
+    }
   }
 
   // the chunks, double buffered: while thread 0 walks chunk q from buffer
@@ -1225,7 +1316,7 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     if (tid == 0) {
       const int b = static_cast<int>(q & 1) * chunk;
       c.template walk<KIND, FAULTED>(
-          span(q), q * chunk, in_key + b, in_aux + b, in_set + b,
+          span(q), seen + q * chunk, in_key + b, in_aux + b, in_set + b,
           in_rt + static_cast<long long>(b) * H, o_issue + b, o_done + b,
           o_flags + b);
     } else if (tid >= 32) {
@@ -1277,6 +1368,30 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
     if (nand)
       for (int i = tid; i < nb; i += kThreads)
         ptrs.rtr_mask[i] = (c.retired[i >> 5] >> (i & 31)) & 1u;
+  }
+  if (CARRY) {
+    // the carry out: slots (the tree's leaves), ports, map and links
+    for (int k = tid; k < K; k += kThreads)
+      cslots[k] = c.tree[leaves + k].x;
+    for (int i = tid; i < P; i += kThreads) {
+      long long* cp = cslots + K;
+      cp[i] = c.pb[i];
+      cp[P + i] = c.qacc[i];
+      cp[2 * P + i] = c.qthr[i];
+      if (faulted) cp[3 * P + i] = c.vft[i];
+    }
+    if (assoc && L[L_WHERE] >= 0)
+      for (long long i = tid; i < num_pages; i += kThreads)
+        home_where[i] = c.where[i];
+    if (lru_links && L[L_LINKS] >= 0)
+      for (int i = tid; i < nf; i += kThreads) home_links[i] = c.links[i];
+    if (tid == 0) {
+      carry[C_SEEN] = seen + n;
+      carry[C_NOW] = c.now;
+      carry[C_FILL] = c.fill;
+      carry[C_HEAD] = c.head;
+      carry[C_TAIL] = c.tail;
+    }
   }
   if (tid == 0) {
     long long* s = ptrs.scal;
@@ -1368,7 +1483,10 @@ struct LayoutM {
 // per-step outputs; `totals` qacc then qthr; `scal` the lanes' scalars (a
 // row of kNumScalars a media lane, then a row a flash lane); the state's
 // arrays, lane-stacked; `scratch` the map, links and retired bitmaps that
-// the layout leaves in device memory.
+// the layout leaves in device memory; then the carry of a resumable replay
+// (null for a one-launch replay) and the home of its lanes' maps and links.
+// A resumable replay's trace columns are windows of `stride` accesses, each
+// from its host's cursor as the launch begins.
 struct MultiPtrs {
   const long long* addrs;
   const int32_t* aux;
@@ -1394,6 +1512,32 @@ struct MultiPtrs {
   long long* die_prog;
   long long* chan_busy;
   char* scratch;
+  long long* carry;
+  char* maps;
+};
+
+// The multi-host carry's words, field for field `multi_carry_words` in
+// kernels/replay_scan.py: the steps replayed, then a host each its clock
+// and cursor, its LFB slots (hosts x K), a port each the busy-until,
+// queueing and throttle totals, the QoS tables (ports x hosts: virtual
+// finish, last arrival), and a media lane each its fill pointer and
+// recency head and tail.
+struct MultiCarry {
+  long long *now = nullptr, *idx = nullptr, *slots = nullptr, *pb = nullptr,
+            *qacc = nullptr, *qthr = nullptr, *vft = nullptr,
+            *last = nullptr, *lanes = nullptr;
+  __device__ MultiCarry(long long* w, int NH, int K, int P) {
+    if (!w) return;
+    now = w + 1;
+    idx = now + NH;
+    slots = idx + NH;
+    pb = slots + static_cast<long long>(NH) * K;
+    qacc = pb + P;
+    qthr = qacc + P;
+    vft = qthr + P;
+    last = vft + static_cast<long long>(P) * NH;
+    lanes = last + static_cast<long long>(P) * NH;
+  }
 };
 
 template <int KIND, bool NAND, bool FAULTED>
@@ -1430,6 +1574,16 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   const bool gc = kFlash && a[A_GC];
   const bool nand = kFlash && NAND;
   const int rwords = (nb + 31) / 32;
+  const bool lru_links = KIND == kSsdBuf || (assoc && a[A_IS_LRU] != 0);
+  // a resumable replay: its carry; `seen` steps replayed before this launch
+  // (the stamp base), resumed from the carry when > 0
+  long long* carry = ptrs.carry;
+  const long long seen = carry ? carry[0] : 0;
+  const bool resume = seen > 0;
+  const MultiCarry cw(carry, NH, K, P);
+  int32_t* home_where = reinterpret_cast<int32_t*>(ptrs.maps);
+  int2* home_links = reinterpret_cast<int2*>(
+      ptrs.maps + links_home(static_cast<long long>(ND) * num_pages));
 
   // the table, copied to shared memory: lengths, host order, the lanes'
   // flash lanes and DRAM timing, rows' lanes, the rows, QoS mask and
@@ -1454,6 +1608,7 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   long long* h_now = reinterpret_cast<long long*>(sm + L[LM_HOST]);
   long long* h_idx = h_now + NH;
   long long* h_cand = h_idx + NH;
+  long long* h_base = h_cand + NH;    // the cursors as the launch began
   long long* x_addr = reinterpret_cast<long long*>(sm + L[LM_NEXT]);
   long long* x_aux = x_addr + NH;
   long long* x_rt = x_aux + NH;
@@ -1471,13 +1626,15 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   long long* die_prog_b = reinterpret_cast<long long*>(sm + L[LM_DIE_PROG]);
   long long* chan_busy_b =
       reinterpret_cast<long long*>(sm + L[LM_CHAN_BUSY]);
-  int32_t* where_b = placed(sm, L[LM_WHERE], reinterpret_cast<int32_t*>(
-                                                 ptrs.scratch - 1 -
-                                                 L[LM_WHERE]));
+  int32_t* where_b = placed(
+      sm, L[LM_WHERE],
+      carry ? home_where
+            : reinterpret_cast<int32_t*>(ptrs.scratch - 1 - L[LM_WHERE]));
   long long* frames_b = placed(sm, L[LM_FRAMES], ptrs.frames);
-  int2* links_b = placed(sm, L[LM_LINKS], reinterpret_cast<int2*>(
-                                              ptrs.scratch - 1 -
-                                              L[LM_LINKS]));
+  int2* links_b = placed(
+      sm, L[LM_LINKS],
+      carry ? home_links
+            : reinterpret_cast<int2*>(ptrs.scratch - 1 - L[LM_LINKS]));
   int32_t* l2p_b = placed(sm, L[LM_L2P], ptrs.l2p);
   int32_t* valid_b = placed(sm, L[LM_VALID], ptrs.valid);
   uint8_t* free_mask_b = placed(sm, L[LM_FREE_MASK], ptrs.free_mask);
@@ -1489,7 +1646,9 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
 
   // prologue: the table; every host's tree at `start` (engine.py's
   // _init_carry, per host), clock, cursor, candidate and first access;
-  // ports idle and QoS tables empty; the lanes' state copied in
+  // ports idle and QoS tables empty; the lanes' state copied in.  A
+  // resumed replay takes the hosts' slots, clocks and cursors, the ports,
+  // the QoS tables and the lanes' victim order from its carry.
   for (long long i = tid; i < mwords; i += kThreads) mt[i] = ptrs.mtab[i];
   for (long long i = tid; i < NH * 2 * leaves; i += kThreads) {
     const long long node = i % (2 * leaves);
@@ -1497,26 +1656,54 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
       trees[i] = make_longlong2(kBig, 0);
       continue;
     }
-    long long lo = node;
-    while (lo < leaves) lo <<= 1;
+    long long lo = node, span = 1;
+    while (lo < leaves) {
+      lo <<= 1;
+      span <<= 1;
+    }
     lo -= leaves;
-    trees[i] = make_longlong2(lo < K ? start : kBig, lo);
+    if (!resume) {
+      trees[i] = make_longlong2(lo < K ? start : kBig, lo);
+      continue;
+    }
+    const long long* sl = cw.slots + (i / (2 * leaves)) * K;
+    longlong2 best = make_longlong2(kBig, lo);
+    for (long long k = lo; k < lo + span && k < K; ++k)
+      if (sl[k] < best.x) best = make_longlong2(sl[k], k);
+    trees[i] = best;
   }
   for (int h = tid; h < NH; h += kThreads) {
     const long long len = ptrs.mtab[h];
-    h_now[h] = start;
-    h_idx[h] = 0;
-    h_cand[h] = len > 0 ? start : kBig;
-    x_addr[h] = len > 0 ? ptrs.addrs[h * stride] : 0;
-    x_aux[h] = len > 0 ? ptrs.aux[h * stride] : 0;
-    x_rt[h] = len > 0 && FAULTED ? ptrs.rt[h * stride] : 0;
+    long long now = start, idx = 0, root = start;
+    if (resume) {
+      now = cw.now[h];
+      idx = cw.idx[h];
+      root = cw.slots[static_cast<long long>(h) * K];
+      for (int k = 1; k < K; ++k)
+        root = min64(root, cw.slots[static_cast<long long>(h) * K + k]);
+    }
+    const bool live = idx < len;
+    h_now[h] = now;
+    h_idx[h] = idx;
+    h_base[h] = idx;
+    h_cand[h] = live ? max64(now, root) : kBig;
+    x_addr[h] = live ? ptrs.addrs[h * stride] : 0;
+    x_aux[h] = live ? ptrs.aux[h * stride] : 0;
+    x_rt[h] = live && FAULTED ? ptrs.rt[h * stride] : 0;
   }
-  for (int i = tid; i < P; i += kThreads) pb[i] = qacc[i] = qthr[i] = 0;
+  for (int i = tid; i < P; i += kThreads) {
+    pb[i] = qacc[i] = qthr[i] = 0;
+    if (resume) {
+      pb[i] = cw.pb[i];
+      qacc[i] = cw.qacc[i];
+      qthr[i] = cw.qthr[i];
+    }
+  }
   if (qos) {
     for (long long i = tid; i < static_cast<long long>(P) * NH;
          i += kThreads) {
-      vft[i] = 0;
-      last[i] = kNever;
+      vft[i] = resume ? cw.vft[i] : 0;
+      last[i] = resume ? cw.last[i] : kNever;
     }
   }
   for (int i = tid; i < ND * nm8; i += kThreads) {
@@ -1534,9 +1721,21 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   }
   for (int i = tid; i < NF * chans; i += kThreads)
     chan_busy_b[i] = ptrs.chan_busy[i];
-  if (assoc) {
+  if (assoc && !resume) {
     for (long long i = tid; i < ND * num_pages; i += kThreads)
       where_b[i] = -1;
+    if (carry && lru_links)
+      for (long long i = tid; i < static_cast<long long>(ND) * nf;
+           i += kThreads)
+        links_b[i] = make_int2(-1, -1);
+  } else if (assoc) {
+    if (L[LM_WHERE] >= 0)
+      for (long long i = tid; i < ND * num_pages; i += kThreads)
+        where_b[i] = home_where[i];
+    if (lru_links && L[LM_LINKS] >= 0)
+      for (long long i = tid; i < static_cast<long long>(ND) * nf;
+           i += kThreads)
+        links_b[i] = home_links[i];
   }
   if (KIND == kSsdCache || assoc) {
     if (L[LM_FRAMES] >= 0)
@@ -1579,8 +1778,9 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
     m[MS_BUSY] = s[S_BUSY];
     m[MS_ROW] = s[S_ROW];
     m[MS_DRAM_BUSY] = s[S_DRAM_BUSY];
-    m[MS_FILL] = 0;
-    m[MS_HEAD] = m[MS_TAIL] = -1;
+    m[MS_FILL] = resume ? cw.lanes[3 * d] : 0;
+    m[MS_HEAD] = resume ? cw.lanes[3 * d + 1] : -1;
+    m[MS_TAIL] = resume ? cw.lanes[3 * d + 2] : -1;
     long long mmin = kBig;
     for (int e = 0; e < nm; ++e) mmin = min64(mmin, ptrs.mready[d * nm + e]);
     m[MS_MMIN] = mmin;
@@ -1742,11 +1942,15 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
       const unsigned long long rtp = static_cast<unsigned long long>(x_rt[i]);
       const long long j = h_idx[i] + 1;
       const bool more = j < lens[i];
+      // the next access, from the host's window: one that lies past it is
+      // taken at the next launch, which this one's last step precedes (a
+      // launch replays at most `stride` steps)
+      const long long jw = j - h_base[i];
       long long n_addr = 0, n_aux = 0, n_rt = 0;
-      if (more) {
-        n_addr = ptrs.addrs[i * stride + j];
-        n_aux = ptrs.aux[i * stride + j];
-        if (FAULTED) n_rt = ptrs.rt[i * stride + j];
+      if (more && jw < stride) {
+        n_addr = ptrs.addrs[i * stride + jw];
+        n_aux = ptrs.aux[i * stride + jw];
+        if (FAULTED) n_rt = ptrs.rt[i * stride + jw];
       }
       const bool wr = (aux & 1) != 0;
       const long long row = aux >> 1;
@@ -1803,7 +2007,7 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
         }
       }
       const bool posted = wr && c.posted_writes;
-      const long long ctr = s + 1;                 // stamp counter: 1, 2, ...
+      const long long ctr = seen + s + 1;          // stamp counter: 1, 2, ...
       int flags = 0;
       long long done;
       if (KIND == kDram) {
@@ -1901,46 +2105,88 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   }
   for (int i = tid; i < NF * kNumScalars; i += kThreads)
     ptrs.scal[ND * kNumScalars + i] = fscal[i];
+  if (carry) {
+    // the carry out: the hosts' clocks, cursors and slots (their trees'
+    // leaves), the ports, the QoS tables, the lanes' victim order, maps
+    // and links
+    for (int h = tid; h < NH; h += kThreads) {
+      cw.now[h] = h_now[h];
+      cw.idx[h] = h_idx[h];
+    }
+    for (long long i = tid; i < static_cast<long long>(NH) * K;
+         i += kThreads)
+      cw.slots[i] = trees[(i / K) * 2 * leaves + leaves + i % K].x;
+    for (int i = tid; i < P; i += kThreads) {
+      cw.pb[i] = pb[i];
+      cw.qacc[i] = qacc[i];
+      cw.qthr[i] = qthr[i];
+    }
+    if (qos)
+      for (long long i = tid; i < static_cast<long long>(P) * NH;
+           i += kThreads) {
+        cw.vft[i] = vft[i];
+        cw.last[i] = last[i];
+      }
+    for (int d = tid; d < ND; d += kThreads) {
+      const long long* m = mscal + d * kMScal;
+      cw.lanes[3 * d] = m[MS_FILL];
+      cw.lanes[3 * d + 1] = m[MS_HEAD];
+      cw.lanes[3 * d + 2] = m[MS_TAIL];
+    }
+    if (assoc && L[LM_WHERE] >= 0)
+      for (long long i = tid; i < ND * num_pages; i += kThreads)
+        home_where[i] = where_b[i];
+    if (lru_links && L[LM_LINKS] >= 0)
+      for (long long i = tid; i < static_cast<long long>(ND) * nf;
+           i += kThreads)
+        home_links[i] = links_b[i];
+    if (tid == 0) carry[0] = seen + n;
+  }
 }
 
 #ifndef REPLAY_SCAN_EMULATE
 // One block of four warps an SM: the minimum of 1 lets ptxas give the
 // walking thread the registers it wants.
-template <int KIND, bool NAND, bool FAULTED>
+template <int KIND, bool NAND, bool FAULTED, bool CARRY>
 __global__ void __launch_bounds__(kThreads, 1)
 replay_scan_kernel(const __grid_constant__ Args args,
                    const __grid_constant__ Layout lay, const Ptrs ptrs) {
   extern __shared__ __align__(16) char smem[];
-  replay<KIND, NAND, FAULTED>(args, lay, ptrs, smem);
+  replay<KIND, NAND, FAULTED, CARRY>(args, lay, ptrs, smem);
 }
 
-template <int KIND, bool NAND, bool FAULTED>
+template <int KIND, bool NAND, bool FAULTED, bool CARRY>
 int launch(const Args& a, const Layout& lay, const Ptrs& p, int smem_bytes,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      replay_scan_kernel<KIND, NAND, FAULTED>,
+      replay_scan_kernel<KIND, NAND, FAULTED, CARRY>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  replay_scan_kernel<KIND, NAND, FAULTED>
+  replay_scan_kernel<KIND, NAND, FAULTED, CARRY>
       <<<1, kThreads, smem_bytes, stream>>>(a, lay, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instance of the stack's kind (NAND statics only on the flash kinds).
-template <bool FAULTED>
+template <bool FAULTED, bool CARRY>
 int launch_kind(const Args& a, const Layout& lay, const Ptrs& p,
                 int smem_bytes, cudaStream_t s) {
   const bool nand = a.v[A_NAND] != 0;
   switch (a.v[A_KIND]) {
-    case kDram: return launch<kDram, false, FAULTED>(a, lay, p, smem_bytes, s);
-    case kPmem: return launch<kPmem, false, FAULTED>(a, lay, p, smem_bytes, s);
+    case kDram:
+      return launch<kDram, false, FAULTED, CARRY>(a, lay, p, smem_bytes, s);
+    case kPmem:
+      return launch<kPmem, false, FAULTED, CARRY>(a, lay, p, smem_bytes, s);
     case kSsdBuf:
-      return nand ? launch<kSsdBuf, true, FAULTED>(a, lay, p, smem_bytes, s)
-                  : launch<kSsdBuf, false, FAULTED>(a, lay, p, smem_bytes, s);
+      return nand ? launch<kSsdBuf, true, FAULTED, CARRY>(a, lay, p,
+                                                          smem_bytes, s)
+                  : launch<kSsdBuf, false, FAULTED, CARRY>(a, lay, p,
+                                                           smem_bytes, s);
     default:
-      return nand
-                 ? launch<kSsdCache, true, FAULTED>(a, lay, p, smem_bytes, s)
-                 : launch<kSsdCache, false, FAULTED>(a, lay, p, smem_bytes, s);
+      return nand ? launch<kSsdCache, true, FAULTED, CARRY>(a, lay, p,
+                                                            smem_bytes, s)
+                  : launch<kSsdCache, false, FAULTED, CARRY>(a, lay, p,
+                                                             smem_bytes, s);
   }
 }
 
@@ -1999,7 +2245,7 @@ extern "C" {
 // Launch the replay of one trace (one block) on `stream`.  `args` and
 // `layout` are the host arrays of the kNumArgs fields of the argument
 // block and of the kLayoutWords fields of the layout; every other pointer
-// is on the card.  Returns the CUDA error code of the launch (0 on
+// is on the card (`carry` and `maps` null for a one-launch replay).  Returns the CUDA error code of the launch (0 on
 // success); the kernel itself does not synchronise.
 int replay_scan_launch(const long long* args, const long long* layout,
                        const long long* tables, const long long* addrs,
@@ -2012,7 +2258,8 @@ int replay_scan_launch(const long long* args, const long long* layout,
                        int32_t* free_q, uint8_t* free_mask,
                        uint8_t* rtr_mask, long long* die_busy,
                        long long* die_prog, long long* chan_busy,
-                       char* scratch, int smem_bytes, void* stream) {
+                       char* scratch, long long* carry, char* maps,
+                       int smem_bytes, void* stream) {
   Args a;
   memcpy(a.v, args, sizeof(a.v));
   Layout lay;
@@ -2020,10 +2267,15 @@ int replay_scan_launch(const long long* args, const long long* layout,
   const Ptrs p{addrs, writes, routes, retries, tables, issues, dones, flags,
                totals, scal, frames, mpage, mready, wtick, l2p, p2l, valid,
                free_q, free_mask, rtr_mask, die_busy, die_prog, chan_busy,
-               scratch};
+               scratch, carry, maps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.v[A_FAULT_HOPS] ? launch_kind<true>(a, lay, p, smem_bytes, s)
-                           : launch_kind<false>(a, lay, p, smem_bytes, s);
+  if (carry)
+    return a.v[A_FAULT_HOPS] ? launch_kind<true, true>(a, lay, p, smem_bytes, s)
+                             : launch_kind<false, true>(a, lay, p, smem_bytes,
+                                                        s);
+  return a.v[A_FAULT_HOPS] ? launch_kind<true, false>(a, lay, p, smem_bytes, s)
+                           : launch_kind<false, false>(a, lay, p, smem_bytes,
+                                                       s);
 }
 
 // Launch a multi-host replay (one block) on `stream`: `args`, `margs` and
@@ -2037,7 +2289,8 @@ int replay_scan_launch_multi(
     long long* mpage, long long* mready, long long* wtick, int32_t* l2p,
     int32_t* p2l, int32_t* valid, int32_t* free_q, uint8_t* free_mask,
     uint8_t* rtr_mask, long long* die_busy, long long* die_prog,
-    long long* chan_busy, char* scratch, int smem_bytes, void* stream) {
+    long long* chan_busy, char* scratch, long long* carry, char* maps,
+    int smem_bytes, void* stream) {
   Args a;
   memcpy(a.v, args, sizeof(a.v));
   MArgs m;
@@ -2047,7 +2300,7 @@ int replay_scan_launch_multi(
   const MultiPtrs p{addrs, aux, rt, mtab, who, issues, dones, flags, totals,
                     scal, frames, mpage, mready, wtick, l2p, p2l, valid,
                     free_q, free_mask, rtr_mask, die_busy, die_prog,
-                    chan_busy, scratch};
+                    chan_busy, scratch, carry, maps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return a.v[A_FAULT_HOPS] ? launch_multi_kind<true>(a, m, lay, p, smem_bytes,
                                                      s)

@@ -21,6 +21,12 @@ interleaved in issue order over shared ports and lane-stacked media and
 flash state, one launch of the kernel's multi-host instance, or on the
 CPU :func:`replay_multi_plain`.
 
+Both replays are resumable: given a :class:`Carry` (:func:`new_carry`,
+:func:`new_multi_carry`) a call continues the replay the carry and the
+state tensors hold, so a trace replayed chunk by chunk, one launch a
+chunk, equals its one-call replay output for output; the twins take the
+same carry.
+
 The ``LAUNCHES`` counter counts kernel launches only, so a run can show
 that it went through the kernel.
 """
@@ -93,6 +99,10 @@ LAYOUT_MULTI = ("leaves", "tree", "host", "next", "pb", "qacc", "qthr",
                 "vft", "last", "mtab", "mscal", "fscal", "mpage", "mready",
                 "wtick", "die_busy", "die_prog", "chan_busy") + PLACED
 MEDIA_SCALARS = 8           # a media lane's scalars in shared memory
+# the carry of a resumable replay (`enum Carry`): its header words, then
+# the LFB slots (K) and, a port each, busy-until, queueing and throttle
+# totals and QoS virtual clock (4 x ports)
+CARRY = ("seen", "now", "fill", "head", "tail")
 
 
 def reset_launches() -> None:
@@ -110,14 +120,23 @@ def num_paths(cfg: StackConfig, params: Dict) -> int:
 
 def _check(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
            writes: torch.Tensor, routes: Optional[torch.Tensor],
-           retries: Optional[torch.Tensor]) -> None:
+           retries: Optional[torch.Tensor],
+           carry: Optional[Carry] = None) -> None:
     n = addrs.shape[0] if addrs.dim() == 1 else -1
     if addrs.dtype != torch.int64 or addrs.dim() != 1 or n < 1:
         raise ValueError(f"addrs must be a non-empty (N,) int64 tensor, got "
                          f"{addrs.dtype} {tuple(addrs.shape)}")
-    if n > MAX_ACCESSES:
-        raise ValueError(f"{n} accesses exceed the packed stamp's "
+    seen = carry.seen if carry is not None else 0
+    if seen + n > MAX_ACCESSES:
+        raise ValueError(f"{seen} + {n} accesses exceed the packed stamp's "
                          f"{MAX_ACCESSES}")
+    if carry is not None and (
+            tuple(carry.words.shape) != (len(CARRY) + cfg.outstanding
+                                         + 4 * cfg.num_ports,)
+            or carry.words.device != addrs.device
+            or carry.maps.device != addrs.device):
+        raise ValueError("the carry is not this stack's (new_carry) or lies "
+                         "on another device")
     if writes.dtype != torch.bool or tuple(writes.shape) != (n,):
         raise ValueError(f"writes must be a ({n},) bool tensor, got "
                          f"{writes.dtype} {tuple(writes.shape)}")
@@ -145,11 +164,13 @@ def _check(cfg: StackConfig, state: Dict, addrs: torch.Tensor,
 
 def _check_values(cfg: StackConfig, params: Dict, state: Dict,
                   addrs: torch.Tensor, routes: Optional[torch.Tensor],
-                  retries: Optional[torch.Tensor]) -> None:
+                  retries: Optional[torch.Tensor],
+                  resumed: bool = False) -> None:
     """The checks that read the tensors (one read from their device): the
     kernel indexes its page map and l2p by the page, and its route tables
     by the route or path, unchecked, charges the retry bytes of a path's
-    hops only, and takes a fresh cache only."""
+    hops only, and takes a fresh cache only, unless it resumes a carry
+    (``resumed``)."""
     top = cfg.num_pages * cfg.page_bytes if stack.has_flash(cfg) else None
     rows = num_paths(cfg, params)
     checks = {"addresses": addrs.min() < 0}
@@ -162,7 +183,7 @@ def _check_values(cfg: StackConfig, params: Dict, state: Dict,
         off = torch.from_numpy(np.asarray(params["hop_port"]) < 0).to(
             routes.device)[routes.clamp(0, rows - 1).long()]
         checks["retries"] = (off & (retries != 0)).any()
-    if fully_associative(cfg):
+    if fully_associative(cfg) and not resumed:
         checks["frames"] = (state["media"]["frames"] != stack.FREE).any()
     failed = dict(zip(checks, torch.stack(list(checks.values())).tolist()))
     if failed["addresses"]:
@@ -177,8 +198,9 @@ def _check_values(cfg: StackConfig, params: Dict, state: Dict,
     if failed.get("frames"):
         raise ValueError(
             "replay_scan starts from a fresh cache: every frame free (-1), "
-            "as stack.init_state makes it; its stamp counter restarts at 1, "
-            "so the kernel's victim order equals the reference's only then")
+            "as stack.init_state makes it, unless it resumes a carry; its "
+            "stamp counter starts at 1, so the kernel's victim order equals "
+            "the reference's only then")
 
 
 def fully_associative(cfg: StackConfig) -> bool:
@@ -188,10 +210,118 @@ def fully_associative(cfg: StackConfig) -> bool:
     return cfg.kind == SSD_BUF or (cfg.kind == SSD_CACHE and cfg.cache_assoc)
 
 
+def _has_links(cfg: StackConfig, params: Dict) -> bool:
+    """Whether the frames keep a recency list (a page-register buffer,
+    an LRU cache)."""
+    return fully_associative(cfg) and (
+        cfg.kind == SSD_BUF or bool(np.asarray(params["is_lru"])))
+
+
+# ------------------------------------------------------------ the carry
+@dataclass
+class Carry:
+    """The state a resumable replay carries from one launch to the next
+    besides the stack state: ``words`` (int64, :data:`CARRY` then the LFB
+    slots and the ports, or :func:`multi_carry_words` for the multi-host
+    replay), the home of the frames' page map and recency links
+    (``maps``, bytes: every lane's int32 map, then at the next 16 bytes
+    every lane's links as int32 pairs), and ``seen``, the accesses (steps)
+    replayed so far, which ``words[0]`` holds on the tensors' device."""
+
+    words: torch.Tensor
+    maps: torch.Tensor
+    seen: int = 0
+
+    def leaves(self) -> Dict[str, np.ndarray]:
+        """The carry as host arrays (a checkpoint's leaves)."""
+        return {"words": self.words.cpu().numpy(),
+                "maps": self.maps.cpu().numpy()}
+
+    def load(self, leaves: Dict[str, np.ndarray]) -> None:
+        """Take ``leaves`` (from :meth:`leaves`) into this carry's
+        tensors, after the shape checks of the caller."""
+        self.words.copy_(torch.from_numpy(np.asarray(leaves["words"])))
+        self.maps.copy_(torch.from_numpy(np.asarray(leaves["maps"])))
+        self.seen = int(np.asarray(leaves["words"])[0])
+
+
+def carry_ports(cfg: StackConfig, carry: Carry):
+    """A single-host carry's per-port queueing and QoS-throttle totals
+    (int64 numpy each), as the last launch returned them."""
+    K, P = len(CARRY) + cfg.outstanding, cfg.num_ports
+    w = carry.words[K + P:K + 3 * P].cpu().numpy()
+    return w[:P].copy(), w[P:].copy()
+
+
+def _maps_bytes(cfg: StackConfig, params: Dict, lanes: int = 1) -> int:
+    if not fully_associative(cfg):
+        return 16
+    frames = cfg.buf_entries if cfg.kind == SSD_BUF else cfg.cache_frames
+    where = -(-4 * lanes * cfg.num_pages // 16) * 16
+    return where + (8 * lanes * frames if _has_links(cfg, params) else 0)
+
+
+def new_carry(cfg: StackConfig, params: Dict, device,
+              start_tick: int = 0) -> Carry:
+    """A fresh carry of a single-host replay from ``start_tick`` on
+    ``device``: nothing replayed, every slot at ``start_tick``, the ports
+    idle, the map empty."""
+    K, P = cfg.outstanding, cfg.num_ports
+    w = np.zeros(len(CARRY) + K + 4 * P, np.int64)
+    w[1] = start_tick
+    w[3] = w[4] = -1
+    w[len(CARRY):len(CARRY) + K] = start_tick
+    return Carry(torch.from_numpy(w).to(device),
+                 torch.full((_maps_bytes(cfg, params),), 255,
+                            dtype=torch.uint8, device=device))
+
+
+def victim_order(cfg: StackConfig, params: Dict, frames: np.ndarray):
+    """The kernel's victim order of packed ``frames`` (a fresh cache's,
+    after any replay): ``(fill, head, tail, where, links)``, the fill
+    pointer, the recency list's head and tail, the page map (int32, a
+    page each) and the links (int32 pairs, a frame each; -1 past the
+    filled frames).  Frames fill in order, the list runs by stamp (an LRU
+    touch restamps) and a FIFO's next victim holds the oldest stamp."""
+    nf = frames.size
+    if not fully_associative(cfg):
+        return 0, -1, -1, None, None
+    valid = frames >= 0
+    filled = int(valid.sum())
+    where = np.full(cfg.num_pages, -1, np.int32)
+    links = np.full((nf, 2), -1, np.int32)
+    idx = np.flatnonzero(valid)
+    where[(frames[idx] & stack.PAGE_FIELD) >> 1] = idx
+    order = idx[np.argsort(frames[idx] >> stack.STAMP_SHIFT, kind="stable")]
+    if not _has_links(cfg, params):
+        fill = filled if filled < nf else nf + int(order[0])
+        return fill, -1, -1, where, links
+    if order.size:
+        links[order[1:], 0] = order[:-1]
+        links[order[:-1], 1] = order[1:]
+        return filled, int(order[0]), int(order[-1]), where, links
+    return filled, -1, -1, where, links
+
+
+def _pack_maps(cfg: StackConfig, params: Dict, parts) -> np.ndarray:
+    """``maps`` bytes of the lanes' ``(where, links)``."""
+    out = np.full(_maps_bytes(cfg, params, len(parts)), 255, np.uint8)
+    if not fully_associative(cfg):
+        return out
+    where = np.concatenate([w for w, _ in parts]).view(np.uint8)
+    out[:where.size] = where
+    if _has_links(cfg, params):
+        at = -(-where.size // 16) * 16
+        links = np.concatenate([lk for _, lk in parts]).reshape(-1)
+        out[at:at + 4 * links.size] = links.view(np.uint8)
+    return out
+
+
 def replay_scan(cfg: StackConfig, params: Dict, state: Dict,
                 addrs: torch.Tensor, writes: torch.Tensor,
                 routes: Optional[torch.Tensor] = None, *,
-                start_tick: int = 0, retries: Optional[torch.Tensor] = None):
+                start_tick: int = 0, retries: Optional[torch.Tensor] = None,
+                carry: Optional[Carry] = None):
     """Replay ``addrs`` / ``writes`` (``(N,)`` int64 / bool) through the
     stack ``cfg`` / ``params`` from ``state``
     (:func:`repro_torch.core.replay.stack.init_state` on the trace's
@@ -204,23 +334,32 @@ def replay_scan(cfg: StackConfig, params: Dict, state: Dict,
     *h* then occupies its port for ``occ * (1 + retries[h])`` ticks, and a
     weighted port's virtual clock advances by ``occ``.
 
+    ``carry`` (a :func:`new_carry`) makes the replay resumable: the
+    accesses continue a replay of ``carry.seen`` accesses whose state and
+    carry this call takes and updates, so a trace replayed chunk by chunk
+    through one carry equals its one-call replay, output for output.
+
     Returns ``(issues, dones, flags, qacc, qthr)``: int64 issue and
     completion ticks and int32 flags per access (bit 0 hit, bit 1 dirty
     evict, then the kind's :data:`FLAG_EVENT_BITS`), and the int64
-    queueing ticks and QoS throttle events of each port.
+    queueing ticks and QoS throttle events of each port (since the
+    carry's start).
 
     Raises ``ValueError`` on addresses below 0 or past the stack's
     ``num_pages``, on routes outside the route tables, on retry bytes of
-    hops a path does not have, and on the frames of a page-register
-    buffer or a fully associative cache that are not all free: the
-    kernel's victim order starts from a fresh cache."""
-    _check(cfg, state, addrs, writes, routes, retries)
+    hops a path does not have, on more than ``MAX_ACCESSES`` accesses
+    (the carry's included), and, without a carry to resume, on the frames
+    of a page-register buffer or a fully associative cache that are not
+    all free: the kernel's victim order starts from a fresh cache."""
+    _check(cfg, state, addrs, writes, routes, retries, carry)
     if addrs.device.type == "cpu":
-        _check_values(cfg, params, state, addrs, routes, retries)
+        _check_values(cfg, params, state, addrs, routes, retries,
+                      resumed=carry is not None and carry.seen > 0)
         return replay_scan_plain(cfg, params, state, addrs, writes, routes,
-                                 start_tick=start_tick, retries=retries)
+                                 start_tick=start_tick, retries=retries,
+                                 carry=carry)
     return _launch(cfg, params, state, addrs, writes, routes, retries,
-                   start_tick)
+                   start_tick, carry)
 
 
 def host_params(params: Dict) -> Dict:
@@ -237,13 +376,17 @@ def replay_scan_plain(cfg: StackConfig, params: Dict, state: Dict,
                       addrs: torch.Tensor, writes: torch.Tensor,
                       routes: Optional[torch.Tensor] = None, *,
                       start_tick: int = 0,
-                      retries: Optional[torch.Tensor] = None):
+                      retries: Optional[torch.Tensor] = None,
+                      carry: Optional[Carry] = None):
     """Plain version of :func:`replay_scan`: the JAX package's
     ``_scan_chunk`` step (LFB slot recycle, then ``_transport``,
     ``_transport_ecmp`` or the faulted ``_transport_cols`` with the qacc /
     qthr totals) one access per loop step over
-    :func:`repro_torch.core.replay.stack.step`.  Runs on any device's
-    tensors; the card's main path launches the kernel instead."""
+    :func:`repro_torch.core.replay.stack.step`, from ``carry`` when it
+    resumes one (the kernel's victim order, which the loop does not keep,
+    comes from the final frames: :func:`victim_order`).  Runs on any
+    device's tensors; the card's main path launches the kernel
+    instead."""
     p = host_params(params)
     a, w = addrs.tolist(), writes.tolist()
     r = routes.tolist() if routes is not None else None
@@ -251,12 +394,21 @@ def replay_scan_plain(cfg: StackConfig, params: Dict, state: Dict,
     routed = cfg.num_routes > 1 or cfg.fault_hops
     qos = set(cfg.qos_ports)
     bits = FLAG_EVENT_BITS[cfg.kind]
-    slots = [start_tick] * cfg.outstanding          # LFB slots
-    pb = [0] * cfg.num_ports                         # port busy-until
-    vft = [0] * cfg.num_ports                        # QoS virtual finish
-    qacc = [0] * cfg.num_ports
-    qthr = [0] * cfg.num_ports
+    K, P = cfg.outstanding, cfg.num_ports
+    slots = [start_tick] * K                         # LFB slots
+    pb = [0] * P                                     # port busy-until
+    vft = [0] * P                                    # QoS virtual finish
+    qacc = [0] * P
+    qthr = [0] * P
     now = start_tick
+    seen = carry.seen if carry is not None else 0
+    if seen:
+        words = carry.words.tolist()
+        now = words[1]
+        c = words[len(CARRY):]
+        slots, pb, qacc, qthr, vft = (c[:K], c[K:K + P], c[K + P:K + 2 * P],
+                                      c[K + 2 * P:K + 3 * P],
+                                      c[K + 3 * P:K + 4 * P])
     issues, dones, flags = [], [], []
     for i in range(len(a)):
         k = min(range(len(slots)), key=slots.__getitem__)   # lowest on ties
@@ -286,7 +438,7 @@ def replay_scan_plain(cfg: StackConfig, params: Dict, state: Dict,
         t += p["rt_extra"]
         out = stack.step(cfg, p, state, dict(
             t=t, addr=a[i], write=w[i], posted=w[i] and cfg.posted_writes,
-            ctr=i + 1))
+            ctr=seen + i + 1))
         f = int(out["hit"]) | int(out["evict"]) << 1
         for bit, key in bits:
             f |= int(out[key]) << bit
@@ -300,6 +452,15 @@ def replay_scan_plain(cfg: StackConfig, params: Dict, state: Dict,
     def i64(x):
         return torch.tensor(x, dtype=torch.int64, device=dev)
 
+    if carry is not None:
+        frames = (state["media"]["frames"].cpu().numpy()
+                  if "frames" in state["media"] else np.zeros(0, np.int64))
+        fill, head, tail, where, links = victim_order(cfg, params, frames)
+        carry.words.copy_(i64([seen + len(a), now, fill, head, tail] + slots
+                              + pb + qacc + qthr + vft))
+        carry.maps.copy_(torch.from_numpy(
+            _pack_maps(cfg, params, [(where, links)])))
+        carry.seen = seen + len(a)
     return (i64(issues), i64(dones),
             torch.tensor(flags, dtype=torch.int32, device=dev),
             i64(qacc), i64(qthr))
@@ -495,7 +656,8 @@ def _smem_optin(lib, index: int) -> int:
     return _SMEM_OPTIN[index]
 
 
-def _launch(cfg, params, state, addrs, writes, routes, retries, start_tick):
+def _launch(cfg, params, state, addrs, writes, routes, retries, start_tick,
+            carry=None):
     """Launch the kernel on the tensors' card, on PyTorch's current
     stream."""
     from repro_torch.kernels import _build
@@ -506,7 +668,8 @@ def _launch(cfg, params, state, addrs, writes, routes, retries, start_tick):
     if cfg.outstanding > MAX_OUTSTANDING:
         raise ValueError(f"outstanding={cfg.outstanding} exceeds the "
                          f"kernel's {MAX_OUTSTANDING} LFB slots")
-    _check_values(cfg, params, state, addrs, routes, retries)
+    _check_values(cfg, params, state, addrs, routes, retries,
+                  resumed=carry is not None and carry.seen > 0)
     lib = _build.library("replay_scan")
     if (lib.replay_scan_num_args(), lib.replay_scan_layout_words()) != (
             len(ARGS), len(LAYOUT)):
@@ -520,17 +683,18 @@ def _launch(cfg, params, state, addrs, writes, routes, retries, start_tick):
         err, out = call_launch(lib, cfg, params, state, addrs, writes, routes,
                                start_tick, lay,
                                torch.cuda.current_stream(dev).cuda_stream,
-                               retries=retries)
+                               retries=retries, carry=carry)
         _raise_on(lib, err, "replay_scan kernel launch")
         LAUNCHES["replay_scan"] += 1
     return out
 
 
 def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
-                lay: Layout, stream, retries=None):
+                lay: Layout, stream, retries=None, carry=None):
     """Pack one replay's arguments and layout, call
-    ``lib.replay_scan_launch`` on them and its tensors' device, and copy
-    the state's scalars back.  Returns the call's return code and
+    ``lib.replay_scan_launch`` on them and its tensors' device (resuming
+    and updating ``carry`` when given), and copy the state's scalars
+    back.  Returns the call's return code and
     ``(issues, dones, flags, qacc, qthr)``.  :func:`_launch` calls it with
     the CUDA library; a host build of the same source
     (``REPLAY_SCAN_EMULATE``) takes CPU tensors."""
@@ -566,12 +730,16 @@ def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
         dones.data_ptr(), flags.data_ptr(), totals.data_ptr(),
         scal.data_ptr(), *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
         *(ptr(fl.get(k)) for k in FLASH_ARRAYS), scratch.data_ptr(),
+        *((None, None) if carry is None
+          else (carry.words.data_ptr(), carry.maps.data_ptr())),
         lay.smem_bytes, stream)
     if err == 0:
         for i, k in enumerate(SCALARS):
             part = md if k in md else fl
             if k in part:
                 part[k].copy_(scal[i])
+        if carry is not None:
+            carry.seen += n
     return err, (issues, dones, flags, totals[:P], totals[P:])
 
 
@@ -610,10 +778,52 @@ def multi_rows(cfg, devs: torch.Tensor,
     return rows.to(torch.int32)
 
 
+def multi_carry_words(cfg) -> int:
+    """Words of the multi-host carry (``struct MultiCarry``): the steps
+    replayed, a host each its clock and cursor, its LFB slots, a port each
+    busy-until, queueing and throttle totals, the QoS tables (ports x
+    hosts, virtual finish and last arrival) and a media lane each its
+    fill pointer, recency head and tail."""
+    H, K, P, D = cfg.num_hosts, cfg.outstanding, cfg.num_ports, cfg.num_devs
+    return 1 + 2 * H + H * K + 3 * P + 2 * P * H + 3 * D
+
+
+def _multi_carry_parts(cfg, words: list) -> Dict[str, list]:
+    H, K, P, D = cfg.num_hosts, cfg.outstanding, cfg.num_ports, cfg.num_devs
+    out, at = {}, 1
+    for name, size in (("now", H), ("idx", H), ("slots", H * K), ("pb", P),
+                       ("qacc", P), ("qthr", P), ("vft", P * H),
+                       ("last", P * H), ("lanes", 3 * D)):
+        out[name], at = words[at:at + size], at + size
+    return out
+
+
+def new_multi_carry(cfg, params: Dict, device, start_tick: int = 0) -> Carry:
+    """A fresh carry of a multi-host replay from ``start_tick`` on
+    ``device``."""
+    from repro_torch.core.replay.multihost import NEVER
+
+    H, K, P, D = cfg.num_hosts, cfg.outstanding, cfg.num_ports, cfg.num_devs
+    w = ([0] + [start_tick] * H + [0] * H + [start_tick] * (H * K)
+         + [0] * (3 * P + P * H) + [NEVER] * (P * H) + [0, -1, -1] * D)
+    return Carry(torch.tensor(w, dtype=torch.int64, device=device),
+                 torch.full((_maps_bytes(cfg.stack, params, D),), 255,
+                            dtype=torch.uint8, device=device))
+
+
+def cursors(carry: Carry, num_hosts: int) -> np.ndarray:
+    """The hosts' cursors of a multi-host carry (one read from its
+    device): where each host's next window starts."""
+    return np.array(carry.words[1 + num_hosts:1 + 2 * num_hosts].tolist(),
+                    np.int64)
+
+
 def _check_multi(cfg, params: Dict, state: Dict, addrs, writes, lens, devs,
-                 routes, retries) -> int:
+                 routes, retries, carry: Optional[Carry] = None,
+                 base=None) -> int:
     """The shape, type and value checks of :func:`replay_multi`; returns
-    the number of steps, ``sum(lens)``."""
+    the number of steps: ``sum(lens)``, or with a carry the steps left
+    up to the windows' width."""
     H = cfg.num_hosts
     if addrs.dtype != torch.int64 or addrs.dim() != 2 or addrs.shape[0] != H:
         raise ValueError(f"addrs must be an ({H}, L) int64 tensor, got "
@@ -647,17 +857,32 @@ def _check_multi(cfg, params: Dict, state: Dict, addrs, writes, lens, devs,
         if x.device != addrs.device:
             raise ValueError(f"tensors on {x.device} and {addrs.device}")
     lens_ = lens.tolist()
-    n = int(sum(lens_))
-    if min(lens_) < 0 or max(lens_) > shape[1] or n < 1:
-        raise ValueError(f"lens must lie in [0, {shape[1]}] and sum to >= 1,"
-                         f" got {lens_}")
-    if stack.has_flash(cfg.stack) and n > MAX_ACCESSES:
-        raise ValueError(f"{n} accesses exceed the packed stamp's "
+    seen = 0 if carry is None else carry.seen
+    n = int(sum(lens_)) - seen
+    if carry is None:
+        if min(lens_) < 0 or max(lens_) > shape[1] or n < 1:
+            raise ValueError(f"lens must lie in [0, {shape[1]}] and sum to "
+                             f">= 1, got {lens_}")
+        base = np.zeros(cfg.num_hosts, np.int64)
+    else:
+        if (tuple(carry.words.shape) != (multi_carry_words(cfg),)
+                or carry.words.device != addrs.device):
+            raise ValueError("the carry is not this replay's "
+                             "(new_multi_carry) or lies on another device")
+        if min(lens_) < 0 or n < 1 or base is None or len(base) != len(
+                lens_):
+            raise ValueError(f"a resumed replay needs steps left and the "
+                             f"hosts' cursors, got lens {lens_} after "
+                             f"{seen} steps")
+        n = min(n, shape[1])
+    if stack.has_flash(cfg.stack) and seen + n > MAX_ACCESSES:
+        raise ValueError(f"{seen} + {n} accesses exceed the packed stamp's "
                          f"{MAX_ACCESSES}")
     tab = multi_tables(cfg, params)
     rows = multi_rows(cfg, devs, routes)
-    live = torch.arange(shape[1], device=addrs.device)[None, :] \
-        < lens[:, None]
+    live = (torch.arange(shape[1], device=addrs.device)[None, :]
+            + torch.as_tensor(np.asarray(base, np.int64),
+                              device=addrs.device)[:, None]) < lens[:, None]
     top = (cfg.stack.num_pages * cfg.stack.page_bytes
            if stack.has_flash(cfg.stack) else None)
     checks = {"addresses": ((addrs < 0) & live).any(),
@@ -670,7 +895,7 @@ def _check_multi(cfg, params: Dict, state: Dict, addrs, writes, lens, devs,
         off = torch.from_numpy(tab["port"] < 0).to(addrs.device)[
             rows.clamp(0, tab["port"].shape[0] - 1).long()]
         checks["retries"] = (off & (retries != 0) & live[..., None]).any()
-    if fully_associative(cfg.stack):
+    if fully_associative(cfg.stack) and not seen:
         checks["frames"] = (state["media"]["frames"] != stack.FREE).any()
     failed = dict(zip(checks, torch.stack(list(checks.values())).tolist()))
     if failed["addresses"]:
@@ -693,7 +918,8 @@ def replay_multi(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
                  writes: torch.Tensor, lens: torch.Tensor,
                  devs: torch.Tensor, routes: Optional[torch.Tensor] = None,
                  *, start_tick: int = 0,
-                 retries: Optional[torch.Tensor] = None):
+                 retries: Optional[torch.Tensor] = None,
+                 carry: Optional[Carry] = None, base=None):
     """Replay ``H`` hosts' traces, interleaved as the JAX package's
     ``MultiHostReplay`` interleaves them, through the multi-host stack
     ``cfg`` (a :class:`~repro_torch.core.replay.multihost.MultiCfg`) /
@@ -710,23 +936,32 @@ def replay_multi(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
     ``path_occ``, ``path_after``, ``path_dev``), with ``retries``
     (``(H, L, max_hops)`` uint8) its CRC retries a hop.
 
+    With ``carry`` (a :func:`new_multi_carry`) the replay resumes one of
+    ``carry.seen`` steps: the columns are then each host's window of
+    ``W`` accesses from its cursor ``base[i]`` (:func:`cursors`), ``lens``
+    the whole traces' lengths, and the call replays ``min(W, sum(lens) -
+    carry.seen)`` steps (a step takes one access, so no host outruns its
+    window), updating the state and the carry.
+
     Returns ``(who, issues, dones, flags, qacc, qthr)`` in step order,
-    ``sum(lens)`` steps: the host of each step (int32), its issue and
-    completion ticks (int64), its flags (int32: bit 0 hit, bit 1 dirty
-    evict, then the kind's :data:`FLAG_EVENT_BITS`), and the int64
-    queueing ticks and QoS throttle events of each port.
+    ``sum(lens)`` steps (or the call's steps): the host of each step
+    (int32), its issue and completion ticks (int64), its flags (int32: bit
+    0 hit, bit 1 dirty evict, then the kind's :data:`FLAG_EVENT_BITS`),
+    and the int64 queueing ticks and QoS throttle events of each port
+    (since the carry's start).
 
     Raises ``ValueError`` on addresses below 0 or past the stack's pages,
     on devices or routes outside the tables, on retry bytes of hops a
-    path does not have, and on caches that are not all free."""
+    path does not have, and, without a carry to resume, on caches that
+    are not all free."""
     n = _check_multi(cfg, params, state, addrs, writes, lens, devs, routes,
-                     retries)
+                     retries, carry, base)
     if addrs.device.type == "cpu":
         return replay_multi_plain(cfg, params, state, addrs, writes, lens,
                                   devs, routes, start_tick=start_tick,
-                                  retries=retries)
+                                  retries=retries, carry=carry, base=base)
     return _launch_multi(cfg, params, state, addrs, writes, lens, devs,
-                         routes, retries, start_tick, n)
+                         routes, retries, start_tick, n, carry)
 
 
 def replay_multi_plain(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
@@ -734,15 +969,17 @@ def replay_multi_plain(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
                        devs: torch.Tensor,
                        routes: Optional[torch.Tensor] = None, *,
                        start_tick: int = 0,
-                       retries: Optional[torch.Tensor] = None):
+                       retries: Optional[torch.Tensor] = None,
+                       carry: Optional[Carry] = None, base=None):
     """Plain version of :func:`replay_multi`: the JAX package's
     ``_make_multi_step`` (the host race, LFB slot recycle, the route walk
     over the shared ports with the QoS mirror, the media step of the
     target lane and its flash lane, the acknowledgment floor) one step
     per loop iteration over :func:`repro_torch.core.replay.stack.
-    media_step`, for ``sum(lens)`` steps: the reference's padded steps
-    after that change nothing its results read.  Runs on any device's
-    tensors; the card's main path launches the kernel instead."""
+    media_step`, for ``sum(lens)`` steps (the reference's padded steps
+    after that change nothing its results read), or from ``carry`` over
+    windows as :func:`replay_multi` says.  Runs on any device's tensors;
+    the card's main path launches the kernel instead."""
     from repro_torch.core.fabric.switch import ACTIVE_WINDOW_OCC
     from repro_torch.core.replay.multihost import BIG, NEVER
 
@@ -753,24 +990,37 @@ def replay_multi_plain(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
     rows = multi_rows(cfg, devs, routes).tolist()
     rt = retries.tolist() if retries is not None else None
     n_of = lens.tolist()
-    H, P = cfg.num_hosts, cfg.num_ports
+    H, P, K = cfg.num_hosts, cfg.num_ports, cfg.outstanding
     kind = cfg.stack.kind
     bits = FLAG_EVENT_BITS[kind]
-    slots = [[start_tick] * cfg.outstanding for _ in range(H)]
+    slots = [[start_tick] * K for _ in range(H)]
     now = [start_tick] * H
     idx = [0] * H
     pb, qacc, qthr = [0] * P, [0] * P, [0] * P
     vft = [[0] * H for _ in range(P)]
     last = [[NEVER] * H for _ in range(P)]
+    seen = carry.seen if carry is not None else 0
+    steps = sum(n_of) - seen
+    b = [0] * H
+    if carry is not None:
+        steps = min(steps, addrs.shape[1])
+        b = [int(x) for x in base]
+    if seen:
+        c = _multi_carry_parts(cfg, carry.words.tolist())
+        now, idx, pb, qacc, qthr = (c["now"], c["idx"], c["pb"], c["qacc"],
+                                    c["qthr"])
+        slots = [c["slots"][i * K:(i + 1) * K] for i in range(H)]
+        vft = [c["vft"][i * H:(i + 1) * H] for i in range(P)]
+        last = [c["last"][i * H:(i + 1) * H] for i in range(P)]
     flash_of = p["flash_of"]
     who, issues, dones, flags = [], [], [], []
-    for s in range(sum(n_of)):
+    for s in range(seen, seen + steps):
         cand = [max(now[i], min(slots[i])) if idx[i] < n_of[i] else BIG
                 for i in range(H)]
         i = cand.index(min(cand))                    # ties -> lowest host
         k = slots[i].index(min(slots[i]))            # ties -> lowest slot
         issue = max(now[i], slots[i][k])
-        j = idx[i]
+        j = idx[i] - b[i]                            # in the host's window
         r = rows[i][j]
         t, floor = issue, 0
         for h in range(cfg.max_hops):
@@ -825,6 +1075,22 @@ def replay_multi_plain(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
     def i64(x):
         return torch.tensor(x, dtype=torch.int64, device=dev)
 
+    if carry is not None:
+        lanes, maps = [], []
+        for d in range(cfg.num_devs):
+            frames = (state["media"]["frames"][d].cpu().numpy()
+                      if "frames" in state["media"] else np.zeros(0, np.int64))
+            fill, head, tail, where, links = victim_order(cfg.stack, params,
+                                                          frames)
+            lanes += [fill, head, tail]
+            maps.append((where, links))
+        carry.words.copy_(i64(
+            [seen + steps] + now + idx + sum(slots, []) + pb + qacc + qthr
+            + sum(vft, []) + sum(last, []) + lanes))
+        carry.maps.copy_(torch.from_numpy(_pack_maps(cfg.stack, params,
+                                                     maps)))
+        carry.seen = seen + steps
+
     return (torch.tensor(who, dtype=torch.int32, device=dev), i64(issues),
             i64(dones), torch.tensor(flags, dtype=torch.int32, device=dev),
             i64(qacc), i64(qthr))
@@ -878,8 +1144,8 @@ def kernel_table(cfg, params: Dict, lens) -> np.ndarray:
 def layout_multi(cfg, params: Dict, budget: int, *,
                  placed: bool = True) -> Layout:
     """The multi-host instance's layout within ``budget`` bytes of shared
-    memory (:data:`LAYOUT_MULTI`): the hosts' LFB trees, clocks, cursors
-    and candidates, and their prefetched next accesses, the ports (with
+    memory (:data:`LAYOUT_MULTI`): the hosts' LFB trees, clocks, cursors,
+    candidates and cursors as the launch began, and their prefetched next accesses, the ports (with
     the QoS tables, ports x hosts), the kernel's table, every lane's
     scalars, MSHR and writeback tables and die / channel busy-untils
     always; then each placed array kind, every lane's at once, in the
@@ -902,7 +1168,7 @@ def layout_multi(cfg, params: Dict, budget: int, *,
         return at
 
     words["tree"] = take(H * 2 * leaves * 16)
-    words["host"] = take(3 * 8 * H)
+    words["host"] = take(4 * 8 * H)
     words["next"] = take(3 * 8 * H)
     for name in ("pb", "qacc", "qthr"):
         words[name] = take(8 * P)
@@ -927,7 +1193,7 @@ def layout_multi(cfg, params: Dict, budget: int, *,
 
 
 def _launch_multi(cfg, params, state, addrs, writes, lens, devs, routes,
-                  retries, start_tick, n):
+                  retries, start_tick, n, carry=None):
     """Launch the multi-host instance on the tensors' card, on PyTorch's
     current stream."""
     from repro_torch.kernels import _build
@@ -949,7 +1215,7 @@ def _launch_multi(cfg, params, state, addrs, writes, lens, devs, routes,
         err, out = call_launch_multi(
             lib, cfg, params, state, addrs, writes, lens, devs, routes,
             start_tick, lay, torch.cuda.current_stream(dev).cuda_stream,
-            retries=retries, n=n)
+            retries=retries, n=n, carry=carry)
         _raise_on(lib, err, "replay_scan (multi-host) kernel launch")
         LAUNCHES["replay_scan"] += 1
     return out
@@ -957,17 +1223,19 @@ def _launch_multi(cfg, params, state, addrs, writes, lens, devs, routes,
 
 def call_launch_multi(lib, cfg, params, state, addrs, writes, lens, devs,
                       routes, start_tick, lay: Layout, stream, retries=None,
-                      n=None):
+                      n=None, carry=None):
     """Pack one multi-host replay's arguments, layout and table, call
-    ``lib.replay_scan_launch_multi`` on them and its tensors' device, and
-    copy the lanes' scalars back.  Returns the call's return code and
+    ``lib.replay_scan_launch_multi`` on them and its tensors' device
+    (``n`` steps, resuming and updating ``carry`` when given), and copy
+    the lanes' scalars back.  Returns the call's return code and
     ``(who, issues, dones, flags, qacc, qthr)``.  :func:`_launch_multi`
     calls it with the CUDA library; a host build of the same source
     (``REPLAY_SCAN_EMULATE``) takes CPU tensors."""
     dev = addrs.device
     H, L = addrs.shape
     if n is None:
-        n = int(lens.sum())
+        n = (int(lens.sum()) if carry is None
+             else min(L, int(lens.sum()) - carry.seen))
     P, D, F = cfg.num_ports, cfg.num_devs, cfg.n_flash
     md, fl = state["media"], state["flash"] or {}
     lens_np = lens.cpu().numpy()
@@ -1006,6 +1274,8 @@ def call_launch_multi(lib, cfg, params, state, addrs, writes, lens, devs,
         flags.data_ptr(), totals.data_ptr(), scal.data_ptr(),
         *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
         *(ptr(fl.get(k)) for k in FLASH_ARRAYS), scratch.data_ptr(),
+        *((None, None) if carry is None
+          else (carry.words.data_ptr(), carry.maps.data_ptr())),
         lay.smem_bytes, stream)
     if err == 0:
         for c, k in enumerate(SCALARS):
@@ -1013,4 +1283,6 @@ def call_launch_multi(lib, cfg, params, state, addrs, writes, lens, devs,
                 md[k].copy_(scal[:D, c])
             elif k in fl:
                 fl[k].copy_(scal[D:, c])
+        if carry is not None:
+            carry.seen += n
     return err, (who, issues, dones, flags, totals[:P], totals[P:])

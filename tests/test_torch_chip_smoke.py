@@ -339,7 +339,10 @@ def test_scan_row_carries_the_contract_keys(smoke):
                     "serial_chain_ms": 2.0, "wall_s": 9.0,
                     "column_s": 0.0}
              for name in ("table1x4", "qos-pool", "down")}
-    row = smoke.scan_row(scan, faulted, multi, 1 << 20)
+    stream = {"a/32768": {"launches": 37, "kernel_ms": 6.0, "wall_s": 1.0,
+                          "host_s": 0.9, "peak_bytes": 10},
+              "c/resume": {"launches": 12, "wall_s": 2.0, "peak_bytes": 1}}
+    row = smoke.scan_row(scan, faulted, multi, 1 << 20, stream)
     assert row["serial_chain_ms_by_device"] == scan["serial"]
     assert row["multihost"] == multi
     for key in ("name", "route", "source", "replaces", "launches",
@@ -347,7 +350,8 @@ def test_scan_row_carries_the_contract_keys(smoke):
                 "library_ms"):
         assert key in row, key
     assert row["faulted"] == faulted
-    assert row["launches"] == 11 and row["library_ms"] is None
+    assert row["launches"] == 11 + 49 and row["library_ms"] is None
+    assert row["resumable"] is True and row["streamed"] == stream
     assert row["route"] == "cuda"
     assert (REPO / row["source"]).exists()
     path, line = row["replaces"].split(":")
@@ -498,6 +502,86 @@ def test_the_multihost_phase_takes_the_scenarios_constants(smoke):
                                                        349525]
     down = cases["down"][0]()[0].fault_plan
     assert down.config.down_links == (("s0", "sp0", 32768, 147456),)
+
+
+# ------------------------------------------------------- the stream phase
+def test_stream_phase_runs_after_the_multihost_phase(smoke):
+    import inspect
+
+    src = inspect.getsource(smoke.main)
+    assert (src.index("multihost_phase(") < src.index("stream_phase(")
+            < src.index('{"kernels"'))
+    assert "chunk_size" not in inspect.getsource(smoke.scan_phase)
+
+
+def test_stream_phase_takes_the_benchmarks_trace_and_oracle(smoke):
+    from test_torch_stream import DERIVED, _stream_trace_arrays
+
+    for got, want in zip(smoke.stream_trace_arrays(5000),
+                         _stream_trace_arrays(5000)):
+        assert np.array_equal(got, want)
+    assert smoke.STREAM_N == 1_200_000 and smoke.STREAM_DEPTH == 2
+    assert smoke.STREAM_CHUNKS == (32768, 131072)
+    assert smoke.STREAM_ORACLE == {"sum_latency_ticks": 127862809067,
+                                   "end_tick": 3999680000}
+    assert set(DERIVED) == set(smoke.STREAM_ORACLE)
+
+
+def test_stream_phase_cases_exercise_their_seams(smoke):
+    """(c) resumes from 4 x 2^14; (d) has seams inside its down window;
+    (e) replays 2^18 steps in 16 launches."""
+    c = smoke.STREAM_CRASH
+    assert c["die_after"] // c["every"] * c["every"] * c["chunk"] == 4 << 14
+    d = smoke.STREAM_LINK
+    lo, hi = d["window"]
+    assert any(lo < k * d["chunk"] < hi for k in range(1, 22))
+    assert (lo, hi) == (1 << 14, 1 << 15) and d["accesses"] == 1 << 16
+    e = smoke.STREAM_MULTI
+    make, traces = smoke.multi_cases(0, e["per_host"])["table1x4"]
+    steps = sum(len(t) for t in traces)
+    assert -(-steps // e["chunk"]) == 16
+
+
+def test_crashy_store_dies_after_its_chunks(smoke, tmp_path):
+    from repro_torch.data import TraceStore
+
+    store = TraceStore.write(tmp_path / "s", np.arange(10) * 64,
+                             np.zeros(10, bool))
+    crashy = smoke.Crashy(store, 2)
+    assert crashy.n == 10
+    it = crashy.chunks(3)
+    assert [next(it)[0], next(it)[0]] == [0, 3]
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        next(it)
+
+
+def test_same_replay_sees_every_field(smoke):
+    """On the twin, a chunked replay equals its one-shot on every field the
+    phase compares, and a broken latency, flag or bundle is seen."""
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.workloads.traces import make_trace
+
+    trace = make_trace(2, n=600, pages=64)
+
+    def run(**kw):
+        return ReplayEngine(make_device("cxl-ssd-cache"),
+                            metrics=MetricsSpec(),
+                            torch_device="cpu").run(trace, **kw)
+
+    one = run()
+    same = smoke.same_replay(run(chunk_size=77), one)
+    assert all(same.values()) and set(same) == {"ticks", "metrics",
+                                                "latency", "flags"}
+    bounded = smoke.same_replay(run(chunk_size=77, return_latencies=False),
+                                one, bounded=True)
+    assert all(bounded.values()), bounded
+    broken = run(chunk_size=77)
+    broken.latency_ticks[5] += 1
+    broken.hit_flags[3] = not broken.hit_flags[3]
+    same = smoke.same_replay(broken, one)
+    assert not same["latency"] and not same["flags"]
 
 
 @pytest.mark.parametrize("case", ["table1x4", "qos-pool", "down"])

@@ -588,10 +588,11 @@ def test_scan_lane_on_the_card_equals_the_python_lane(card):
         assert got.metrics.to_jsonable() == want.metrics.to_jsonable()
 
 
-def test_scan_lane_on_the_card_refuses_faults_and_streaming(card):
+def test_scan_lane_on_the_card_runs_faults_and_streaming(card):
     """A fault plan runs on the card in one launch, equal to the python
-    lane; what the lane refuses is a retry burst too long for its one-byte
-    code, streaming, and more LFB slots than the kernel has."""
+    lane, and streams in one launch a chunk, equal to the one-launch
+    replay; what the lane refuses is a retry burst too long for its
+    one-byte code and more LFB slots than the kernel has."""
     from repro_torch.core.fabric import Fabric
     from repro_torch.core.faults import FaultConfig, FaultPlan, install
     from repro_torch.core.replay.engine import ReplayEngine
@@ -620,8 +621,11 @@ def test_scan_lane_on_the_card_refuses_faults_and_streaming(card):
                       seed=2), [mount])
     with pytest.raises(ReplayUnsupported, match="one-byte code"):
         ReplayEngine(mount).run(trace[:64])
-    with pytest.raises(ReplayUnsupported, match="item 12"):
-        ReplayEngine(make_device("dram")).run([(0, 64, False)], chunk_size=1)
+    before = rs.LAUNCHES["replay_scan"]
+    chunked = ReplayEngine(nand()).run(trace, chunk_size=1000)
+    assert rs.LAUNCHES["replay_scan"] == before + 3
+    assert chunked.latency_ticks.tolist() == got.latency_ticks.tolist()
+    assert chunked.poison_flags.tolist() == got.poison_flags.tolist()
     with pytest.raises(ValueError, match="LFB slots"):
         ReplayEngine(make_device("dram"),
                      outstanding=rs.MAX_OUTSTANDING + 1).run([(0, 64, False)])
@@ -785,3 +789,213 @@ def test_assoc_lane_on_the_card_equals_the_host_solve(card):
             torch.from_numpy(x).cuda() if isinstance(x, np.ndarray) else x
             for x in args])
         assert torch.equal(got.cpu(), want)
+
+
+# ------------------------------------------------ the resumable replay
+RESUMED = ["cxl-ssd-cache@direct", "dram@fabric", "ssd-gc@direct",
+           "pmem@stream", "faults-nand-retry@direct",
+           "faults-portdown-failover@mesh", "down-ecmp/dram",
+           "qos-retry/cxl-ssd-cache", "nand-gc/cxl-ssd"]
+
+
+def _target_and_trace(name):
+    from torch_scenarios import (fault_case, make_target,
+                                 scenario_outstanding, scenario_trace)
+
+    if "@" in name:
+        return (lambda: make_target(name)), scenario_trace(name), \
+            scenario_outstanding(name)
+    return (lambda: fault_case(name)[0]), fault_case(name)[1], 8
+
+
+@pytest.mark.parametrize("placed", [None, False])
+@pytest.mark.parametrize("chunk", [1, 37, 128])
+@pytest.mark.parametrize("name", RESUMED)
+def test_chunked_replay_scan_equals_one_launch_and_the_twin(card, name,
+                                                            chunk, placed):
+    """The trace in launches of ``chunk`` accesses through one carry (the
+    wrapper, one counted launch each, or ``call_launch`` in the
+    device-memory layout) equals the twin's one-call replay on every
+    output and final state tensor, and the twin's chunked carry."""
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.spec import trace_to_arrays
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    make, trace, outstanding = _target_and_trace(name)
+    if chunk == 1:
+        trace = trace[:150]
+    addrs, writes, size = trace_to_arrays(trace)
+    cfg, params, routes, retries, _ = ReplayEngine(
+        make(), outstanding=outstanding,
+        metrics=MetricsSpec()).prepare(addrs, size=size)
+    cols = [None if x is None else torch.from_numpy(x)
+            for x in (addrs, writes, routes, retries)]
+    cpu_state = stack.init_state(cfg, "cpu")
+    want = rs.replay_scan(cfg, params, cpu_state, *cols[:3],
+                          retries=cols[3])
+    twin_state = stack.init_state(cfg, "cpu")
+    twin_carry = rs.new_carry(cfg, params, "cpu")
+    gpu_state = stack.init_state(cfg, "cuda")
+    carry = rs.new_carry(cfg, params, "cuda")
+    lib = _build.library("replay_scan")
+    lay = rs.layout(cfg, params, rs._smem_optin(lib, 0), placed=False)
+    outs = []
+    before = rs.LAUNCHES["replay_scan"]
+    for lo in range(0, len(trace), chunk):
+        part = [None if x is None else x[lo:lo + chunk].contiguous()
+                for x in cols]
+        gpart = [None if x is None else x.cuda() for x in part]
+        if placed is None:
+            outs.append(rs.replay_scan(cfg, params, gpu_state, *gpart[:3],
+                                       retries=gpart[3], carry=carry))
+        else:
+            err, out = rs.call_launch(
+                lib, cfg, params, gpu_state, *gpart[:3], 0, lay,
+                torch.cuda.current_stream().cuda_stream, retries=gpart[3],
+                carry=carry)
+            assert err == 0
+            outs.append(out)
+        rs.replay_scan(cfg, params, twin_state, *part[:3], retries=part[3],
+                       carry=twin_carry)
+    if placed is None:
+        assert rs.LAUNCHES["replay_scan"] - before == -(-len(trace) // chunk)
+    torch.cuda.synchronize()
+    for i in range(3):
+        assert torch.equal(torch.cat([o[i] for o in outs]).cpu(), want[i])
+    for i in (3, 4):
+        assert torch.equal(outs[-1][i].cpu(), want[i])
+    for part in ("media", "flash"):
+        for k, x in (cpu_state[part] or {}).items():
+            assert torch.equal(gpu_state[part][k].cpu(), x), (part, k)
+    assert torch.equal(carry.words.cpu(), twin_carry.words)
+    assert torch.equal(carry.maps.cpu(), twin_carry.maps)
+
+
+@pytest.mark.parametrize("placed", [None, False])
+@pytest.mark.parametrize("width", [1, 9, 64])
+@pytest.mark.parametrize("name", MULTI)
+def test_chunked_replay_multi_equals_one_launch(card, name, width, placed):
+    """The multi-host instance over each host's window from its cursor,
+    launch after launch through one carry, equals the twin's one-call
+    replay on every output and final state tensor."""
+    from torch_scenarios import make_multi_targets, multi_traces
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    prep = MultiHostReplay(make_multi_targets(name), outstanding=8,
+                           metrics=MetricsSpec()).prepare(multi_traces(name))
+    cfg = prep.cfg
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+
+    cpu_state = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, "cpu")
+    want = rs.replay_multi(cfg, prep.params, cpu_state, *(t(x) for x in (
+        prep.addrs, prep.writes, prep.lens, prep.devs, prep.routes)),
+        retries=t(prep.retries))
+    gpu_state = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash,
+                                 "cuda")
+    carry = rs.new_multi_carry(cfg, prep.params, "cuda")
+    lib = _build.library("replay_scan")
+    lay = rs.layout_multi(cfg, prep.params, rs._smem_optin(lib, 0),
+                          placed=False)
+    total, outs = int(prep.lens.sum()), []
+    lens = t(prep.lens).cuda()
+    while carry.seen < total:
+        base = rs.cursors(carry, cfg.num_hosts)
+        win = []
+        for x in (prep.addrs, prep.writes, prep.devs, prep.routes,
+                  prep.retries):
+            if x is None:
+                win.append(None)
+                continue
+            w = np.zeros((x.shape[0], width) + x.shape[2:], x.dtype)
+            for i, b in enumerate(base):
+                e = min(int(b) + width, int(prep.lens[i]))
+                w[i, :max(e - int(b), 0)] = x[i, int(b):e]
+            win.append(torch.from_numpy(w).cuda())
+        a, w_, d, r, rt = win
+        if placed is None:
+            outs.append(rs.replay_multi(cfg, prep.params, gpu_state, a, w_,
+                                        lens, d, r, retries=rt, carry=carry,
+                                        base=base))
+        else:
+            n = rs._check_multi(cfg, prep.params, gpu_state, a, w_, lens, d,
+                                r, rt, carry, base)
+            err, out = rs.call_launch_multi(
+                lib, cfg, prep.params, gpu_state, a, w_, lens, d, r, 0, lay,
+                torch.cuda.current_stream().cuda_stream, retries=rt, n=n,
+                carry=carry)
+            assert err == 0
+            outs.append(out)
+    assert len(outs) == -(-total // width)
+    torch.cuda.synchronize()
+    for i in range(4):
+        assert torch.equal(torch.cat([o[i] for o in outs]).cpu(), want[i])
+    for part in ("media", "flash"):
+        for k, x in (cpu_state[part] or {}).items():
+            assert torch.equal(gpu_state[part][k].cpu(), x), (part, k)
+
+
+def test_streamed_lanes_on_the_card_equal_the_one_shot(card, tmp_path):
+    """run_arrays(chunk_size=), return_latencies=False, replay_stream (with
+    a crash and a resume) and the chunked multi-host replay launch once a
+    chunk on the card and equal the one-launch replay."""
+    import json
+
+    from torch_scenarios import make_multi_targets, multi_traces
+    from repro_torch.core.replay import replay_stream
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    from repro_torch.core.workloads.traces import make_trace
+    from repro_torch.data import TraceStore
+    from repro_torch.kernels import replay_scan as rs
+
+    def jm(b):
+        return json.dumps(b.to_jsonable(), sort_keys=True)
+
+    trace = make_trace(7, n=5000, pages=8192)
+    spec = MetricsSpec()
+    want = ReplayEngine(make_device("cxl-ssd-cache"), metrics=spec).run(trace)
+    for chunk, lat in ((512, True), (1000, False)):
+        before = rs.LAUNCHES["replay_scan"]
+        got = ReplayEngine(make_device("cxl-ssd-cache"), metrics=spec).run(
+            trace, chunk_size=chunk, return_latencies=lat)
+        assert rs.LAUNCHES["replay_scan"] - before == -(-5000 // chunk)
+        assert (got.sum_latency_ticks, got.end_tick) == (
+            want.sum_latency_ticks, want.end_tick)
+        assert jm(got.metrics) == jm(want.metrics)
+        if lat:
+            assert got.latency_ticks.tolist() == want.latency_ticks.tolist()
+    store = TraceStore.from_trace(tmp_path / "t.store", trace)
+    got = replay_stream(store, make_device("cxl-ssd-cache"), chunk_size=700,
+                        metrics=spec, checkpoint_dir=str(tmp_path / "ck"),
+                        checkpoint_every=2)
+    assert got.latency_ticks.tolist() == want.latency_ticks.tolist()
+    stats = {}
+    got = replay_stream(store, make_device("cxl-ssd-cache"), chunk_size=700,
+                        metrics=spec, checkpoint_dir=str(tmp_path / "ck"),
+                        resume=True, stats=stats)
+    assert stats["resumed_from"] == 4200
+    assert got.latency_ticks.tolist() == want.latency_ticks.tolist()
+    assert jm(got.metrics) == jm(want.metrics)
+    name = "multihost-ssd-mounts"
+    one, lat0 = MultiHostReplay(make_multi_targets(name),
+                                metrics=spec).run_recorded(multi_traces(name))
+    before = rs.LAUNCHES["replay_scan"]
+    res, lat = MultiHostReplay(make_multi_targets(name),
+                               metrics=spec).run_recorded(
+        multi_traces(name), chunk_size=50)
+    steps = sum(len(t) for t in multi_traces(name))
+    assert rs.LAUNCHES["replay_scan"] - before == -(-steps // 50)
+    assert [x.tolist() for x in lat] == [x.tolist() for x in lat0]
+    bounded = MultiHostReplay(make_multi_targets(name), metrics=spec).run(
+        multi_traces(name), chunk_size=50, return_latencies=False)
+    assert jm(bounded.metrics) == jm(one.metrics)

@@ -58,7 +58,7 @@ def test_port_package_has_the_reference_layout():
     for sub in ("core", "core/cache", "core/ssd", "core/cxl", "core/replay",
                 "core/workloads", "core/fabric", "core/faults", "kernels",
                 "configs", "models", "tiered", "serving", "launch",
-                "distributed"):
+                "distributed", "data", "checkpoint"):
         assert (REPO / "src" / "repro_torch" / sub / "__init__.py").exists()
         assert (REPO / "src" / "repro" / sub / "__init__.py").exists()
     for name in ("cache_sim", "flash_attention", "flash_decode",
@@ -71,6 +71,8 @@ def test_port_package_has_the_reference_layout():
                 "core/faults/plan.py", "core/workloads/membench.py",
                 "core/replay/metrics.py", "core/replay/stack.py",
                 "core/replay/engine.py", "core/replay/spec.py",
+                "core/replay/stream.py", "data/trace_store.py",
+                "data/pipeline.py", "checkpoint/manager.py",
                 "obs/__init__.py", "obs/export.py",
                 "core/workloads/stream.py", "core/workloads/viper.py",
                 "models/layers.py", "models/transformer.py",
@@ -167,6 +169,46 @@ def test_scan_lane_defaults_to_the_card_and_refuses_without_one(no_card):
     # the CPU is used when asked for
     assert TraceDriver(make_device("dram"), engine="scan",
                        torch_device="cpu").run([(0, 64, False)]).accesses == 1
+
+
+def test_streaming_entry_points_default_to_the_card(no_card, tmp_path):
+    from repro_torch.core.replay import replay_stream
+    from repro_torch.core.replay.engine import ReplayEngine
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    from repro_torch.data import TraceStore
+
+    store = TraceStore.write(tmp_path / "t.store", [0, 64], [False, True])
+    trace = [(0, 64, False), (64, 64, True)]
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        replay_stream(store, make_device("dram"), chunk_size=1)
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        ReplayEngine(make_device("dram")).run(trace, chunk_size=1)
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        ReplayEngine(make_device("dram")).run(trace, return_latencies=False)
+    from repro_torch.core.fabric import Fabric
+
+    fab = Fabric.build("two_level", num_hosts=2, num_devices=2, num_leaves=2)
+    fab_targets = [fab.mount(f"h{i}", f"d{i}", make_device("dram"))
+                   for i in range(2)]
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        MultiHostReplay(fab_targets).run([trace, trace], chunk_size=1)
+    # the CPU is used when asked for
+    assert replay_stream(store, make_device("dram"), chunk_size=1,
+                         torch_device="cpu").accesses == 2
+
+
+def test_streaming_input_layers_load_no_torch(tmp_path):
+    code = ("import sys\n"
+            "from repro_torch.checkpoint import CheckpointManager\n"
+            "from repro_torch.data import Prefetcher, TraceStore\n"
+            f"st = TraceStore.write({str(tmp_path / 's')!r}, [0, 64], "
+            "[True, False])\n"
+            "assert len(list(Prefetcher(st.chunks(1)))) == 2\n"
+            "assert 'torch' not in sys.modules, 'torch was loaded'\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_replay_scan_launches_or_raises_off_the_cpu(no_card):

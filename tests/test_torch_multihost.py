@@ -436,10 +436,18 @@ def test_refusals_are_the_references(name, reference):
 
 @pytest.mark.parametrize("kw", [dict(chunk_size=64),
                                 dict(return_latencies=False)])
-def test_streaming_is_refused_naming_its_roadmap_item(kw):
+def test_streaming_equals_the_one_shot_replay(kw):
     tgts, traces = targets_and_traces("multihost-ssd-mounts")
-    with pytest.raises(ReplayUnsupported, match="item 12"):
-        MultiHostReplay(tgts, torch_device="cpu").run(traces, **kw)
+    want = MultiHostReplay(tgts, torch_device="cpu").run(traces)
+    tgts, traces = targets_and_traces("multihost-ssd-mounts")
+    got = MultiHostReplay(tgts, torch_device="cpu").run(traces, **kw)
+    assert got.elapsed_ticks == want.elapsed_ticks
+    for g, w in zip(got.per_host, want.per_host):
+        assert (g.accesses, g.sum_latency_ticks, g.end_tick,
+                g.elapsed_ticks) == (w.accesses, w.sum_latency_ticks,
+                                     w.end_tick, w.elapsed_ticks)
+        if "chunk_size" in kw:
+            assert g.latency_ticks.tolist() == w.latency_ticks.tolist()
 
 
 def test_block_size_is_validated_and_tick_invisible():

@@ -172,22 +172,22 @@ def test_cuda_lane_refuses_uncached_devices_by_name():
                     torch_device="cpu").run([(0, 64, False)])
 
 
-@pytest.mark.parametrize("engine,item", [("scan", "item 12")])
-def test_unported_lanes_name_their_roadmap_items(engine, item):
+@pytest.mark.parametrize("engine,chunk", [("scan", 64)])
+def test_multi_host_scan_lane_and_its_streaming_hold_the_pin(engine, chunk):
     """The fused multi-host replay runs (here its twin, on a multi-host
-    fault scenario, equal to the golden pin); its streaming half is not
-    ported and refuses, naming its ROADMAP item."""
+    fault scenario, equal to the golden pin), and so does its streaming
+    half, chunk by chunk."""
     name = "faults-portdown@multihost_x2"
     res = MultiHostDriver(sc_port.make_multi_targets(name), outstanding=8,
                           engine=engine, torch_device="cpu").run(
         sc_port.multi_traces(name))
-    assert [r.latency_ticks.tolist() for r in res.per_host] == [
-        pin["latency_ticks"] for pin in golden(name)["python_scan"]]
+    want = [pin["latency_ticks"] for pin in golden(name)["python_scan"]]
+    assert [r.latency_ticks.tolist() for r in res.per_host] == want
     from repro_torch.core.replay.multihost import MultiHostReplay
-    with pytest.raises(ReplayUnsupported, match=item):
-        MultiHostReplay(sc_port.make_multi_targets(name),
-                        torch_device="cpu").run(sc_port.multi_traces(name),
-                                                chunk_size=64)
+    _, lat = MultiHostReplay(sc_port.make_multi_targets(name), outstanding=8,
+                             torch_device="cpu").run_recorded(
+        sc_port.multi_traces(name), chunk_size=chunk)
+    assert [x.tolist() for x in lat] == want
 
 
 def test_empty_trace_takes_the_python_lane():

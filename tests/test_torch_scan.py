@@ -419,11 +419,17 @@ def test_an_active_fault_plan_is_refused_by_name(plan):
                  rf"active fault plan \({CLASS_NAMES[plan]}\)")
 
 
-def test_streaming_is_refused_by_name():
+def test_streaming_equals_the_one_shot_replay():
     eng = ReplayEngine(make_device("dram"), torch_device="cpu")
     trace = make_trace(1, n=16)
-    _refuses(lambda: eng.run(trace, chunk_size=4), "item 12")
-    _refuses(lambda: eng.run(trace, return_latencies=False), "item 12")
+    want = eng.run(trace)
+    got = eng.run(trace, chunk_size=4)
+    assert got.latency_ticks.tolist() == want.latency_ticks.tolist()
+    bounded = eng.run(trace, return_latencies=False)
+    assert bounded.latency_ticks is None
+    assert (bounded.sum_latency_ticks, bounded.end_tick,
+            bounded.elapsed_ticks) == (want.sum_latency_ticks, want.end_tick,
+                                       want.elapsed_ticks)
     with pytest.raises(ValueError, match="chunk_size"):
         eng.run(trace, chunk_size=0)
 

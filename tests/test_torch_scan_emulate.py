@@ -19,8 +19,20 @@ weighted QoS ports under CRC retries), each in both layouts.  The
 multi-host instance (``replay_scan.call_launch_multi``) meets its twin
 (``replay_multi_plain``) on the six golden multi-host scenarios, on
 PMEM, CXL-SSD and NAND-faulted shared-flash mounts and on a trace whose
-first host runs out long before the others, each in both layouts.  ASan
-aborts on any index the kernel forms outside its array.  The library only loads into a process that
+first host runs out long before the others, each in both layouts.
+
+Resumable: a chunked sequence of emulated launches through one carry
+(``replay_scan.new_carry``, the multi-host instance's windows from each
+host's cursor through ``new_multi_carry``) equals one launch and the
+twin's chunked replay on every output, every final state tensor and the
+carry itself (its page map and recency links included), in both layouts:
+Table I past its 4096 frames under LRU, FIFO and direct mapping, cache
+shapes of 1, 2, 3 and 32 outstanding with seams after the first accesses
+(slots still tied at the start tick), ECMP + QoS, faulted mounts with
+seams inside their down windows and under NAND retries with GC, and the
+multi-host instance on QoS + ECMP, shared flash under NAND faults,
+transport faults and a host that runs out early.  ASan aborts on any
+index the kernel forms outside its array.  The library only loads into a process that
 starts with ASan's runtime, so the cases run in one child process for
 this file.
 
@@ -70,7 +82,8 @@ SCAN_SCENARIOS = ([f"{d}@{a}" for d in DEVICES for a in ("direct", "fabric")]
 # 16-frame cache over 48 pages
 CACHE_SHAPES = [("lru", 1, 1, 1, True), ("fifo", 4, 3, 32, False),
                 ("direct", 2, 2, 7, True), ("lru", 3, 1, 33, False),
-                ("fifo", 1, 2, 2, True), ("direct", 4, 3, 16, False)]
+                ("fifo", 1, 2, 2, True), ("direct", 4, 3, 16, False),
+                ("lru", 2, 2, 3, True)]
 OTHER_DEVICES = ["dram", "cxl-dram", "pmem", "cxl-ssd"]
 # (name, device, cache policy, accesses, pages, chunk): traces that wrap
 # the two staging buffers 125 times, lengths that are not a multiple of the
@@ -109,6 +122,30 @@ MULTI_EXTRA = ["multi/pmem", "multi/cxl-ssd", "multi/nand-shared",
                "multi/exhaust"]
 MULTI_CASES = [f"{name}{lay}" for name in (*MULTI_SCENARIOS, *MULTI_EXTRA)
                for lay in ("", "/global")]
+# resumable: (case, schedules) of a chunked sequence of launches, each in
+# both layouts; a schedule is the launches' sizes, its last size repeated.
+# Seams after the first accesses find LFB slots still tied at the start
+# tick; the down windows of down-ecmp/dram ([40, 120), [80, 160)) and
+# qos-retry/cxl-ssd-cache ([40, 120)) hold seams.
+RESUMED = {"table1/churn": ((777,), (1, 2, 4096)),
+           "table1-fifo/8000": ((999,),), "table1-direct/8000": ((999,),),
+           "cache/lru/m1/wb1/out1/posted1": ((1, 1, 7, 50),),
+           "cache/fifo/m1/wb2/out2/posted1": ((1, 2, 3, 64),),
+           "cache/lru/m2/wb2/out3/posted1": ((1, 1, 1, 5, 60),),
+           "cache/fifo/m4/wb3/out32/posted0": ((1, 1, 64),),
+           "dram/2000": ((1, 3, 250),), "ecmp-qos/cxl-ssd-cache": ((7, 100),),
+           "down-ecmp/dram": ((50,), (33,)),
+           "qos-retry/cxl-ssd-cache": ((30,),),
+           "nand-gc/cxl-ssd": ((100,),), "pmem/2000": ((300,),)}
+RESUMED_CASES = [f"{name}{lay}" for name in RESUMED
+                 for lay in ("", "/global")]
+MULTI_RESUMED = {"multihost-qos-ecmp": ((1, 1, 7, 40),),
+                 "multi/exhaust": ((64,),),
+                 "faults-linkretry@spine_leaf_x4": ((64,),),
+                 "multi/nand-shared": ((50,),),
+                 "multihost-ssd-mounts": ((1, 7, 40),)}
+MULTI_RESUMED_CASES = [f"{name}{lay}" for name in MULTI_RESUMED
+                       for lay in ("", "/global")]
 
 
 def _trace(n: int, pages: int, write_frac: float, seed: int):
@@ -134,25 +171,25 @@ def _case(name: str):
         return (lambda: make_target("ssd-gc@direct"),
                 scenario_trace("ssd-gc@direct"),
                 scenario_outstanding("ssd-gc@direct"), True, 0, placed, 16)
-    if name.startswith("cache/"):
-        i = [c for c in CASES if c.startswith("cache/")].index(name)
+    if base.startswith("cache/"):
+        i = [c for c in CASES if c.startswith("cache/")].index(base)
         policy, mshr, wb, out, posted = CACHE_SHAPES[i]
         cfg = dict(policy=policy, capacity_bytes=16 * 4096,
                    mshr_entries=mshr, writeback_buffer=wb)
         return (lambda: make_device("cxl-ssd-cache",
                                     cache_cfg=DRAMCacheConfig(**cfg)),
-                _trace(600, 48, 0.5, i), out, posted, 1000 * i, True,
+                _trace(600, 48, 0.5, i), out, posted, 1000 * i, placed,
                 rs.CHUNK)
-    if name == "table1/churn":      # ~5100 of 8192 pages: fills, evicts
+    if base == "table1/churn":      # ~5100 of 8192 pages: fills, evicts
         return (lambda: make_device("cxl-ssd-cache"),
-                _trace(8000, 8192, 0.3, 9), 32, True, 0, True, rs.CHUNK)
+                _trace(8000, 8192, 0.3, 9), 32, True, 0, placed, rs.CHUNK)
     if name == "table1/global":
         return (lambda: make_device("cxl-ssd-cache"),
                 _trace(3000, 8192, 0.3, 9), 32, True, 0, False, rs.CHUNK)
-    if name.endswith("/2000"):
-        d = name.split("/")[0]
+    if base.endswith("/2000"):
+        d = base.split("/")[0]
         return lambda: make_device(d), _trace(2000, 4096, 0.3, 5), 32, True, \
-            0, True, rs.CHUNK
+            0, placed, rs.CHUNK
     chunked = {c[0]: c[1:] for c in CHUNKED}
     if base in chunked:
         device, policy, n, pages, chunk = chunked[base]
@@ -165,7 +202,7 @@ def _case(name: str):
         return (lambda: make_device(device, **kw),
                 _trace(n, pages, 0.3, n % 97), 32, True, 0, placed, chunk)
     qos = {"h0": 2.0, "h1": 1.0} if name.startswith("ecmp-qos") else None
-    kind = name.split("/")[1]
+    kind = base.split("/")[1]
 
     def mount():
         fab = Fabric.build("spine_leaf", num_hosts=2, num_devices=2,
@@ -177,7 +214,7 @@ def _case(name: str):
         return fab.mount("h0", "d0", dev)      # two routes through the spines
 
     return mount, _trace(800, 64, 0.3, 3 if qos is None else 4), 8, True, \
-        0, True, rs.CHUNK
+        0, placed, rs.CHUNK
 
 
 def run_case(lib, name: str) -> dict:
@@ -220,6 +257,153 @@ def run_case(lib, name: str) -> dict:
                           if builder is not None else 0),
             "qthr": int(want[4].sum()),
             "in_smem": list(lay.in_smem)}
+
+
+def schedule_spans(schedule, total: int):
+    """The launches' sizes of ``schedule`` (its last size repeated) over
+    ``total`` accesses or steps."""
+    out = []
+    while sum(out) < total:
+        out.append(min(schedule[min(len(out), len(schedule) - 1)],
+                       total - sum(out)))
+    return out
+
+
+_TWIN = {}    # the twin's replays of a case, shared by its two layouts
+
+
+def run_resumed_case(lib, name: str, schedule) -> dict:
+    """Case ``name`` as emulated launches of the ``schedule``'s sizes
+    through one carry, against the twin's one-call replay and its chunked
+    replay through a carry of its own: what differs (outputs, final
+    state, the carries), and the launches."""
+    make, trace, outstanding, posted, start, placed, stage = _case(name)
+    addrs, writes, size = trace_to_arrays(trace)
+    cfg, params, routes, retries, _ = ReplayEngine(
+        make(), outstanding=outstanding, posted_writes=posted,
+        metrics=MetricsSpec()).prepare(addrs, size=size)
+    cols = [torch.from_numpy(x) if x is not None else None
+            for x in (addrs, writes, routes, retries)]
+    spans = schedule_spans(schedule, len(trace))
+    parts, lo = [], 0
+    for span in spans:
+        parts.append([None if x is None else x[lo:lo + span].contiguous()
+                      for x in cols])
+        lo += span
+    key = (name.removesuffix("/global"), schedule)
+    if key not in _TWIN:
+        want_state, twin_state = (stack.init_state(cfg, "cpu")
+                                  for _ in range(2))
+        want = rs.replay_scan_plain(cfg, params, want_state, *cols[:3],
+                                    start_tick=start, retries=cols[3])
+        twin_carry = rs.new_carry(cfg, params, "cpu", start)
+        twin = [rs.replay_scan_plain(cfg, params, twin_state, *part[:3],
+                                     start_tick=start, retries=part[3],
+                                     carry=twin_carry) for part in parts]
+        _TWIN[key] = want, want_state, twin, twin_state, twin_carry
+    want, want_state, twin, twin_state, twin_carry = _TWIN[key]
+    lay = rs.layout(cfg, params, H100_SMEM_OPTIN, chunk=stage, placed=placed)
+    got_state = stack.init_state(cfg, "cpu")
+    got_carry = rs.new_carry(cfg, params, "cpu", start)
+    got, errs = [], []
+    for part in parts:
+        err, out = rs.call_launch(lib, cfg, params, got_state, *part[:3],
+                                  start, lay, None, retries=part[3],
+                                  carry=got_carry)
+        errs.append(err)
+        got.append(out)
+    differ = []
+    for i, k in enumerate(("issues", "dones", "flags")):
+        differ += [f"{who}.{k}" for who, outs in (("kernel", got),
+                                                   ("twin", twin))
+                   if not torch.equal(torch.cat([o[i] for o in outs]),
+                                      want[i])]
+    differ += [f"kernel.{k}" for i, k in ((3, "qacc"), (4, "qthr"))
+               if not torch.equal(got[-1][i], want[i])]
+    for part in ("media", "flash"):
+        differ += [f"{part}.{k}" for k, x in (want_state[part] or {}).items()
+                   if not torch.equal(got_state[part][k], x)
+                   or not torch.equal(twin_state[part][k], x)]
+    differ += [f"carry.{k}" for k in ("words", "maps")
+               if not torch.equal(getattr(got_carry, k),
+                                  getattr(twin_carry, k))]
+    return {"err": max(errs), "differ": differ, "launches": len(got),
+            "seen": got_carry.seen, "accesses": len(trace)}
+
+
+def _windows(x, base, width, lens):
+    """Each host's window of ``width`` accesses of ``x`` from its cursor."""
+    if x is None:
+        return None
+    out = np.zeros((x.shape[0], width) + x.shape[2:], x.dtype)
+    for i, b in enumerate(base):
+        e = min(int(b) + width, int(lens[i]))
+        out[i, :max(e - int(b), 0)] = x[i, int(b):e]
+    return torch.from_numpy(out)
+
+
+def run_multi_resumed_case(lib, name: str, schedule) -> dict:
+    """The multi-host case ``name`` as emulated launches over each host's
+    window from its cursor, as wide as the ``schedule``'s sizes, through
+    one carry, against the twin's one-call replay and its windowed replay:
+    what differs, and the launches."""
+    base_name = name.removesuffix("/global")
+    targets, traces = _multi_case(base_name)
+    prep = MultiHostReplay(targets, outstanding=8, metrics=MetricsSpec(),
+                           torch_device="cpu").prepare(traces)
+    cfg = prep.cfg
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+
+    want_state = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash,
+                                  "cpu")
+    want = rs.replay_multi_plain(
+        cfg, prep.params, want_state, *(t(x) for x in (
+            prep.addrs, prep.writes, prep.lens, prep.devs, prep.routes)),
+        retries=t(prep.retries))
+    lay = rs.layout_multi(cfg, prep.params, H100_SMEM_OPTIN,
+                          placed=base_name == name)
+    got_state, twin_state = (stack.init_lanes(cfg.stack, cfg.num_devs,
+                                              cfg.n_flash, "cpu")
+                             for _ in range(2))
+    got_carry, twin_carry = (rs.new_multi_carry(cfg, prep.params, "cpu")
+                             for _ in range(2))
+    got, twin, errs, cursors_equal = [], [], [], True
+    for width in schedule_spans(schedule, int(prep.lens.sum())):
+        base = rs.cursors(got_carry, cfg.num_hosts)
+        cursors_equal &= bool((base == rs.cursors(
+            twin_carry, cfg.num_hosts)).all())
+        a, w, d, r, rt = (_windows(x, base, width, prep.lens) for x in (
+            prep.addrs, prep.writes, prep.devs, prep.routes, prep.retries))
+        lens = t(prep.lens)
+        n = rs._check_multi(cfg, prep.params, got_state, a, w, lens, d, r,
+                            rt, got_carry, base)
+        err, out = rs.call_launch_multi(lib, cfg, prep.params, got_state, a,
+                                        w, lens, d, r, 0, lay, None,
+                                        retries=rt, n=n, carry=got_carry)
+        errs.append(err)
+        got.append(out)
+        twin.append(rs.replay_multi_plain(
+            cfg, prep.params, twin_state, a, w, lens, d, r, retries=rt,
+            carry=twin_carry, base=base))
+    differ = [] if cursors_equal else ["cursors"]
+    for i, k in enumerate(("who", "issues", "dones", "flags")):
+        differ += [f"{who}.{k}" for who, outs in (("kernel", got),
+                                                   ("twin", twin))
+                   if not torch.equal(torch.cat([o[i] for o in outs]),
+                                      want[i])]
+    differ += [f"kernel.{k}" for i, k in ((4, "qacc"), (5, "qthr"))
+               if not torch.equal(got[-1][i], want[i])]
+    for part in ("media", "flash"):
+        differ += [f"{part}.{k}" for k, x in (want_state[part] or {}).items()
+                   if not torch.equal(got_state[part][k], x)
+                   or not torch.equal(twin_state[part][k], x)]
+    differ += [f"carry.{k}" for k in ("words", "maps")
+               if not torch.equal(getattr(got_carry, k),
+                                  getattr(twin_carry, k))]
+    return {"err": max(errs), "differ": differ, "launches": len(got),
+            "steps": int(prep.lens.sum())}
 
 
 def _multi_case(name: str):
@@ -313,7 +497,14 @@ def _child(lib_path: str, out_path: str) -> None:
                             len(rs.LAYOUT_MULTI)],
            "cases": {name: run_case(lib, name) for name in CASES},
            "multi": {name: run_multi_case(lib, name)
-                     for name in MULTI_CASES}}
+                     for name in MULTI_CASES},
+           "resumed": {f"{name}@{c}": run_resumed_case(lib, name, c)
+                       for name in RESUMED_CASES
+                       for c in RESUMED[name.removesuffix("/global")]},
+           "multi_resumed": {
+               f"{name}@{c}": run_multi_resumed_case(lib, name, c)
+               for name in MULTI_RESUMED_CASES
+               for c in MULTI_RESUMED[name.removesuffix("/global")]}}
     Path(out_path).write_text(json.dumps(out))
 
 
@@ -424,6 +615,27 @@ def test_multi_host_case_runs_one_host_out_early(emulated):
     got = emulated["multi"]["multi/exhaust"]
     # host 0's 20 accesses end in the first tenth of the 720 steps
     assert got["first_out"] < got["steps"] // 10, got
+
+
+@pytest.mark.parametrize("name", RESUMED_CASES)
+def test_resumed_launches_equal_one_launch_and_the_twin(emulated, name):
+    for schedule in RESUMED[name.removesuffix("/global")]:
+        got = emulated["resumed"][f"{name}@{schedule}"]
+        assert got["err"] == 0
+        assert got["differ"] == [], f"{name} @ {schedule}: {got['differ']}"
+        assert got["launches"] == len(schedule_spans(schedule,
+                                                     got["accesses"]))
+        assert got["seen"] == got["accesses"]
+
+
+@pytest.mark.parametrize("name", MULTI_RESUMED_CASES)
+def test_resumed_multi_host_launches_equal_one_launch(emulated, name):
+    for schedule in MULTI_RESUMED[name.removesuffix("/global")]:
+        got = emulated["multi_resumed"][f"{name}@{schedule}"]
+        assert got["err"] == 0
+        assert got["differ"] == [], f"{name} @ {schedule}: {got['differ']}"
+        assert got["launches"] == len(schedule_spans(schedule,
+                                                     got["steps"]))
 
 
 if __name__ == "__main__":

@@ -64,19 +64,19 @@ double __dmul_rn(double a, double b) { return a * b; }
 #include "replay_scan.cu"
 
 // The instance of replay() that the CUDA library's dispatch launches.
-template <bool FAULTED>
+template <bool FAULTED, bool CARRY>
 void run(const Args& a, const Layout& lay, const Ptrs& p, char* sm) {
   const bool nand = a.v[A_NAND] != 0;
   switch (a.v[A_KIND]) {
-    case kDram: replay<kDram, false, FAULTED>(a, lay, p, sm); break;
-    case kPmem: replay<kPmem, false, FAULTED>(a, lay, p, sm); break;
+    case kDram: replay<kDram, false, FAULTED, CARRY>(a, lay, p, sm); break;
+    case kPmem: replay<kPmem, false, FAULTED, CARRY>(a, lay, p, sm); break;
     case kSsdBuf:
-      if (nand) replay<kSsdBuf, true, FAULTED>(a, lay, p, sm);
-      else replay<kSsdBuf, false, FAULTED>(a, lay, p, sm);
+      if (nand) replay<kSsdBuf, true, FAULTED, CARRY>(a, lay, p, sm);
+      else replay<kSsdBuf, false, FAULTED, CARRY>(a, lay, p, sm);
       break;
     default:
-      if (nand) replay<kSsdCache, true, FAULTED>(a, lay, p, sm);
-      else replay<kSsdCache, false, FAULTED>(a, lay, p, sm);
+      if (nand) replay<kSsdCache, true, FAULTED, CARRY>(a, lay, p, sm);
+      else replay<kSsdCache, false, FAULTED, CARRY>(a, lay, p, sm);
       break;
   }
 }
@@ -133,7 +133,8 @@ int replay_scan_launch(const long long* args, const long long* layout,
                        int32_t* free_q, uint8_t* free_mask,
                        uint8_t* rtr_mask, long long* die_busy,
                        long long* die_prog, long long* chan_busy,
-                       char* scratch, int smem_bytes, void* stream) {
+                       char* scratch, long long* carry, char* maps,
+                       int smem_bytes, void* stream) {
   (void)stream;
   Args a;
   memcpy(a.v, args, sizeof(a.v));
@@ -142,10 +143,15 @@ int replay_scan_launch(const long long* args, const long long* layout,
   const Ptrs p{addrs, writes, routes, retries, tables, issues, dones, flags,
                totals, scal, frames, mpage, mready, wtick, l2p, p2l, valid,
                free_q, free_mask, rtr_mask, die_busy, die_prog, chan_busy,
-               scratch};
+               scratch, carry, maps};
   run_block(smem_bytes, [&](char* sm) {
-    if (a.v[A_FAULT_HOPS]) run<true>(a, lay, p, sm);
-    else run<false>(a, lay, p, sm);
+    if (carry) {
+      if (a.v[A_FAULT_HOPS]) run<true, true>(a, lay, p, sm);
+      else run<false, true>(a, lay, p, sm);
+    } else {
+      if (a.v[A_FAULT_HOPS]) run<true, false>(a, lay, p, sm);
+      else run<false, false>(a, lay, p, sm);
+    }
   });
   return 0;
 }
@@ -160,7 +166,8 @@ int replay_scan_launch_multi(
     long long* mpage, long long* mready, long long* wtick, int32_t* l2p,
     int32_t* p2l, int32_t* valid, int32_t* free_q, uint8_t* free_mask,
     uint8_t* rtr_mask, long long* die_busy, long long* die_prog,
-    long long* chan_busy, char* scratch, int smem_bytes, void* stream) {
+    long long* chan_busy, char* scratch, long long* carry, char* maps,
+    int smem_bytes, void* stream) {
   (void)stream;
   Args a;
   memcpy(a.v, args, sizeof(a.v));
@@ -171,7 +178,7 @@ int replay_scan_launch_multi(
   const MultiPtrs p{addrs, aux, rt, mtab, who, issues, dones, flags, totals,
                     scal, frames, mpage, mready, wtick, l2p, p2l, valid,
                     free_q, free_mask, rtr_mask, die_busy, die_prog,
-                    chan_busy, scratch};
+                    chan_busy, scratch, carry, maps};
   run_block(smem_bytes, [&](char* sm) {
     if (a.v[A_FAULT_HOPS]) run_multi<true>(a, m, lay, p, sm);
     else run_multi<false>(a, m, lay, p, sm);

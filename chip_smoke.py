@@ -101,8 +101,9 @@ and ``nvcc``.  Phases, each printing one or more lines:
    golden scenario's GC-pressured flash under the same plan over the
    longest power-of-two seeded trace that the python lane finishes
    (blocks retired); Table I's device mounted h0 -> d0 on a 2 x 2
-   spine-leaf with ECMP under CRC retries and a down window (link
-   retries, degraded accesses and failovers), with the host time of the
+   spine-leaf with ECMP under CRC retries and a down window, over the
+   main path's first 2^18 accesses (link retries, degraded accesses and
+   failovers), with the host time of the
    fault-column builder apart from the kernel's device time; each
    replay's bytes an access, bound and serial-chain model with its fault
    terms; the three golden fault scenarios' pins and metrics, and the
@@ -117,7 +118,8 @@ and ``nvcc``.  Phases, each printing one or more lines:
    this host on every field (each host's latency ticks, hit, dirty-evict
    and poison flags, elapsed, end and latency-sum ticks, the span, GC
    runs, the metrics bundle with its fault counters, each host's
-   availability series): ``MultiHostDriver(targets, engine="scan")`` over
+   availability series; that comparison at a quarter of the depth, each
+   host's first 2^16 accesses, the timed replay at the full depth): ``MultiHostDriver(targets, engine="scan")`` over
    four Table I cached CXL-SSDs privately mounted on a two-level tree at
    4 x 2^18 accesses (the full-width path), three hosts on the golden
    ``multihost-qos-ecmp`` fabric pooling two DRAM devices at 2^20
@@ -144,7 +146,24 @@ and ``nvcc``.  Phases, each printing one or more lines:
    (d) the [faults] phase's spine-leaf mount with its down window scaled
    to accesses 2^14-2^15 of 2^16, streamed at chunk 3000 (seams inside
    the window), availability included; (e) the [multihost] phase's four
-   Table I mounts at 4 x 2^16 steps, chunk 2^14, in both output modes.
+   Table I mounts at 4 x 2^16 steps, chunk 2^14, in both output modes;
+17. sweep: the design-space sweeps, each one launch of ``replay_scan``'s
+   sweep instances (one block a lane) through its entry point: (a)
+   ``cache_design_sweep`` of Table I over the main path's trace, 128
+   lanes (8 capacities from 256 to 4096 frames x LRU / FIFO x 8 flash
+   read times), four lanes (the first, the last, the smallest FIFO, a
+   timing lane) equal to standalone one-launch replays (latencies, flags,
+   final frames) and 16 lanes at 4096 accesses to the twin; (b)
+   ``host_count_sweep`` over the [multihost] phase's four Table I mounts
+   at 1-4 hosts, 2^18 accesses a host, each lane equal to
+   ``MultiHostReplay`` of its hosts; (c) ``fault_seed_sweep``:
+   ``results/BENCH_replay.json``'s ``availability`` oracle (16 seeds at 4
+   and 8 hosts) on every field, and two Table I mounts on the [multihost]
+   phase's down window with CRC retries over 16 seeds, 2 x 2^16
+   accesses, three lanes equal to standalone runs; (d) a GC-overfilled
+   sweep refused.  Each sweep's lanes and waves, kernel time, wall and
+   host time, its checked lanes' standalone kernel times and the serial
+   cost it replaces, and the fault-column builder's host time.
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -259,8 +278,10 @@ SCAN_IO_BYTES = 29
 SCAN_OPS = {"dram": 39, "pmem": 43, "ssd-buf": 49, "ssd-cache": 75}
 # the faults phase: Table I's cached CXL-SSD under the golden
 # faults-nand-retry@direct rates, then mounted behind a 2 x 2 spine-leaf
-# with ECMP under CRC retries and a down window over the middle quarter
-# of the main path's trace; the golden scenario's GC-pressured flash on
+# with ECMP under CRC retries and a down window over the second quarter
+# of the main path's first 2^18 accesses (cut from 2^20 so that the
+# script keeps its time limit with the [sweep] phase: the python lane
+# took 111 s there); the golden scenario's GC-pressured flash on
 # the longest power-of-two seeded trace that the python lane finishes
 # (2^13 accesses run out of space, tests/test_torch_faults_scan.py)
 FAULT_NAND = dict(nand_read_retry_rate=0.3, erase_fail_rate=0.5,
@@ -269,7 +290,8 @@ FAULT_NAND_SEED = 0
 FAULT_FABRIC = dict(num_hosts=2, num_devices=2, num_leaves=2, num_spines=2,
                     ecmp=True)
 FAULT_LINK = dict(link_retry_rate=0.25,
-                  down_links=(("s0", "sp0", 1 << 18, 1 << 19),))
+                  down_links=(("s0", "sp0", 1 << 16, 1 << 17),))
+FAULT_LINK_ACCESSES = 1 << 18
 FAULT_LINK_SEED = 7
 FAULT_GC_SCENARIO = "faults-nand-retry@direct"
 FAULT_GC_TRACE = dict(seed=24, n=1 << 12, pages=16)
@@ -296,6 +318,10 @@ ALU_STEP_CYCLES = 4
 # multi-host scenarios
 MULTI_HOSTS = 4
 MULTI_PER_HOST = 1 << 18
+# the python lane's comparison runs the same cases at a quarter of the
+# depth, each host's first accesses (at 2^18 a host its taps took 171 s,
+# which the script's time limit no longer holds beside the [sweep] phase)
+MULTI_PYTHON_PER_HOST = 1 << 16
 MULTI_FABRIC = dict(num_leaves=2)
 MULTI_QOS = dict(num_hosts=3, num_devices=2, num_leaves=2, num_spines=2,
                  ecmp=True, qos_weights={"h0": 3.0, "h1": 1.0, "h2": 1.0})
@@ -356,6 +382,34 @@ STREAM_MAIN_CHUNKS = (1 << 10, 1 << 14, 1 << 16)
 STREAM_CRASH = dict(accesses=1 << 18, chunk=1 << 14, every=2, die_after=5)
 STREAM_LINK = dict(accesses=1 << 16, window=(1 << 14, 1 << 15), chunk=3000)
 STREAM_MULTI = dict(per_host=1 << 16, chunk=1 << 14)
+# the sweep phase: the design-space sweeps, one replay_scan launch each,
+# one block a lane.  (a) Table I over the main path's trace, 128 lanes:
+# 8 capacities (frames) x LRU / FIFO x 8 flash read times (quarters of
+# Table I's read_t), its twin check at 4096 accesses x 16 lanes; (b) the
+# [multihost] phase's four Table I mounts at 1-4 hosts, 2^18 accesses a
+# host; (c) results/BENCH_replay.json's availability oracle, and the
+# [multihost] phase's two-host down window with CRC retries, 16 seeds,
+# 2^16 accesses a host; (d) a GC-overfilled cache sweep, refused
+SWEEP_KERNEL = "replay_sweep_kernel"
+MULTI_SWEEP_KERNEL = "replay_multi_sweep_kernel"
+SWEEP_REPLACES = "src/repro/core/replay/sweep.py:56"
+SWEEP_CAPS = (256, 512, 768, 1024, 1536, 2048, 3072, 4096)
+SWEEP_READ_T = (2, 3, 4, 5, 6, 8, 12, 16)
+SWEEP_TWIN = dict(accesses=4096, caps=(256, 1024, 2048, 4096),
+                  read_t=(4, 8))
+SWEEP_HOSTS = (1, 2, 3, 4)
+SWEEP_HOST_PER_HOST = 1 << 18
+SWEEP_SEEDS = 16
+SWEEP_SEED_PER_HOST = 1 << 16
+SWEEP_LINK = dict(link_retry_rate=0.15, link_retry_max=2)
+SWEEP_SEED_CHECKED = (0, 7, 15)        # lanes held against standalone runs
+# every lane check the phase prints, each of which must be equal
+SWEEP_CHECKS = (("cache/first", "cache/last", "cache/fifo-smallest",
+                 "cache/timing", "cache/twin")
+                + tuple(f"hosts/{h}" for h in SWEEP_HOSTS)
+                + ("oracle/x4", "oracle/x8")
+                + tuple(f"seeds/{s}" for s in SWEEP_SEED_CHECKED)
+                + ("overfill/refused",))
 # the assoc phase: which of the main path's replays the associative lane
 # certifies (True) or refuses (False), as the JAX package's numpy backend
 # does (tests/test_torch_assoc.py holds the two equal)
@@ -2050,10 +2104,11 @@ def stream_phase(torch, trace, scan: dict, seed: int) -> dict:
 
 
 def scan_row(scan: dict, faults: dict, multi: dict, n: int,
-             stream: dict) -> dict:
+             stream: dict, sweeps: dict | None = None) -> dict:
     """The kernels line's ``replay_scan`` row: the Table I cached CXL-SSD's
-    numbers, with every device's, the faulted replays' and the multi-host
-    replays' beside them."""
+    numbers, with every device's, the faulted replays', the multi-host
+    replays', the streamed ones' and the sweeps' beside them."""
+    sweeps = sweeps or {}
     main = "cxl-ssd-cache"
     b_ms, b_by = scan["bound"][main]
     return {
@@ -2062,7 +2117,8 @@ def scan_row(scan: dict, faults: dict, multi: dict, n: int,
         "launches": sum(scan["launches"].values())
         + sum(run["launches"] for run in faults.values())
         + sum(run["launches"] for run in multi.values())
-        + sum(run["launches"] for run in stream.values()),
+        + sum(run["launches"] for run in stream.values())
+        + sum(run["launches"] for run in sweeps.values()),
         "max_abs_err": 0, "tolerance": 0,
         "ms": scan["kernel_ms"][main], "plain_ms": scan["plain_ms"][main],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -2087,6 +2143,12 @@ def scan_row(scan: dict, faults: dict, multi: dict, n: int,
         "streamed": {name: {k: run[k] for k in (
             "launches", "kernel_ms", "wall_s", "host_s", "peak_bytes")
             if k in run} for name, run in stream.items()},
+        "sweeps": {name: {k: run[k] for k in (
+            "launches", "lanes", "waves", "ms", "wall_s", "standalone_ms",
+            "serial_ms", "bound_ms", "column_s")}
+            for name, run in sweeps.items()},
+        "sweep_kernels": [SWEEP_KERNEL, MULTI_SWEEP_KERNEL],
+        "sweep_replaces": SWEEP_REPLACES,
     }
 
 
@@ -2245,7 +2307,8 @@ def faults_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
         "gc": faulted_replay(torch, "gc",
                              lambda: make_target(FAULT_GC_SCENARIO),
                              gc_trace),
-        "link": faulted_replay(torch, "link", link, trace),
+        "link": faulted_replay(torch, "link", link,
+                               trace[:FAULT_LINK_ACCESSES]),
     }
     f = {k: v["faults"] for k, v in runs.items()}
     check(f["nand"]["nand_read_retries"] > 0
@@ -2618,31 +2681,41 @@ def multihost_phase(torch, seed: int, smem_cycles: float,
         spill_bytes=ptxas_spills(log, MULTI_KERNEL))
 
     cases = multi_cases(seed, MULTI_PER_HOST)
+    small = multi_cases(seed, MULTI_PYTHON_PER_HOST)
     runs = {}
+
+    def replay(name, make, traces):
+        eng = MultiHostReplay(make(), outstanding=32, metrics=MetricsSpec())
+        if name == "down":
+            return eng, eng.run(traces)
+        # the entry point a user calls
+        return eng, MultiHostDriver(eng.targets, outstanding=32,
+                                    engine="scan",
+                                    metrics=MetricsSpec()).run(traces)
+
     for name, (make, traces) in cases.items():
         rs.reset_launches()
-        eng = MultiHostReplay(make(), outstanding=32, metrics=MetricsSpec())
         t0 = time.perf_counter()
-        if name == "down":
-            res = eng.run(traces)
-        else:       # the entry point a user calls
-            res = MultiHostDriver(eng.targets, outstanding=32, engine="scan",
-                                  metrics=MetricsSpec()).run(traces)
+        eng, res = replay(name, make, traces)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         column_s = eng.last_column_seconds
         launches = rs.LAUNCHES["replay_scan"]
         check(launches == 1, f"[multihost] {name}: {launches} launches")
+        # the python lane, at the smaller depth
+        s_make, s_traces = small[name]
+        _, s_res = replay(name, s_make, s_traces)
         t0 = time.perf_counter()
-        want, bundle, taps = multi_python_lane(make(), traces)
+        want, bundle, taps = multi_python_lane(s_make(), s_traces)
         py_wall = time.perf_counter() - t0
-        same = multi_same(res, want, bundle, taps)
+        same = multi_same(s_res, want, bundle, taps)
         for field, ok in same.items():
             check(ok, f"[multihost] {name}: {field} differs from the python "
                       "lane")
         prep = eng.prepare(traces)
         ms, how, who = multi_kernel_run(torch, prep)
-        reads = sum(f["host_reads"] + f["gc_writes"] for f in bundle.flash)
+        reads = sum(f["host_reads"] + f["gc_writes"]
+                    for f in res.metrics.flash)
         run = {"launches": launches, "ms": ms, "timing": how,
                "wall_s": wall, "python_wall_s": py_wall,
                "column_s": column_s,
@@ -2654,6 +2727,7 @@ def multihost_phase(torch, seed: int, smem_cycles: float,
         runs[name] = run
         say("multihost", case=name, hosts=run["hosts"],
             accesses=run["accesses"], equal_to_python=",".join(same),
+            python_accesses=sum(len(t) for t in s_traces),
             launches=launches, kernel_ms=f"{ms:.3f}", timing=how,
             ns_per_access=f"{ms * 1e6 / run['accesses']:.1f}",
             driver_wall_s=f"{wall:.3f}", host_s=f"{wall - ms / 1e3:.3f}",
@@ -2707,6 +2781,330 @@ def multihost_phase(torch, seed: int, smem_cycles: float,
         twin_accesses=MULTI_HOSTS * MULTI_TWIN_PER_HOST,
         twin_ms=f"{plain_ms:.3f}")
     runs["table1x4"]["plain_ms"] = plain_ms
+    return runs
+
+
+# ------------------------------------------------------------ the sweeps
+def sweep_check_line(name: str, same: dict) -> str:
+    """The ``[sweep]`` line of one lane check: its fields and those that
+    differ."""
+    differ = [k for k, ok in same.items() if not ok]
+    return (f"[sweep] check={name} fields={','.join(same)} "
+            f"differ={','.join(differ) or 'none'}")
+
+
+def sweep_failures(lines) -> list:
+    """The lane checks of :data:`SWEEP_CHECKS` that ``lines`` (the
+    ``[sweep]`` lines of a run) miss, print twice, or print with a field
+    that differs."""
+    seen = {}
+    for ln in lines:
+        m = re.match(r"\[sweep\] check=(\S+) fields=(\S*) differ=(\S+)$",
+                     ln.strip())
+        if m:
+            seen.setdefault(m.group(1), []).append(m.group(3))
+    bad = []
+    for name in SWEEP_CHECKS:
+        got = seen.get(name, [])
+        if len(got) != 1 or got[0] != "none":
+            bad.append(f"{name}: {got or 'missing'}")
+    return bad
+
+
+def launch_ms(torch, run, kernel: str) -> tuple[float, str]:
+    """Device milliseconds of the one launch of ``kernel`` that ``run()``
+    makes, by the profiler (by CUDA events, host time included, where the
+    profiler records none), and how it was timed."""
+    acts = [e for e in device_events(
+        torch, run, lambda a: any(kernel in e.name for e in a))
+        if kernel in e.name]
+    if acts:
+        return sum(e.device_time_total for e in acts) / 1e3, "profiler"
+    EVENT_TIMED.append(kernel)
+    say("timing", fallback="CUDA events", what=kernel,
+        reason=f"the profiler recorded no device activity in "
+               f"{PROFILE_TRIES} sessions")
+    return cuda_ms(torch, run), "CUDA events"
+
+
+def sweep_down_targets(seed: int, per_host: int):
+    """The [multihost] phase's two Table I mounts on the 2 x 2 spine-leaf
+    with its down window scaled to ``per_host`` accesses, under CRC
+    retries of fault seed ``seed``."""
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+
+    fab = Fabric.build("spine_leaf", **MULTI_DOWN)
+    tgts = [fab.mount(f"h{i}", f"d{i}", make_device("cxl-ssd-cache"))
+            for i in range(MULTI_DOWN["num_hosts"])]
+    u, v, lo, hi, of = MULTI_DOWN_WINDOW
+    install(FaultPlan(FaultConfig(down_links=(
+        (u, v, lo * per_host // of, hi * per_host // of),), **SWEEP_LINK),
+        seed=seed), tgts)
+    return tgts
+
+
+def sweep_phase(torch, trace, seed: int, scan: dict,
+                smem_cycles: float, sm_clock_mhz: float,
+                int32_ops_per_s: float) -> dict:
+    """[sweep]: the design-space sweeps on the card, each one launch of
+    ``replay_scan``'s sweep instances (one block a lane) through the
+    entry point a user calls; checked lanes equal their standalone
+    one-launch replays, the cache sweep its twin, the availability
+    oracle reproduced, a GC overfill refused."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenarios import (AVAIL_HOSTS, AVAIL_SEEDS, availability_case,
+                                 availability_fields, gc_ssd_cfg)
+
+    from repro_torch.core.cache.dram_cache import DRAMCacheConfig
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay import sweep as sw
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    from repro_torch.core.replay.spec import ReplayUnsupported
+    from repro_torch.core.workloads.traces import make_trace
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log = _build.build_log.get("replay_scan", "")
+    say("sweep", kernels=f"{SWEEP_KERNEL},{MULTI_SWEEP_KERNEL}",
+        spill_bytes=ptxas_spills(log, SWEEP_KERNEL)
+        + ptxas_spills(log, MULTI_SWEEP_KERNEL), sms=sms)
+    lines = []
+    runs = {}
+
+    def lane_check(name: str, same: dict) -> None:
+        ln = sweep_check_line(name, same)
+        print(ln, flush=True)
+        lines.append(ln)
+
+    def report(name, lanes, launches, ms, how, wall, alone_ms, bound,
+               column_s=0.0):
+        waves = -(-lanes // sms)
+        serial = lanes * float(np.median(alone_ms))
+        runs[name] = {"launches": launches, "lanes": lanes, "waves": waves,
+                      "ms": ms, "timing": how, "wall_s": wall,
+                      "standalone_ms": alone_ms, "serial_ms": serial,
+                      "bound_ms": bound, "column_s": column_s}
+        say("sweep", sweep=name, lanes=lanes, waves=waves,
+            launches=launches, kernel_ms=f"{ms:.3f}", timing=how,
+            wall_s=f"{wall:.3f}", host_s=f"{wall - ms / 1e3:.3f}",
+            standalone_kernel_ms=",".join(f"{x:.3f}" for x in alone_ms),
+            serial_ms=f"{serial:.3f}", serial_over_sweep=f"{serial / ms:.2f}",
+            bound_ms=f"{bound:.6f}", column_builder_s=f"{column_s:.3f}")
+        check(launches == 1, f"[sweep] {name}: {launches} launches")
+
+    # (a) the cache sweep: Table I over the main path's trace, 128 lanes
+    addrs = np.fromiter((a for a, _, _ in trace), np.int64, len(trace))
+    wr = np.fromiter((w for _, _, w in trace), bool, len(trace))
+    read_t = make_device("cxl-ssd-cache").hil.cfg.timing.read_ticks
+    grid = [(c, lru, q) for c in SWEEP_CAPS for lru in (True, False)
+            for q in SWEEP_READ_T]
+    caps = [c for c, _, _ in grid]
+    lrus = [lru for _, lru, _ in grid]
+    over = {"read_t": [read_t * q // 4 for _, _, q in grid]}
+    rs.reset_launches()
+    t0 = time.perf_counter()
+    out = sw.cache_design_sweep(make_device("cxl-ssd-cache"), addrs, wr,
+                                capacity_frames=caps, is_lru=lrus,
+                                timing_overrides=over)
+    wall = time.perf_counter() - t0
+    launches = rs.LAUNCHES["replay_scan"]
+    cfg, lanes = sw.cache_lanes(make_device("cxl-ssd-cache"), addrs, wr,
+                                capacity_frames=caps, is_lru=lrus,
+                                timing_overrides=over)
+    a, w = torch.from_numpy(addrs).cuda(), torch.from_numpy(wr).cuda()
+    got = {}
+
+    def run_sweep():
+        got["state"] = stack.init_sweep(cfg, caps, "cuda")
+        got["out"] = rs.replay_sweep(cfg, lanes, got["state"], a, w)
+
+    ms, how = launch_ms(torch, run_sweep, SWEEP_KERNEL)
+    issues, dones, flags = (x.cpu().numpy() for x in got["out"][:3])
+    check(np.array_equal(out["latency_ticks"], dones - issues)
+          and np.array_equal(out["hit_flags"], (flags & 1).astype(bool))
+          and np.array_equal(out["evict_flags"], (flags & 2).astype(bool)),
+          "[sweep] cache_design_sweep differs from its own launch")
+    check(out["latency_ticks"].shape == (len(grid), len(trace))
+          and bool((out["latency_ticks"] > 0).all()),
+          "[sweep] cache sweep shapes and latencies")
+    frames = got["state"]["media"]["frames"].cpu().numpy()
+    fifo_min = grid.index((SWEEP_CAPS[0], False, 4))
+    timing = grid.index((SWEEP_CAPS[-1], True, SWEEP_READ_T[-1]))
+    alone_ms = []
+    for name, k in (("first", 0), ("last", len(grid) - 1),
+                    ("fifo-smallest", fifo_min), ("timing", timing)):
+        one = dataclasses.replace(cfg, cache_frames=caps[k])
+        st = {}
+
+        def run_one():
+            st["state"] = stack.init_state(one, "cuda")
+            st["out"] = rs.replay_scan(one, lanes[k], st["state"], a, w)
+
+        ms1, _ = launch_ms(torch, run_one, SCAN_KERNEL)
+        alone_ms.append(ms1)
+        i1, d1, f1 = (x.cpu().numpy() for x in st["out"][:3])
+        lane_check(f"cache/{name}", {
+            "latency": np.array_equal(d1 - i1, dones[k] - issues[k]),
+            "flags": np.array_equal(f1, flags[k]),
+            "frames": np.array_equal(st["state"]["media"]["frames"].cpu()
+                                     .numpy(), frames[k, :caps[k]]),
+            "disabled": bool((frames[k, caps[k]:] == stack.DISABLED).all())})
+    # the twin, at 4096 accesses over 16 lanes
+    n_twin = SWEEP_TWIN["accesses"]
+    tgrid = [(c, lru, q) for c in SWEEP_TWIN["caps"] for lru in (True, False)
+             for q in SWEEP_TWIN["read_t"]]
+    tcfg, tlanes = sw.cache_lanes(
+        make_device("cxl-ssd-cache"), addrs[:n_twin], wr[:n_twin],
+        capacity_frames=[c for c, _, _ in tgrid],
+        is_lru=[lru for _, lru, _ in tgrid],
+        timing_overrides={"read_t": [read_t * q // 4 for _, _, q in tgrid]})
+    tcaps = [c for c, _, _ in tgrid]
+    cpu = stack.init_sweep(tcfg, tcaps)
+    t0 = time.perf_counter()
+    want = rs.replay_sweep(tcfg, tlanes, cpu, torch.from_numpy(
+        addrs[:n_twin]), torch.from_numpy(wr[:n_twin]))
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    card = stack.init_sweep(tcfg, tcaps, "cuda")
+    have = rs.replay_sweep(tcfg, tlanes, card, a[:n_twin], w[:n_twin])
+    same = {k: torch.equal(g.cpu(), x) for k, g, x in zip(
+        ("issues", "dones", "flags", "qacc", "qthr"), have, want)}
+    for part in ("media", "flash"):
+        same[part] = all(torch.equal(card[part][k].cpu(), x)
+                         for k, x in (cpu[part] or {}).items())
+    lane_check("cache/twin", same)
+    report("cache", len(grid), launches, ms, how, wall, alone_ms,
+           scan["bound"]["cxl-ssd-cache"][0] * len(grid)
+           / min(len(grid), sms))
+    runs["cache"].update(twin_ms=twin_ms, twin_lanes=len(tgrid),
+                         twin_accesses=n_twin,
+                         hit_rate_min=float(out["hit_rate"].min()),
+                         hit_rate_max=float(out["hit_rate"].max()))
+    say("sweep", sweep="cache", twin_lanes=len(tgrid), twin_accesses=n_twin,
+        twin_ms=f"{twin_ms:.3f}",
+        hit_rate=f"{out['hit_rate'].min():.6f}-{out['hit_rate'].max():.6f}")
+
+    # (b) host counts over the [multihost] phase's four Table I mounts,
+    # the entry point's own launch timed by the profiler
+    make, traces = multi_cases(seed, SWEEP_HOST_PER_HOST)["table1x4"]
+    got = {}
+
+    def run_hosts():
+        rs.reset_launches()
+        t0 = time.perf_counter()
+        got["lanes"] = sw.host_count_sweep(make(), traces, list(SWEEP_HOSTS))
+        torch.cuda.synchronize()
+        got["wall"] = time.perf_counter() - t0
+        got["launches"] = rs.LAUNCHES["replay_scan"]
+
+    ms, how = launch_ms(torch, run_hosts, MULTI_SWEEP_KERNEL)
+    alone_ms = []
+    for h, lane in zip(SWEEP_HOSTS, got["lanes"]):
+        one = MultiHostReplay(make()[:h])
+        st = {}
+        ms1, _ = launch_ms(torch, lambda: st.update(res=one.run(traces[:h])),
+                           MULTI_KERNEL)
+        alone_ms.append(ms1)
+        res = st["res"]
+        lane_check(f"hosts/{h}", {
+            "ticks": res.elapsed_ticks == lane.elapsed_ticks and all(
+                (r.accesses, r.elapsed_ticks, r.sum_latency_ticks,
+                 r.end_tick) == (x.accesses, x.elapsed_ticks,
+                                 x.sum_latency_ticks, x.end_tick)
+                for r, x in zip(res.per_host, lane.per_host)),
+            "absent": all(x.accesses == 0 for x in lane.per_host[h:])})
+    # the widest lane's bound, from its hosts' order of a launch of its own
+    prep = MultiHostReplay(make()).prepare(traces)
+    hb = multi_bound(torch, prep, multi_kernel_run(torch, prep)[2], 0,
+                     int32_ops_per_s, smem_cycles, sm_clock_mhz)["bound_ms"]
+    report("hosts", len(SWEEP_HOSTS), got["launches"], ms, how, got["wall"],
+           alone_ms, hb * len(SWEEP_HOSTS) / min(len(SWEEP_HOSTS), sms))
+
+    # (c) fault seeds: the availability oracle, then the down window
+    oracle = json.loads((ROOT / "results" / "BENCH_replay.json")
+                        .read_text())["availability"]
+    for nh in AVAIL_HOSTS:
+        mk, tr = availability_case(nh)
+        rs.reset_launches()
+        lanes_av = sw.fault_seed_sweep(mk, tr, list(range(AVAIL_SEEDS)),
+                                       outstanding=8)
+        check(rs.LAUNCHES["replay_scan"] == 1,
+              f"[sweep] oracle x{nh}: {rs.LAUNCHES['replay_scan']} launches")
+        got_av, want_av = availability_fields(lanes_av), oracle[
+            f"hosts_x{nh}"]
+        lane_check(f"oracle/x{nh}", {
+            k: got_av[k] == want_av[k] for k in (
+                "seeds", "window_ticks", "num_windows",
+                "availability_curve")})
+    traces = [make_trace(seed + i, n=SWEEP_SEED_PER_HOST, pages=16384)
+              for i in range(MULTI_DOWN["num_hosts"])]
+    seeds = list(range(SWEEP_SEEDS))
+    got, info = {}, {}
+
+    def run_seeds():
+        rs.reset_launches()
+        t0 = time.perf_counter()
+        got["lanes"] = sw.fault_seed_sweep(
+            lambda s: sweep_down_targets(s, SWEEP_SEED_PER_HOST), traces,
+            seeds, info=info)
+        torch.cuda.synchronize()
+        got["wall"] = time.perf_counter() - t0
+        got["launches"] = rs.LAUNCHES["replay_scan"]
+
+    ms, how = launch_ms(torch, run_seeds, MULTI_SWEEP_KERNEL)
+    alone_ms = []
+    for s in SWEEP_SEED_CHECKED:
+        one = MultiHostReplay(sweep_down_targets(s, SWEEP_SEED_PER_HOST))
+        st = {}
+        ms1, _ = launch_ms(torch, lambda: st.update(res=one.run(traces)),
+                           MULTI_KERNEL)
+        alone_ms.append(ms1)
+        res, stats = st["res"], one.fault_stats
+        if s == SWEEP_SEED_CHECKED[0]:
+            prep = one.prepare(traces)
+            sb = multi_bound(torch, prep, multi_kernel_run(torch, prep)[2],
+                             0, int32_ops_per_s, smem_cycles,
+                             sm_clock_mhz)["bound_ms"]
+        lane = got["lanes"][s]
+        lane_check(f"seeds/{s}", {
+            "latency": np.array_equal(np.concatenate(
+                [r.latency_ticks for r in res.per_host]),
+                lane["latency_ticks"]),
+            "ticks": res.elapsed_ticks == lane["result"].elapsed_ticks
+            and all((r.accesses, r.elapsed_ticks, r.sum_latency_ticks,
+                     r.end_tick) == (x.accesses, x.elapsed_ticks,
+                                     x.sum_latency_ticks, x.end_tick)
+                    for r, x in zip(res.per_host, lane["result"].per_host)),
+            "fault_stats": stats == lane["fault_stats"]})
+    check(all(lane["fault_stats"]["failovers"] > 0
+              and lane["fault_stats"]["link_retries"] > 0
+              for lane in got["lanes"]), "[sweep] a seed lane saw no fault")
+    report("seeds", len(seeds), got["launches"], ms, how, got["wall"],
+           alone_ms, sb * len(seeds) / min(len(seeds), sms),
+           column_s=info["column_seconds"])
+
+    # (d) a GC-overfilled cache sweep is refused, lane-wise
+    gdev = make_device("cxl-ssd-cache", ssd_cfg=gc_ssd_cfg(750),
+                       cache_cfg=DRAMCacheConfig(capacity_bytes=8 * 4096,
+                                                 mshr_entries=4,
+                                                 writeback_buffer=2))
+    bad = np.arange(1100, dtype=np.int64) * 4096
+    lane_check("overfill/refused", {"refused": refuses(
+        lambda: sw.cache_design_sweep(gdev, bad, bad >= 0,
+                                      capacity_frames=[8, 4],
+                                      is_lru=[True, True], outstanding=8),
+        ReplayUnsupported)})
+
+    failures = sweep_failures(lines)
+    check(not failures, f"[sweep] lane checks failed: {failures}")
+    say("sweep", checks=len(lines), equal="all",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
     return runs
 
 
@@ -2957,6 +3355,8 @@ def main() -> int:
     multi = multihost_phase(torch, args.seed, smem_cycles, sm_clock_mhz,
                             int32_ops_per_s)
     stream = stream_phase(torch, trace, scan, args.seed)
+    sweeps = sweep_phase(torch, trace, args.seed, scan, smem_cycles,
+                         sm_clock_mhz, int32_ops_per_s)
 
     # kernels line -------------------------------------------------------
     rows = []
@@ -2980,7 +3380,7 @@ def main() -> int:
         })
     print(card, flush=True)
     print(json.dumps({"kernels": rows + serve_rows + [
-        prefill_row, scan_row(scan, faults, multi, n, stream)]}),
+        prefill_row, scan_row(scan, faults, multi, n, stream, sweeps)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -26,12 +26,18 @@
   bounded outputs (``return_latencies=False``) and crash-safe checkpoints
   (``ReplayEngine.run_arrays(chunk_size=)`` and
   ``MultiHostReplay.run(chunk_size=)`` chunk an in-memory trace alike).
+* :func:`cache_design_sweep` / :func:`host_count_sweep` (and
+  :func:`~repro_torch.core.replay.sweep.fault_seed_sweep`) — design-space
+  sweeps: a batch of cache capacities, policies and timing constants, of
+  host counts, or of fault-plan seeds, every lane in one launch of the
+  ``replay_scan`` kernel's sweep instances (one block a lane), each lane
+  equal to its standalone replay; their plain twins on the CPU.
 * :mod:`repro_torch.core.replay.cuda_engine` — the cached CXL-SSD kernel
   lane (``engine="cuda"``, analytic latency).
 
-The sweep lanes are a later slice (ROADMAP Queue A item 11).  Importing
-this package loads no torch: the state layer's names load it on first
-use.
+The sharded multi-host replay (``host_count_sweep(sharded=True)``) is a
+later slice (ROADMAP Queue A item 13).  Importing this package loads no
+torch: the state layer's names load it on first use.
 """
 
 import importlib
@@ -42,6 +48,7 @@ from repro_torch.core.replay.engine import ReplayEngine, ReplayResult
 from repro_torch.core.replay.metrics import MetricsBundle, MetricsSpec
 from repro_torch.core.replay.multihost import MultiHostReplay
 from repro_torch.core.replay.stream import replay_stream
+from repro_torch.core.replay.sweep import cache_design_sweep, host_count_sweep
 from repro_torch.core.replay.spec import (
     ReplayUnsupported,
     StackConfig,
@@ -73,6 +80,8 @@ __all__ = [
     "StackConfig",
     "build_stack",
     "busy_until",
+    "cache_design_sweep",
+    "host_count_sweep",
     "init_lanes",
     "init_state",
     "media_init",

@@ -636,6 +636,15 @@ class MultiHostReplay:
             return None
         return self._meta["deg_flags"], self._meta["fo_flags"]
 
+    @property
+    def fault_stats(self) -> Optional[Dict[str, int]]:
+        """The transport-fault counters (link retries, failovers,
+        degraded accesses) of the last :meth:`prepare` under an active
+        transport plan, else ``None``."""
+        if self._meta is None or "fault_stats" not in self._meta:
+            return None
+        return dict(self._meta["fault_stats"])
+
     @staticmethod
     def aggregate(who, issues, dones, lens, size: int,
                   start_tick: int = 0) -> MultiHostResult:

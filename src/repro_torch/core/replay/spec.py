@@ -61,6 +61,12 @@ class ReplayUnsupported(ValueError):
 
 # the packed frames' stamp field (stack.py) holds one stamp an access
 MAX_ACCESSES = (1 << 23) - 1
+# A disabled frame of a sweep's capacity lane (the JAX package's
+# sweep.py): its page field (stack.py's bits [38:1]) is all ones, which
+# no page has (build_stack refuses pages that reach it), and it lies above
+# every valid packed word and every free one, so it never matches and is
+# never a victim.
+DISABLED = (1 << 62) | (((1 << 38) - 1) << 1)
 
 # media kinds the fused step function branches on (static)
 DRAM = "dram"

@@ -48,6 +48,7 @@ import torch
 from repro_torch.core.faults.plan import (erase_fails_torch,
                                           nand_read_retries_torch)
 from repro_torch.core.replay.spec import (  # noqa: F401  (MAX_ACCESSES)
+    DISABLED,
     DRAM,
     MAX_ACCESSES,
     PMEM,
@@ -540,6 +541,45 @@ def init_lanes(cfg: StackConfig, num_devs: int, n_flash: int,
     return {"media": stacked([media_init(cfg, device)
                               for _ in range(num_devs)]),
             "flash": flash}
+
+
+def capacity_frames(cfg: StackConfig, cap: int, device="cpu") -> torch.Tensor:
+    """The initial frames of a cache lane of ``cap`` frames in a sweep
+    (the JAX package's ``sweep.py`` :63-68): the cache's ``cache_frames``
+    words, the first ``cap`` free and the rest :data:`DISABLED`."""
+    idx = torch.arange(cfg.cache_frames, device=device)
+    return torch.where(idx < int(cap), FREE, DISABLED)
+
+
+def _stacked(parts) -> Dict:
+    """States (``init_state`` / ``init_lanes`` dicts) with a new leading
+    lane axis."""
+    def part(name):
+        if parts[0][name] is None:
+            return None
+        return {k: torch.stack([p[name][k] for p in parts])
+                for k in parts[0][name]}
+
+    return {"media": part("media"), "flash": part("flash")}
+
+
+def init_sweep(cfg: StackConfig, caps, device="cpu") -> Dict:
+    """The state of a single-host sweep: one :func:`init_state` a lane
+    with a leading lane axis, lane *k*'s cache frames those of capacity
+    ``caps[k]`` (:func:`capacity_frames`)."""
+    state = _stacked([init_state(cfg, device) for _ in caps])
+    if cfg.kind == SSD_CACHE:
+        state["media"]["frames"] = torch.stack(
+            [capacity_frames(cfg, c, device) for c in caps])
+    return state
+
+
+def init_multi_sweep(cfg: StackConfig, lanes: int, num_devs: int,
+                     n_flash: int, device="cpu") -> Dict:
+    """The state of a multi-host sweep: one :func:`init_lanes` a lane,
+    with a leading lane axis."""
+    return _stacked([init_lanes(cfg, num_devs, n_flash, device)
+                     for _ in range(lanes)])
 
 
 def lane(part: Optional[Dict], i: int) -> Optional[Dict]:

@@ -59,10 +59,13 @@ SIGNATURES = {
     "replay_scan": {
         "replay_scan_launch": (_I, [_P] * 28 + [_I, _P]),
         "replay_scan_launch_multi": (_I, [_P] * 29 + [_I, _P]),
+        "replay_scan_launch_sweep": (_I, [_I] + [_P] * 26 + [_I, _P]),
+        "replay_scan_launch_multi_sweep": (_I, [_I] + [_P] * 29 + [_I, _P]),
         "replay_scan_num_args": (_I, []),
         "replay_scan_layout_words": (_I, []),
         "replay_scan_num_margs": (_I, []),
         "replay_scan_layout_multi_words": (_I, []),
+        "replay_scan_num_ptrs": (_I, []),
         "replay_scan_smem_optin": (_I, [_I, ctypes.POINTER(_I)]),
         "replay_scan_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -13,7 +13,9 @@
 // the same arithmetic, is repro_torch/core/replay/stack.py::step under the
 // loop of repro_torch/kernels/replay_scan.py::replay_scan_plain.  A
 // multi-host instance of its own (`replay_multi`, after the single-host
-// block) replaces src/repro/core/replay/multihost.py::_make_multi_step.
+// block) replaces src/repro/core/replay/multihost.py::_make_multi_step,
+// and the sweep instances (after it: one block a lane of a grid) the
+// vmapped lanes of src/repro/core/replay/sweep.py.
 //
 // What bounds it on this card: the serial chain.  Every access starts from
 // the state the previous one left (LFB slots, port busy-untils, frames,
@@ -1003,11 +1005,13 @@ struct Chain {
 // The block: prologue, the chunks, epilogue.  NAND: the stack carries
 // NAND fault statics; FAULTED: its transport is the faulted lane's path
 // table and retry bytes; CARRY: the replay is resumable (a launch of a
-// chunked replay, `ptrs.carry` set).  Each is an instance of its own, so
-// that a fault-free replay runs the same code as before the faulted lane
-// and a one-launch replay the same code as before the carry (a runtime
-// branch on either cost the walk 1-11% on the card).
-template <int KIND, bool NAND, bool FAULTED, bool CARRY>
+// chunked replay, `ptrs.carry` set); SWEEP: a lane of a cache sweep, whose
+// capacity may be below its frame count.  Each is an instance of its own,
+// so that a fault-free replay runs the same code as before the faulted
+// lane and a one-launch replay the same code as before the carry and the
+// sweeps (a runtime branch on any of them cost the walk 1-11% on the
+// card).
+template <int KIND, bool NAND, bool FAULTED, bool CARRY, bool SWEEP = false>
 __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
                        char* sm) {
   const long long* a = args.v;
@@ -1182,7 +1186,10 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
   // thread 0's registers
   if (tid == 0) {
     c.H = H;
-    c.nf = nf;
+    // a sweep's capacity lane: the victim order runs over the cache's
+    // first `cap` frames, the others disabled (a standalone cache's cap is
+    // its frame count; reading it there cost Table I 2% on the card)
+    c.nf = SWEEP ? static_cast<int>(a[A_CAP]) : nf;
     c.nm = nm;
     c.nw = nw;
     c.nm8 = nm8;
@@ -2144,6 +2151,104 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   }
 }
 
+// ------------------------------------------------------------ the sweeps
+// The JAX package's design-space sweeps (src/repro/core/replay/sweep.py:
+// `cache_design_sweep` :96, `host_count_sweep` :178, `fault_seed_sweep`
+// :262, each a jax.vmap of the replay over a batch of configurations).
+// Their lanes are independent, so here they are a grid axis: one block a
+// lane, every lane in one launch, each block running the replay above on
+// its own lane (a kernel of its own, so that a one-launch replay runs
+// exactly the code it ran before).  Lane b's argument block is row b of a
+// (lanes, kNumArgs) table in device memory (the multi-host lane's table
+// `mtab` likewise, a row a lane), and every pointer moves by b lane
+// strides (`Strides`, in elements of its type; a stride of 0 shares the
+// array among the lanes, as a trace shared by every lane is).  One layout
+// serves every lane: the wrapper computes it over their union.  No lane
+// carries: the reference's sweeps do not stream.  At Table I's ~217 KB of
+// shared memory a block, an SM holds one lane, so up to 132 lanes run in
+// one wave on an H100 and more run in waves.
+//
+// A capacity lane of the cache sweep keeps the cache's whole frame array:
+// its first `cap` frames start free and the rest hold the reference's
+// DISABLED word ((1 << 62) | the page field), which never matches a page
+// and is never a victim; the victim order runs over the first `cap`
+// frames (A_CAP, in the sweep's own instance of `replay`).  A multi-host
+// lane's caches are the targets' own, every frame enabled.
+
+constexpr int kNumPtrs = 26;        // the fields of Ptrs, and of MultiPtrs
+
+struct Strides {
+  long long v[kNumPtrs];
+};
+
+template <typename T>
+__device__ __forceinline__ T* lane_at(T* p, long long stride, long long b) {
+  return p ? p + stride * b : p;
+}
+
+// Lane b's pointers of a single-host sweep, field for field Ptrs (no
+// carry, no home of the maps).
+__device__ __forceinline__ Ptrs lane_ptrs(const Ptrs& p, const Strides& st,
+                                          long long b) {
+  const long long* s = st.v;
+  return Ptrs{lane_at(p.addrs, s[0], b),      lane_at(p.writes, s[1], b),
+              lane_at(p.routes, s[2], b),     lane_at(p.retries, s[3], b),
+              lane_at(p.tables, s[4], b),     lane_at(p.issues, s[5], b),
+              lane_at(p.dones, s[6], b),      lane_at(p.flags, s[7], b),
+              lane_at(p.totals, s[8], b),     lane_at(p.scal, s[9], b),
+              lane_at(p.frames, s[10], b),    lane_at(p.mpage, s[11], b),
+              lane_at(p.mready, s[12], b),    lane_at(p.wtick, s[13], b),
+              lane_at(p.l2p, s[14], b),       lane_at(p.p2l, s[15], b),
+              lane_at(p.valid, s[16], b),     lane_at(p.free_q, s[17], b),
+              lane_at(p.free_mask, s[18], b), lane_at(p.rtr_mask, s[19], b),
+              lane_at(p.die_busy, s[20], b),  lane_at(p.die_prog, s[21], b),
+              lane_at(p.chan_busy, s[22], b), lane_at(p.scratch, s[23], b),
+              nullptr,                        nullptr};
+}
+
+// Lane b's pointers of a multi-host sweep, field for field MultiPtrs.
+__device__ __forceinline__ MultiPtrs lane_multi_ptrs(const MultiPtrs& p,
+                                                     const Strides& st,
+                                                     long long b) {
+  const long long* s = st.v;
+  return MultiPtrs{
+      lane_at(p.addrs, s[0], b),      lane_at(p.aux, s[1], b),
+      lane_at(p.rt, s[2], b),         lane_at(p.mtab, s[3], b),
+      lane_at(p.who, s[4], b),        lane_at(p.issues, s[5], b),
+      lane_at(p.dones, s[6], b),      lane_at(p.flags, s[7], b),
+      lane_at(p.totals, s[8], b),     lane_at(p.scal, s[9], b),
+      lane_at(p.frames, s[10], b),    lane_at(p.mpage, s[11], b),
+      lane_at(p.mready, s[12], b),    lane_at(p.wtick, s[13], b),
+      lane_at(p.l2p, s[14], b),       lane_at(p.p2l, s[15], b),
+      lane_at(p.valid, s[16], b),     lane_at(p.free_q, s[17], b),
+      lane_at(p.free_mask, s[18], b), lane_at(p.rtr_mask, s[19], b),
+      lane_at(p.die_busy, s[20], b),  lane_at(p.die_prog, s[21], b),
+      lane_at(p.chan_busy, s[22], b), lane_at(p.scratch, s[23], b),
+      nullptr,                        nullptr};
+}
+
+// Lane b of a single-host sweep: the cached CXL-SSD (with or without NAND
+// statics; the reference's cache sweep takes no route column, so no ECMP
+// and no transport faults).
+template <bool NAND>
+__device__ void sweep_lane(const long long* args, const Layout& lay,
+                           const Ptrs& ptrs, const Strides& st, long long b,
+                           char* sm) {
+  const Args& a = *reinterpret_cast<const Args*>(args + b * kNumArgs);
+  replay<kSsdCache, NAND, false, false, true>(a, lay, lane_ptrs(ptrs, st, b),
+                                             sm);
+}
+
+// Lane b of a multi-host sweep.
+template <int KIND, bool NAND, bool FAULTED>
+__device__ void multi_sweep_lane(const long long* args, const MArgs& m,
+                                 const LayoutM& lay, const MultiPtrs& ptrs,
+                                 const Strides& st, long long b, char* sm) {
+  const Args& a = *reinterpret_cast<const Args*>(args + b * kNumArgs);
+  replay_multi<KIND, NAND, FAULTED>(a, m, lay, lane_multi_ptrs(ptrs, st, b),
+                                    sm);
+}
+
 #ifndef REPLAY_SCAN_EMULATE
 // One block of four warps an SM: the minimum of 1 lets ptxas give the
 // walking thread the registers it wants.
@@ -2235,6 +2340,85 @@ int launch_multi_kind(const Args& a, const MArgs& m, const LayoutM& lay,
                                                              smem_bytes, s);
   }
 }
+
+// The sweep instances: one block a lane, `lanes` blocks.
+template <bool NAND>
+__global__ void __launch_bounds__(kThreads, 1)
+replay_sweep_kernel(const long long* args,
+                    const __grid_constant__ Layout lay,
+                    const __grid_constant__ Ptrs ptrs,
+                    const __grid_constant__ Strides st) {
+  extern __shared__ __align__(16) char smem[];
+  sweep_lane<NAND>(args, lay, ptrs, st, blockIdx.x, smem);
+}
+
+template <bool NAND>
+int launch_sweep(int lanes, const long long* args, const Layout& lay,
+                 const Ptrs& p, const Strides& st, int smem_bytes,
+                 cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      replay_sweep_kernel<NAND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  replay_sweep_kernel<NAND>
+      <<<lanes, kThreads, smem_bytes, stream>>>(args, lay, p, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND, bool NAND, bool FAULTED>
+__global__ void __launch_bounds__(kThreads, 1)
+replay_multi_sweep_kernel(const long long* args,
+                          const __grid_constant__ MArgs margs,
+                          const __grid_constant__ LayoutM lay,
+                          const __grid_constant__ MultiPtrs ptrs,
+                          const __grid_constant__ Strides st) {
+  extern __shared__ __align__(16) char smem[];
+  multi_sweep_lane<KIND, NAND, FAULTED>(args, margs, lay, ptrs, st,
+                                        blockIdx.x, smem);
+}
+
+template <int KIND, bool NAND, bool FAULTED>
+int launch_multi_sweep(int lanes, const long long* args, const MArgs& m,
+                       const LayoutM& lay, const MultiPtrs& p,
+                       const Strides& st, int smem_bytes,
+                       cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      replay_multi_sweep_kernel<KIND, NAND, FAULTED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  replay_multi_sweep_kernel<KIND, NAND, FAULTED>
+      <<<lanes, kThreads, smem_bytes, stream>>>(args, m, lay, p, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The multi-host sweep instance of lane 0's kind (`head`, its argument
+// block on the host; every lane shares the statics).
+template <bool FAULTED>
+int launch_multi_sweep_kind(int lanes, const long long* head,
+                            const long long* args, const MArgs& m,
+                            const LayoutM& lay, const MultiPtrs& p,
+                            const Strides& st, int smem_bytes,
+                            cudaStream_t s) {
+  const bool nand = head[A_NAND] != 0;
+  switch (head[A_KIND]) {
+    case kDram:
+      return launch_multi_sweep<kDram, false, FAULTED>(lanes, args, m, lay, p,
+                                                       st, smem_bytes, s);
+    case kPmem:
+      return launch_multi_sweep<kPmem, false, FAULTED>(lanes, args, m, lay, p,
+                                                       st, smem_bytes, s);
+    case kSsdBuf:
+      return nand ? launch_multi_sweep<kSsdBuf, true, FAULTED>(
+                        lanes, args, m, lay, p, st, smem_bytes, s)
+                  : launch_multi_sweep<kSsdBuf, false, FAULTED>(
+                        lanes, args, m, lay, p, st, smem_bytes, s);
+    default:
+      return nand ? launch_multi_sweep<kSsdCache, true, FAULTED>(
+                        lanes, args, m, lay, p, st, smem_bytes, s)
+                  : launch_multi_sweep<kSsdCache, false, FAULTED>(
+                        lanes, args, m, lay, p, st, smem_bytes, s);
+  }
+}
 #endif
 
 }  // namespace
@@ -2308,11 +2492,80 @@ int replay_scan_launch_multi(
                                                       smem_bytes, s);
 }
 
+// Launch a single-host sweep on `stream`: `lanes` blocks, lane b's
+// argument block row b of `args` (on the card), `head` lane 0's (on the
+// host, for the dispatch), `layout` and `strides` host arrays (kLayoutWords
+// and kNumPtrs fields); every other pointer is on the card, Ptrs's fields
+// but the route and retry columns, the carry and the maps (a sweep has
+// none).  Only the cached CXL-SSD sweeps; any other kind returns
+// cudaErrorInvalidValue.
+int replay_scan_launch_sweep(
+    int lanes, const long long* head, const long long* args,
+    const long long* layout, const long long* strides,
+    const long long* tables, const long long* addrs, const uint8_t* writes,
+    long long* issues, long long* dones, int32_t* flags, long long* totals,
+    long long* scal, long long* frames, long long* mpage, long long* mready,
+    long long* wtick, int32_t* l2p, int32_t* p2l, int32_t* valid,
+    int32_t* free_q, uint8_t* free_mask, uint8_t* rtr_mask,
+    long long* die_busy, long long* die_prog, long long* chan_busy,
+    char* scratch, int smem_bytes, void* stream) {
+  if (head[A_KIND] != kSsdCache || head[A_FAULT_HOPS] || lanes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Layout lay;
+  memcpy(lay.v, layout, sizeof(lay.v));
+  Strides st;
+  memcpy(st.v, strides, sizeof(st.v));
+  const Ptrs p{addrs, writes, nullptr, nullptr, tables, issues, dones,
+               flags, totals, scal, frames, mpage, mready, wtick, l2p, p2l,
+               valid, free_q, free_mask, rtr_mask, die_busy, die_prog,
+               chan_busy, scratch, nullptr, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return head[A_NAND] ? launch_sweep<true>(lanes, args, lay, p, st,
+                                           smem_bytes, s)
+                      : launch_sweep<false>(lanes, args, lay, p, st,
+                                            smem_bytes, s);
+}
+
+// Launch a multi-host sweep on `stream`: `lanes` blocks, lane b's argument
+// block and table rows b of `args` and `mtab` (on the card), `head` lane
+// 0's argument block, `margs`, `layout` and `strides` host arrays; every
+// other pointer is on the card, MultiPtrs's fields but the carry and the
+// maps.
+int replay_scan_launch_multi_sweep(
+    int lanes, const long long* head, const long long* args,
+    const long long* margs, const long long* layout, const long long* strides,
+    const long long* mtab, const long long* addrs, const int32_t* aux,
+    const long long* rt, int32_t* who, long long* issues, long long* dones,
+    int32_t* flags, long long* totals, long long* scal, long long* frames,
+    long long* mpage, long long* mready, long long* wtick, int32_t* l2p,
+    int32_t* p2l, int32_t* valid, int32_t* free_q, uint8_t* free_mask,
+    uint8_t* rtr_mask, long long* die_busy, long long* die_prog,
+    long long* chan_busy, char* scratch, int smem_bytes, void* stream) {
+  if (lanes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  MArgs m;
+  memcpy(m.v, margs, sizeof(m.v));
+  LayoutM lay;
+  memcpy(lay.v, layout, sizeof(lay.v));
+  Strides st;
+  memcpy(st.v, strides, sizeof(st.v));
+  const MultiPtrs p{addrs, aux, rt, mtab, who, issues, dones, flags, totals,
+                    scal, frames, mpage, mready, wtick, l2p, p2l, valid,
+                    free_q, free_mask, rtr_mask, die_busy, die_prog,
+                    chan_busy, scratch, nullptr, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return head[A_FAULT_HOPS]
+             ? launch_multi_sweep_kind<true>(lanes, head, args, m, lay, p, st,
+                                             smem_bytes, s)
+             : launch_multi_sweep_kind<false>(lanes, head, args, m, lay, p,
+                                              st, smem_bytes, s);
+}
+
 // The argument blocks' and the layouts' lengths, for the wrapper to check.
 int replay_scan_num_args() { return kNumArgs; }
 int replay_scan_layout_words() { return kLayoutWords; }
 int replay_scan_num_margs() { return kNumMArgs; }
 int replay_scan_layout_multi_words() { return kLayoutMultiWords; }
+int replay_scan_num_ptrs() { return kNumPtrs; }
 
 // Largest dynamic shared memory a block may opt in to on `device`.
 int replay_scan_smem_optin(int device, int* bytes) {

@@ -27,8 +27,15 @@ state tensors hold, so a trace replayed chunk by chunk, one launch a
 chunk, equals its one-call replay output for output; the twins take the
 same carry.
 
-The ``LAUNCHES`` counter counts kernel launches only, so a run can show
-that it went through the kernel.
+:func:`replay_sweep` and :func:`replay_multi_sweep` replay a batch of
+configurations (the JAX package's ``sweep.py`` lanes) in one launch of
+the kernel's sweep instances, one block a lane, each lane equal to its
+own one-launch replay; on the CPU their twins
+(:func:`replay_sweep_plain`, :func:`replay_multi_sweep_plain`) replay
+the lanes one after another.
+
+The ``LAUNCHES`` counter counts kernel launches only (one a sweep), so a
+run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -283,13 +290,16 @@ def victim_order(cfg: StackConfig, params: Dict, frames: np.ndarray):
     page each) and the links (int32 pairs, a frame each; -1 past the
     filled frames).  Frames fill in order, the list runs by stamp (an LRU
     touch restamps) and a FIFO's next victim holds the oldest stamp."""
-    nf = frames.size
     if not fully_associative(cfg):
         return 0, -1, -1, None, None
-    valid = frames >= 0
+    # a cache's order runs over its first `cap` frames (a capacity lane
+    # of a sweep disables the rest)
+    nf = (int(np.asarray(params["cap"])) if cfg.kind == SSD_CACHE
+          else frames.size)
+    valid = frames[:nf] >= 0
     filled = int(valid.sum())
     where = np.full(cfg.num_pages, -1, np.int32)
-    links = np.full((nf, 2), -1, np.int32)
+    links = np.full((frames.size, 2), -1, np.int32)
     idx = np.flatnonzero(valid)
     where[(frames[idx] & stack.PAGE_FIELD) >> 1] = idx
     order = idx[np.argsort(frames[idx] >> stack.STAMP_SHIFT, kind="stable")]
@@ -689,6 +699,26 @@ def _launch(cfg, params, state, addrs, writes, routes, retries, start_tick,
     return out
 
 
+def _scalars_in(md: Dict, fl: Dict, lead: tuple, device) -> torch.Tensor:
+    """The state's :data:`SCALARS` as the kernel takes them: int64, the
+    last axis, after the ``lead`` axes of a sweep's lanes (``()`` for one
+    replay)."""
+    cols = []
+    for k in SCALARS:
+        x = md.get(k, fl.get(k))
+        cols.append(torch.zeros(lead, dtype=torch.int64, device=device)
+                    if x is None else x.to(torch.int64).reshape(lead))
+    return torch.stack(cols, -1).contiguous()
+
+
+def _scalars_out(md: Dict, fl: Dict, scal: torch.Tensor) -> None:
+    """Copy the kernel's scalars back into the state tensors."""
+    for i, k in enumerate(SCALARS):
+        part = md if k in md else fl
+        if k in part:
+            part[k].copy_(scal[..., i].reshape(part[k].shape))
+
+
 def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
                 lay: Layout, stream, retries=None, carry=None):
     """Pack one replay's arguments and layout, call
@@ -711,10 +741,7 @@ def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
     totals = torch.empty(2 * P, dtype=torch.int64, device=dev)
     scratch = torch.empty(max(16, lay.scratch_bytes), dtype=torch.uint8,
                           device=dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    scal = torch.stack([
-        (md.get(k) if k in md else fl.get(k, zero)).to(torch.int64)
-        for k in SCALARS])
+    scal = _scalars_in(md, fl, (), dev)
     w8 = writes.view(torch.uint8)
     addrs = addrs.contiguous()
     if retries is not None:
@@ -734,10 +761,7 @@ def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
           else (carry.words.data_ptr(), carry.maps.data_ptr())),
         lay.smem_bytes, stream)
     if err == 0:
-        for i, k in enumerate(SCALARS):
-            part = md if k in md else fl
-            if k in part:
-                part[k].copy_(scal[i])
+        _scalars_out(md, fl, scal)
         if carry is not None:
             carry.seen += n
     return err, (issues, dones, flags, totals[:P], totals[P:])
@@ -1221,6 +1245,46 @@ def _launch_multi(cfg, params, state, addrs, writes, lens, devs, routes,
     return out
 
 
+def _multi_aux(cfg, devs: torch.Tensor, routes: Optional[torch.Tensor],
+               writes: torch.Tensor) -> torch.Tensor:
+    """Each access's ``aux`` word: its row of :func:`multi_tables` << 1,
+    or its write flag (int32)."""
+    return ((multi_rows(cfg, devs, routes).long() << 1)
+            | writes.long()).to(torch.int32).contiguous()
+
+
+def _packed_retries(cfg, retries: torch.Tensor) -> torch.Tensor:
+    """Each access's retry bytes packed into one int64, byte h for hop
+    h."""
+    shifts = 8 * torch.arange(cfg.max_hops, device=retries.device,
+                              dtype=torch.int64)
+    return (retries.long() << shifts).sum(-1).contiguous()
+
+
+def _multi_scalars_in(md: Dict, fl: Dict, lead: tuple, D: int, F: int,
+                      device) -> torch.Tensor:
+    """The lanes' scalars as the kernel takes them: after the ``lead``
+    axes of a sweep's lanes, a row of :data:`SCALARS` a media lane, then a
+    row a flash lane."""
+    scal = torch.zeros(lead + (D + F, len(SCALARS)), dtype=torch.int64,
+                       device=device)
+    for c, k in enumerate(SCALARS):
+        if k in md:
+            scal[..., :D, c] = md[k]
+        elif k in fl:
+            scal[..., D:, c] = fl[k].to(torch.int64)
+    return scal
+
+
+def _multi_scalars_out(md: Dict, fl: Dict, scal: torch.Tensor,
+                       D: int) -> None:
+    for c, k in enumerate(SCALARS):
+        if k in md:
+            md[k].copy_(scal[..., :D, c])
+        elif k in fl:
+            fl[k].copy_(scal[..., D:, c])
+
+
 def call_launch_multi(lib, cfg, params, state, addrs, writes, lens, devs,
                       routes, start_tick, lay: Layout, stream, retries=None,
                       n=None, carry=None):
@@ -1242,12 +1306,8 @@ def call_launch_multi(lib, cfg, params, state, addrs, writes, lens, devs,
     args, margs = multi_arg_blocks(cfg, params, n, start_tick, L)
     words = np.asarray(lay.words, np.int64)
     mtab = torch.from_numpy(kernel_table(cfg, params, lens_np)).to(dev)
-    aux = ((multi_rows(cfg, devs, routes).long() << 1)
-           | writes.long()).to(torch.int32).contiguous()
-    rt = None
-    if retries is not None:
-        shifts = 8 * torch.arange(cfg.max_hops, device=dev, dtype=torch.int64)
-        rt = (retries.long() << shifts).sum(-1).contiguous()
+    aux = _multi_aux(cfg, devs, routes, writes)
+    rt = None if retries is None else _packed_retries(cfg, retries)
     who = torch.empty(n, dtype=torch.int32, device=dev)
     issues = torch.empty(n, dtype=torch.int64, device=dev)
     dones = torch.empty(n, dtype=torch.int64, device=dev)
@@ -1255,13 +1315,7 @@ def call_launch_multi(lib, cfg, params, state, addrs, writes, lens, devs,
     totals = torch.empty(2 * P, dtype=torch.int64, device=dev)
     scratch = torch.empty(max(16, lay.scratch_bytes), dtype=torch.uint8,
                           device=dev)
-    # the lanes' scalars: a row a media lane, then a row a flash lane
-    scal = torch.zeros(D + F, len(SCALARS), dtype=torch.int64, device=dev)
-    for c, k in enumerate(SCALARS):
-        if k in md:
-            scal[:D, c] = md[k]
-        elif k in fl:
-            scal[D:, c] = fl[k].to(torch.int64)
+    scal = _multi_scalars_in(md, fl, (), D, F, dev)
     addrs = addrs.contiguous()
 
     def ptr(x):
@@ -1278,11 +1332,397 @@ def call_launch_multi(lib, cfg, params, state, addrs, writes, lens, devs,
           else (carry.words.data_ptr(), carry.maps.data_ptr())),
         lay.smem_bytes, stream)
     if err == 0:
-        for c, k in enumerate(SCALARS):
-            if k in md:
-                md[k].copy_(scal[:D, c])
-            elif k in fl:
-                fl[k].copy_(scal[D:, c])
+        _multi_scalars_out(md, fl, scal, D)
         if carry is not None:
             carry.seen += n
     return err, (who, issues, dones, flags, totals[:P], totals[P:])
+
+
+# ------------------------------------------------------------- the sweeps
+# the pointers a sweep lane moves by its lane stride (`Ptrs` and
+# `MultiPtrs` in csrc/replay_scan.cu, field for field)
+SWEEP_PTRS = (("addrs", "writes", "routes", "retries", "tables", "issues",
+               "dones", "flags", "totals", "scal") + MEDIA_ARRAYS
+              + FLASH_ARRAYS + ("scratch", "carry", "maps"))
+MULTI_SWEEP_PTRS = (("addrs", "aux", "rt", "mtab", "who", "issues", "dones",
+                     "flags", "totals", "scal") + MEDIA_ARRAYS
+                    + FLASH_ARRAYS + ("scratch", "carry", "maps"))
+
+
+def lane_state(state: Dict, k: int) -> Dict:
+    """Lane ``k`` of a sweep's lane-stacked state, as views (a replay of
+    the lane writes through to the stack)."""
+    return {"media": stack.lane(state["media"], k),
+            "flash": stack.lane(state["flash"], k)}
+
+
+def _lane_strides(names, tensors: Dict, lanes: int) -> np.ndarray:
+    """Each pointer's lane stride in elements: ``numel / lanes`` of a
+    tensor with a leading lane axis, 0 for a shared or absent one."""
+    out = []
+    for name in names:
+        x = tensors.get(name)
+        out.append(0 if x is None else x.numel() // lanes)
+    return np.asarray(out, np.int64)
+
+
+def _check_sweep(cfg: StackConfig, lanes, state: Dict, addrs: torch.Tensor,
+                 writes: torch.Tensor) -> None:
+    """The shape, type and value checks of :func:`replay_sweep` (one read
+    from the tensors' device)."""
+    B = len(lanes)
+    if cfg.kind != SSD_CACHE or not cfg.cache_assoc:
+        raise ValueError("replay_sweep sweeps a fully associative (lru / "
+                         "fifo) cached CXL-SSD")
+    if cfg.num_routes > 1 or cfg.fault_hops:
+        raise ValueError("a sweep lane takes no route column: no ECMP and "
+                         "no transport faults")
+    if B < 1:
+        raise ValueError("a sweep needs >= 1 lane")
+    shared = addrs.dim() == 1
+    if addrs.dtype != torch.int64 or addrs.dim() not in (1, 2) or (
+            not shared and addrs.shape[0] != B) or addrs.shape[-1] < 1:
+        raise ValueError(f"addrs must be a non-empty (N,) or ({B}, N) int64 "
+                         f"tensor, got {addrs.dtype} {tuple(addrs.shape)}")
+    n = addrs.shape[-1]
+    if n > MAX_ACCESSES:
+        raise ValueError(f"{n} accesses exceed the packed stamp's "
+                         f"{MAX_ACCESSES}")
+    if writes.dtype != torch.bool or writes.shape != addrs.shape:
+        raise ValueError(f"writes must be a {tuple(addrs.shape)} bool "
+                         "tensor")
+    caps = [int(np.asarray(p["cap"])) for p in lanes]
+    if not all(1 <= c <= cfg.cache_frames for c in caps):
+        raise ValueError(f"each lane's cap must lie in [1, "
+                         f"{cfg.cache_frames}], got {caps}")
+    for part in ("media", "flash"):
+        for k, x in (state[part] or {}).items():
+            if x.device != addrs.device or x.shape[0] != B:
+                raise ValueError(f"state {part}.{k} must be on "
+                                 f"{addrs.device} with a leading axis of "
+                                 f"{B} lanes")
+    top = cfg.num_pages * cfg.page_bytes
+    want = torch.stack([stack.capacity_frames(cfg, c, addrs.device)
+                        for c in caps])
+    bad = torch.stack([(addrs < 0).any() | (addrs >= top).any(),
+                       (state["media"]["frames"] != want).any()]).tolist()
+    if bad[0]:
+        raise ValueError(f"addresses must be >= 0 and below {top} "
+                         f"({cfg.num_pages} pages, as build_stack sizes "
+                         "l2p)")
+    if bad[1]:
+        raise ValueError(
+            "a sweep lane starts from a fresh cache of its capacity: its "
+            "first cap frames free (-1) and the rest DISABLED, as "
+            "stack.init_sweep makes them")
+
+
+def replay_sweep(cfg: StackConfig, lanes, state: Dict, addrs: torch.Tensor,
+                 writes: torch.Tensor):
+    """Replay ``B = len(lanes)`` configurations of one cached stack in one
+    launch, one block a lane.  ``lanes`` holds each lane's params dict
+    (its cache capacity ``cap``, ``is_lru`` and any tick constant may
+    differ; the statics ``cfg`` are shared); ``state`` is the lanes'
+    state with a leading lane axis (:func:`repro_torch.core.replay.stack.
+    init_sweep`), which ends as their final states; ``addrs`` / ``writes``
+    are ``(N,)``, shared by every lane, or ``(B, N)``, a trace a lane.
+
+    Lane *k* equals :func:`replay_scan` of its configuration alone.
+    Returns ``(issues, dones, flags, qacc, qthr)``, each with the lane
+    axis first (``(B, N)``, ``(B, ports)``).  Raises ``ValueError`` on a
+    stack other than a fully associative cached CXL-SSD on a fixed route,
+    on addresses outside the stack's pages, and on frames that are not a
+    fresh cache of the lane's capacity."""
+    _check_sweep(cfg, lanes, state, addrs, writes)
+    if addrs.device.type == "cpu":
+        return replay_sweep_plain(cfg, lanes, state, addrs, writes)
+    return _launch_sweep(cfg, lanes, state, addrs, writes)
+
+
+def replay_sweep_plain(cfg: StackConfig, lanes, state: Dict,
+                       addrs: torch.Tensor, writes: torch.Tensor):
+    """Plain version of :func:`replay_sweep`: :func:`replay_scan_plain`
+    on each lane in turn, over the lane's views of ``state``."""
+    outs = []
+    for k, p in enumerate(lanes):
+        a = addrs if addrs.dim() == 1 else addrs[k]
+        w = writes if writes.dim() == 1 else writes[k]
+        outs.append(replay_scan_plain(cfg, p, lane_state(state, k), a, w))
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(5))
+
+
+def sweep_layout(cfg: StackConfig, lanes, budget: int, *,
+                 placed: bool = True) -> Layout:
+    """One layout for every lane of a sweep: :func:`layout` over their
+    union (the recency links placed when any lane is LRU)."""
+    union = {**lanes[0],
+             "is_lru": any(bool(np.asarray(p["is_lru"])) for p in lanes)}
+    return layout(cfg, union, budget, placed=placed)
+
+
+def _check_lib(lib) -> None:
+    if (lib.replay_scan_num_args(), lib.replay_scan_layout_words(),
+            lib.replay_scan_num_margs(), lib.replay_scan_layout_multi_words(),
+            lib.replay_scan_num_ptrs()) != (
+            len(ARGS), len(LAYOUT), len(MARGS), len(LAYOUT_MULTI),
+            len(SWEEP_PTRS)):
+        raise RuntimeError("the kernel's argument blocks, layouts or sweep "
+                           "pointers differ from the wrapper's")
+
+
+def _launch_sweep(cfg, lanes, state, addrs, writes):
+    """Launch the sweep instance on the tensors' card, on PyTorch's
+    current stream."""
+    from repro_torch.kernels import _build
+
+    dev = addrs.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if cfg.outstanding > MAX_OUTSTANDING:
+        raise ValueError(f"outstanding={cfg.outstanding} exceeds the "
+                         f"kernel's {MAX_OUTSTANDING} LFB slots")
+    lib = _build.library("replay_scan")
+    _check_lib(lib)
+    with torch.cuda.device(dev):
+        lay = sweep_layout(cfg, lanes,
+                           _smem_optin(lib, torch.cuda.current_device()))
+        err, out = call_launch_sweep(
+            lib, cfg, lanes, state, addrs, writes, lay,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, err, "replay_scan (sweep) kernel launch")
+        LAUNCHES["replay_scan"] += 1
+    return out
+
+
+def call_launch_sweep(lib, cfg, lanes, state, addrs, writes, lay: Layout,
+                      stream):
+    """Pack a sweep's argument blocks (a row a lane), route tables, layout
+    and lane strides, call ``lib.replay_scan_launch_sweep`` on them and
+    the tensors' device, and copy the lanes' scalars back.  Returns the
+    call's return code and ``(issues, dones, flags, qacc, qthr)`` with the
+    lane axis first.  :func:`_launch_sweep` calls it with the CUDA
+    library; a host build of the same source (``REPLAY_SCAN_EMULATE``)
+    takes CPU tensors."""
+    dev = addrs.device
+    B, n, P = len(lanes), addrs.shape[-1], cfg.num_ports
+    md, fl = state["media"], state["flash"] or {}
+    blocks = np.stack([arg_block(cfg, p, n, 0) for p in lanes])
+    head = blocks[0]
+    args = torch.from_numpy(blocks).to(dev)
+    words = np.asarray(lay.words, np.int64)
+    t = {"addrs": None if addrs.dim() == 1 else addrs.contiguous(),
+         "writes": None if writes.dim() == 1 else writes,
+         "tables": torch.from_numpy(np.stack([route_tables(cfg, p)
+                                              for p in lanes])).to(dev),
+         "issues": torch.empty((B, n), dtype=torch.int64, device=dev),
+         "dones": torch.empty((B, n), dtype=torch.int64, device=dev),
+         "flags": torch.empty((B, n), dtype=torch.int32, device=dev),
+         "totals": torch.empty((B, 2 * P), dtype=torch.int64, device=dev),
+         "scal": _scalars_in(md, fl, (B,), dev),
+         "scratch": torch.empty((B, max(16, lay.scratch_bytes)),
+                                dtype=torch.uint8, device=dev)}
+    t.update({k: md.get(k) for k in MEDIA_ARRAYS})
+    t.update({k: fl.get(k) for k in FLASH_ARRAYS})
+    strides = _lane_strides(SWEEP_PTRS, t, B)
+    addrs = addrs.contiguous()
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = lib.replay_scan_launch_sweep(
+        B, head.ctypes.data, args.data_ptr(), words.ctypes.data,
+        strides.ctypes.data, t["tables"].data_ptr(), addrs.data_ptr(),
+        writes.view(torch.uint8).data_ptr(),
+        *(t[k].data_ptr() for k in ("issues", "dones", "flags", "totals",
+                                    "scal")),
+        *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
+        *(ptr(fl.get(k)) for k in FLASH_ARRAYS), t["scratch"].data_ptr(),
+        lay.smem_bytes, stream)
+    if err == 0:
+        _scalars_out(md, fl, t["scal"])
+    totals = t["totals"]
+    return err, (t["issues"], t["dones"], t["flags"], totals[:, :P],
+                 totals[:, P:])
+
+
+# ------------------------------------------------- the multi-host sweeps
+def _lane_cols(x: Optional[torch.Tensor], k: int, dims: int):
+    """Lane ``k``'s column of ``x``: ``x`` itself when it is shared (of
+    ``dims`` dimensions), else its row ``k``."""
+    if x is None or x.dim() == dims:
+        return x
+    return x[k]
+
+
+def _check_multi_sweep(cfg, params: Dict, state: Dict, addrs, writes, lens,
+                       devs, routes, retries) -> list:
+    """The checks of :func:`replay_multi_sweep`; returns each lane's
+    steps."""
+    if lens.dtype != torch.int64 or lens.dim() != 2 or lens.shape[1] != \
+            cfg.num_hosts or lens.shape[0] < 1:
+        raise ValueError(f"lens must be a (lanes, {cfg.num_hosts}) int64 "
+                         "tensor")
+    B = lens.shape[0]
+    for name, x, dims in (("routes", routes, 2), ("retries", retries, 3)):
+        if x is not None and x.dim() == dims + 1 and x.shape[0] != B:
+            raise ValueError(f"{name} must be shared or have a row a lane")
+    for part in ("media", "flash"):
+        for k, x in (state[part] or {}).items():
+            if x.device != addrs.device or x.shape[0] != B:
+                raise ValueError(f"state {part}.{k} must be on "
+                                 f"{addrs.device} with a leading axis of "
+                                 f"{B} lanes")
+    steps = []
+    for k, n in enumerate(lens.sum(1).tolist()):
+        if n == 0 and int(lens[k].min()) == 0:
+            steps.append(0)         # an empty lane replays nothing
+            continue
+        steps.append(_check_multi(
+            cfg, params, lane_state(state, k), addrs, writes, lens[k], devs,
+            _lane_cols(routes, k, 2), _lane_cols(retries, k, 3)))
+    return steps
+
+
+def replay_multi_sweep(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
+                       writes: torch.Tensor, lens: torch.Tensor,
+                       devs: torch.Tensor,
+                       routes: Optional[torch.Tensor] = None, *,
+                       retries: Optional[torch.Tensor] = None):
+    """Replay ``B`` lanes of one multi-host stack in one launch, one
+    block a lane: lane *k* is :func:`replay_multi` of the hosts' trace
+    lengths ``lens[k]`` (``lens`` ``(B, H)`` int64; a host of length 0
+    issues nothing), with ``routes`` / ``retries`` shared (``(H, L)``,
+    ``(H, L, hops)``) or a row a lane (``(B, H, L)``, ...: a path id and
+    retry bytes a lane, into the one path table of ``params``).
+    ``addrs``, ``writes`` and ``devs`` are shared; ``state`` is every
+    lane's lane-stacked state (:func:`repro_torch.core.replay.stack.
+    init_multi_sweep`), which ends as their final states.
+
+    Returns ``(who, issues, dones, flags, qacc, qthr)`` with the lane axis
+    first: the step columns ``(B, S)``, ``S`` the most steps of a lane
+    (lane *k* fills its first ``sum(lens[k])``, zeros after), and the
+    ports' totals ``(B, ports)``.  Raises ``ValueError`` where
+    :func:`replay_multi` does, lane by lane."""
+    steps = _check_multi_sweep(cfg, params, state, addrs, writes, lens, devs,
+                               routes, retries)
+    if addrs.device.type == "cpu":
+        return replay_multi_sweep_plain(cfg, params, state, addrs, writes,
+                                        lens, devs, routes, retries=retries)
+    return _launch_multi_sweep(cfg, params, state, addrs, writes, lens, devs,
+                               routes, retries, steps)
+
+
+def replay_multi_sweep_plain(cfg, params: Dict, state: Dict,
+                             addrs: torch.Tensor, writes: torch.Tensor,
+                             lens: torch.Tensor, devs: torch.Tensor,
+                             routes: Optional[torch.Tensor] = None, *,
+                             retries: Optional[torch.Tensor] = None):
+    """Plain version of :func:`replay_multi_sweep`:
+    :func:`replay_multi_plain` on each lane in turn, its step columns
+    padded with zeros to the longest lane's."""
+    outs = [replay_multi_plain(cfg, params, lane_state(state, k), addrs,
+                               writes, lens[k], devs,
+                               _lane_cols(routes, k, 2),
+                               retries=_lane_cols(retries, k, 3))
+            for k in range(lens.shape[0])]
+    S = max(o[0].numel() for o in outs)
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros(S - x.numel())])
+
+    return tuple(torch.stack([pad(o[j]) if j < 4 else o[j] for o in outs])
+                 for j in range(6))
+
+
+def _launch_multi_sweep(cfg, params, state, addrs, writes, lens, devs,
+                        routes, retries, steps):
+    """Launch the multi-host sweep instance on the tensors' card, on
+    PyTorch's current stream."""
+    from repro_torch.kernels import _build
+
+    dev = addrs.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if cfg.outstanding > MAX_OUTSTANDING:
+        raise ValueError(f"outstanding={cfg.outstanding} exceeds the "
+                         f"kernel's {MAX_OUTSTANDING} LFB slots")
+    lib = _build.library("replay_scan")
+    _check_lib(lib)
+    with torch.cuda.device(dev):
+        lay = layout_multi(cfg, params,
+                           _smem_optin(lib, torch.cuda.current_device()))
+        err, out = call_launch_multi_sweep(
+            lib, cfg, params, state, addrs, writes, lens, devs, routes, lay,
+            torch.cuda.current_stream(dev).cuda_stream, retries=retries,
+            steps=steps)
+        _raise_on(lib, err, "replay_scan (multi-host sweep) kernel launch")
+        LAUNCHES["replay_scan"] += 1
+    return out
+
+
+def call_launch_multi_sweep(lib, cfg, params, state, addrs, writes, lens,
+                            devs, routes, lay: Layout, stream, retries=None,
+                            steps=None):
+    """Pack a multi-host sweep's argument blocks and tables (a row a
+    lane), its trace columns (shared, or a row a lane), layout and lane
+    strides, call ``lib.replay_scan_launch_multi_sweep`` on them and the
+    tensors' device, and copy the lanes' scalars back.  Returns the
+    call's return code and ``(who, issues, dones, flags, qacc, qthr)``
+    with the lane axis first.  :func:`_launch_multi_sweep` calls it with
+    the CUDA library; a host build of the same source takes CPU
+    tensors."""
+    dev = addrs.device
+    H, L = addrs.shape
+    B = lens.shape[0]
+    lens_np = lens.cpu().numpy()
+    if steps is None:
+        steps = [int(x) for x in lens_np.sum(1)]
+    S = max(steps)
+    P, D, F = cfg.num_ports, cfg.num_devs, cfg.n_flash
+    md, fl = state["media"], state["flash"] or {}
+    blocks = [multi_arg_blocks(cfg, params, steps[k], 0, L)
+              for k in range(B)]
+    head, margs = blocks[0]
+    args = torch.from_numpy(np.stack([b[0] for b in blocks])).to(dev)
+    words = np.asarray(lay.words, np.int64)
+
+    per_lane_routes = routes is not None and routes.dim() == 3
+    aux = (torch.stack([_multi_aux(cfg, devs, routes[k], writes)
+                        for k in range(B)])
+           if per_lane_routes else _multi_aux(cfg, devs, routes, writes))
+    rt = None if retries is None else _packed_retries(cfg, retries)
+    t = {"aux": aux if aux.dim() == 3 else None,
+         "rt": rt if rt is not None and rt.dim() == 3 else None,
+         "mtab": torch.from_numpy(np.stack([
+             kernel_table(cfg, params, lens_np[k]) for k in range(B)])).to(
+                 dev),
+         "who": torch.zeros((B, S), dtype=torch.int32, device=dev),
+         "issues": torch.zeros((B, S), dtype=torch.int64, device=dev),
+         "dones": torch.zeros((B, S), dtype=torch.int64, device=dev),
+         "flags": torch.zeros((B, S), dtype=torch.int32, device=dev),
+         "totals": torch.empty((B, 2 * P), dtype=torch.int64, device=dev),
+         "scratch": torch.empty((B, max(16, lay.scratch_bytes)),
+                                dtype=torch.uint8, device=dev)}
+    scal = t["scal"] = _multi_scalars_in(md, fl, (B,), D, F, dev)
+    t.update({k: md.get(k) for k in MEDIA_ARRAYS})
+    t.update({k: fl.get(k) for k in FLASH_ARRAYS})
+    strides = _lane_strides(MULTI_SWEEP_PTRS, t, B)
+    addrs = addrs.contiguous()
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = lib.replay_scan_launch_multi_sweep(
+        B, head.ctypes.data, args.data_ptr(), margs.ctypes.data,
+        words.ctypes.data, strides.ctypes.data, t["mtab"].data_ptr(),
+        addrs.data_ptr(), aux.data_ptr(), ptr(rt),
+        *(t[k].data_ptr() for k in ("who", "issues", "dones", "flags",
+                                    "totals")),
+        scal.data_ptr(), *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
+        *(ptr(fl.get(k)) for k in FLASH_ARRAYS), t["scratch"].data_ptr(),
+        lay.smem_bytes, stream)
+    if err == 0:
+        _multi_scalars_out(md, fl, scal, D)
+    totals = t["totals"]
+    return err, (t["who"], t["issues"], t["dones"], t["flags"],
+                 totals[:, :P], totals[:, P:])

@@ -618,3 +618,111 @@ def test_multi_python_lane_equals_the_twin_on_every_field(smoke, case):
         assert f["degraded_accesses"] > 0 and f["failovers"] > 0
     if case == "table1x4":
         assert any(any(t.hit) for t in taps)
+
+
+# -------------------------------------------------------- the sweep phase
+def _sweep_lines(smoke, **override):
+    """A run's ``[sweep]`` lines with every lane check equal, and the
+    checks ``override`` names replaced by their lines (None drops one)."""
+    lines = ["[sweep] sweep=cache lanes=128 waves=1 launches=1"]
+    for name in smoke.SWEEP_CHECKS:
+        same = override.get(name, {"latency": True, "flags": True})
+        if same is not None:
+            lines.append(smoke.sweep_check_line(name, same))
+    return lines
+
+
+def test_sweep_phase_runs_after_the_stream_phase(smoke):
+    import inspect
+
+    src = inspect.getsource(smoke.main)
+    assert (src.index("stream_phase(") < src.index("sweep_phase(")
+            < src.index('{"kernels"'))
+    phase = inspect.getsource(smoke.sweep_phase)
+    # the entry points a user calls, each sweep one launch
+    for fn in ("cache_design_sweep(", "host_count_sweep(",
+               "fault_seed_sweep("):
+        assert f"sw.{fn}" in phase, fn
+    assert "torch_device=\"cpu\"" not in phase
+
+
+def test_sweep_lines_pass_when_every_lane_check_is_equal(smoke):
+    assert smoke.sweep_failures(_sweep_lines(smoke)) == []
+    line = smoke.sweep_check_line("cache/first", {"latency": True,
+                                                  "frames": True})
+    assert line == "[sweep] check=cache/first fields=latency,frames " \
+                   "differ=none"
+
+
+@pytest.mark.parametrize("name", ["cache/first", "cache/twin", "hosts/3",
+                                  "oracle/x8", "seeds/15",
+                                  "overfill/refused"])
+def test_sweep_lines_fail_on_a_missing_or_unequal_lane_check(smoke, name):
+    missing = smoke.sweep_failures(_sweep_lines(smoke, **{name: None}))
+    assert missing == [f"{name}: missing"]
+    unequal = smoke.sweep_failures(_sweep_lines(
+        smoke, **{name: {"latency": True, "flags": False}}))
+    assert unequal == [f"{name}: ['flags']"]
+    twice = _sweep_lines(smoke)
+    twice.append(smoke.sweep_check_line(name, {"latency": True}))
+    assert smoke.sweep_failures(twice) == [f"{name}: ['none', 'none']"]
+
+
+def test_the_sweep_phase_takes_its_shapes(smoke):
+    """128 cache lanes (8 capacities from 256 to Table I's 4096 frames x
+    LRU / FIFO x 8 read times); host counts 1-4 of the four Table I
+    mounts; 16 seeds with the checked lanes among them."""
+    from repro_torch.core.devices import make_device
+
+    caps = smoke.SWEEP_CAPS
+    assert len(caps) * 2 * len(smoke.SWEEP_READ_T) == 128
+    frames = make_device("cxl-ssd-cache").cache.cfg.capacity_pages
+    assert frames == 4096 and (min(caps), max(caps)) == (256, frames)
+    assert 4 in smoke.SWEEP_READ_T          # the device's own read_t
+    assert set(smoke.SWEEP_TWIN["caps"]) <= set(caps)
+    assert set(smoke.SWEEP_TWIN["read_t"]) <= set(smoke.SWEEP_READ_T)
+    assert smoke.SWEEP_HOSTS == (1, 2, 3, 4) == tuple(
+        range(1, smoke.MULTI_HOSTS + 1))
+    assert all(0 <= s < smoke.SWEEP_SEEDS for s in smoke.SWEEP_SEED_CHECKED)
+    assert len(smoke.SWEEP_CHECKS) == len(set(smoke.SWEEP_CHECKS))
+    path, line = smoke.SWEEP_REPLACES.split(":")
+    src = (REPO / path).read_text().splitlines()
+    assert src[int(line) - 1].startswith("@functools.partial(jax.jit")
+    assert src[int(line)].startswith("def _run_cache_lanes")
+
+
+def test_the_seed_sweeps_targets_fail_over_and_retry(smoke):
+    """The down window scaled into a short trace still degrades accesses
+    (failovers) and draws CRC retries, in every seed's lane."""
+    from repro_torch.core.replay import sweep as sw
+    from repro_torch.core.workloads.traces import make_trace
+
+    n = 1 << 10
+    traces = [make_trace(7 + i, n=n, pages=16384)
+              for i in range(smoke.MULTI_DOWN["num_hosts"])]
+    lanes = sw.fault_seed_sweep(lambda s: smoke.sweep_down_targets(s, n),
+                                traces, [0, 1], torch_device="cpu")
+    for lane in lanes:
+        assert lane["fault_stats"]["failovers"] > 0
+        assert lane["fault_stats"]["link_retries"] > 0
+    assert lanes[0]["fault_stats"] != lanes[1]["fault_stats"]
+
+
+def test_scan_row_carries_the_sweeps(smoke):
+    devs = smoke.SCAN_DEVICES
+    scan = {"launches": {d: 1 for d in devs},
+            "kernel_ms": {d: 2.0 for d in devs},
+            "bound": {d: (0.01, "bytes") for d in devs},
+            "serial": {d: 1.0 for d in devs},
+            "plain_ms": {d: 3.0 for d in devs}}
+    run = {"launches": 1, "lanes": 128, "waves": 1, "ms": 2000.0,
+           "wall_s": 3.0, "standalone_ms": [1650.0] * 4,
+           "serial_ms": 128 * 1650.0, "bound_ms": 0.01, "column_s": 0.0,
+           "timing": "profiler"}
+    sweeps = {name: dict(run) for name in ("cache", "hosts", "seeds")}
+    row = smoke.scan_row(scan, {}, {}, 1 << 20, {}, sweeps)
+    assert row["launches"] == 5 + 3
+    assert set(row["sweeps"]) == {"cache", "hosts", "seeds"}
+    assert "timing" not in row["sweeps"]["cache"]
+    assert row["sweep_kernels"] == ["replay_sweep_kernel",
+                                    "replay_multi_sweep_kernel"]

@@ -999,3 +999,141 @@ def test_streamed_lanes_on_the_card_equal_the_one_shot(card, tmp_path):
     bounded = MultiHostReplay(make_multi_targets(name), metrics=spec).run(
         multi_traces(name), chunk_size=50, return_latencies=False)
     assert jm(bounded.metrics) == jm(one.metrics)
+
+
+# ------------------------------------------------------------- the sweeps
+SWEEPS = ["sweep/table1", "sweep/per-lane", "sweep/nand-gc"]
+MULTI_SWEEPS = ["hosts/multihost-qos-ecmp", "hosts/multihost-ssd-mounts",
+                "hosts/multi/nand-shared", "seeds/spine-leaf"]
+
+
+def _states_equal(got, want):
+    for part in ("media", "flash"):
+        for k, x in (want[part] or {}).items():
+            assert torch.equal(got[part][k].cpu(), x), (part, k)
+
+
+@pytest.mark.parametrize("placed", [None, False])
+@pytest.mark.parametrize("name", SWEEPS)
+def test_replay_sweep_equals_its_twin(card, name, placed):
+    """The single-host sweep instance (one block a lane) against its twin
+    on the emulation's cases: every lane's outputs and final state."""
+    from test_torch_scan_emulate import _sweep_case
+
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.sweep import cache_lanes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    dev, addrs, writes, caps, lrus, over = _sweep_case(name)
+    cfg, lanes = cache_lanes(dev, addrs, writes, capacity_frames=caps,
+                             is_lru=lrus, timing_overrides=over,
+                             outstanding=8)
+    a, w = torch.from_numpy(addrs), torch.from_numpy(writes)
+    cpu = stack.init_sweep(cfg, caps)
+    want = rs.replay_sweep(cfg, lanes, cpu, a, w)
+    gpu = stack.init_sweep(cfg, caps, "cuda")
+    if placed is None:
+        before = rs.LAUNCHES["replay_scan"]
+        got = rs.replay_sweep(cfg, lanes, gpu, a.cuda(), w.cuda())
+        assert rs.LAUNCHES["replay_scan"] == before + 1
+    else:
+        lib = _build.library("replay_scan")
+        lay = rs.sweep_layout(cfg, lanes, rs._smem_optin(lib, 0),
+                              placed=False)
+        assert lay.in_smem == ()
+        err, got = rs.call_launch_sweep(
+            lib, cfg, lanes, gpu, a.cuda(), w.cuda(), lay,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), x)
+    _states_equal(gpu, cpu)
+
+
+@pytest.mark.parametrize("placed", [None, False])
+@pytest.mark.parametrize("name", MULTI_SWEEPS)
+def test_replay_multi_sweep_equals_its_twin(card, name, placed):
+    """The multi-host sweep instance against its twin: host-count lanes
+    (an empty one among them) and fault-seed lanes over a union path
+    table."""
+    from test_torch_scan_emulate import _multi_sweep_inputs
+
+    from repro_torch.core.replay import stack
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    prep, params, lens, routes, retries, _ = _multi_sweep_inputs(name)
+    cfg = prep.cfg
+
+    def t(x, where="cpu"):
+        return None if x is None else torch.from_numpy(
+            np.ascontiguousarray(x)).to(where)
+
+    cols = (prep.addrs, prep.writes, lens, prep.devs, routes)
+    B = lens.shape[0]
+    cpu = stack.init_multi_sweep(cfg.stack, B, cfg.num_devs, cfg.n_flash)
+    want = rs.replay_multi_sweep(cfg, params, cpu, *(t(x) for x in cols),
+                                 retries=t(retries))
+    gpu = stack.init_multi_sweep(cfg.stack, B, cfg.num_devs, cfg.n_flash,
+                                 "cuda")
+    gins = [t(x, "cuda") for x in cols]
+    if placed is None:
+        before = rs.LAUNCHES["replay_scan"]
+        got = rs.replay_multi_sweep(cfg, params, gpu, *gins,
+                                    retries=t(retries, "cuda"))
+        assert rs.LAUNCHES["replay_scan"] == before + 1
+    else:
+        lib = _build.library("replay_scan")
+        lay = rs.layout_multi(cfg, params, rs._smem_optin(lib, 0),
+                              placed=False)
+        err, got = rs.call_launch_multi_sweep(
+            lib, cfg, params, gpu, *gins, lay,
+            torch.cuda.current_stream().cuda_stream,
+            retries=t(retries, "cuda"))
+        assert err == 0
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), x)
+    _states_equal(gpu, cpu)
+
+
+def test_sweeps_on_the_card_equal_their_cpu_runs(card):
+    """``cache_design_sweep``, ``host_count_sweep`` and
+    ``fault_seed_sweep`` on the card (one launch each) equal the same
+    calls with ``torch_device="cpu"``, field for field."""
+    import json
+
+    from test_torch_sweep import (CACHE_ADDRS, CACHE_WRITES, CAPS,
+                                  HOST_COUNTS, HOST_TRACES, LRUS, P,
+                                  SEED_TRACES, SEEDS, cache_device,
+                                  cached_pool, seed_targets)
+
+    from repro_torch.core.replay import sweep as sw
+    from repro_torch.kernels import replay_scan as rs
+
+    def both(fn, *a, **kw):
+        before = rs.LAUNCHES["replay_scan"]
+        got = fn(*a, **kw)
+        assert rs.LAUNCHES["replay_scan"] == before + 1
+        return got, fn(*a, torch_device="cpu", **kw)
+
+    got, want = both(lambda **kw: sw.cache_design_sweep(
+        cache_device(P), CACHE_ADDRS, CACHE_WRITES, capacity_frames=CAPS,
+        is_lru=LRUS, **kw))
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    got, want = both(lambda **kw: sw.host_count_sweep(
+        cached_pool(P), HOST_TRACES["cached_pool"], HOST_COUNTS, **kw))
+    assert [(g.elapsed_ticks, [vars(r) for r in g.per_host]) for g in got] \
+        == [(x.elapsed_ticks, [vars(r) for r in x.per_host]) for x in want]
+    got, want = both(lambda **kw: sw.fault_seed_sweep(
+        lambda s: seed_targets(P, s), SEED_TRACES, SEEDS, outstanding=8,
+        **kw))
+    for g, x in zip(got, want):
+        assert np.array_equal(g["latency_ticks"], x["latency_ticks"])
+        assert json.dumps(g["availability"], sort_keys=True) == json.dumps(
+            x["availability"], sort_keys=True)
+        assert g["fault_stats"] == x["fault_stats"]
+        assert g["result"].elapsed_ticks == x["result"].elapsed_ticks

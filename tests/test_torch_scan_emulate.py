@@ -31,8 +31,19 @@ shapes of 1, 2, 3 and 32 outstanding with seams after the first accesses
 (slots still tied at the start tick), ECMP + QoS, faulted mounts with
 seams inside their down windows and under NAND retries with GC, and the
 multi-host instance on QoS + ECMP, shared flash under NAND faults,
-transport faults and a host that runs out early.  ASan aborts on any
-index the kernel forms outside its array.  The library only loads into a process that
+transport faults and a host that runs out early.
+
+Sweeps: the grid instances (``replay_scan.call_launch_sweep``,
+``call_launch_multi_sweep``), emulated block after block with each
+block's index, equal to their twins (``replay_sweep_plain``,
+``replay_multi_sweep_plain``) on every output and every lane's final
+state tensors, in both layouts: capacity, policy and timing lanes of
+Table I past its 4096 frames, per-lane traces, a GC-pressured flash
+under NAND faults; host-count lanes on multi-host scenarios (QoS + ECMP,
+cached mounts, shared flash under NAND faults), an empty lane among
+them; and fault-seed lanes whose seeds take different path sets (one
+union path table).  ASan aborts on any index the kernel forms outside
+its array, every per-lane offset included.  The library only loads into a process that
 starts with ASan's runtime, so the cases run in one child process for
 this file.
 
@@ -483,15 +494,205 @@ def run_multi_case(lib, name: str) -> dict:
             "first_out": first_out, "in_smem": list(lay.in_smem)}
 
 
+# ------------------------------------------------------------- sweeps
+# (device, trace, capacity_frames, is_lru, timing overrides) of the cache
+# sweep cases: Table I's 4096 frames over ~5100 of 8192 pages (past its
+# frames) at capacities down to 64, under LRU and FIFO and three flash
+# read times and hit latencies; per-lane traces over a 16-frame cache; a
+# GC-pressured flash under NAND read retries and erase fails
+SWEEP_CASES = [f"{name}{lay}" for name in ("sweep/table1", "sweep/per-lane",
+                                           "sweep/nand-gc")
+               for lay in ("", "/global")]
+# the multi-host sweeps: host counts (with an empty lane) and fault seeds
+MULTI_SWEEP_CASES = [f"{name}{lay}" for name in (
+    "hosts/multihost-qos-ecmp", "hosts/multihost-ssd-mounts",
+    "hosts/multi/nand-shared", "seeds/spine-leaf") for lay in ("", "/global")]
+
+
+def _sweep_case(name: str):
+    """``(device, addrs, writes, caps, lrus, overrides)`` of cache sweep
+    case ``name``."""
+    if name == "sweep/table1":
+        trace = _trace(6000, 8192, 0.3, 9)
+        caps = [4096, 1024, 256, 64, 4096, 1024, 4096, 4096]
+        lrus = [True, True, True, True, False, False, True, True]
+        read_t = make_device("cxl-ssd-cache").hil.cfg.timing.read_ticks
+        over = {"read_t": [read_t] * 6 + [2 * read_t, read_t // 2],
+                "hit_lat": [50_000] * 7 + [70_000]}
+        return (make_device("cxl-ssd-cache"), *trace_to_arrays(trace)[:2],
+                caps, lrus, over)
+    if name == "sweep/per-lane":
+        a = np.stack([trace_to_arrays(_trace(700, 48, 0.5, 30 + k))[0]
+                      for k in range(3)])
+        w = np.stack([trace_to_arrays(_trace(700, 48, 0.5, 30 + k))[1]
+                      for k in range(3)])
+        dev = make_device("cxl-ssd-cache", cache_cfg=DRAMCacheConfig(
+            capacity_bytes=16 * 4096, mshr_entries=3, writeback_buffer=2))
+        return dev, a, w, [16, 5, 16], [True, False, False], None
+    assert name == "sweep/nand-gc", name
+    dev, trace = fault_case("nand-gc/cxl-ssd-cache")
+    return (dev, *trace_to_arrays(trace)[:2], [8, 3, 8, 1],
+            [True, True, False, False], None)
+
+
+def run_sweep_case(lib, name: str) -> dict:
+    """The emulated sweep instance and its twin on case ``name``, each
+    from fresh lanes: what differs over the outputs and every lane's
+    final state tensors, and what the lanes exercised."""
+    from repro_torch.core.replay.sweep import cache_lanes
+
+    base = name.removesuffix("/global")
+    dev, addrs, writes, caps, lrus, over = _sweep_case(base)
+    cfg, lanes = cache_lanes(dev, addrs, writes, capacity_frames=caps,
+                             is_lru=lrus, timing_overrides=over,
+                             outstanding=8)
+    a, w = torch.from_numpy(addrs), torch.from_numpy(writes)
+    if base not in _TWIN:
+        want_state = stack.init_sweep(cfg, caps)
+        want = rs.replay_sweep(cfg, lanes, want_state, a, w)
+        _TWIN[base] = want, want_state
+    want, want_state = _TWIN[base]
+    got_state = stack.init_sweep(cfg, caps)
+    lay = rs.sweep_layout(cfg, lanes, H100_SMEM_OPTIN, placed=base == name)
+    err, got = rs.call_launch_sweep(lib, cfg, lanes, got_state, a, w, lay,
+                                    None)
+    differ = [k for k, g, x in zip(
+        ("issues", "dones", "flags", "qacc", "qthr"), got, want)
+        if not torch.equal(g, x)]
+    for part in ("media", "flash"):
+        differ += [f"{part}.{k}" for k, x in (want_state[part] or {}).items()
+                   if not torch.equal(got_state[part][k], x)]
+    flags = want[2]
+    rr, rb = stack.fault_counters(want_state)
+    return {"err": err, "differ": differ, "lanes": len(lanes),
+            "hits": (flags & 1).sum(1).tolist(),
+            "evicts": ((flags >> 1) & 1).sum(1).tolist(),
+            "disabled_kept": bool((want_state["media"]["frames"][
+                torch.arange(cfg.cache_frames)[None, :]
+                >= torch.tensor(caps)[:, None]] == stack.DISABLED).all()),
+            "gc_runs": stack.flash_health(want_state)[1],
+            "read_retries": rr, "retired": rb,
+            "in_smem": list(lay.in_smem)}
+
+
+def _seed_targets(seed: int):
+    """Three cached CXL-SSDs on a 2 x 2 spine-leaf with ECMP under CRC
+    retries and a link down for the whole trace, the seed picking which,
+    so seeds take different path sets."""
+    from repro_torch.core.faults import FaultConfig, FaultPlan, install
+
+    fab = Fabric.build("spine_leaf", num_hosts=3, num_devices=3,
+                       num_leaves=2, num_spines=2, ecmp=True)
+    tgts = [fab.mount(f"h{i}", f"d{i}", make_device(
+        "cxl-ssd-cache", cache_cfg=DRAMCacheConfig(
+            capacity_bytes=16 * 4096, mshr_entries=3, writeback_buffer=2)))
+        for i in range(3)]
+    down = (("s0", "sp0") if seed % 2 else ("s1", "sp1")) + (0, 1 << 20)
+    install(FaultPlan(FaultConfig(link_retry_rate=0.2, link_retry_max=2,
+                                  down_links=(down,)), seed=seed), tgts)
+    return tgts
+
+
+def _multi_sweep_inputs(name: str):
+    """``(cfg, params, lens (B, H), columns, routes, retries, extra)`` of
+    multi-host sweep case ``name`` (numpy; routes and retries shared or a
+    row a lane)."""
+    if name.startswith("hosts/"):
+        scen = name.removeprefix("hosts/")
+        targets, traces = _multi_case(scen)
+        prep = MultiHostReplay(targets, outstanding=8,
+                               torch_device="cpu").prepare(traces)
+        H = prep.cfg.num_hosts
+        counts = [H, 1, 0, max(1, H - 1)]
+        lens = np.stack([np.where(np.arange(H) < h, prep.lens, 0)
+                         for h in counts])
+        return (prep, prep.params, lens, prep.routes, prep.retries,
+                {"counts": counts})
+    from repro_torch.core.replay.sweep import fault_lanes
+
+    traces = [_trace(300, 48, 0.4, 60 + h) for h in range(3)]
+    fl = fault_lanes(_seed_targets, traces, [0, 1, 2, 3], outstanding=8,
+                     torch_device="cpu")
+    rows = [int(np.unique(r).size) for r in fl.routes]
+    return (fl.prep, fl.params, np.tile(fl.prep.lens, (4, 1)), fl.routes,
+            fl.retries, {"union_rows": int(fl.params["path_port"].shape[0]),
+                         "lane_rows": rows})
+
+
+def run_multi_sweep_case(lib, name: str) -> dict:
+    """The emulated multi-host sweep instance and its twin on case
+    ``name``, each from fresh lanes: what differs over the outputs and
+    every lane's final state tensors, and what the lanes exercised."""
+    base = name.removesuffix("/global")
+    prep, params, lens, routes, retries, extra = _multi_sweep_inputs(base)
+    cfg = prep.cfg
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.ascontiguousarray(
+            x))
+
+    ins = (t(prep.addrs), t(prep.writes), t(lens), t(prep.devs), t(routes))
+    B = lens.shape[0]
+    key = ("multi", base)
+    if key not in _TWIN:
+        want_state = stack.init_multi_sweep(cfg.stack, B, cfg.num_devs,
+                                            cfg.n_flash)
+        want = rs.replay_multi_sweep(cfg, params, want_state, *ins,
+                                     retries=t(retries))
+        _TWIN[key] = want, want_state
+    want, want_state = _TWIN[key]
+    got_state = stack.init_multi_sweep(cfg.stack, B, cfg.num_devs,
+                                       cfg.n_flash)
+    lay = rs.layout_multi(cfg, params, H100_SMEM_OPTIN, placed=base == name)
+    err, got = rs.call_launch_multi_sweep(lib, cfg, params, got_state, *ins,
+                                          lay, None, retries=t(retries))
+    differ = [k for k, g, x in zip(
+        ("who", "issues", "dones", "flags", "qacc", "qthr"), got, want)
+        if not torch.equal(g, x)]
+    for part in ("media", "flash"):
+        differ += [f"{part}.{k}" for k, x in (want_state[part] or {}).items()
+                   if not torch.equal(got_state[part][k], x)]
+    # each lane against its own one-call replay (the twin of replay_multi)
+    alone = []
+    for k in range(B):
+        n = int(lens[k].sum())
+        if not n:
+            alone.append(bool((want[0][k] == 0).all()))
+            continue
+        st = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash)
+        one = rs.replay_multi(
+            cfg, params, st, ins[0], ins[1], ins[2][k], ins[3],
+            None if routes is None else (ins[4] if routes.ndim == 2
+                                         else ins[4][k]),
+            retries=None if retries is None else (
+                t(retries) if retries.ndim == 3 else t(retries)[k]))
+        alone.append(all(torch.equal(want[j][k][:n], one[j])
+                         for j in range(4)))
+    return {"err": err, "differ": differ, "lanes": B, "alone": alone,
+            "steps": lens.sum(1).tolist(),
+            "gc_runs": stack.flash_health(want_state)[1],
+            "read_retries": stack.fault_counters(want_state)[0],
+            "qthr": int(want[5].sum()), "in_smem": list(lay.in_smem),
+            **extra}
+
+
 def _child(lib_path: str, out_path: str) -> None:
     lib = ctypes.CDLL(lib_path)
     for fn in ("replay_scan_launch", "replay_scan_launch_multi",
+               "replay_scan_launch_sweep", "replay_scan_launch_multi_sweep",
                "replay_scan_num_args", "replay_scan_layout_words",
-               "replay_scan_num_margs", "replay_scan_layout_multi_words"):
+               "replay_scan_num_margs", "replay_scan_layout_multi_words",
+               "replay_scan_num_ptrs"):
         restype, argtypes = _build.SIGNATURES["replay_scan"][fn]
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
     out = {"num_args": lib.replay_scan_num_args(), "args": len(rs.ARGS),
+           "num_ptrs": [lib.replay_scan_num_ptrs(), len(rs.SWEEP_PTRS),
+                        len(rs.MULTI_SWEEP_PTRS)],
+           "sweeps": {name: run_sweep_case(lib, name)
+                      for name in SWEEP_CASES},
+           "multi_sweeps": {name: run_multi_sweep_case(lib, name)
+                            for name in MULTI_SWEEP_CASES},
            "num_margs": lib.replay_scan_num_margs(), "margs": len(rs.MARGS),
            "layout_multi": [lib.replay_scan_layout_multi_words(),
                             len(rs.LAYOUT_MULTI)],
@@ -636,6 +837,56 @@ def test_resumed_multi_host_launches_equal_one_launch(emulated, name):
         assert got["differ"] == [], f"{name} @ {schedule}: {got['differ']}"
         assert got["launches"] == len(schedule_spans(schedule,
                                                      got["steps"]))
+
+
+def test_the_emulation_takes_the_sweeps_pointers(emulated):
+    got, single, multi = emulated["num_ptrs"]
+    assert got == single == multi
+
+
+@pytest.mark.parametrize("name", SWEEP_CASES)
+def test_sweep_instance_equals_its_twin(emulated, name):
+    got = emulated["sweeps"][name]
+    assert got["err"] == 0
+    assert got["differ"] == [], f"{name}: {got['differ']} differ"
+    # a capacity lane's disabled frames stay disabled
+    assert got["disabled_kept"], got
+    if name.endswith("/global"):
+        assert got["in_smem"] == [], got
+
+
+def test_sweep_cases_exercise_their_lanes(emulated):
+    table1 = emulated["sweeps"]["sweep/table1"]
+    # every lane fills and evicts; smaller caches hit less
+    assert all(e > 0 for e in table1["evicts"]), table1
+    assert table1["hits"][0] > table1["hits"][1] > table1["hits"][2] \
+        > table1["hits"][3], table1
+    # LRU and FIFO lanes of one capacity part ways
+    assert table1["evicts"][0] != table1["evicts"][4], table1
+    nand = emulated["sweeps"]["sweep/nand-gc"]
+    assert nand["gc_runs"] > 0 and nand["read_retries"] > 0 \
+        and nand["retired"] > 0, nand
+
+
+@pytest.mark.parametrize("name", MULTI_SWEEP_CASES)
+def test_multi_sweep_instance_equals_its_twin(emulated, name):
+    got = emulated["multi_sweeps"][name]
+    assert got["err"] == 0
+    assert got["differ"] == [], f"{name}: {got['differ']} differ"
+    assert all(got["alone"]), got
+    if name.endswith("/global"):
+        assert got["in_smem"] == [], got
+
+
+def test_multi_sweep_cases_exercise_their_lanes(emulated):
+    qos = emulated["multi_sweeps"]["hosts/multihost-qos-ecmp"]
+    assert qos["qthr"] > 0 and 0 in qos["steps"], qos
+    nand = emulated["multi_sweeps"]["hosts/multi/nand-shared"]
+    assert nand["gc_runs"] > 0 and nand["read_retries"] > 0, nand
+    seeds = emulated["multi_sweeps"]["seeds/spine-leaf"]
+    # the seeds' path sets differ: the union table holds more paths than
+    # any one lane takes
+    assert seeds["union_rows"] > max(seeds["lane_rows"]), seeds
 
 
 if __name__ == "__main__":

@@ -100,6 +100,37 @@ void run_multi(const Args& a, const MArgs& m, const LayoutM& lay,
   }
 }
 
+// The multi-host sweep instance that the CUDA library's dispatch launches,
+// on lane b.
+template <bool FAULTED>
+void run_multi_sweep(const long long* head, const long long* args,
+                     const MArgs& m, const LayoutM& lay, const MultiPtrs& p,
+                     const Strides& st, long long b, char* sm) {
+  const bool nand = head[A_NAND] != 0;
+  switch (head[A_KIND]) {
+    case kDram:
+      multi_sweep_lane<kDram, false, FAULTED>(args, m, lay, p, st, b, sm);
+      break;
+    case kPmem:
+      multi_sweep_lane<kPmem, false, FAULTED>(args, m, lay, p, st, b, sm);
+      break;
+    case kSsdBuf:
+      if (nand)
+        multi_sweep_lane<kSsdBuf, true, FAULTED>(args, m, lay, p, st, b, sm);
+      else
+        multi_sweep_lane<kSsdBuf, false, FAULTED>(args, m, lay, p, st, b, sm);
+      break;
+    default:
+      if (nand)
+        multi_sweep_lane<kSsdCache, true, FAULTED>(args, m, lay, p, st, b,
+                                                   sm);
+      else
+        multi_sweep_lane<kSsdCache, false, FAULTED>(args, m, lay, p, st, b,
+                                                    sm);
+      break;
+  }
+}
+
 // The block of kThreads threads over a patterned host buffer as shared
 // memory, each running `body`.
 template <typename F>
@@ -186,9 +217,75 @@ int replay_scan_launch_multi(
   return 0;
 }
 
+// The CUDA library's replay_scan_launch_sweep, argument for argument, on
+// host pointers: the grid as its blocks one after another, each with its
+// block index.
+int replay_scan_launch_sweep(
+    int lanes, const long long* head, const long long* args,
+    const long long* layout, const long long* strides,
+    const long long* tables, const long long* addrs, const uint8_t* writes,
+    long long* issues, long long* dones, int32_t* flags, long long* totals,
+    long long* scal, long long* frames, long long* mpage, long long* mready,
+    long long* wtick, int32_t* l2p, int32_t* p2l, int32_t* valid,
+    int32_t* free_q, uint8_t* free_mask, uint8_t* rtr_mask,
+    long long* die_busy, long long* die_prog, long long* chan_busy,
+    char* scratch, int smem_bytes, void* stream) {
+  (void)stream;
+  if (head[A_KIND] != kSsdCache || head[A_FAULT_HOPS] || lanes < 1) return 1;
+  Layout lay;
+  memcpy(lay.v, layout, sizeof(lay.v));
+  Strides st;
+  memcpy(st.v, strides, sizeof(st.v));
+  const Ptrs p{addrs, writes, nullptr, nullptr, tables, issues, dones,
+               flags, totals, scal, frames, mpage, mready, wtick, l2p, p2l,
+               valid, free_q, free_mask, rtr_mask, die_busy, die_prog,
+               chan_busy, scratch, nullptr, nullptr};
+  for (long long b = 0; b < lanes; ++b)
+    run_block(smem_bytes, [&](char* sm) {
+      if (head[A_NAND]) sweep_lane<true>(args, lay, p, st, b, sm);
+      else sweep_lane<false>(args, lay, p, st, b, sm);
+    });
+  return 0;
+}
+
+// The CUDA library's replay_scan_launch_multi_sweep, on host pointers,
+// block after block.
+int replay_scan_launch_multi_sweep(
+    int lanes, const long long* head, const long long* args,
+    const long long* margs, const long long* layout, const long long* strides,
+    const long long* mtab, const long long* addrs, const int32_t* aux,
+    const long long* rt, int32_t* who, long long* issues, long long* dones,
+    int32_t* flags, long long* totals, long long* scal, long long* frames,
+    long long* mpage, long long* mready, long long* wtick, int32_t* l2p,
+    int32_t* p2l, int32_t* valid, int32_t* free_q, uint8_t* free_mask,
+    uint8_t* rtr_mask, long long* die_busy, long long* die_prog,
+    long long* chan_busy, char* scratch, int smem_bytes, void* stream) {
+  (void)stream;
+  if (lanes < 1) return 1;
+  MArgs m;
+  memcpy(m.v, margs, sizeof(m.v));
+  LayoutM lay;
+  memcpy(lay.v, layout, sizeof(lay.v));
+  Strides st;
+  memcpy(st.v, strides, sizeof(st.v));
+  const MultiPtrs p{addrs, aux, rt, mtab, who, issues, dones, flags, totals,
+                    scal, frames, mpage, mready, wtick, l2p, p2l, valid,
+                    free_q, free_mask, rtr_mask, die_busy, die_prog,
+                    chan_busy, scratch, nullptr, nullptr};
+  for (long long b = 0; b < lanes; ++b)
+    run_block(smem_bytes, [&](char* sm) {
+      if (head[A_FAULT_HOPS])
+        run_multi_sweep<true>(head, args, m, lay, p, st, b, sm);
+      else
+        run_multi_sweep<false>(head, args, m, lay, p, st, b, sm);
+    });
+  return 0;
+}
+
 int replay_scan_num_args() { return kNumArgs; }
 int replay_scan_layout_words() { return kLayoutWords; }
 int replay_scan_num_margs() { return kNumMArgs; }
 int replay_scan_layout_multi_words() { return kLayoutMultiWords; }
+int replay_scan_num_ptrs() { return kNumPtrs; }
 
 }  // extern "C"

@@ -251,3 +251,83 @@ def fault_case(name: str):
                             FaultConfig, FaultPlan, install, SSDConfig,
                             NANDTiming),
             fault_case_trace(name, make_trace))
+
+
+# ``results/BENCH_replay.json``'s ``availability`` scenario, rebuilt from
+# the port (benchmarks/replay_bench.py's ``collect_availability_derived``
+# and its ``FOOTPRINT_PAGES`` / ``WRITE_FRAC``, which import the JAX
+# package): DRAM devices privately mounted on a 2 x 2 spine-leaf with ECMP
+# under CRC retries (rate 0.15, up to 2 a hop) and leaf s0's uplink to
+# spine sp0 down over accesses [n / 4, 3n / 4) of each host's n
+AVAIL_SEEDS = 16
+AVAIL_HOSTS = (4, 8)
+AVAIL_N = 320
+AVAIL_PAGES = 1024
+AVAIL_WRITE_FRAC = 0.3
+AVAIL_TRACE_SEED = 17
+
+
+def availability_case(num_hosts: int, accesses: int = AVAIL_N):
+    """``(make_targets, traces)`` of the availability scenario at
+    ``num_hosts`` hosts: ``make_targets(seed)`` mounts fresh targets under
+    the plan of that seed."""
+    import numpy as np
+
+    fcfg = FaultConfig(link_retry_rate=0.15, link_retry_max=2,
+                       down_links=(("s0", "sp0", accesses // 4,
+                                    (3 * accesses) // 4),))
+
+    def make_targets(seed):
+        fab = Fabric.build("spine_leaf", num_hosts=num_hosts,
+                           num_devices=num_hosts, num_leaves=2, num_spines=2,
+                           ecmp=True)
+        tgts = [fab.mount(f"h{i}", f"d{i}", make_device("dram"))
+                for i in range(num_hosts)]
+        install(FaultPlan(fcfg, seed=seed), tgts)
+        return tgts
+
+    rng = np.random.default_rng(AVAIL_TRACE_SEED)
+    traces = []
+    for _ in range(num_hosts):
+        pages = rng.integers(0, AVAIL_PAGES, accesses)
+        a = pages * 4096 + rng.integers(0, 64, accesses) * 64
+        w = rng.random(accesses) < AVAIL_WRITE_FRAC
+        traces.append([(int(x), 64, bool(y)) for x, y in zip(a, w)])
+    return make_targets, traces
+
+
+def availability_fields(lanes) -> dict:
+    """The oracle's fields of ``fault_seed_sweep``'s lanes: per seed the
+    pooled p50 / p99 / max latency, degraded fraction, failovers and
+    failover penalty, time in degraded windows, link retries and elapsed
+    ticks; the shared window axis; and the seed-averaged reachable
+    fraction a window (``availability_curve``)."""
+    import numpy as np
+
+    def p(lat, q):
+        return int(np.percentile(lat, q, method="higher"))
+
+    seeds = {str(lane["seed"]): {
+        "p50_ticks": p(lane["latency_ticks"], 50),
+        "p99_ticks": p(lane["latency_ticks"], 99),
+        "max_ticks": int(lane["latency_ticks"].max()),
+        "degraded_fraction": lane["availability"]["degraded_fraction"],
+        "failovers": lane["availability"]["failovers"],
+        "failover_latency_penalty_ticks":
+            lane["availability"]["failover_latency_penalty_ticks"],
+        "time_in_degraded_windows_ticks":
+            lane["availability"]["time_in_degraded_windows_ticks"],
+        "link_retries": lane["fault_stats"]["link_retries"],
+        "elapsed_ticks": int(lane["result"].elapsed_ticks),
+    } for lane in lanes}
+    av0 = lanes[0]["availability"]
+    curve = {}
+    for w in range(av0["num_windows"]):
+        fracs = [lane["availability"]["windows"].get(str(w))
+                 for lane in lanes]
+        fracs = [f["reachable_fraction"] for f in fracs if f]
+        if fracs:
+            curve[str(w)] = round(sum(fracs) / len(fracs), 9)
+    return {"window_ticks": av0["window_ticks"],
+            "num_windows": av0["num_windows"], "seeds": seeds,
+            "availability_curve": curve}

@@ -163,7 +163,23 @@ and ``nvcc``.  Phases, each printing one or more lines:
    accesses, three lanes equal to standalone runs; (d) a GC-overfilled
    sweep refused.  Each sweep's lanes and waves, kernel time, wall and
    host time, its checked lanes' standalone kernel times and the serial
-   cost it replaces, and the fault-column builder's host time.
+   cost it replaces, and the fault-column builder's host time;
+18. fleet: the sharded fleet replay, each replay one launch of
+   ``replay_scan``'s cluster instance (one CTA a shard of hosts; its
+   registers and spills, and the cluster barrier's and a distributed
+   shared-memory load's cycles by ``tools/smem_latency.cu``): (a)
+   ``results/BENCH_replay.json``'s 64-host fleet, its columns built on the
+   card by ``host_trace_torch`` (equal to ``host_trace_np``; both times),
+   through ``ShardedMultiHostReplay.run_arrays`` at D = 1, 2, 4, 8 and 16
+   where the card launches it and through the repaired one-CTA
+   ``MultiHostReplay``, each exact on the oracle's four numbers, equal to
+   the others and timed (kernel, ns a step, wall, bound, serial-chain
+   model); (b) 512 hosts on ``multi_pod`` 8 x 64, 64 accesses a host:
+   the one-CTA layout refused with its bytes, D = 8 and 16 equal to the
+   unsharded CPU twin on every field; (c) the golden fleet pin at D = 1,
+   2, 4, 8; (d) ``host_count_sweep(sharded=True)`` of (a) at 16, 32 and
+   64 hosts, a launch each, equal to the unsharded sweep; the kernel
+   against its twin on five cases.
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -410,6 +426,34 @@ SWEEP_CHECKS = (("cache/first", "cache/last", "cache/fifo-smallest",
                 + ("oracle/x4", "oracle/x8")
                 + tuple(f"seeds/{s}" for s in SWEEP_SEED_CHECKED)
                 + ("overfill/refused",))
+# the fleet phase: the sharded multi-host replay, one launch of
+# replay_scan's cluster instance (a CTA a shard) a replay.  (a)
+# results/BENCH_replay.json's fleet: 64 hosts x 1600 zipfian accesses
+# (1024 pages, s = 1.1, 30% writes, seed 23) on multi_pod 4 x 16 (forward
+# 10 ns, +4 ns a round trip), DRAM mounts, 8 outstanding, its columns built
+# on the card; (b) 512 hosts on multi_pod 8 x 64 (2176 ports), 64 accesses
+# a host of the same workload, whose tables one CTA cannot hold; (c) the
+# golden fleet pin; (d) host_count_sweep(sharded=True) of (a)
+FLEET_KERNEL = "replay_sharded_kernel"
+FLEET_REPLACES = "src/repro/core/replay/shard.py:90"
+FLEET_FABRIC = dict(forward_ns=10.0, rt_extra_ns=4.0)
+FLEET_PODS = 4
+FLEET_SHARDS = (1, 2, 4, 8, 16)
+FLEET_BIG = dict(hosts=512, pods=8, per_host=64)
+FLEET_BIG_SHARDS = (8, 16)
+FLEET_PIN = "fleet-zipf@multipod_2x4"
+FLEET_PIN_SHARDS = (1, 2, 4, 8)
+FLEET_SWEEP = (16, 32, 64)
+# the kernel against its twin (tests/torch_scenarios.py::shard_case):
+# (case, shards)
+FLEET_TWIN = (("shard/multipod-8", 8), ("shard/multipod-16", 16),
+              ("shard/cxl-ssd-cache-4", 4), ("shard/qos-8", 4),
+              ("faults-linkretry@spine_leaf_x4", 2))
+# a sharded step adds to the one-CTA instance's chain a cluster barrier and
+# two dependent distributed-shared-memory round trips (the slots, the
+# winner's row), each timed by tools/smem_latency.cu's cluster probe
+CLUSTER_HOPS = 2048
+FLEET_DSMEM_TRIPS = 2
 # the assoc phase: which of the main path's replays the associative lane
 # certifies (True) or refuses (False), as the JAX package's numpy backend
 # does (tests/test_torch_assoc.py holds the two equal)
@@ -3107,6 +3151,362 @@ def sweep_phase(torch, trace, seed: int, scan: dict,
         seconds=f"{time.perf_counter() - t_phase:.1f}")
     return runs
 
+# ------------------------------------------------------------ the fleet
+def cluster_latency_cycles(torch, path: Path, shards: int) -> tuple:
+    """SM clock cycles of one cluster barrier and of one dependent
+    distributed-shared-memory load on a cluster of ``shards`` CTAs, timed
+    by ``tools/smem_latency.cu`` over ``CLUSTER_HOPS`` of each."""
+    lib = ctypes.CDLL(str(path))
+    lib.cluster_latency.restype = ctypes.c_int
+    lib.cluster_latency.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_void_p]
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    err = lib.cluster_latency(shards, CLUSTER_HOPS, out.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"cluster latency probe launch failed: {err}")
+    bar, load, _ = out.tolist()
+    return bar / CLUSTER_HOPS, load / CLUSTER_HOPS
+
+
+def ptxas_registers(log: str, kernel: str) -> list:
+    """Registers of every function whose (mangled) name holds ``kernel``
+    in an ``nvcc -Xptxas -v`` report."""
+    return [int(r) for r in re.findall(
+        r"Compiling entry function '\S*" + re.escape(kernel) + r"\S*'"
+        r"[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers", log)]
+
+
+def fleet_mounts(hosts: int, pods: int):
+    """``hosts`` DRAM devices mounted h_i -> d_i on a ``multi_pod`` fabric
+    of ``pods`` pods, as results/BENCH_replay.json's fleet builds it."""
+    from repro_torch.core.devices import make_device
+    from repro_torch.core.fabric import Fabric
+
+    fab = Fabric.build("multi_pod", num_pods=pods,
+                       hosts_per_pod=hosts // pods, **FLEET_FABRIC)
+    return [fab.mount(f"h{i}", f"d{i}", make_device("dram"))
+            for i in range(hosts)]
+
+
+def fleet_columns(torch, spec, seed: int, hosts: int, n: int):
+    """The fleet's ``(H, n)`` columns built on the card by
+    ``host_trace_torch`` (as numpy, for ``run_arrays``), checked equal to
+    ``host_trace_np``'s; the card's and numpy's seconds."""
+    from repro_torch.data import host_trace_np, host_trace_torch
+
+    t0 = time.perf_counter()
+    want = [host_trace_np(spec, seed, h, n) for h in range(hosts)]
+    numpy_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols = [host_trace_torch(spec, seed, h, n) for h in range(hosts)]
+    addrs = torch.stack([a for a, _ in cols])
+    writes = torch.stack([w for _, w in cols])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    addrs, writes = addrs.cpu().numpy(), writes.cpu().numpy()
+    check(np.array_equal(addrs, np.stack([a for a, _ in want]))
+          and np.array_equal(writes, np.stack([w for _, w in want])),
+          "host_trace_torch differs from host_trace_np")
+    return addrs, writes, card_s, numpy_s
+
+
+def fleet_kernel_ms(torch, prep, shards) -> tuple:
+    """Device milliseconds of one launch on the prepared inputs through the
+    kernel's sharded instance (the one-CTA instance for ``shards`` None),
+    how they were timed, and the run's per-step hosts."""
+    from repro_torch.core.replay import stack
+    from repro_torch.kernels import replay_scan as rs
+
+    cfg = prep.cfg
+    ins, rt = multi_inputs(torch, prep, "cuda")
+    out = {}
+
+    def run():
+        state = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash,
+                                 "cuda")
+        out["who"] = (rs.replay_multi(cfg, prep.params, state, *ins,
+                                      retries=rt) if shards is None else
+                      rs.replay_sharded(cfg, shards, prep.params, state,
+                                        *ins, retries=rt))[0]
+
+    ms, how = launch_ms(torch, run, MULTI_KERNEL if shards is None
+                        else FLEET_KERNEL)
+    return ms, how, out["who"].cpu().numpy()
+
+
+def same_results(a, b) -> bool:
+    """Two multi-host results equal on every host's latencies and fields,
+    the span and the metrics bundle."""
+    return (a.elapsed_ticks == b.elapsed_ticks and all(
+        np.array_equal(x.latency_ticks, y.latency_ticks)
+        and (x.accesses, x.elapsed_ticks, x.sum_latency_ticks, x.end_tick)
+        == (y.accesses, y.elapsed_ticks, y.sum_latency_ticks, y.end_tick)
+        for x, y in zip(a.per_host, b.per_host))
+        and json.dumps(a.metrics.to_jsonable())
+        == json.dumps(b.metrics.to_jsonable()))
+
+
+def fleet_phase(torch, seed: int, probe: Path, smem_cycles: float,
+                sm_clock_mhz: float, int32_ops_per_s: float) -> dict:
+    """[fleet]: the sharded fleet replay on the card, each replay one launch
+    of ``replay_scan``'s cluster instance through its entry point: the
+    BENCH_replay.json fleet oracle exact at every cluster size and through
+    the repaired one-CTA instance, a fleet that one CTA cannot hold, the
+    golden fleet pin, the sharded host-count sweep, and the kernel against
+    its twin."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_scenarios import make_multi_targets, multi_traces, shard_case
+
+    from repro_torch.core.replay import (MetricsSpec, MultiHostReplay,
+                                         ShardedMultiHostReplay)
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.spec import ReplayUnsupported
+    from repro_torch.core.replay.sweep import host_count_sweep
+    from repro_torch.data import WorkloadSpec
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    t_phase = time.perf_counter()
+    log = _build.build_log.get("replay_scan", "")
+    regs = ptxas_registers(log, FLEET_KERNEL)
+    spills = ptxas_spills(log, FLEET_KERNEL)
+    say("fleet", kernel=FLEET_KERNEL, instances=len(regs),
+        registers=f"{min(regs)}-{max(regs)}", spill_bytes=spills)
+    check(spills == 0, f"{FLEET_KERNEL} spills {spills} bytes")
+    barrier = {d: cluster_latency_cycles(torch, probe, d) for d in (2, 8, 16)}
+    for d, (bar, load) in barrier.items():
+        say("fleet", cluster=d, barrier_cycles=f"{bar:.1f}",
+            dsmem_load_cycles=f"{load:.1f}")
+
+    # (a) the BENCH_replay.json oracle --------------------------------
+    oracle = json.loads((ROOT / "results" / "BENCH_replay.json")
+                        .read_text())["fleet"]
+    w = oracle["workload"]
+    spec = WorkloadSpec(w["kind"], num_pages=w["num_pages"],
+                        zipf_s=w["zipf_s"], write_frac=w["write_frac"])
+    H, n = oracle["hosts"], oracle["accesses_per_host"]
+    addrs, writes, card_s, numpy_s = fleet_columns(torch, spec, w["seed"],
+                                                   H, n)
+    say("fleet", synthesis="host_trace_torch", hosts=H, accesses=H * n,
+        card_s=f"{card_s:.4f}", numpy_s=f"{numpy_s:.4f}", equal="all")
+    want = (oracle["elapsed_ticks"], oracle["sum_latency_ticks"],
+            oracle["p50_ticks"], oracle["p99_ticks"])
+    runs, first = {}, None
+    for shards in (None,) + FLEET_SHARDS:
+        name = "one-cta" if shards is None else f"D{shards}"
+        tgts = fleet_mounts(H, FLEET_PODS)
+        eng = (MultiHostReplay(tgts, outstanding=8, metrics=MetricsSpec())
+               if shards is None else ShardedMultiHostReplay(
+                   tgts, outstanding=8, metrics=MetricsSpec(),
+                   devices=range(shards)))
+        rs.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = eng.run_arrays(addrs, writes)
+        except ReplayUnsupported as e:
+            check(shards == 16, f"[fleet] {name} refused: {e}")
+            say("fleet", case=name, launchable=False, reason=repr(str(e)))
+            continue
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rs.LAUNCHES["replay_scan"]
+        got = (res.elapsed_ticks,
+               sum(r.sum_latency_ticks for r in res.per_host),
+               res.metrics.percentile_ticks(50),
+               res.metrics.percentile_ticks(99))
+        check(got == want, f"[fleet] {name}: {got} against the oracle's "
+                           f"{want}")
+        check(launches == 1, f"[fleet] {name}: {launches} launches")
+        if first is None:
+            first = res
+        check(same_results(res, first), f"[fleet] {name} differs from the "
+                                        "one-CTA replay")
+        prep = eng.prepare_arrays(addrs, writes)
+        ms, how, who = fleet_kernel_ms(torch, prep, shards)
+        run = {"launches": launches, "ms": ms, "timing": how,
+               "wall_s": wall, "steps": H * n, "shards": shards,
+               "ns_per_step": ms * 1e6 / (H * n)}
+        run.update(multi_bound(torch, prep, who, 0, int32_ops_per_s,
+                               smem_cycles, sm_clock_mhz))
+        if shards is not None:
+            bar, load = barrier[min(barrier, key=lambda d: abs(d - shards))]
+            run["serial_chain_ms"] += H * n * (
+                bar + FLEET_DSMEM_TRIPS * load) / (sm_clock_mhz * 1e3)
+            run["mesh"] = dict(eng.last_mesh)
+        runs[name] = run
+        say("fleet", case=name, hosts=H, steps=H * n, oracle="exact",
+            elapsed_ticks=got[0], sum_latency_ticks=got[1], p50=got[2],
+            p99=got[3], launches=launches, kernel_ms=f"{ms:.3f}",
+            timing=how, ns_per_step=f"{run['ns_per_step']:.1f}",
+            wall_s=f"{wall:.3f}", host_s=f"{wall - ms / 1e3:.3f}",
+            bound_ms=f"{run['bound_ms']:.6f}", bound_by=run["bound_by"],
+            serial_chain_ms=f"{run['serial_chain_ms']:.3f}",
+            mesh=json.dumps(run.get("mesh"), separators=(",", ":")))
+
+    # (b) a fleet one CTA cannot hold ---------------------------------
+    big = FLEET_BIG
+    Hb, nb = big["hosts"], big["per_host"]
+    b_addrs, b_writes, _, _ = fleet_columns(torch, spec, w["seed"], Hb, nb)
+    prep = MultiHostReplay(fleet_mounts(Hb, big["pods"]),
+                           outstanding=8).prepare_arrays(b_addrs, b_writes)
+    try:
+        rs.layout_multi(prep.cfg, prep.params,
+                        rs._smem_optin(_build.library("replay_scan"), 0))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "B of shared memory" in refused,
+          "[fleet] the one-CTA layout took the 512-host fleet")
+    check(refuses(lambda: MultiHostReplay(
+        fleet_mounts(Hb, big["pods"]), outstanding=8).run_arrays(
+            b_addrs, b_writes), ValueError),
+        "[fleet] the one-CTA lane ran the 512-host fleet")
+    t0 = time.perf_counter()
+    twin = MultiHostReplay(fleet_mounts(Hb, big["pods"]), outstanding=8,
+                           metrics=MetricsSpec(), torch_device="cpu"
+                           ).run_arrays(b_addrs, b_writes)
+    twin_s = time.perf_counter() - t0
+    say("fleet", case=f"x{Hb}", ports=prep.cfg.num_ports, steps=Hb * nb,
+        one_cta="refused", reason=repr(refused), twin_s=f"{twin_s:.3f}")
+    for shards in FLEET_BIG_SHARDS:
+        eng = ShardedMultiHostReplay(fleet_mounts(Hb, big["pods"]),
+                                     outstanding=8, metrics=MetricsSpec(),
+                                     devices=range(shards))
+        rs.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = eng.run_arrays(b_addrs, b_writes)
+        except ReplayUnsupported as e:
+            check(shards == 16, f"[fleet] x{Hb} D{shards} refused: {e}")
+            say("fleet", case=f"x{Hb}-D{shards}", launchable=False,
+                reason=repr(str(e)))
+            continue
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rs.LAUNCHES["replay_scan"]
+        check(launches == 1, f"[fleet] x{Hb} D{shards}: {launches} launches")
+        check(same_results(res, twin), f"[fleet] x{Hb} D{shards} differs "
+                                       "from the unsharded CPU twin")
+        ms, how, _ = fleet_kernel_ms(torch, eng.prepare_arrays(
+            b_addrs, b_writes), shards)
+        runs[f"x{Hb}-D{shards}"] = {"launches": launches, "ms": ms,
+                                    "timing": how, "wall_s": wall,
+                                    "steps": Hb * nb, "shards": shards}
+        lay = rs.layout_multi(prep.cfg, prep.params, rs._smem_optin(
+            _build.library("replay_scan"), 0), shards=shards)
+        say("fleet", case=f"x{Hb}-D{shards}", equal_to_twin="all fields",
+            launches=launches, kernel_ms=f"{ms:.3f}", timing=how,
+            ns_per_step=f"{ms * 1e6 / (Hb * nb):.1f}",
+            wall_s=f"{wall:.3f}", smem_bytes_a_cta=lay.smem_bytes)
+
+    # (c) the golden fleet pin ------------------------------------------
+    pins = golden_pin(FLEET_PIN, "python_scan")
+    for shards in FLEET_PIN_SHARDS:
+        rs.reset_launches()
+        res = ShardedMultiHostReplay(
+            make_multi_targets(FLEET_PIN), outstanding=8,
+            metrics=MetricsSpec(), devices=range(shards)).run(
+                multi_traces(FLEET_PIN))
+        check(rs.LAUNCHES["replay_scan"] == 1, "[fleet] pin launches")
+        check(len(pins) == len(res.per_host) and all(
+            r.latency_ticks.tolist() == p["latency_ticks"]
+            and all(getattr(r, k) == p[k] for k in (
+                "elapsed_ticks", "sum_latency_ticks", "end_tick"))
+            for r, p in zip(res.per_host, pins)),
+            f"[fleet] pin at D{shards}")
+        check(json.loads(json.dumps(res.metrics.to_jsonable()))
+              == golden_pin(FLEET_PIN, "metrics"),
+              f"[fleet] pin metrics at D{shards}")
+    say("fleet", pin=FLEET_PIN, shards=",".join(map(str, FLEET_PIN_SHARDS)),
+        python_scan="equal", metrics="equal")
+
+    # (d) the sharded host-count sweep ------------------------------------
+    traces = [[(int(a), 64, bool(x)) for a, x in zip(addrs[h], writes[h])]
+              for h in range(H)]
+    rs.reset_launches()
+    info = {}
+    t0 = time.perf_counter()
+    lanes = host_count_sweep(fleet_mounts(H, FLEET_PODS), traces,
+                             list(FLEET_SWEEP), outstanding=8, sharded=True,
+                             info=info)
+    sweep_s = time.perf_counter() - t0
+    sharded_launches = rs.LAUNCHES["replay_scan"]
+    base = host_count_sweep(fleet_mounts(H, FLEET_PODS), traces,
+                            list(FLEET_SWEEP), outstanding=8)
+    check(sharded_launches == len(FLEET_SWEEP),
+          f"[fleet] sweep launches {sharded_launches}")
+    check(all(a.elapsed_ticks == b.elapsed_ticks and all(
+        (x.accesses, x.sum_latency_ticks, x.end_tick)
+        == (y.accesses, y.sum_latency_ticks, y.end_tick)
+        for x, y in zip(a.per_host, b.per_host))
+        for a, b in zip(lanes, base)), "[fleet] sharded sweep differs")
+    say("fleet", sweep="host_count_sweep(sharded=True)",
+        hosts=",".join(map(str, FLEET_SWEEP)), launches=sharded_launches,
+        info=json.dumps(info, separators=(",", ":")),
+        wall_s=f"{sweep_s:.3f}", equal_to_unsharded="all lanes")
+    runs["sweep"] = {"launches": sharded_launches, "wall_s": sweep_s}
+
+    # the kernel against its twin -----------------------------------------
+    mismatches, plain_ms, plain_steps = 0, 0.0, 0
+    for case, shards in FLEET_TWIN:
+        tgts, trs = shard_case(case)
+        p = MultiHostReplay(tgts, outstanding=8).prepare(trs)
+        cfg = p.cfg
+        states = [stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, d)
+                  for d in ("cpu", "cuda")]
+        outs = []
+        for state, dev in zip(states, ("cpu", "cuda")):
+            ins, rt = multi_inputs(torch, p, dev)
+            t0 = time.perf_counter()
+            outs.append(rs.replay_sharded(cfg, shards, p.params, state,
+                                          *ins, retries=rt))
+            if dev == "cpu":
+                plain_ms += (time.perf_counter() - t0) * 1e3
+                plain_steps += int(p.lens.sum())
+        torch.cuda.synchronize()
+        pairs = list(zip(outs[1], outs[0]))
+        for part in ("media", "flash"):
+            pairs += [(states[1][part][k], x)
+                      for k, x in (states[0][part] or {}).items()]
+        mismatches += sum(int((g.cpu() != x).sum()) for g, x in pairs)
+    check(mismatches == 0, f"the sharded instance differs from its twin in "
+                           f"{mismatches} elements")
+    say("fleet", twin_checks=len(FLEET_TWIN), mismatches=0,
+        twin_steps=plain_steps, twin_ms=f"{plain_ms:.3f}",
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    runs["twin"] = {"plain_ms": plain_ms, "steps": plain_steps,
+                    "launches": 0}
+    runs["registers"] = regs
+    return runs
+
+
+def fleet_row(fleet: dict) -> dict:
+    """The kernels line's row of ``replay_scan``'s cluster instance: the
+    64-host fleet at D = 8 (every cluster size, the 512-host fleet and the
+    one-CTA instance beside it)."""
+    main = fleet["D8"]
+    timed = {k: v for k, v in fleet.items() if isinstance(v, dict)
+             and "ms" in v}
+    return {
+        "name": "replay_scan (sharded)", "route": "cuda",
+        "source": SCAN_SOURCE, "replaces": FLEET_REPLACES,
+        "launches": sum(v["launches"] for k, v in fleet.items()
+                        if isinstance(v, dict) and "launches" in v
+                        and k != "one-cta"),
+        "max_abs_err": 0, "tolerance": 0,
+        "ms": main["ms"], "plain_ms": fleet["twin"]["plain_ms"],
+        "plain_steps": fleet["twin"]["steps"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "steps": main["steps"], "shards": 8,
+        "serial_chain_ms": main["serial_chain_ms"],
+        "ms_by_case": {k: v["ms"] for k, v in timed.items()},
+        "ns_per_step_by_case": {k: v["ms"] * 1e6 / v["steps"]
+                                for k, v in timed.items()},
+        "kernel": FLEET_KERNEL, "registers": fleet["registers"],
+    }
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3357,6 +3757,8 @@ def main() -> int:
     stream = stream_phase(torch, trace, scan, args.seed)
     sweeps = sweep_phase(torch, trace, args.seed, scan, smem_cycles,
                          sm_clock_mhz, int32_ops_per_s)
+    fleet = fleet_phase(torch, args.seed, probe_lib, smem_cycles,
+                        sm_clock_mhz, int32_ops_per_s)
 
     # kernels line -------------------------------------------------------
     rows = []
@@ -3380,7 +3782,8 @@ def main() -> int:
         })
     print(card, flush=True)
     print(json.dumps({"kernels": rows + serve_rows + [
-        prefill_row, scan_row(scan, faults, multi, n, stream, sweeps)]}),
+        prefill_row, scan_row(scan, faults, multi, n, stream, sweeps),
+        fleet_row(fleet)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

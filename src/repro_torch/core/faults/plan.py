@@ -314,18 +314,18 @@ def erase_fails_torch(statics: Tuple[int, ...], seq):
     return (h & _M32) < erase_thresh
 
 
-def folded_key(seed: int, salt: int) -> int:
-    """The seed-side half of ``fault_hash(seed, salt, 0, b)``: the uint64
+def folded_key(seed: int, salt: int, a: int = 0) -> int:
+    """The seed-side half of ``fault_hash(seed, salt, a, b)``: the uint64
     that ``b`` is xored with before the last mix."""
-    return _mix(_mix((seed + salt) & _M64) ^ 0)
+    return _mix(_mix((seed + salt) & _M64) ^ (a & _M64))
 
 
-def _mix_torch_scalar(seed: int, salt: int, b):
-    """``fault_hash(seed, salt, 0, b)`` with the two seed-side mixes folded
+def _mix_torch_scalar(seed: int, salt: int, b, a: int = 0):
+    """``fault_hash(seed, salt, a, b)`` with the two seed-side mixes folded
     on the host (python ints) and only the key-side mix on tensors."""
     from repro_torch.core import u64
 
-    x = u64.as_bits(b) ^ u64.const(folded_key(seed, salt))
+    x = u64.as_bits(b) ^ u64.const(folded_key(seed, salt, a))
     x = x + u64.const(_GOLDEN)
     x = (x ^ u64.shr(x, 30)) * u64.const(_MULT1)
     x = (x ^ u64.shr(x, 27)) * u64.const(_MULT2)

@@ -35,9 +35,15 @@
 * :mod:`repro_torch.core.replay.cuda_engine` — the cached CXL-SSD kernel
   lane (``engine="cuda"``, analytic latency).
 
-The sharded multi-host replay (``host_count_sweep(sharded=True)``) is a
-later slice (ROADMAP Queue A item 13).  Importing this package loads no
-torch: the state layer's names load it on first use.
+* :class:`ShardedMultiHostReplay` / :func:`shard_count` — the multi-host
+  replay with its hosts split over the CTAs of one thread-block cluster
+  (a shard each: its hosts' state, route rows and media lanes in its
+  shared memory; the ports replicated), one launch of the kernel's
+  sharded instance, tick-identical to :class:`MultiHostReplay`
+  (``host_count_sweep(sharded=True)`` runs through it).
+
+Importing this package loads no torch: the state layer's names load it
+on first use.
 """
 
 import importlib
@@ -47,6 +53,7 @@ from repro_torch.core.replay.assoc import AssocReplayEngine
 from repro_torch.core.replay.engine import ReplayEngine, ReplayResult
 from repro_torch.core.replay.metrics import MetricsBundle, MetricsSpec
 from repro_torch.core.replay.multihost import MultiHostReplay
+from repro_torch.core.replay.shard import ShardedMultiHostReplay, shard_count
 from repro_torch.core.replay.stream import replay_stream
 from repro_torch.core.replay.sweep import cache_design_sweep, host_count_sweep
 from repro_torch.core.replay.spec import (
@@ -77,6 +84,7 @@ __all__ = [
     "ReplayEngine",
     "ReplayResult",
     "ReplayUnsupported",
+    "ShardedMultiHostReplay",
     "StackConfig",
     "build_stack",
     "busy_until",
@@ -89,6 +97,7 @@ __all__ = [
     "media_step",
     "port_busy_until",
     "replay_stream",
+    "shard_count",
     "require_metrics_lane",
     "step",
     "trace_to_arrays",

@@ -123,6 +123,9 @@ class MultiCfg:
     # transport faults active: a path table and per-access path ids and
     # retry bytes replace the static per-(host, dev, route) hop tables
     fault_hops: bool = False
+    # per-host fabric mounts (host i reaches device i only), not pool
+    # views: the kernel keeps the (host, route) rows only
+    mounts: bool = False
 
 
 def _port_index(fabric: Fabric) -> Dict[Tuple[str, str], int]:
@@ -622,7 +625,8 @@ class MultiHostReplay:
                        stack=stack_cfg, n_flash=n_flash,
                        max_routes=max_routes, qos=meta["qos"],
                        host_order=meta["host_order"],
-                       fault_hops=tplan is not None)
+                       fault_hops=tplan is not None,
+                       mounts=mapper is None)
         return Prepared(cfg, params, devs, addrs, writes, lens, size,
                         routes if (tplan is not None or max_routes > 1)
                         else None, retries)
@@ -683,11 +687,8 @@ class MultiHostReplay:
         then ``step_ord, lens, size, bundle``; else the
         :class:`MultiHostResult` of the per-host scalars.  Sets
         :attr:`last_gc_runs` and :attr:`last_metrics`."""
-        import torch
-
         from repro_torch import torch_device as _td
         from repro_torch.core.replay import stack
-        from repro_torch.kernels.replay_scan import replay_multi
 
         cfg = prep.cfg
         if cfg.qos and start_tick < 0:
@@ -697,18 +698,10 @@ class MultiHostReplay:
         if chunk_size is not None and int(chunk_size) < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size!r}")
         dev = _td.resolve(self.torch_device)
-
-        def on_dev(x):
-            return None if x is None else torch.from_numpy(x).to(dev)
-
         state = stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, dev)
         fold = None
         if chunk_size is None and want_lat:
-            out = replay_multi(
-                cfg, prep.params, state, on_dev(prep.addrs),
-                on_dev(prep.writes), on_dev(prep.lens), on_dev(prep.devs),
-                on_dev(prep.routes), start_tick=start_tick,
-                retries=on_dev(prep.retries))
+            out = self._replay(prep, state, dev, start_tick)
             who, issues, dones, flags, qacc, qthr = (x.cpu().numpy()
                                                      for x in out)
         else:
@@ -765,6 +758,18 @@ class MultiHostReplay:
         return who, issues, dones, flags, step_ord, prep.lens, prep.size, \
             bundle
 
+    def _replay(self, prep: Prepared, state: Dict, dev, start_tick: int):
+        """The whole replay in one call of :func:`~repro_torch.kernels.
+        replay_scan.replay_multi` on ``dev``: its ``(who, issues, dones,
+        flags, qacc, qthr)``."""
+        from repro_torch.kernels.replay_scan import replay_multi
+
+        return replay_multi(
+            prep.cfg, prep.params, state, on_device(prep.addrs, dev),
+            on_device(prep.writes, dev), on_device(prep.lens, dev),
+            on_device(prep.devs, dev), on_device(prep.routes, dev),
+            start_tick=start_tick, retries=on_device(prep.retries, dev))
+
     def _chunked(self, prep: Prepared, state: Dict, dev, start_tick: int,
                  want_lat: bool, chunk: int):
         """The chunked replay: launches of at most ``chunk`` steps over
@@ -812,17 +817,7 @@ class MultiHostReplay:
                 parts.append([x.cpu().numpy() for x in (who, issues, dones,
                                                         flags)])
                 continue
-            # each step's place in its host's window: the host's steps
-            # of this launch take its accesses in order from the cursor
-            host = who.long()
-            order = torch.sort(host, stable=True).indices
-            counts = torch.bincount(host, minlength=H)
-            starts = torch.cumsum(counts, 0) - counts
-            pos = torch.empty_like(host)
-            pos[order] = (torch.arange(host.numel(), device=host.device)
-                          - starts[host[order]])
-            fold.update(issues, dones, flags, writes[host, pos], host=host,
-                        dev=devs[host, pos].long())
+            fold_window(fold, H, who, issues, dones, flags, writes, devs)
         qacc, qthr = qacc.cpu().numpy(), qthr.cpu().numpy()
         if not want_lat:
             return None, None, None, None, qacc, qthr, fold
@@ -929,6 +924,32 @@ class MultiHostReplay:
         (in that host's issue order)."""
         res = self.run(traces, start_tick, chunk_size=chunk_size)
         return res, [r.latency_ticks for r in res.per_host]
+
+
+def on_device(x: Optional[np.ndarray], dev):
+    """A host array as a tensor on ``dev`` (``None`` stays ``None``)."""
+    import torch
+
+    return None if x is None else torch.from_numpy(x).to(dev)
+
+
+def fold_window(fold, num_hosts: int, who, issues, dones, flags, writes,
+                devs) -> None:
+    """Fold one launch's steps into ``fold`` (a :class:`~repro_torch.core.
+    replay.metrics.StreamFold`), each with its access's write flag and
+    device from the window columns ``writes`` / ``devs`` ``(H, W)``: a
+    host's steps of the launch take its window's accesses in order."""
+    import torch
+
+    host = who.long()
+    order = torch.sort(host, stable=True).indices
+    counts = torch.bincount(host, minlength=num_hosts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(host)
+    pos[order] = (torch.arange(host.numel(), device=host.device)
+                  - starts[host[order]])
+    fold.update(issues, dones, flags, writes[host, pos], host=host,
+                dev=devs[host, pos].long())
 
 
 def step_ordinals(who: np.ndarray, num_hosts: int) -> np.ndarray:

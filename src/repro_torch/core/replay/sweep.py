@@ -218,18 +218,36 @@ def host_count_sweep(targets: Sequence, traces: Sequence,
     fabric*.  Any stack-layer media works, cached CXL-SSD included — absent
     hosts leave their private cache lanes (and the shared flash) untouched.
 
-    ``sharded=True`` (the reference's ``ShardedMultiHostReplay`` over a
-    device mesh) is not ported yet and raises :class:`ReplayUnsupported`;
-    ``devices`` goes with it.  Pass a dict as ``info`` to receive the
-    execution report (``{"sharded", "device_count",
-    "hosts_per_device"}``).  The lanes run on ``torch_device``: the card
-    by default (one launch), ``"cpu"`` for the plain twin.
+    ``sharded=True`` runs each host count through
+    :class:`~repro_torch.core.replay.shard.ShardedMultiHostReplay` with
+    ``devices`` bounding its shards: one launch a host count of the
+    kernel's sharded instance, the masked lengths its only difference.
+    Pass a dict as ``info`` to receive the execution report
+    (``{"sharded", "device_count", "hosts_per_device"}``).  The lanes run
+    on ``torch_device``: the card by default (one launch), ``"cpu"`` for
+    the plain twins.
     """
     if sharded:
-        raise ReplayUnsupported(
-            "host_count_sweep(sharded=True) runs through "
-            "ShardedMultiHostReplay, which the port does not have yet "
-            "(ROADMAP Queue A item 13); use sharded=False")
+        from repro_torch.core.replay.shard import ShardedMultiHostReplay
+
+        eng = ShardedMultiHostReplay(targets, outstanding=outstanding,
+                                     issue_overhead_ns=issue_overhead_ns,
+                                     posted_writes=posted_writes,
+                                     devices=devices,
+                                     torch_device=torch_device)
+        prep = eng.prepare(traces)
+        out: List[MultiHostResult] = []
+        for h in host_counts:
+            lane = np.where(np.arange(prep.lens.size) < h, prep.lens, 0)
+            who, issues, dones, bad = eng.replay_lens(prep, lane)
+            if int(lane.sum()) and bad:
+                raise ReplayUnsupported(
+                    f"host-count lane {h}: FTL ran out of free blocks "
+                    "during GC; use engine='python'")
+            out.append(eng.aggregate(who, issues, dones, lane, prep.size))
+        if info is not None:
+            info.update(dict(eng.last_mesh, sharded=True))
+        return out
     eng = MultiHostReplay(targets, outstanding=outstanding,
                           issue_overhead_ns=issue_overhead_ns,
                           posted_writes=posted_writes,

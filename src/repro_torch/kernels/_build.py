@@ -61,6 +61,9 @@ SIGNATURES = {
         "replay_scan_launch_multi": (_I, [_P] * 29 + [_I, _P]),
         "replay_scan_launch_sweep": (_I, [_I] + [_P] * 26 + [_I, _P]),
         "replay_scan_launch_multi_sweep": (_I, [_I] + [_P] * 29 + [_I, _P]),
+        "replay_scan_launch_sharded": (_I, [_I] + [_P] * 28 + [_I, _P]),
+        "replay_scan_sharded_fit": (_I, [_I, _P, _I, ctypes.POINTER(_I),
+                                         ctypes.POINTER(_I)]),
         "replay_scan_num_args": (_I, []),
         "replay_scan_layout_words": (_I, []),
         "replay_scan_num_margs": (_I, []),

@@ -282,6 +282,35 @@ __device__ __forceinline__ long long links_home(long long map_words) {
 #ifndef REPLAY_SCAN_EMULATE
 __device__ __forceinline__ int thread_id() { return threadIdx.x; }
 __device__ __forceinline__ void block_sync() { __syncthreads(); }
+
+// The thread-block cluster of the sharded instance: this CTA's rank, the
+// cluster's CTAs, a barrier of every thread of the cluster (release /
+// acquire, not .aligned: thread 0 reaches it from inside its walk while
+// the rest of its warp waits at it from their own loop), and the address
+// of `p`'s counterpart in CTA `rank`'s shared memory (distributed shared
+// memory, read through a generic pointer).
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ int cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\t"
+               "barrier.cluster.wait.acquire;" ::: "memory");
+}
+template <typename T>
+__device__ __forceinline__ const T* cluster_map(const T* p, int rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(out)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(out);
+}
 #endif
 
 __device__ __forceinline__ long long max64(long long a, long long b) {
@@ -1451,11 +1480,42 @@ __device__ void replay(const Args& args, const Layout& lay, const Ptrs& ptrs,
 // links, l2p, GC state) is in shared memory for every lane or for none, so
 // no host's chain is cheaper than another's.  At full width (four Table I
 // devices over a 64 MB footprint) only the frames fit; the rest stays in
-// device memory, L2-resident.  Per-host staged windows and the lanes in a
-// cluster's distributed shared memory are later work.
+// device memory, L2-resident.  Per-host staged windows are later work.
+//
+// The sharded instance (CLUSTER) replaces src/repro/core/replay/shard.py's
+// shard_map body (`_body` :90-300): the hosts split over the D CTAs of one
+// thread-block cluster, CTA r holding hosts r*H/D ... (r+1)*H/D - 1 (the
+// reference's block assignment) with their trees, clocks, cursors,
+// candidates, staged accesses, route rows (a table of its own, `mtab` row
+// r) and media and private flash lanes in its own shared memory; every CTA
+// keeps a replica of the ports' busy-untils, queueing and throttle totals
+// and, under QoS, of the virtual-finish and last-arrival tables, and
+// updates them from the same inputs, so the replicas never diverge
+// (shard.py:176-217).  Each step is one election over the cluster:
+//   1. thread 0 of each CTA races its own hosts as above and writes
+//      {candidate tick, local host, its staged route row << 1 | write, its
+//      retry bytes} into its slot (double-buffered by step parity: a CTA
+//      that runs a step ahead cannot overwrite a slot another still
+//      reads), then the cluster barrier;
+//   2. every CTA reads the D slots through distributed shared memory and
+//      takes the least tick, the lowest rank on ties.  Hosts are
+//      block-assigned, so that is the global (tick, host index) order and
+//      every D replays what the one-CTA instance replays, bit for bit.  The
+//      winner's slot carries its row and retry bytes (the reference's
+//      record broadcast, shard.py:140-172, with no second barrier), and
+//      every CTA loads that row's hops from the owner's table (distributed
+//      shared memory again, one round trip for all hops) and walks the
+//      replicated ports;
+//   3. only the owner runs the media step, commits its host's LFB slot,
+//      stages its next access and stores the step's who / issue / done /
+//      flags (the reference's `en` gate, :227-229).
+// The other threads of every CTA wait at the same barrier once a step, and
+// once more after the last, so no CTA leaves while another reads its
+// shared memory.
 
 // The multi-host argument block, field for field `MARGS` in
-// kernels/replay_scan.py.
+// kernels/replay_scan.py: a sharded instance's hosts, lanes, flash lanes
+// and rows are its CTA's.
 enum MArg { M_HOSTS, M_LANES, M_FLASH, M_STRIDE, M_QOS, M_ROWS, M_WINDOW,
             kNumMArgs };
 
@@ -1474,6 +1534,12 @@ enum MScal { MS_BUSY, MS_ROW, MS_DRAM_BUSY, MS_FILL, MS_HEAD, MS_TAIL,
              MS_MMIN, kMScal = 8 };
 
 constexpr long long kNever = -(1LL << 61);   // multihost.py's NEVER
+// a sharded CTA's election region (after its hosts' arrays in LM_HOST):
+// two slots of kElect words
+// (by step parity), then a row buffer of the winner's hops (port, occ,
+// after; kMaxHops each)
+constexpr int kMaxHops = 8;
+constexpr int kElect = 4;
 
 struct MArgs {
   long long v[kNumMArgs];
@@ -1547,7 +1613,7 @@ struct MultiCarry {
   }
 };
 
-template <int KIND, bool NAND, bool FAULTED>
+template <int KIND, bool NAND, bool FAULTED, bool CLUSTER = false>
 __device__ void replay_multi(const Args& args, const MArgs& margs,
                              const LayoutM& lay, const MultiPtrs& ptrs,
                              char* sm) {
@@ -1559,6 +1625,10 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   const int P = static_cast<int>(a[A_PORTS]);
   const int FH = static_cast<int>(a[A_HOPS]);
   const int NH = static_cast<int>(ma[M_HOSTS]);
+  // every host of the replay, and this CTA's rank in a sharded one (its
+  // hosts start at rank * NH)
+  const int NA = CLUSTER ? NH * cluster_size() : NH;
+  const int rank = CLUSTER ? cluster_rank() : 0;
   const int ND = static_cast<int>(ma[M_LANES]);
   const int NF = static_cast<int>(ma[M_FLASH]);
   const int R = static_cast<int>(ma[M_ROWS]);
@@ -1582,6 +1652,7 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   const bool nand = kFlash && NAND;
   const int rwords = (nb + 31) / 32;
   const bool lru_links = KIND == kSsdBuf || (assoc && a[A_IS_LRU] != 0);
+  const int shards = CLUSTER ? cluster_size() : 1;
   // a resumable replay: its carry; `seen` steps replayed before this launch
   // (the stamp base), resumed from the carry when > 0
   long long* carry = ptrs.carry;
@@ -1592,15 +1663,19 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   int2* home_links = reinterpret_cast<int2*>(
       ptrs.maps + links_home(static_cast<long long>(ND) * num_pages));
 
-  // the table, copied to shared memory: lengths, host order, the lanes'
-  // flash lanes and DRAM timing, rows' lanes, the rows, QoS mask and
-  // weights
+  // the table, copied to shared memory: lengths, host order (every host),
+  // the lanes' flash lanes and DRAM timing, rows' lanes, the rows, and the
+  // QoS mask and weights (ports x every host; a shard's table has them
+  // under QoS only)
   long long* mt = reinterpret_cast<long long*>(sm + L[LM_MTAB]);
-  const long long mwords = 2LL * NH + 4LL * ND + R + 3LL * R * FH + P +
-                           static_cast<long long>(P) * NH;
+  const long long mwords =
+      CLUSTER ? NH + NA + 4LL * ND + R + 3LL * R * FH +
+                    (qos ? P + static_cast<long long>(P) * NA : 0LL)
+              : 2LL * NH + 4LL * ND + R + 3LL * R * FH + P +
+                    static_cast<long long>(P) * NH;
   const long long* lens = mt;
   const long long* host_order = mt + NH;
-  const long long* flash_of = mt + 2 * NH;
+  const long long* flash_of = CLUSTER ? mt + NH + NA : mt + 2 * NH;
   const long long* dev_occ = flash_of + ND;
   const long long* dev_load = dev_occ + ND;
   const long long* dev_pack = dev_load + ND;
@@ -1616,6 +1691,7 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
   long long* h_idx = h_now + NH;
   long long* h_cand = h_idx + NH;
   long long* h_base = h_cand + NH;    // the cursors as the launch began
+  long long* elect = h_base + NH;     // a sharded CTA's election region
   long long* x_addr = reinterpret_cast<long long*>(sm + L[LM_NEXT]);
   long long* x_aux = x_addr + NH;
   long long* x_rt = x_aux + NH;
@@ -1707,7 +1783,7 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
     }
   }
   if (qos) {
-    for (long long i = tid; i < static_cast<long long>(P) * NH;
+    for (long long i = tid; i < static_cast<long long>(P) * NA;
          i += kThreads) {
       vft[i] = resume ? cw.vft[i] : 0;
       last[i] = resume ? cw.last[i] : kNever;
@@ -1930,132 +2006,312 @@ __device__ void replay_multi(const Args& args, const MArgs& margs,
     };
 
     int cm = -1, cf = -1;       // the chain's media and flash lanes
-    for (long long s = 0; s < n; ++s) {
-      // 1. the host race: the earliest candidate, the lowest host on ties
-      int i = 0;
-      long long issue = h_cand[0];
-      for (int h = 1; h < NH; ++h) {
-        const long long v = h_cand[h];
-        if (v < issue) {
-          issue = v;
-          i = h;
-        }
-      }
-      // 2. its staged access and its tree; its next access loads now
-      c.tree = trees + i * 2 * leaves;
-      c.win = c.tree[1];
-      const long long addr = x_addr[i];
-      const int aux = static_cast<int>(x_aux[i]);
-      const unsigned long long rtp = static_cast<unsigned long long>(x_rt[i]);
-      const long long j = h_idx[i] + 1;
-      const bool more = j < lens[i];
-      // the next access, from the host's window: one that lies past it is
-      // taken at the next launch, which this one's last step precedes (a
-      // launch replays at most `stride` steps)
-      const long long jw = j - h_base[i];
-      long long n_addr = 0, n_aux = 0, n_rt = 0;
-      if (more && jw < stride) {
-        n_addr = ptrs.addrs[i * stride + jw];
-        n_aux = ptrs.aux[i * stride + jw];
-        if (FAULTED) n_rt = ptrs.rt[i * stride + jw];
-      }
-      const bool wr = (aux & 1) != 0;
-      const long long row = aux >> 1;
-      // 3. the route over the shared ports, with the QoS mirror
-      long long t = issue, floor = 0;
-      for (int h = 0; h < FH; ++h) {
-        const long long pi = hop_port[row * FH + h];
-        if (pi < 0) continue;
-        const long long occ_c = hop_occ[row * FH + h];
-        const long long after_h = hop_after[row * FH + h];
-        const long long occ_h =
-            FAULTED ? occ_c * (1 + static_cast<long long>(
-                                       (rtp >> (8 * h)) & 0xffull))
-                    : occ_c;
-        if (qos && qos_on[pi]) {
-          const long long* last_p = last + pi * NH;
-          const long long prev = vft[pi * NH + i];
-          const long long win = occ_c * window;
-          double w_active = 0.0;
-          for (int o = 0; o < NH; ++o) {
-            const long long j_ = host_order[o];
-            if (j_ == i || last_p[j_] + win > t)
-              w_active = __dadd_rn(w_active, qos_w[pi * NH + j_]);
+    if constexpr (CLUSTER) {
+      // the sharded walk: each step an election over the cluster, the
+      // replicated route walk, and the owner's media step
+      for (long long s = 0; s < n; ++s) {
+        // 1. the host race: the earliest candidate, the lowest host on ties
+        int i = 0;
+        long long issue = h_cand[0];
+        for (int h = 1; h < NH; ++h) {
+          const long long v = h_cand[h];
+          if (v < issue) {
+            issue = v;
+            i = h;
           }
-          const long long pace = static_cast<long long>(__dmul_rn(
-              static_cast<double>(occ_c),
-              __ddiv_rn(w_active, qos_w[pi * NH + i])));
-          if (prev > t) {
-            floor = max64(floor, prev + pace);
-            qthr[pi] += 1;
+        }
+        // the election: the CTAs' slots, the least tick, the lowest rank on
+        // ties; the winner's slot brings its row and retries
+        long long* slot = elect + kElect * (s & 1);
+        slot[0] = issue;
+        slot[1] = i;
+        slot[2] = x_aux[i];
+        slot[3] = x_rt[i];
+        cluster_sync();
+        int owner = 0;
+        longlong2 best = make_longlong2(kBig + 1, 0), rec = best;
+        for (int r = 0; r < shards; ++r) {
+          const longlong2* q =
+              reinterpret_cast<const longlong2*>(cluster_map(slot, r));
+          const longlong2 v = q[0], x = q[1];
+          if (v.x < best.x) {
+            best = v;
+            rec = x;
+            owner = r;
           }
-          vft[pi * NH + i] = max64(prev, t) + pace;
-          last[pi * NH + i] = t;
         }
-        const long long st = max64(t, pb[pi]);
-        qacc[pi] += st - t;
-        pb[pi] = st + occ_h;
-        t = st + occ_h + after_h;
-      }
-      t += c.rt_extra;
-      // 4. the target's media lane and its flash lane
-      const int d = static_cast<int>(row_dev[row]);
-      if (d != cm) {
-        if (cm >= 0) save_media(cm);
-        load_media(d);
-        cm = d;
-      }
-      if (kFlash) {
-        const int f = static_cast<int>(flash_of[d]);
-        if (f != cf) {
-          if (cf >= 0) save_flash(cf);
-          load_flash(f);
-          cf = f;
+        issue = best.x;
+        i = static_cast<int>(best.y);
+        const int aux = static_cast<int>(rec.x);
+        const unsigned long long rtp = static_cast<unsigned long long>(rec.y);
+        const bool own = owner == rank;
+        const int gi = owner * NH + i;                 // the host's index
+        // 2. the owner: its tree, its access, its next access loads now
+        long long addr = 0, j = 0, n_addr = 0, n_aux = 0, n_rt = 0;
+        bool more = false;
+        if (own) {
+          c.tree = trees + i * 2 * leaves;
+          c.win = c.tree[1];
+          addr = x_addr[i];
+          j = h_idx[i] + 1;
+          more = j < lens[i];
+          // the next access, from the host's window: one that lies past it
+          // is taken at the next launch, which this one's last step precedes
+          // (a launch replays at most `stride` steps)
+          const long long jw = j - h_base[i];
+          if (more && jw < stride) {
+            n_addr = ptrs.addrs[i * stride + jw];
+            n_aux = ptrs.aux[i * stride + jw];
+            if (FAULTED) n_rt = ptrs.rt[i * stride + jw];
+          }
         }
-      }
-      const bool posted = wr && c.posted_writes;
-      const long long ctr = seen + s + 1;          // stamp counter: 1, 2, ...
-      int flags = 0;
-      long long done;
-      if (KIND == kDram) {
-        done = c.dram_step(t, posted);
-      } else if (KIND == kPmem) {
-        done = c.pmem_step(t, addr / row_bytes, wr, posted, &flags);
-      } else {
-        const long long page = addr / page_bytes;
-        const long long early_ppn = c.l2p[page];
-        if (KIND == kSsdBuf) {
-          done = c.buf_step(t, page, wr, ctr, early_ppn, &flags);
+        const bool wr = (aux & 1) != 0;
+        const long long row = aux >> 1;
+        // 3. the route over the shared ports, with the QoS mirror.  A
+        // sharded replay's row lies in the owner's table: its hops come over
+        // in one round trip into this CTA's row buffer
+        long long* hp = elect + 2 * kElect;
+        long long* ho = hp + kMaxHops;
+        long long* ha = ho + kMaxHops;
+        {
+          const long long* rp = cluster_map(hop_port + row * FH, owner);
+          const long long* ro = cluster_map(hop_occ + row * FH, owner);
+          const long long* ra = cluster_map(hop_after + row * FH, owner);
+          long long v[3][kMaxHops];
+#pragma unroll
+          for (int h = 0; h < kMaxHops; ++h) {
+            v[0][h] = h < FH ? rp[h] : -1;
+            v[1][h] = h < FH ? ro[h] : 0;
+            v[2][h] = h < FH ? ra[h] : 0;
+          }
+#pragma unroll
+          for (int h = 0; h < kMaxHops; ++h) {
+            hp[h] = v[0][h];
+            ho[h] = v[1][h];
+            ha[h] = v[2][h];
+          }
+        }
+        long long t = issue, floor = 0;
+        for (int h = 0; h < FH; ++h) {
+          const long long pi = hp[h];
+          if (pi < 0) continue;
+          const long long occ_c = ho[h];
+          const long long after_h = ha[h];
+          const long long occ_h =
+              FAULTED ? occ_c * (1 + static_cast<long long>(
+                                         (rtp >> (8 * h)) & 0xffull))
+                      : occ_c;
+          if (qos && qos_on[pi]) {
+            const long long* last_p = last + pi * NA;
+            const long long prev = vft[pi * NA + gi];
+            const long long win = occ_c * window;
+            double w_active = 0.0;
+            for (int o = 0; o < NA; ++o) {
+              const long long j_ = host_order[o];
+              if (j_ == gi || last_p[j_] + win > t)
+                w_active = __dadd_rn(w_active, qos_w[pi * NA + j_]);
+            }
+            const long long pace = static_cast<long long>(__dmul_rn(
+                static_cast<double>(occ_c),
+                __ddiv_rn(w_active, qos_w[pi * NA + gi])));
+            if (prev > t) {
+              floor = max64(floor, prev + pace);
+              qthr[pi] += 1;
+            }
+            vft[pi * NA + gi] = max64(prev, t) + pace;
+            last[pi * NA + gi] = t;
+          }
+          const long long st = max64(t, pb[pi]);
+          qacc[pi] += st - t;
+          pb[pi] = st + occ_h;
+          t = st + occ_h + after_h;
+        }
+        t += c.rt_extra;
+        if (!own) continue;
+        // 4. the target's media lane and its flash lane
+        const int d = static_cast<int>(row_dev[row]);
+        if (d != cm) {
+          if (cm >= 0) save_media(cm);
+          load_media(d);
+          cm = d;
+        }
+        if (kFlash) {
+          const int f = static_cast<int>(flash_of[d]);
+          if (f != cf) {
+            if (cf >= 0) save_flash(cf);
+            load_flash(f);
+            cf = f;
+          }
+        }
+        const bool posted = wr && c.posted_writes;
+        const long long ctr = seen + s + 1;          // stamp counter: 1, 2, ...
+        int flags = 0;
+        long long done;
+        if (KIND == kDram) {
+          done = c.dram_step(t, posted);
+        } else if (KIND == kPmem) {
+          done = c.pmem_step(t, addr / row_bytes, wr, posted, &flags);
         } else {
-          const int set = static_cast<int>(assoc ? 0 : page % cap);
-          done = c.cache_step(t, page, set, wr, posted, ctr, early_ppn,
-                              &flags);
+          const long long page = addr / page_bytes;
+          const long long early_ppn = c.l2p[page];
+          if (KIND == kSsdBuf) {
+            done = c.buf_step(t, page, wr, ctr, early_ppn, &flags);
+          } else {
+            const int set = static_cast<int>(assoc ? 0 : page % cap);
+            done = c.cache_step(t, page, set, wr, posted, ctr, early_ppn,
+                                &flags);
+          }
+        }
+        if (qos) done = max64(done, floor);   // the ack floor alone
+        // 5. the step's outputs; the host's commit and next candidate
+        ptrs.who[s] = gi;
+        ptrs.issues[s] = issue;
+        ptrs.dones[s] = done;
+        ptrs.flags[s] = flags;
+        c.lfb_commit(done);
+        const long long now_i = issue + c.issue_ov;
+        h_now[i] = now_i;
+        h_idx[i] = j;
+        h_cand[i] = more ? max64(now_i, c.win.x) : kBig;
+        if (more) {
+          x_addr[i] = n_addr;
+          x_aux[i] = n_aux;
+          x_rt[i] = n_rt;
         }
       }
-      if (qos) done = max64(done, floor);   // the ack floor alone
-      // 5. the step's outputs; the host's commit and next candidate
-      ptrs.who[s] = i;
-      ptrs.issues[s] = issue;
-      ptrs.dones[s] = done;
-      ptrs.flags[s] = flags;
-      c.lfb_commit(done);
-      const long long now_i = issue + c.issue_ov;
-      h_now[i] = now_i;
-      h_idx[i] = j;
-      h_cand[i] = more ? max64(now_i, c.win.x) : kBig;
-      if (more) {
-        x_addr[i] = n_addr;
-        x_aux[i] = n_aux;
-        x_rt[i] = n_rt;
+    } else {
+      for (long long s = 0; s < n; ++s) {
+        // 1. the host race: the earliest candidate, the lowest host on ties
+        int i = 0;
+        long long issue = h_cand[0];
+        for (int h = 1; h < NH; ++h) {
+          const long long v = h_cand[h];
+          if (v < issue) {
+            issue = v;
+            i = h;
+          }
+        }
+        // 2. its staged access and its tree; its next access loads now
+        c.tree = trees + i * 2 * leaves;
+        c.win = c.tree[1];
+        const long long addr = x_addr[i];
+        const int aux = static_cast<int>(x_aux[i]);
+        const unsigned long long rtp = static_cast<unsigned long long>(x_rt[i]);
+        const long long j = h_idx[i] + 1;
+        const bool more = j < lens[i];
+        // the next access, from the host's window: one that lies past it is
+        // taken at the next launch, which this one's last step precedes (a
+        // launch replays at most `stride` steps)
+        const long long jw = j - h_base[i];
+        long long n_addr = 0, n_aux = 0, n_rt = 0;
+        if (more && jw < stride) {
+          n_addr = ptrs.addrs[i * stride + jw];
+          n_aux = ptrs.aux[i * stride + jw];
+          if (FAULTED) n_rt = ptrs.rt[i * stride + jw];
+        }
+        const bool wr = (aux & 1) != 0;
+        const long long row = aux >> 1;
+        // 3. the route over the shared ports, with the QoS mirror
+        long long t = issue, floor = 0;
+        for (int h = 0; h < FH; ++h) {
+          const long long pi = hop_port[row * FH + h];
+          if (pi < 0) continue;
+          const long long occ_c = hop_occ[row * FH + h];
+          const long long after_h = hop_after[row * FH + h];
+          const long long occ_h =
+              FAULTED ? occ_c * (1 + static_cast<long long>(
+                                         (rtp >> (8 * h)) & 0xffull))
+                      : occ_c;
+          if (qos && qos_on[pi]) {
+            const long long* last_p = last + pi * NH;
+            const long long prev = vft[pi * NH + i];
+            const long long win = occ_c * window;
+            double w_active = 0.0;
+            for (int o = 0; o < NH; ++o) {
+              const long long j_ = host_order[o];
+              if (j_ == i || last_p[j_] + win > t)
+                w_active = __dadd_rn(w_active, qos_w[pi * NH + j_]);
+            }
+            const long long pace = static_cast<long long>(__dmul_rn(
+                static_cast<double>(occ_c),
+                __ddiv_rn(w_active, qos_w[pi * NH + i])));
+            if (prev > t) {
+              floor = max64(floor, prev + pace);
+              qthr[pi] += 1;
+            }
+            vft[pi * NH + i] = max64(prev, t) + pace;
+            last[pi * NH + i] = t;
+          }
+          const long long st = max64(t, pb[pi]);
+          qacc[pi] += st - t;
+          pb[pi] = st + occ_h;
+          t = st + occ_h + after_h;
+        }
+        t += c.rt_extra;
+        // 4. the target's media lane and its flash lane
+        const int d = static_cast<int>(row_dev[row]);
+        if (d != cm) {
+          if (cm >= 0) save_media(cm);
+          load_media(d);
+          cm = d;
+        }
+        if (kFlash) {
+          const int f = static_cast<int>(flash_of[d]);
+          if (f != cf) {
+            if (cf >= 0) save_flash(cf);
+            load_flash(f);
+            cf = f;
+          }
+        }
+        const bool posted = wr && c.posted_writes;
+        const long long ctr = seen + s + 1;          // stamp counter: 1, 2, ...
+        int flags = 0;
+        long long done;
+        if (KIND == kDram) {
+          done = c.dram_step(t, posted);
+        } else if (KIND == kPmem) {
+          done = c.pmem_step(t, addr / row_bytes, wr, posted, &flags);
+        } else {
+          const long long page = addr / page_bytes;
+          const long long early_ppn = c.l2p[page];
+          if (KIND == kSsdBuf) {
+            done = c.buf_step(t, page, wr, ctr, early_ppn, &flags);
+          } else {
+            const int set = static_cast<int>(assoc ? 0 : page % cap);
+            done = c.cache_step(t, page, set, wr, posted, ctr, early_ppn,
+                                &flags);
+          }
+        }
+        if (qos) done = max64(done, floor);   // the ack floor alone
+        // 5. the step's outputs; the host's commit and next candidate
+        ptrs.who[s] = i;
+        ptrs.issues[s] = issue;
+        ptrs.dones[s] = done;
+        ptrs.flags[s] = flags;
+        c.lfb_commit(done);
+        const long long now_i = issue + c.issue_ov;
+        h_now[i] = now_i;
+        h_idx[i] = j;
+        h_cand[i] = more ? max64(now_i, c.win.x) : kBig;
+        if (more) {
+          x_addr[i] = n_addr;
+          x_aux[i] = n_aux;
+          x_rt[i] = n_rt;
+        }
       }
     }
     if (cm >= 0) save_media(cm);
     if (kFlash && cf >= 0) save_flash(cf);
+    if constexpr (CLUSTER) cluster_sync();   // no CTA leaves while read
+  } else if constexpr (CLUSTER) {
+    // the rest of the cluster's threads: the walk's barriers, and the last
+    for (long long s = 0; s <= n; ++s) cluster_sync();
   }
   block_sync();
 
-  // epilogue: the totals, the lanes' shared-memory state and scalars out
-  for (int i = tid; i < P; i += kThreads) {
+  // epilogue: the totals (rank 0's replica), the lanes' shared-memory
+  // state and scalars out
+  for (int i = tid; i < P && rank == 0; i += kThreads) {
     ptrs.totals[i] = qacc[i];
     ptrs.totals[P + i] = qthr[i];
   }
@@ -2249,6 +2505,18 @@ __device__ void multi_sweep_lane(const long long* args, const MArgs& m,
                                     sm);
 }
 
+// CTA `cluster_rank()` of a sharded replay: the sharded instance of the
+// multi-host replay on its shard's pointers (every pointer moved by rank
+// shard strides; the step outputs and the totals are the cluster's, stride
+// 0).
+template <int KIND, bool NAND, bool FAULTED>
+__device__ void shard_cta(const Args& a, const MArgs& m, const LayoutM& lay,
+                          const MultiPtrs& ptrs, const Strides& st,
+                          char* sm) {
+  replay_multi<KIND, NAND, FAULTED, true>(
+      a, m, lay, lane_multi_ptrs(ptrs, st, cluster_rank()), sm);
+}
+
 #ifndef REPLAY_SCAN_EMULATE
 // One block of four warps an SM: the minimum of 1 lets ptxas give the
 // walking thread the registers it wants.
@@ -2419,6 +2687,87 @@ int launch_multi_sweep_kind(int lanes, const long long* head,
                         lanes, args, m, lay, p, st, smem_bytes, s);
   }
 }
+
+// The sharded instance: one thread-block cluster of `shards` CTAs, a shard
+// each.
+template <int KIND, bool NAND, bool FAULTED>
+__global__ void __launch_bounds__(kThreads, 1)
+replay_sharded_kernel(const __grid_constant__ Args args,
+                      const __grid_constant__ MArgs margs,
+                      const __grid_constant__ LayoutM lay,
+                      const __grid_constant__ MultiPtrs ptrs,
+                      const __grid_constant__ Strides st) {
+  extern __shared__ __align__(16) char smem[];
+  shard_cta<KIND, NAND, FAULTED>(args, margs, lay, ptrs, st, smem);
+}
+
+// Launch it on `stream` (cudaLaunchKernelEx with the cluster dimension),
+// or, with `fit` given, launch nothing and report in fit[0] the clusters of
+// `shards` CTAs that can be resident at once and in fit[1] the largest
+// cluster the card can launch of this instance at `smem_bytes` a CTA
+// (non-portable sizes, up to 16, allowed).
+template <int KIND, bool NAND, bool FAULTED>
+int launch_sharded(int shards, const Args& a, const MArgs& m,
+                   const LayoutM& lay, const MultiPtrs& p, const Strides& st,
+                   int smem_bytes, cudaStream_t stream, int* fit) {
+  auto* kernel = replay_sharded_kernel<KIND, NAND, FAULTED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(shards, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = shards;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (fit) {
+    err = cudaOccupancyMaxActiveClusters(&fit[0], kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t any = cfg;
+    any.gridDim = dim3(16, 1, 1);
+    any.numAttrs = 0;
+    return static_cast<int>(
+        cudaOccupancyMaxPotentialClusterSize(&fit[1], kernel, &any));
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, a, m, lay, p, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool FAULTED>
+int launch_sharded_kind(int shards, const Args& a, const MArgs& m,
+                        const LayoutM& lay, const MultiPtrs& p,
+                        const Strides& st, int smem_bytes, cudaStream_t s,
+                        int* fit) {
+  const bool nand = a.v[A_NAND] != 0;
+  switch (a.v[A_KIND]) {
+    case kDram:
+      return launch_sharded<kDram, false, FAULTED>(shards, a, m, lay, p, st,
+                                                   smem_bytes, s, fit);
+    case kPmem:
+      return launch_sharded<kPmem, false, FAULTED>(shards, a, m, lay, p, st,
+                                                   smem_bytes, s, fit);
+    case kSsdBuf:
+      return nand ? launch_sharded<kSsdBuf, true, FAULTED>(
+                        shards, a, m, lay, p, st, smem_bytes, s, fit)
+                  : launch_sharded<kSsdBuf, false, FAULTED>(
+                        shards, a, m, lay, p, st, smem_bytes, s, fit);
+    default:
+      return nand ? launch_sharded<kSsdCache, true, FAULTED>(
+                        shards, a, m, lay, p, st, smem_bytes, s, fit)
+                  : launch_sharded<kSsdCache, false, FAULTED>(
+                        shards, a, m, lay, p, st, smem_bytes, s, fit);
+  }
+}
 #endif
 
 }  // namespace
@@ -2558,6 +2907,66 @@ int replay_scan_launch_multi_sweep(
                                              smem_bytes, s)
              : launch_multi_sweep_kind<false>(lanes, head, args, m, lay, p,
                                               st, smem_bytes, s);
+}
+
+// Launch a sharded replay on `stream`: one cluster of `shards` CTAs, CTA r
+// on shard r (every pointer moved by r `strides`).  `args`, `margs`,
+// `layout` and `strides` are host arrays; every other pointer is on the
+// card, MultiPtrs's fields but the carry and the maps (the sharded replay
+// does not stream).
+int replay_scan_launch_sharded(
+    int shards, const long long* args, const long long* margs,
+    const long long* layout, const long long* strides, const long long* mtab,
+    const long long* addrs, const int32_t* aux, const long long* rt,
+    int32_t* who, long long* issues, long long* dones, int32_t* flags,
+    long long* totals, long long* scal, long long* frames, long long* mpage,
+    long long* mready, long long* wtick, int32_t* l2p, int32_t* p2l,
+    int32_t* valid, int32_t* free_q, uint8_t* free_mask, uint8_t* rtr_mask,
+    long long* die_busy, long long* die_prog, long long* chan_busy,
+    char* scratch, int smem_bytes, void* stream) {
+  if (shards < 1 || shards > 16) return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  memcpy(a.v, args, sizeof(a.v));
+  MArgs m;
+  memcpy(m.v, margs, sizeof(m.v));
+  LayoutM lay;
+  memcpy(lay.v, layout, sizeof(lay.v));
+  Strides st;
+  memcpy(st.v, strides, sizeof(st.v));
+  const MultiPtrs p{addrs, aux, rt, mtab, who, issues, dones, flags, totals,
+                    scal, frames, mpage, mready, wtick, l2p, p2l, valid,
+                    free_q, free_mask, rtr_mask, die_busy, die_prog,
+                    chan_busy, scratch, nullptr, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.v[A_FAULT_HOPS]
+             ? launch_sharded_kind<true>(shards, a, m, lay, p, st, smem_bytes,
+                                         s, nullptr)
+             : launch_sharded_kind<false>(shards, a, m, lay, p, st,
+                                          smem_bytes, s, nullptr);
+}
+
+// The sharded instance of `args`' kind at `smem_bytes` a CTA: the clusters
+// of `shards` CTAs the card holds at once (*active) and its largest
+// launchable cluster (*largest).
+int replay_scan_sharded_fit(int shards, const long long* args,
+                            int smem_bytes, int* active, int* largest) {
+  if (shards < 1 || shards > 16) return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  memcpy(a.v, args, sizeof(a.v));
+  int fit[2] = {0, 0};
+  const MArgs m{};
+  const LayoutM lay{};
+  const MultiPtrs p{};
+  const Strides st{};
+  const int err =
+      a.v[A_FAULT_HOPS]
+          ? launch_sharded_kind<true>(shards, a, m, lay, p, st, smem_bytes,
+                                      nullptr, fit)
+          : launch_sharded_kind<false>(shards, a, m, lay, p, st, smem_bytes,
+                                       nullptr, fit);
+  *active = fit[0];
+  *largest = fit[1];
+  return err;
 }
 
 // The argument blocks' and the layouts' lengths, for the wrapper to check.

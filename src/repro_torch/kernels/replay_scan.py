@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.core.replay import stack
 from repro_torch.core.replay.metrics import FLAG_EVENT_BITS
+from repro_torch.core.replay.shard import MAX_SHARDS
 from repro_torch.core.replay.spec import (
     DRAM,
     MAX_ACCESSES,
@@ -98,13 +99,20 @@ MAX_OUTSTANDING = 4096      # LFB slots of the kernel's tournament tree
 CHUNK = 256                 # accesses a staged chunk
 # the multi-host instance's own argument block (`enum MArg`): hosts, media
 # lanes, flash lanes, the trace columns' row stride, QoS on, route or path
-# table rows, and the QoS activity window in serialization quanta
+# table rows, and the QoS activity window in serialization quanta (a
+# sharded replay's hosts, lanes and rows are a shard's)
 MARGS = ("hosts", "lanes", "flash_lanes", "stride", "qos", "rows", "window")
 # its layout (`enum LayM`): the trees' leaves, then byte offsets into
-# shared memory; placed arrays as in LAYOUT, every lane's or none
+# shared memory (a sharded replay's election region follows its hosts'
+# arrays in `host`); placed arrays as in LAYOUT, every lane's or none
 LAYOUT_MULTI = ("leaves", "tree", "host", "next", "pb", "qacc", "qthr",
                 "vft", "last", "mtab", "mscal", "fscal", "mpage", "mready",
                 "wtick", "die_busy", "die_prog", "chan_busy") + PLACED
+# a sharded replay's clusters (`kMaxHops`, `kElect` in the kernel): the
+# hops of a row a CTA loads at once (into a row buffer beside the two
+# election slots) and an election slot's words
+MAX_SHARD_HOPS = 8
+ELECT_WORDS = 4
 MEDIA_SCALARS = 8           # a media lane's scalars in shared memory
 # the carry of a resumable replay (`enum Carry`): its header words, then
 # the LFB slots (K) and, a port each, busy-until, queueing and throttle
@@ -771,9 +779,10 @@ def call_launch(lib, cfg, params, state, addrs, writes, routes, start_tick,
 def multi_tables(cfg, params: Dict) -> Dict[str, np.ndarray]:
     """The multi-host replay's route rows: ``port`` (-1 on a hop the row
     does not have), ``occ``, ``after`` (rows x ``cfg.max_hops``, int64)
-    and ``dev`` (each row's media lane).  A fault-free replay's rows are
-    its ``(host, device, route)`` hop tables flattened (row ``(i * NDEV +
-    d) * K + r``); a faulted one's are its path table."""
+    and ``dev`` (each row's media lane).  The rows are the ``(host,
+    device, route)`` hops that the columns use: a pool's every pair,
+    flattened (row ``(i * NDEV + d) * K + r``), a mount's own device
+    only (row ``i * K + r``); a faulted replay's are its path table."""
     if cfg.fault_hops:
         return {"port": np.asarray(params["path_port"], np.int64),
                 "occ": np.asarray(params["path_occ"], np.int64),
@@ -781,22 +790,31 @@ def multi_tables(cfg, params: Dict) -> Dict[str, np.ndarray]:
                 "dev": np.asarray(params["path_dev"], np.int64)}
     on = np.asarray(params["hop_on"], bool)
     H, D, K, FH = on.shape
-    return {"port": np.where(on, params["hop_port"], -1).reshape(-1, FH)
-            .astype(np.int64),
-            "occ": np.where(on, params["hop_occ"], 0).reshape(-1, FH),
-            "after": np.where(on, params["hop_after"], 0).reshape(-1, FH),
-            "dev": np.broadcast_to(np.arange(D)[None, :, None],
-                                   (H, D, K)).reshape(-1).astype(np.int64)}
+    port = np.where(on, params["hop_port"], -1).astype(np.int64)
+    occ = np.where(on, params["hop_occ"], 0)
+    after = np.where(on, params["hop_after"], 0)
+    dev = np.broadcast_to(np.arange(D)[None, :, None], (H, D, K))
+    if cfg.mounts:
+        diag = np.arange(H)
+        port, occ, after, dev = (x[diag, diag] for x in (port, occ, after,
+                                                         dev))
+    return {"port": port.reshape(-1, FH), "occ": occ.reshape(-1, FH),
+            "after": after.reshape(-1, FH),
+            "dev": dev.reshape(-1).astype(np.int64)}
 
 
 def multi_rows(cfg, devs: torch.Tensor,
                routes: Optional[torch.Tensor]) -> torch.Tensor:
     """Each access's row of :func:`multi_tables` (``(H, L)`` int32): the
-    path id of a faulted replay, else ``(i * NDEV + dev) * K + route``."""
+    path id of a faulted replay, else ``(i * NDEV + dev) * K + route`` (a
+    mount's ``i * K + route``)."""
     if cfg.fault_hops:
         return routes.to(torch.int32)
     host = torch.arange(cfg.num_hosts, device=devs.device)[:, None]
-    rows = (host * cfg.num_devs + devs.long()) * cfg.max_routes
+    if cfg.mounts:
+        rows = host * cfg.max_routes + torch.zeros_like(devs, dtype=torch.long)
+    else:
+        rows = (host * cfg.num_devs + devs.long()) * cfg.max_routes
     if routes is not None:
         rows = rows + routes.long()
     return rows.to(torch.int32)
@@ -1004,12 +1022,43 @@ def replay_multi_plain(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
     after that change nothing its results read), or from ``carry`` over
     windows as :func:`replay_multi` says.  Runs on any device's tensors;
     the card's main path launches the kernel instead."""
+    return _multi_plain(cfg, params, state, addrs, writes, lens, devs,
+                        routes, start_tick, retries, carry, base, None)
+
+
+def replay_sharded_plain(cfg, shards: int, params: Dict, state: Dict,
+                         addrs: torch.Tensor, writes: torch.Tensor,
+                         lens: torch.Tensor, devs: torch.Tensor,
+                         routes: Optional[torch.Tensor] = None, *,
+                         start_tick: int = 0,
+                         retries: Optional[torch.Tensor] = None):
+    """Plain version of :func:`replay_sharded`: :func:`replay_multi_plain`
+    with the JAX package's ``shard.py`` election over ``shards`` blocks of
+    hosts: each shard's least candidate (its lowest host on ties), their
+    gather, the least over the shards (the lowest shard on ties), the
+    winner's row from its shard's own table (:func:`shard_rows`), and the
+    media step of the owner's lane alone.  Runs on any device's tensors;
+    the card's main path launches the kernel instead."""
+    return _multi_plain(cfg, params, state, addrs, writes, lens, devs,
+                        routes, start_tick, retries, None, None, shards)
+
+
+def _multi_plain(cfg, params, state, addrs, writes, lens, devs, routes,
+                 start_tick, retries, carry, base, shards):
+    """The loop of :func:`replay_multi_plain`, or with ``shards`` of
+    :func:`replay_sharded_plain`."""
     from repro_torch.core.fabric.switch import ACTIVE_WINDOW_OCC
     from repro_torch.core.replay.multihost import BIG, NEVER
 
     p = host_params({k: v for k, v in params.items()
                      if not k.startswith(("hop_", "path_"))})
     tab = {k: v.tolist() for k, v in multi_tables(cfg, params).items()}
+    if shards:
+        Hl = cfg.num_hosts // shards
+        per_shard, local, _ = shard_rows(cfg, params, shards)
+        local = local.tolist()
+        per_shard = [{k: v.tolist() for k, v in t.items()}
+                     for t in per_shard]
     a, w = addrs.tolist(), writes.tolist()
     rows = multi_rows(cfg, devs, routes).tolist()
     rt = retries.tolist() if retries is not None else None
@@ -1041,17 +1090,26 @@ def replay_multi_plain(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
     for s in range(seen, seen + steps):
         cand = [max(now[i], min(slots[i])) if idx[i] < n_of[i] else BIG
                 for i in range(H)]
-        i = cand.index(min(cand))                    # ties -> lowest host
+        t_rows = tab
+        if shards:
+            # each shard's least candidate, gathered; the least of them
+            best = [min(range(q * Hl, (q + 1) * Hl), key=cand.__getitem__)
+                    for q in range(shards)]
+            owner = min(range(shards), key=lambda q: cand[best[q]])
+            i = best[owner]
+            t_rows = per_shard[owner]                # the owner's table
+        else:
+            i = cand.index(min(cand))                # ties -> lowest host
         k = slots[i].index(min(slots[i]))            # ties -> lowest slot
         issue = max(now[i], slots[i][k])
         j = idx[i] - b[i]                            # in the host's window
-        r = rows[i][j]
+        r = rows[i][j] if not shards else local[rows[i][j]]
         t, floor = issue, 0
         for h in range(cfg.max_hops):
-            pi = tab["port"][r][h]
+            pi = t_rows["port"][r][h]
             if pi < 0:                   # a hop this row does not have
                 continue
-            occ_c, after_h = tab["occ"][r][h], tab["after"][r][h]
+            occ_c, after_h = t_rows["occ"][r][h], t_rows["after"][r][h]
             occ_h = occ_c * (1 + rt[i][j][h]) if rt is not None else occ_c
             if cfg.qos and p["qos_on"][pi]:
                 # SwitchPort.qos_update at arrival tick t: the weight sum in
@@ -1073,7 +1131,7 @@ def replay_multi_plain(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
             pb[pi] = start + occ_h
             t = pb[pi] + after_h
         t += p["rt_extra"]
-        d = tab["dev"][r]
+        d = t_rows["dev"][r] + (owner * Hl if shards else 0)
         p_med = p
         if kind == DRAM:
             p_med = {"occ": p["dev_occ"][d], "load": p["dev_load"][d],
@@ -1121,13 +1179,17 @@ def replay_multi_plain(cfg, params: Dict, state: Dict, addrs: torch.Tensor,
 
 
 def multi_arg_blocks(cfg, params: Dict, n: int, start_tick: int,
-                     stride: int):
+                     stride: int, shards: Optional[int] = None):
     """The multi-host instance's argument block (:data:`ARGS`: the media
     statics, ``n`` steps, the row tables' hops and the ports) and its own
-    (:data:`MARGS`), int64 each."""
+    (:data:`MARGS`), int64 each; a sharded replay's (``shards``) hosts,
+    lanes and rows are a shard's."""
     from repro_torch.core.fabric.switch import ACTIVE_WINDOW_OCC
 
     tab = multi_tables(cfg, params)
+    S = shards or 1
+    rows = (tab["port"].shape[0] if shards is None
+            else shard_rows(cfg, params, shards)[2])
     scfg = dataclasses.replace(cfg.stack, num_hops=cfg.max_hops,
                                num_ports=cfg.num_ports, num_routes=1,
                                fault_hops=False, qos_ports=())
@@ -1135,10 +1197,10 @@ def multi_arg_blocks(cfg, params: Dict, n: int, start_tick: int,
                             if not k.startswith(("hop_", "path_"))},
                      n, start_tick)
     args[ARGS.index("fault_hops")] = int(cfg.fault_hops)
-    args[ARGS.index("paths")] = tab["port"].shape[0]
-    margs = dict(hosts=cfg.num_hosts, lanes=cfg.num_devs,
-                 flash_lanes=cfg.n_flash, stride=stride, qos=int(cfg.qos),
-                 rows=tab["port"].shape[0], window=ACTIVE_WINDOW_OCC)
+    args[ARGS.index("paths")] = rows
+    margs = dict(hosts=cfg.num_hosts // S, lanes=cfg.num_devs // S,
+                 flash_lanes=cfg.n_flash // S, stride=stride,
+                 qos=int(cfg.qos), rows=rows, window=ACTIVE_WINDOW_OCC)
     return args, np.asarray([margs[k] for k in MARGS], np.int64)
 
 
@@ -1147,40 +1209,59 @@ def kernel_table(cfg, params: Dict, lens) -> np.ndarray:
     hosts in sorted-name order, the lanes' flash lanes and DRAM timing
     (occupancy, load, posted ack), each row's lane, the rows' port, occ
     and after, the per-port QoS mask and the float64 QoS weights (ports x
-    hosts, as their bits)."""
-    H, D, P = cfg.num_hosts, cfg.num_devs, cfg.num_ports
-    tab = multi_tables(cfg, params)
-    zeros = np.zeros(D, np.int64)
+    hosts, as their bits; a mask of 0 and weights of 1 without QoS: a
+    length that depends on QoS reschedules the one-block instance's
+    compiled walk, 2.5% slower on the card, while a shard's table,
+    :func:`shard_tables`, drops them)."""
+    return _table_words(cfg, params, np.asarray(lens, np.int64),
+                        np.asarray(params["flash_of"], np.int64),
+                        np.arange(cfg.num_devs), multi_tables(cfg, params),
+                        qos_words=True)
+
+
+def _table_words(cfg, params: Dict, lens, flash_of, lanes, tab,
+                 qos_words: bool) -> np.ndarray:
+    """:func:`kernel_table`'s words of the hosts of ``lens``, the media
+    lanes ``lanes`` (their flash lanes ``flash_of``) and the rows ``tab``,
+    with the QoS mask and weights under QoS or with ``qos_words``."""
+    H, P = cfg.num_hosts, cfg.num_ports
     order = list(cfg.host_order) if cfg.qos else list(range(H))
-    qos_on = (np.asarray(params["qos_on"], np.int64) if cfg.qos
-              else np.zeros(P, np.int64))
-    qos_w = (np.asarray(params["qos_w"], np.float64) if cfg.qos
-             else np.ones((P, H), np.float64))
-    parts = [np.asarray(lens, np.int64), np.asarray(order, np.int64),
-             np.asarray(params["flash_of"], np.int64)]
-    parts += [np.asarray(params.get(k, zeros), np.int64)
+    parts = [lens, np.asarray(order, np.int64), flash_of]
+    zeros = np.zeros(cfg.num_devs, np.int64)
+    parts += [np.asarray(params.get(k, zeros), np.int64)[lanes]
               for k in ("dev_occ", "dev_load", "dev_pack")]
     parts += [tab["dev"], tab["port"].ravel(), tab["occ"].ravel(),
-              tab["after"].ravel(), qos_on, qos_w.ravel().view(np.int64)]
+              tab["after"].ravel()]
+    if cfg.qos:
+        parts += [np.asarray(params["qos_on"], np.int64),
+                  np.asarray(params["qos_w"], np.float64).ravel().view(
+                      np.int64)]
+    elif qos_words:
+        parts += [np.zeros(P, np.int64),
+                  np.ones(P * H, np.float64).view(np.int64)]
     return np.concatenate(parts)
 
 
-def layout_multi(cfg, params: Dict, budget: int, *,
-                 placed: bool = True) -> Layout:
+def layout_multi(cfg, params: Dict, budget: int, *, placed: bool = True,
+                 shards: Optional[int] = None) -> Layout:
     """The multi-host instance's layout within ``budget`` bytes of shared
     memory (:data:`LAYOUT_MULTI`): the hosts' LFB trees, clocks, cursors,
-    candidates and cursors as the launch began, and their prefetched next accesses, the ports (with
-    the QoS tables, ports x hosts), the kernel's table, every lane's
-    scalars, MSHR and writeback tables and die / channel busy-untils
-    always; then each placed array kind, every lane's at once, in the
-    order of :func:`_placed_bytes`, while it fits (none when ``placed``
-    is False).  Raises ``ValueError`` when the rest alone exceeds
-    ``budget``."""
+    candidates and cursors as the launch began, and their prefetched next
+    accesses, the ports (with the QoS tables, ports x hosts), the kernel's
+    table, every lane's scalars, MSHR and writeback tables and die /
+    channel busy-untils always; then each placed array kind, every lane's
+    at once, in the order of :func:`_placed_bytes`, while it fits (none
+    when ``placed`` is False).  With ``shards`` it is one CTA's layout of
+    the sharded instance: a shard's hosts, lanes and table, the replicated
+    ports and QoS tables, and the election slots.  Raises ``ValueError``
+    when the rest alone exceeds ``budget``."""
     scfg = cfg.stack
     frames = scfg.buf_entries if scfg.kind == SSD_BUF else scfg.cache_frames
     if stack.has_flash(scfg) and frames < 1:
         raise ValueError("the kernel's buffer or cache needs >= 1 frame")
-    H, D, F, P = cfg.num_hosts, cfg.num_devs, cfg.n_flash, cfg.num_ports
+    S = shards or 1
+    H, D, F, P = (cfg.num_hosts // S, cfg.num_devs // S, cfg.n_flash // S,
+                  cfg.num_ports)
     leaves = 1 << (max(1, cfg.outstanding) - 1).bit_length()
     dies = scfg.channels * scfg.dies_per_channel
     words = {"leaves": leaves}
@@ -1192,13 +1273,17 @@ def layout_multi(cfg, params: Dict, budget: int, *,
         return at
 
     words["tree"] = take(H * 2 * leaves * 16)
-    words["host"] = take(4 * 8 * H)
+    words["host"] = take(4 * 8 * H + (
+        8 * (2 * ELECT_WORDS + 3 * MAX_SHARD_HOPS) if shards else 0))
     words["next"] = take(3 * 8 * H)
     for name in ("pb", "qacc", "qthr"):
         words[name] = take(8 * P)
     for name in ("vft", "last"):
-        words[name] = take(8 * P * H if cfg.qos else 0)
-    words["mtab"] = take(8 * kernel_table(cfg, params, np.zeros(H)).size)
+        words[name] = take(8 * P * cfg.num_hosts if cfg.qos else 0)
+    words["mtab"] = take(8 * (
+        kernel_table(cfg, params, np.zeros(H)).size if shards is None
+        else shard_tables(cfg, params, np.zeros(cfg.num_hosts),
+                          shards).shape[1]))
     words["mscal"] = take(8 * MEDIA_SCALARS * D)
     words["fscal"] = take(8 * len(SCALARS) * F)
     nm8, nw8 = (-(-x // 8) * 8 for x in (scfg.mshr_entries, scfg.wb_slots))
@@ -1208,9 +1293,10 @@ def layout_multi(cfg, params: Dict, budget: int, *,
                         ("chan_busy", scfg.channels * F)):
         words[name] = take(8 * count)
     if off > budget:
-        raise ValueError(f"the multi-host replay's tables need {off} B of "
-                         f"shared memory, more than the {budget} B a block "
-                         "may use")
+        what = ("the multi-host replay's tables need" if shards is None
+                else f"a shard of the sharded replay ({S} shards) needs")
+        raise ValueError(f"{what} {off} B of shared memory, more than the "
+                         f"{budget} B a block may use")
     return _place(words, _placed_bytes(scfg, params, lanes=D,
                                        flash_lanes=max(F, 1)),
                   off, budget, placed, LAYOUT_MULTI)
@@ -1335,6 +1421,215 @@ def call_launch_multi(lib, cfg, params, state, addrs, writes, lens, devs,
         _multi_scalars_out(md, fl, scal, D)
         if carry is not None:
             carry.seen += n
+    return err, (who, issues, dones, flags, totals[:P], totals[P:])
+
+
+# ----------------------------------------------------- the sharded replay
+def shard_rows(cfg, params: Dict, shards: int):
+    """Each shard's route rows: ``(per_shard, local, width)``, where
+    ``per_shard[q]`` holds shard ``q``'s rows of :func:`multi_tables`
+    (``port``, ``occ``, ``after``, rows x hops, and ``dev``, its own media
+    lane of the row), in their order, padded to ``width`` rows with rows
+    of no hop; ``local`` maps a row of :func:`multi_tables` to its index
+    in its shard's table.  A row belongs to the shard of its lane (a
+    mount's host)."""
+    tab = multi_tables(cfg, params)
+    Hl = cfg.num_hosts // shards
+    owner = tab["dev"] // Hl
+    local = np.zeros(owner.size, np.int64)
+    picks = [np.flatnonzero(owner == q) for q in range(shards)]
+    width = max(1, max(x.size for x in picks))
+    FH = tab["port"].shape[1]
+    per_shard = []
+    for q, rows in enumerate(picks):
+        local[rows] = np.arange(rows.size)
+        t = {"port": np.full((width, FH), -1, np.int64),
+             "occ": np.zeros((width, FH), np.int64),
+             "after": np.zeros((width, FH), np.int64),
+             "dev": np.zeros(width, np.int64)}
+        for k in ("port", "occ", "after"):
+            t[k][:rows.size] = tab[k][rows]
+        t["dev"][:rows.size] = tab["dev"][rows] - q * Hl
+        per_shard.append(t)
+    return per_shard, local, width
+
+
+def shard_tables(cfg, params: Dict, lens, shards: int) -> np.ndarray:
+    """The sharded instance's tables, a row a shard (``(shards, words)``
+    int64): shard ``q``'s :func:`kernel_table` over its hosts, lanes and
+    rows (:func:`shard_rows`), with the host order and QoS weights of
+    every host."""
+    Hl = cfg.num_hosts // shards
+    per_shard, _, _ = shard_rows(cfg, params, shards)
+    lens = np.asarray(lens, np.int64)
+    flash_of = np.asarray(params["flash_of"], np.int64)
+    return np.stack([
+        _table_words(cfg, params, lens[q * Hl:(q + 1) * Hl],
+                     flash_of[q * Hl:(q + 1) * Hl]
+                     - (q * Hl if cfg.n_flash else 0),
+                     np.arange(q * Hl, (q + 1) * Hl), per_shard[q],
+                     qos_words=False)
+        for q in range(shards)])
+
+
+def check_shardable(cfg, params: Dict, shards: int) -> None:
+    """The shapes the sharded instance takes: ``shards`` in [1,
+    :data:`MAX_SHARDS`] dividing the hosts, a mounted device a host (a
+    lane each), a private flash lane a host in host order when there is
+    flash, and rows of at most :data:`MAX_SHARD_HOPS` hops.  Raises
+    ``ValueError`` otherwise."""
+    H = cfg.num_hosts
+    if not 1 <= shards <= MAX_SHARDS or H % shards:
+        raise ValueError(f"shards must divide the {H} hosts and lie in [1, "
+                         f"{MAX_SHARDS}], got {shards}")
+    if not cfg.mounts or cfg.num_devs != H:
+        raise ValueError("a sharded replay takes per-host fabric mounts, "
+                         "one device a host")
+    if cfg.n_flash and not np.array_equal(
+            np.asarray(params["flash_of"]), np.arange(H)):
+        raise ValueError("a sharded replay takes a private flash lane a "
+                         "host, in host order")
+    if cfg.max_hops > MAX_SHARD_HOPS:
+        raise ValueError(f"a sharded replay's rows take at most "
+                         f"{MAX_SHARD_HOPS} hops, got {cfg.max_hops}")
+
+
+def replay_sharded(cfg, shards: int, params: Dict, state: Dict,
+                   addrs: torch.Tensor, writes: torch.Tensor,
+                   lens: torch.Tensor, devs: torch.Tensor,
+                   routes: Optional[torch.Tensor] = None, *,
+                   start_tick: int = 0,
+                   retries: Optional[torch.Tensor] = None):
+    """:func:`replay_multi` with the hosts split over ``shards`` blocks of
+    ``H / shards`` hosts (host ``i`` in block ``i // (H / shards)``), as
+    the JAX package's ``ShardedMultiHostReplay`` splits them over its
+    devices: on the card one launch of the kernel's sharded instance, a
+    thread-block cluster of ``shards`` CTAs, a shard each; on the CPU
+    :func:`replay_sharded_plain`.  Takes and returns what
+    :func:`replay_multi` does (no carry: a sharded replay is one shot) and
+    equals it step for step.  Raises ``ValueError`` where it does and on
+    shapes :func:`check_shardable` refuses, and ``ReplayUnsupported`` when
+    the card cannot hold a cluster of ``shards`` CTAs of the layout."""
+    check_shardable(cfg, params, shards)
+    n = _check_multi(cfg, params, state, addrs, writes, lens, devs, routes,
+                     retries)
+    if addrs.device.type == "cpu":
+        return replay_sharded_plain(cfg, shards, params, state, addrs,
+                                    writes, lens, devs, routes,
+                                    start_tick=start_tick, retries=retries)
+    return _launch_sharded(cfg, shards, params, state, addrs, writes, lens,
+                           devs, routes, retries, start_tick, n)
+
+
+def sharded_fit(lib, cfg, params: Dict, shards: int, smem_bytes: int):
+    """``(active, largest)`` on the current card: the clusters of
+    ``shards`` CTAs of ``smem_bytes`` each of the sharded instance that
+    can be resident at once, and its largest launchable cluster."""
+    args, _ = multi_arg_blocks(cfg, params, 1, 0, 1, shards=shards)
+    active, largest = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(lib, lib.replay_scan_sharded_fit(
+        shards, args.ctypes.data, smem_bytes, ctypes.byref(active),
+        ctypes.byref(largest)), "cudaOccupancyMaxActiveClusters")
+    return active.value, largest.value
+
+
+def _launch_sharded(cfg, shards, params, state, addrs, writes, lens, devs,
+                    routes, retries, start_tick, n):
+    """Launch the sharded instance on the tensors' card, on PyTorch's
+    current stream, after checking that its cluster can be resident."""
+    from repro_torch.core.replay.spec import ReplayUnsupported
+    from repro_torch.kernels import _build
+
+    dev = addrs.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if cfg.outstanding > MAX_OUTSTANDING:
+        raise ValueError(f"outstanding={cfg.outstanding} exceeds the "
+                         f"kernel's {MAX_OUTSTANDING} LFB slots")
+    lib = _build.library("replay_scan")
+    _check_lib(lib)
+    with torch.cuda.device(dev):
+        lay = layout_multi(cfg, params,
+                           _smem_optin(lib, torch.cuda.current_device()),
+                           shards=shards)
+        active, largest = sharded_fit(lib, cfg, params, shards,
+                                      lay.smem_bytes)
+        if active < 1 or shards > largest:
+            raise ReplayUnsupported(
+                f"a cluster of {shards} CTAs of {lay.smem_bytes} B of shared"
+                f" memory each cannot be resident on this card (its largest"
+                f" is {largest} CTAs); use fewer shards")
+        err, out = call_launch_sharded(
+            lib, cfg, shards, params, state, addrs, writes, lens, devs,
+            routes, start_tick, lay,
+            torch.cuda.current_stream(dev).cuda_stream, retries=retries, n=n)
+        _raise_on(lib, err, "replay_scan (sharded) kernel launch")
+        LAUNCHES["replay_scan"] += 1
+    return out
+
+
+def call_launch_sharded(lib, cfg, shards, params, state, addrs, writes,
+                        lens, devs, routes, start_tick, lay: Layout, stream,
+                        retries=None, n=None):
+    """Pack a sharded replay's argument blocks, its tables (a row a
+    shard), its trace columns (each access's row in its shard's table),
+    layout and shard strides, call ``lib.replay_scan_launch_sharded`` on
+    them and the tensors' device, and copy the lanes' scalars back.
+    Returns the call's return code and ``(who, issues, dones, flags, qacc,
+    qthr)``.  :func:`_launch_sharded` calls it with the CUDA library; a
+    host build of the same source (``REPLAY_SCAN_EMULATE``) takes CPU
+    tensors."""
+    dev = addrs.device
+    H, L = addrs.shape
+    S = shards
+    if n is None:
+        n = int(lens.sum())
+    P, D, F = cfg.num_ports, cfg.num_devs, cfg.n_flash
+    Hl, Fl = H // S, F // S
+    md, fl = state["media"], state["flash"] or {}
+    lens_np = lens.cpu().numpy()
+    args, margs = multi_arg_blocks(cfg, params, n, start_tick, L, shards=S)
+    words = np.asarray(lay.words, np.int64)
+    _, local, _ = shard_rows(cfg, params, S)
+    rows = torch.from_numpy(local).to(dev)[
+        multi_rows(cfg, devs, routes).long()]
+    t = {"addrs": addrs.contiguous(),
+         "aux": ((rows << 1) | writes.long()).to(torch.int32).contiguous(),
+         "rt": None if retries is None else _packed_retries(cfg, retries),
+         "mtab": torch.from_numpy(shard_tables(cfg, params, lens_np,
+                                               S)).to(dev),
+         "scratch": torch.empty((S, max(16, lay.scratch_bytes)),
+                                dtype=torch.uint8, device=dev)}
+    # the lanes' scalars a shard: its media lanes' rows, then its flash
+    # lanes'
+    NS = len(SCALARS)
+    flat = _multi_scalars_in(md, fl, (), D, F, dev)
+    scal = t["scal"] = torch.cat(
+        [flat[:D].reshape(S, Hl, NS), flat[D:].reshape(S, Fl, NS)], 1
+    ).contiguous()
+    t.update({k: md.get(k) for k in MEDIA_ARRAYS})
+    t.update({k: fl.get(k) for k in FLASH_ARRAYS})
+    strides = _lane_strides(MULTI_SWEEP_PTRS, t, S)
+    who = torch.empty(n, dtype=torch.int32, device=dev)
+    issues = torch.empty(n, dtype=torch.int64, device=dev)
+    dones = torch.empty(n, dtype=torch.int64, device=dev)
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    totals = torch.empty(2 * P, dtype=torch.int64, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = lib.replay_scan_launch_sharded(
+        S, args.ctypes.data, margs.ctypes.data, words.ctypes.data,
+        strides.ctypes.data, t["mtab"].data_ptr(), t["addrs"].data_ptr(),
+        t["aux"].data_ptr(), ptr(t["rt"]), who.data_ptr(), issues.data_ptr(),
+        dones.data_ptr(), flags.data_ptr(), totals.data_ptr(),
+        scal.data_ptr(), *(ptr(md.get(k)) for k in MEDIA_ARRAYS),
+        *(ptr(fl.get(k)) for k in FLASH_ARRAYS), t["scratch"].data_ptr(),
+        lay.smem_bytes, stream)
+    if err == 0:
+        _multi_scalars_out(md, fl, torch.cat(
+            [scal[:, :Hl].reshape(D, NS), scal[:, Hl:].reshape(F, NS)]), D)
     return err, (who, issues, dones, flags, totals[:P], totals[P:])
 
 

@@ -726,3 +726,112 @@ def test_scan_row_carries_the_sweeps(smoke):
     assert "timing" not in row["sweeps"]["cache"]
     assert row["sweep_kernels"] == ["replay_sweep_kernel",
                                     "replay_multi_sweep_kernel"]
+
+
+# --------------------------------------------------------------- the fleet
+def test_fleet_phase_runs_after_the_sweep_phase(smoke):
+    import inspect
+
+    src = inspect.getsource(smoke.main)
+    assert (src.index("sweep_phase(") < src.index("fleet_phase(")
+            < src.index('{"kernels"') < src.index("fleet_row(fleet)"))
+    phase = inspect.getsource(smoke.fleet_phase)
+    # the entry points a user calls, on the card
+    for call in ("ShardedMultiHostReplay(", ".run_arrays(",
+                 "host_count_sweep(", "sharded=True", "host_trace_torch"):
+        assert call in phase or call in inspect.getsource(
+            smoke.fleet_columns), call
+    assert "reset_launches()" in phase
+
+
+def test_the_fleet_phase_takes_the_benchmarks_oracle(smoke):
+    import json
+
+    oracle = json.loads((REPO / "results" / "BENCH_replay.json").read_text())[
+        "fleet"]
+    assert oracle["fabric"]["num_pods"] == smoke.FLEET_PODS
+    assert (oracle["elapsed_ticks"], oracle["sum_latency_ticks"],
+            oracle["p50_ticks"], oracle["p99_ticks"]) == (
+        102596666, 52350937828, 655359, 655359)
+    assert smoke.FLEET_SHARDS == (1, 2, 4, 8, 16)
+    assert smoke.FLEET_PIN_SHARDS == (1, 2, 4, 8)
+    assert max(smoke.FLEET_SWEEP) == oracle["hosts"]
+    path, line = smoke.FLEET_REPLACES.split(":")
+    src = (REPO / path).read_text().splitlines()
+    assert src[int(line) - 1].startswith("def _body")
+
+
+def test_the_fleet_mounts_are_the_benchmarks(smoke):
+    tgts = smoke.fleet_mounts(64, smoke.FLEET_PODS)
+    fab = tgts[0].fabric
+    assert len(tgts) == 64 and len(fab.ports) == 320
+    assert [t.host for t in tgts[:2]] == ["h0", "h1"]
+    big = smoke.fleet_mounts(smoke.FLEET_BIG["hosts"],
+                             smoke.FLEET_BIG["pods"])
+    assert len(big[0].fabric.ports) == 2176
+
+
+def test_the_fleets_big_case_refuses_one_cta_and_fits_its_shards(smoke):
+    from repro_torch.core.replay import MultiHostReplay
+    from repro_torch.kernels import replay_scan as rs
+
+    big = smoke.FLEET_BIG
+    a = np.zeros((big["hosts"], 2), np.int64)
+    prep = MultiHostReplay(smoke.fleet_mounts(big["hosts"], big["pods"]),
+                           outstanding=8,
+                           torch_device="cpu").prepare_arrays(a, a > 0)
+    with pytest.raises(ValueError, match="B of shared memory"):
+        rs.layout_multi(prep.cfg, prep.params, 232448)
+    for shards in smoke.FLEET_BIG_SHARDS:
+        assert rs.layout_multi(prep.cfg, prep.params, 232448,
+                               shards=shards).smem_bytes <= 232448
+
+
+def test_ptxas_registers_reads_each_instance(smoke):
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '_Z{k}replay_sharded_"
+        f"kernelILi{k}E' for 'sm_90a'\nptxas info    : Function properties "
+        f"for _Z{k}replay_sharded_kernelILi{k}E\n    0 bytes stack frame, 0 "
+        f"bytes spill stores, 0 bytes spill loads\nptxas info    : Used "
+        f"{200 + k} registers, used 1 barriers" for k in range(3))
+    assert smoke.ptxas_registers(log, "replay_sharded_kernel") == [
+        200, 201, 202]
+    assert smoke.ptxas_spills(log, "replay_sharded_kernel") == 0
+    assert smoke.ptxas_registers(log, "replay_multi_kernel") == []
+
+
+def test_same_results_sees_latencies_fields_and_metrics(smoke):
+    from repro_torch.core.replay import MetricsSpec, MultiHostReplay
+    from torch_scenarios import shard_case
+
+    def run():
+        tgts, trs = shard_case("shard/multipod-8")
+        return MultiHostReplay(tgts, outstanding=8, metrics=MetricsSpec(),
+                               torch_device="cpu").run(trs)
+
+    a, b = run(), run()
+    assert smoke.same_results(a, b)
+    b.per_host[3].latency_ticks[5] += 1
+    assert not smoke.same_results(a, b)
+
+
+def test_fleet_row_carries_the_contract_keys(smoke):
+    run = {"launches": 1, "ms": 40.0, "timing": "profiler", "wall_s": 0.4,
+           "steps": 102400, "shards": 8, "bound_ms": 0.01,
+           "bound_by": "operations", "serial_chain_ms": 10.0,
+           "bytes_per_step": 36}
+    fleet = {"one-cta": dict(run, shards=None), "D1": dict(run, shards=1),
+             "D8": run, "x512-D8": dict(run, steps=32768),
+             "sweep": {"launches": 3, "wall_s": 1.0},
+             "twin": {"plain_ms": 90.0, "steps": 1200, "launches": 0},
+             "registers": [240, 250]}
+    row = smoke.fleet_row(fleet)
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in row, key
+    assert row["launches"] == 1 + 1 + 1 + 3   # the one-CTA instance apart
+    assert row["library_ms"] is None and row["route"] == "cuda"
+    assert row["ms"] == 40.0 and row["plain_ms"] == 90.0
+    assert set(row["ms_by_case"]) == {"one-cta", "D1", "D8", "x512-D8"}
+    assert (REPO / row["source"]).exists()

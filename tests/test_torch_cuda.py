@@ -713,6 +713,123 @@ def test_replay_multi_equals_its_twin(card, name, placed):
     _multi_both(make_multi_targets(name), multi_traces(name), placed)
 
 
+# (case, shards) of the sharded instance: DRAM mounts at every portable
+# cluster size and at 16, cached CXL-SSD with a private flash a host, QoS +
+# ECMP, and the faulted spine-leaf
+SHARDED = ([("shard/multipod-8", d) for d in (1, 2, 4, 8)]
+           + [("shard/multipod-16", 16), ("shard/cxl-ssd-cache-4", 2),
+              ("shard/cxl-ssd-cache-4", 4), ("shard/qos-8", 4),
+              ("shard/qos-8", 8), ("faults-linkretry@spine_leaf_x4", 2),
+              ("faults-linkretry@spine_leaf_x4", 4),
+              ("shard/nand-2", 2), ("shard/transport-4", 4)])
+
+
+@pytest.mark.parametrize("placed", [None, False])
+@pytest.mark.parametrize("name,shards", SHARDED)
+def test_replay_sharded_equals_its_twins(card, name, shards, placed):
+    """The sharded instance (one cluster of ``shards`` CTAs) against its
+    plain twin on the CPU and the one-CTA instance on the card: every
+    output and every final state tensor, from fresh lanes."""
+    from torch_scenarios import shard_case
+    from repro_torch.core.replay import stack
+    from repro_torch.core.replay.metrics import MetricsSpec
+    from repro_torch.core.replay.multihost import MultiHostReplay
+    from repro_torch.core.replay.spec import ReplayUnsupported
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay_scan as rs
+
+    targets, traces = shard_case(name)
+    prep = MultiHostReplay(targets, outstanding=8,
+                           metrics=MetricsSpec()).prepare(traces)
+    cfg = prep.cfg
+
+    def t(x, dev="cpu"):
+        return None if x is None else torch.from_numpy(x).to(dev)
+
+    cols = (prep.addrs, prep.writes, prep.lens, prep.devs, prep.routes)
+    ins, gins = [t(x) for x in cols], [t(x, "cuda") for x in cols]
+    rt, grt = t(prep.retries), t(prep.retries, "cuda")
+    states = [stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, d)
+              for d in ("cpu", "cuda", "cuda")]
+    want = rs.replay_sharded(cfg, shards, prep.params, states[0], *ins,
+                             retries=rt)
+    one = rs.replay_multi(cfg, prep.params, states[1], *gins, retries=grt)
+    lib = _build.library("replay_scan")
+    lay = rs.layout_multi(cfg, prep.params, rs._smem_optin(lib, 0),
+                          shards=shards, placed=placed is None)
+    active, largest = rs.sharded_fit(lib, cfg, prep.params, shards,
+                                     lay.smem_bytes)
+    if shards > largest or active < 1:
+        with pytest.raises(ReplayUnsupported, match=f"{shards} CTAs"):
+            rs.replay_sharded(cfg, shards, prep.params, states[2], *gins,
+                              retries=grt)
+        pytest.skip(f"a cluster of {shards} CTAs is not launchable here")
+    if placed is None:
+        before = rs.LAUNCHES["replay_scan"]
+        got = rs.replay_sharded(cfg, shards, prep.params, states[2], *gins,
+                                retries=grt)
+        assert rs.LAUNCHES["replay_scan"] == before + 1
+    else:
+        assert lay.in_smem == ()
+        err, got = rs.call_launch_sharded(
+            lib, cfg, shards, prep.params, states[2], *gins, 0, lay,
+            torch.cuda.current_stream().cuda_stream, retries=grt)
+        assert err == 0
+    torch.cuda.synchronize()
+    for g, o, x in zip(got, one, want):
+        assert torch.equal(g.cpu(), x) and torch.equal(o.cpu(), x)
+    for part in ("media", "flash"):
+        for k, x in (states[0][part] or {}).items():
+            assert torch.equal(states[2][part][k].cpu(), x), (part, k)
+            assert torch.equal(states[1][part][k].cpu(), x), (part, k)
+
+
+@pytest.mark.parametrize("shards", [None, 1, 4, 8, 16])
+def test_the_fleet_oracle_on_the_card(card, shards):
+    """The results/BENCH_replay.json fleet (64 hosts x 1600 zipfian
+    accesses on a 4 x 16 multi_pod, columns built on the card) through the
+    sharded lane, and the repaired one-CTA lane (``None``)."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.replay import (MetricsSpec, MultiHostReplay,
+                                         ShardedMultiHostReplay)
+    from repro_torch.data import WorkloadSpec, host_trace_np, host_trace_torch
+    from repro_torch.kernels import replay_scan as rs
+
+    root = Path(__file__).resolve().parents[1]
+    want = json.loads((root / "results" / "BENCH_replay.json").read_text())[
+        "fleet"]
+    w = want["workload"]
+    spec = WorkloadSpec(w["kind"], num_pages=w["num_pages"],
+                        zipf_s=w["zipf_s"], write_frac=w["write_frac"])
+    cols = [host_trace_torch(spec, w["seed"], h, want["accesses_per_host"])
+            for h in range(want["hosts"])]
+    for h, (a, wr) in enumerate(cols):
+        na, nw = host_trace_np(spec, w["seed"], h, want["accesses_per_host"])
+        assert np.array_equal(a.cpu().numpy(), na)
+        assert np.array_equal(wr.cpu().numpy(), nw)
+    addrs = torch.stack([a for a, _ in cols]).cpu().numpy()
+    writes = torch.stack([x for _, x in cols]).cpu().numpy()
+    fab = Fabric.build("multi_pod", forward_ns=10.0, rt_extra_ns=4.0,
+                       num_pods=4, hosts_per_pod=16)
+    tgts = [fab.mount(f"h{i}", f"d{i}", make_device("dram"))
+            for i in range(64)]
+    eng = (MultiHostReplay(tgts, outstanding=8, metrics=MetricsSpec())
+           if shards is None else ShardedMultiHostReplay(
+               tgts, outstanding=8, metrics=MetricsSpec(),
+               devices=range(shards)))
+    before = rs.LAUNCHES["replay_scan"]
+    res = eng.run_arrays(addrs, writes)
+    assert rs.LAUNCHES["replay_scan"] == before + 1
+    assert res.elapsed_ticks == want["elapsed_ticks"]
+    assert sum(r.sum_latency_ticks for r in res.per_host) == \
+        want["sum_latency_ticks"]
+    assert res.metrics.percentile_ticks(50) == want["p50_ticks"]
+    assert res.metrics.percentile_ticks(99) == want["p99_ticks"]
+
+
 def test_multi_host_lane_on_the_card_equals_the_python_lane(card):
     """Three Table I devices privately mounted, 3 x 4000 accesses: one
     launch, every host's latencies, the result and the metrics equal the

@@ -43,7 +43,17 @@ under NAND faults; host-count lanes on multi-host scenarios (QoS + ECMP,
 cached mounts, shared flash under NAND faults), an empty lane among
 them; and fault-seed lanes whose seeds take different path sets (one
 union path table).  ASan aborts on any index the kernel forms outside
-its array, every per-lane offset included.  The library only loads into a process that
+its array, every per-lane offset included.
+
+The sharded instance (``replay_scan.call_launch_sharded``): a
+thread-block cluster emulated as its D blocks at once (D x 128 threads,
+the cluster barrier a barrier of all of them, distributed shared memory a
+pointer into the other block's buffer), equal to its twin
+(``replay_sharded_plain``) and to the one-CTA twin (``replay_multi_plain``)
+on every output and every final state tensor, in both layouts: multi-pod
+DRAM mounts at D = 1, 2, 4, 8, QoS + ECMP, PMEM, cached CXL-SSD with
+private flash, NAND and transport faults, the faulted spine-leaf golden
+scenario and the golden fleet pin at D = 8.  The library only loads into a process that
 starts with ASan's runtime, so the cases run in one child process for
 this file.
 
@@ -78,7 +88,7 @@ from repro_torch.kernels import replay_scan as rs
 from torch_scenarios import (DEVICES, FAULT_CASES, FAULT_SCENARIOS,
                              fault_case, gc_ssd_cfg, make_multi_targets,
                              make_target, multi_traces, scenario_outstanding,
-                             scenario_trace)
+                             scenario_trace, shard_case)
 
 REPO = Path(__file__).resolve().parents[1]
 SHIM = REPO / "tests" / "torch_replay_scan_emulate.cpp"
@@ -676,10 +686,67 @@ def run_multi_sweep_case(lib, name: str) -> dict:
             **extra}
 
 
+# ------------------------------------------------------ the sharded instance
+# (case, shards): multi-pod DRAM mounts at every portable cluster size, then
+# the media, QoS and faults the sharded lane certifies, in both layouts
+SHARDED = [("shard/multipod-8", d) for d in (1, 2, 4, 8)] + [
+    ("shard/qos-8", 4), ("shard/pmem-4", 2), ("shard/cxl-ssd-cache-4", 2),
+    ("shard/cxl-ssd-cache-4", 4), ("shard/nand-2", 2),
+    ("shard/transport-4", 4), ("faults-linkretry@spine_leaf_x4", 2),
+    ("fleet-zipf@multipod_2x4", 8)]
+SHARDED_CASES = [f"{name}{lay}@{d}" for name, d in SHARDED
+                 for lay in ("", "/global")]
+
+
+def run_sharded_case(lib, case: str) -> dict:
+    """The emulated sharded instance, its twin and the one-CTA twin on
+    ``case`` (``name[/global]@shards``), each from fresh lanes: the
+    outputs and state tensors that differ, and what the case exercised."""
+    name, shards = case.rsplit("@", 1)
+    shards = int(shards)
+    base = name.removesuffix("/global")
+    targets, traces = shard_case(base)
+    prep = MultiHostReplay(targets, outstanding=8, metrics=MetricsSpec(),
+                           torch_device="cpu").prepare(traces)
+    cfg = prep.cfg
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+
+    ins = [t(x) for x in (prep.addrs, prep.writes, prep.lens, prep.devs,
+                          prep.routes)]
+    one_state, twin_state, got_state = (
+        stack.init_lanes(cfg.stack, cfg.num_devs, cfg.n_flash, "cpu")
+        for _ in range(3))
+    one = rs.replay_multi_plain(cfg, prep.params, one_state, *ins,
+                                retries=t(prep.retries))
+    twin = rs.replay_sharded_plain(cfg, shards, prep.params, twin_state,
+                                   *ins, retries=t(prep.retries))
+    lay = rs.layout_multi(cfg, prep.params, H100_SMEM_OPTIN,
+                          placed=base == name, shards=shards)
+    err, got = rs.call_launch_sharded(lib, cfg, shards, prep.params,
+                                      got_state, *ins, 0, lay, None,
+                                      retries=t(prep.retries))
+    names = ("who", "issues", "dones", "flags", "qacc", "qthr")
+    differ = [f"{who}.{k}" for who, outs in (("kernel", got),
+                                             ("twin", twin))
+              for k, g, x in zip(names, outs, one) if not torch.equal(g, x)]
+    for part in ("media", "flash"):
+        differ += [f"{part}.{k}" for k, x in (one_state[part] or {}).items()
+                   if not torch.equal(got_state[part][k], x)
+                   or not torch.equal(twin_state[part][k], x)]
+    rr, _ = stack.fault_counters(one_state)
+    return {"err": err, "differ": differ, "steps": int(one[0].numel()),
+            "hits": int((one[3] & 1).sum()), "qthr": int(one[5].sum()),
+            "read_retries": rr, "in_smem": list(lay.in_smem),
+            "hosts": cfg.num_hosts, "faulted": bool(cfg.fault_hops)}
+
+
 def _child(lib_path: str, out_path: str) -> None:
     lib = ctypes.CDLL(lib_path)
     for fn in ("replay_scan_launch", "replay_scan_launch_multi",
                "replay_scan_launch_sweep", "replay_scan_launch_multi_sweep",
+               "replay_scan_launch_sharded",
                "replay_scan_num_args", "replay_scan_layout_words",
                "replay_scan_num_margs", "replay_scan_layout_multi_words",
                "replay_scan_num_ptrs"):
@@ -693,6 +760,8 @@ def _child(lib_path: str, out_path: str) -> None:
                       for name in SWEEP_CASES},
            "multi_sweeps": {name: run_multi_sweep_case(lib, name)
                             for name in MULTI_SWEEP_CASES},
+           "sharded": {name: run_sharded_case(lib, name)
+                       for name in SHARDED_CASES},
            "num_margs": lib.replay_scan_num_margs(), "margs": len(rs.MARGS),
            "layout_multi": [lib.replay_scan_layout_multi_words(),
                             len(rs.LAYOUT_MULTI)],
@@ -887,6 +956,26 @@ def test_multi_sweep_cases_exercise_their_lanes(emulated):
     # the seeds' path sets differ: the union table holds more paths than
     # any one lane takes
     assert seeds["union_rows"] > max(seeds["lane_rows"]), seeds
+
+
+@pytest.mark.parametrize("name", SHARDED_CASES)
+def test_sharded_instance_equals_its_twins(emulated, name):
+    got = emulated["sharded"][name]
+    assert got["err"] == 0
+    assert got["differ"] == [], f"{name}: {got['differ']} differ"
+    if "/global@" in name:
+        assert got["in_smem"] == [], got
+
+
+def test_sharded_cases_exercise_their_paths(emulated):
+    got = emulated["sharded"]
+    assert got["shard/qos-8@4"]["qthr"] > 0
+    assert got["shard/cxl-ssd-cache-4@4"]["hits"] > 0
+    assert got["shard/cxl-ssd-cache-4@4"]["in_smem"], got
+    assert got["shard/nand-2@2"]["read_retries"] > 0
+    assert got["shard/transport-4@4"]["faulted"]
+    assert got["faults-linkretry@spine_leaf_x4@2"]["faulted"]
+    assert got["fleet-zipf@multipod_2x4@8"]["steps"] == 8 * 160
 
 
 if __name__ == "__main__":

@@ -31,14 +31,13 @@ __all__ = ["gc_ssd_cfg", "make_multi_targets", "make_target", "mk_device",
            "multi_traces", "scenario_trace"]
 
 # the scenarios of the golden fixture the port's python lane holds here
-# (the five @direct ones are held by test_torch_devices.py; the fleet
-# scenario needs data/workloads.py, ROADMAP Queue A item 13)
+# (the five @direct ones are held by test_torch_devices.py)
 FABRIC_SCENARIOS = [f"{d}@fabric" for d in sc.DEVICES] + ["dram-qos@fabric"]
 MULTI_SCENARIOS = ["multihost-qos-ecmp"] + sorted(sc.MULTI_SSD_HOSTS)
 STREAM_SCENARIOS = ["dram@stream", "pmem@stream", "ssd-gc@direct"]
 FAULT_SCENARIOS = list(sc.FAULT_SCENARIOS) + sorted(sc.MULTI_FAULT_HOSTS)
 PINNED = STREAM_SCENARIOS + FABRIC_SCENARIOS + MULTI_SCENARIOS \
-    + FAULT_SCENARIOS
+    + FAULT_SCENARIOS + [sc.FLEET_SCENARIO]
 
 
 class ServiceTap:
@@ -179,7 +178,8 @@ def test_port_traces_equal_the_scenarios(name):
 
 @pytest.mark.parametrize("name", [
     "CACHE_KW", "DEVICES", "N_ACCESSES", "OUTSTANDING", "STREAM_OUTSTANDING",
-    "MULTI", "MULTI_SSD_HOSTS", "FAULT_SCENARIOS", "MULTI_FAULT_HOSTS"])
+    "MULTI", "MULTI_SSD_HOSTS", "FAULT_SCENARIOS", "MULTI_FAULT_HOSTS",
+    "FLEET_SCENARIO", "FLEET_GOLDEN_HOSTS"])
 def test_builder_constants_equal_the_fixtures(name):
     assert getattr(ts, name) == getattr(sc, name)
 
@@ -192,10 +192,12 @@ def test_builder_helpers_agree_with_the_fixtures():
 
 
 def test_the_pinned_list_is_the_fixture_less_direct_and_fleet():
+    # every pin but the five @direct ones, the fleet's included
     fixture = set(sc.load_fixture()["scenarios"])
     direct = {f"{d}@direct" for d in sc.DEVICES}
-    assert set(PINNED) == fixture - direct - {sc.FLEET_SCENARIO}
-    assert len(PINNED) == 18 and len(set(PINNED)) == 18
+    assert set(PINNED) == fixture - direct
+    assert sc.FLEET_SCENARIO in PINNED
+    assert len(PINNED) == 19 and len(set(PINNED)) == 19
 
 
 @pytest.mark.parametrize("name", FAULT_SCENARIOS)

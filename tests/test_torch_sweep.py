@@ -580,8 +580,28 @@ def test_a_fault_free_replay_has_no_fault_stats():
     assert eng.fault_stats is None
 
 
-def test_host_count_sweep_refuses_the_sharded_lane_for_now():
-    with pytest.raises(ReplayUnsupported, match="ShardedMultiHostReplay"):
+@pytest.mark.parametrize("devices", [None, range(2)])
+def test_host_count_sweep_sharded_equals_the_unsharded_sweep(devices):
+    # faulted mounts (CRC retries and a down window), a launch a host count
+    # through the sharded lane; the reference's sharded sweep is held in
+    # test_torch_shard.py
+    info = {}
+    got = P.host_count_sweep(seed_targets(P, 2), SEED_TRACES, [1, 2, 4],
+                             outstanding=8, sharded=True, devices=devices,
+                             info=info)
+    want = P.host_count_sweep(seed_targets(P, 2), SEED_TRACES, [1, 2, 4],
+                              outstanding=8)
+    shards = 4 if devices is None else 2
+    assert info == {"sharded": True, "device_count": shards,
+                    "hosts_per_device": 4 // shards}
+    for g, w in zip(got, want):
+        assert g.elapsed_ticks == w.elapsed_ticks
+        assert [_fields(r) for r in g.per_host] == [_fields(r)
+                                                    for r in w.per_host]
+
+
+def test_host_count_sweep_sharded_refuses_a_pool():
+    with pytest.raises(ReplayUnsupported, match="unsharded MultiHostReplay"):
         P.host_count_sweep(dram_pool(P), HOST_TRACES["dram_pool"], [1, 2],
                            sharded=True)
 

@@ -18,6 +18,7 @@ from repro_torch.core.faults import FaultConfig, FaultPlan, install
 from repro_torch.core.ssd.hil import HIL, SSDConfig
 from repro_torch.core.ssd.pal import NANDTiming
 from repro_torch.core.workloads.traces import hash_seed, make_trace
+from repro_torch.data.workloads import WorkloadSpec, make_traces
 
 # copies of tests/golden/scenarios.py's constants
 CACHE_KW = dict(capacity_bytes=16 * 4096, mshr_entries=4, writeback_buffer=2)
@@ -34,6 +35,10 @@ FAULT_SCENARIOS = ("faults-linkretry@spine_leaf",
                    "faults-nand-retry@direct")
 MULTI_FAULT_HOSTS = {"faults-portdown@multihost_x2": 2,
                      "faults-linkretry@spine_leaf_x4": 4}
+# a synthesized Zipfian fleet on a 2-pod datacenter fabric (host -> device
+# paths through the core tier)
+FLEET_SCENARIO = "fleet-zipf@multipod_2x4"
+FLEET_GOLDEN_HOSTS = 8
 
 
 def is_multi(name: str) -> bool:
@@ -120,6 +125,11 @@ def make_multi_targets(name: str):
                else FaultConfig(link_retry_rate=0.2, link_retry_max=2))
         install(FaultPlan(cfg, seed=11), tgts)
         return tgts
+    if name == FLEET_SCENARIO:
+        fab = Fabric.build("multi_pod", ecmp=True, num_pods=2,
+                           hosts_per_pod=FLEET_GOLDEN_HOSTS // 2)
+        return [fab.mount(f"h{i}", f"d{i}", make_device("dram"))
+                for i in range(FLEET_GOLDEN_HOSTS)]
     if name == "multihost-qos-ecmp":
         m = MULTI
         fab = Fabric.build("spine_leaf", num_hosts=m["num_hosts"],
@@ -148,6 +158,10 @@ def make_multi_targets(name: str):
 def multi_traces(name: str):
     if name in MULTI_FAULT_HOSTS:
         return [make_trace(400 + h) for h in range(MULTI_FAULT_HOSTS[name])]
+    if name == FLEET_SCENARIO:
+        # the seeded synthetic workload generators' traffic
+        spec = WorkloadSpec("zipfian", num_pages=48, zipf_s=1.1)
+        return make_traces(spec, 29, FLEET_GOLDEN_HOSTS, N_ACCESSES)
     if name == "multihost-ssd-sharedflash":
         return [make_trace(300 + h, n=N_ACCESSES, pages=24, write_frac=0.7)
                 for h in range(MULTI_SSD_HOSTS[name])]
@@ -331,3 +345,36 @@ def availability_fields(lanes) -> dict:
     return {"window_ticks": av0["window_ticks"],
             "num_windows": av0["num_windows"], "seeds": seeds,
             "availability_curve": curve}
+
+
+def shard_case(name: str):
+    """``(targets, traces)`` of a sharded-lane case (fresh): a golden
+    multi-host scenario, or ``shard/KIND-H``, ``H`` hosts mounted on a
+    2-pod ``multi_pod`` fabric with ECMP, 60 seeded synthetic accesses a
+    host (120 under NAND faults, so that reads reach the flash), where KIND is ``multipod`` (DRAM), ``qos`` (DRAM, weighted
+    hosts), ``pmem``, ``cxl-ssd-cache`` (a private flash a host), ``nand``
+    (that under NAND read retries) or ``transport`` (DRAM under CRC
+    retries)."""
+    if not name.startswith("shard/"):
+        return make_multi_targets(name), multi_traces(name)
+    kind, nh = name.split("/")[1].rsplit("-", 1)
+    nh = int(nh)
+    media = {"pmem": "pmem", "cxl-ssd-cache": "cxl-ssd-cache",
+             "nand": "cxl-ssd-cache"}.get(kind, "dram")
+    kw = ({"cache_cfg": DRAMCacheConfig(capacity_bytes=16 * 4096,
+                                        mshr_entries=4, writeback_buffer=2)}
+          if media == "cxl-ssd-cache" else {})
+    qw = {f"h{i}": 1.0 + (i % 3) for i in range(nh)} if kind == "qos" else None
+    fab = Fabric.build("multi_pod", ecmp=True, qos_weights=qw, num_pods=2,
+                       hosts_per_pod=nh // 2)
+    tgts = [fab.mount(f"h{i}", f"d{i}", make_device(media, **kw))
+            for i in range(nh)]
+    if kind == "nand":
+        install(FaultPlan(FaultConfig(nand_read_retry_rate=0.3), seed=3),
+                tgts)
+    if kind == "transport":
+        install(FaultPlan(FaultConfig(link_retry_rate=0.25,
+                                      link_retry_max=2), seed=5), tgts)
+    spec = WorkloadSpec("zipfian" if kind == "nand" else "hotspot",
+                        num_pages=96, hot_frac=0.8, hot_pages=12, zipf_s=1.1)
+    return tgts, make_traces(spec, 7, nh, 120 if kind == "nand" else 60)

@@ -15,8 +15,15 @@ outstanding, posted writes) over that phase's trace of 2^20 accesses
 warm-up.  Prints one line for the cache kernels (the tag, each
 call's milliseconds, the hit count and a digest of the fused kernel's hits
 and latencies) and one for the scan (each device's milliseconds and a
-digest of every replay's issue and done ticks and flags); the digests must
-agree between checkouts.  ``--sass`` also writes the cache library's SASS
+digest of every replay's issue and done ticks and flags).  Then the
+multi-host instance on ``chip_smoke.py``'s ``[multihost]`` cases at a
+quarter of their depth (four Table I cached CXL-SSDs privately mounted on
+a two-level tree, 4 x 2^16 steps; three hosts on the golden QoS + ECMP
+fabric pooling two DRAM devices, 2^18 steps) and on
+``results/BENCH_replay.json``'s 64-host DRAM fleet (102,400 steps), two
+calls each, with a digest of the first two's hosts, ticks and flags (a
+checkout whose one-block layout cannot hold the fleet prints that it was
+refused).  The digests must agree between checkouts.  ``--sass`` also writes the cache library's SASS
 to ``chiprun_out/sass_TAG.txt`` and prints its ptxas register and spill
 lines.
 
@@ -127,6 +134,79 @@ def scan(f):
             h.update(x.cpu().numpy().tobytes())
         line.append(f"scan_{d}_ms={f(ms)}")
     print(f"{tag} {' '.join(line)} scan_digest={h.hexdigest()[:12]}",
+          flush=True)
+    multi(f)
+
+
+def multi_cases():
+    """``{name: (targets, traces)}`` of the multi-host timings."""
+    import numpy as np
+
+    from repro_torch.core.fabric import Fabric, MemoryPool
+
+    def traces_of(lengths):
+        return [make_trace(i, n=n, pages=16384)
+                for i, n in enumerate(lengths)]
+
+    fab = Fabric.build("two_level", num_hosts=4, num_devices=4,
+                       num_leaves=2)
+    table1 = [fab.mount(f"h{i}", f"d{i}", make_device("cxl-ssd-cache"))
+              for i in range(4)]
+    fab = Fabric.build("spine_leaf", num_hosts=3, num_devices=2,
+                       num_leaves=2, num_spines=2, ecmp=True,
+                       qos_weights={"h0": 3.0, "h1": 1.0, "h2": 1.0})
+    pool = MemoryPool(fab, {"d0": make_device("dram"),
+                            "d1": make_device("dram")})
+    qos = pool.views(["h0", "h1", "h2"])
+    # the fleet's zipfian columns (1024 pages, s = 1.1, 30% writes), drawn
+    # here with numpy so that both checkouts replay the same trace
+    rng = np.random.default_rng(23)
+    w = 1.0 / np.arange(1, 1025) ** 1.1
+    pages = rng.choice(1024, size=(64, 1600), p=w / w.sum())
+    fleet_traces = [[(int(p) * 4096 + 64 * int(o), 64, bool(x))
+                     for p, o, x in zip(pages[h], rng.integers(0, 64, 1600),
+                                        rng.random(1600) < 0.3)]
+                    for h in range(64)]
+    fab = Fabric.build("multi_pod", forward_ns=10.0, rt_extra_ns=4.0,
+                       num_pods=4, hosts_per_pod=16)
+    fleet = [fab.mount(f"h{i}", f"d{i}", make_device("dram"))
+             for i in range(64)]
+    return {"table1x4": (table1, traces_of([1 << 16] * 4)),
+            "qos_pool": (qos, traces_of([87382, 87381, 87381])),
+            "fleet": (fleet, fleet_traces)}
+
+
+def multi(f):
+    from repro_torch.core.replay.multihost import MultiHostReplay
+
+    h = hashlib.md5()
+    line = []
+    for name, (targets, traces) in multi_cases().items():
+        prep = MultiHostReplay(targets, outstanding=32 if name != "fleet"
+                               else 8).prepare(traces)
+        cfg = prep.cfg
+
+        def t(x):
+            return None if x is None else torch.from_numpy(x).cuda()
+
+        ins = [t(x) for x in (prep.addrs, prep.writes, prep.lens, prep.devs,
+                              prep.routes)]
+
+        def replay():
+            return rs.replay_multi(cfg, prep.params, stack.init_lanes(
+                cfg.stack, cfg.num_devs, cfg.n_flash, "cuda"), *ins,
+                retries=t(prep.retries))
+
+        try:
+            ms, out = timed(replay, SCAN_REPS)
+        except ValueError as e:          # a layout one block cannot hold
+            line.append(f"multi_{name}=refused({str(e)[:60]!r})")
+            continue
+        if name != "fleet":              # a checkout that refuses it too
+            for x in out[:4]:
+                h.update(x.cpu().numpy().tobytes())
+        line.append(f"multi_{name}_ms={f(ms)}")
+    print(f"{tag} {' '.join(line)} multi_digest={h.hexdigest()[:12]}",
           flush=True)
 
 

@@ -78,6 +78,29 @@ and ``nvcc``.  Phases, each printing one or more lines:
    time, the device time by kind, and the kernel's time beside its bound
    (split TF32 on the tensor cores, and the FP32 FMA bound of the same
    flops), its plain version and ``F.scaled_dot_product_attention``;
+11a. int8: phase 8's serving run again with ``kv_dtype="int8"`` (int8
+   caches, float16 scales a slot and KV head): 640 x 24 launches of
+   ``flash_decode_int8`` and none of the float32 instance, the store's
+   counters equal to the same JAX pins (they do not depend on the page
+   data), greedy tokens of a second run identical, the kernel against its
+   plain version (dequantize, then ``flash_decode_plain``) on the run's
+   final caches of all 24 layers; its device time a call beside the
+   float32 kernel's on the float run's caches, its plain version,
+   dequantize + ``F.scaled_dot_product_attention`` and its bytes bound;
+11b. families: mamba2-2.7b (ssm, 64 layers), hymba-1.5b (hybrid, 32),
+   musicgen-large (audio, 4 codebooks, 48) and mixtral-8x7b (moe, 4 of
+   its 32 layers: one float32 layer's experts are 5.6 GB) at full width
+   with seeded weights: ``serve()`` at batch 4, 32 + 32 steps, twice
+   (identical tokens and store counters; ``flash_decode`` launches = steps
+   x attention layers, 0 for mamba2, and no store without attention);
+   ``make_prefill_step`` on 2 x 1024 seeded tokens (one
+   ``flash_attention`` launch an attention layer, finite logits); 64
+   decode steps against the prefill's first 64 positions, within 2e-3 of
+   the largest |logit| with equal argmax, or for mixtral (whose
+   2048-token prefill drops other assignments than a decode) layer 0's
+   ``moe_ffn_local`` on the card against the CPU on the same 64 tokens
+   within 1e-5; ms a step, tok/s, prefill ms, peak device bytes, and
+   the device-busy split and idle share of 4 decode steps;
 12. scan: the tick-exact scan lane, ``TraceDriver(make_device(d),
    engine="scan")``, for the five devices at their defaults over the main
    path's trace, one ``replay_scan`` launch each, every replay equal access
@@ -485,7 +508,7 @@ DECODE_REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:26",
                    "page_gather": "src/repro/kernels/page_gather.py:24",
                    "page_scatter": "src/repro/kernels/page_gather.py:50"}
 # the device-side name of each kernel, as the profiler reports it
-KERNEL_NAMES = {"flash_decode": "flash_decode_kernel",
+KERNEL_NAMES = {"flash_decode": "flash_decode_kernel",   # either instance
                 "page_gather": "gather_kernel",
                 "page_scatter": "scatter_kernel"}
 DECODE_TOL = dict(out=2e-5, m=1e-5, l_rtol=1e-4)   # tests/test_kernels.py
@@ -530,6 +553,19 @@ PREFILL_CHECKS = [(hd, g, mode, q_scale) for hd in (64, 120, 128, 36, 100)
                   for q_scale in (1.0, 4.0)]
 PARITY_TOKENS = 64             # decode steps held against the prefill
 PARITY_TOL = 2e-3              # tests/test_models_smoke.py prefill/decode
+# [int8]: the serving main path with int8 caches; the kernel's instance
+INT8_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+INT8_REPLACES = "src/repro/models/transformer.py:365"
+# [families]: (arch, layers on the card, None for all) at full width; one
+# layer of mixtral's float32 experts is 5.6 GB, so it runs 4 of its 32
+FAMILY_RUNS = (("mamba2-2_7b", None), ("hymba-1_5b", None),
+               ("musicgen-large", None), ("mixtral-8x7b", 4))
+FAMILY_SERVE = dict(batch=4, context=512, prompt_len=32, gen=32,
+                    policy="lru", kv_page_tokens=16)
+FAMILY_PREFILL = dict(batch=2, seq=1024)
+FAMILY_PROFILE_STEPS = 4       # decode steps under the profiler, per model
+MOE_CHECK_TOKENS = 64          # mixtral's layer-0 MoE, card against the CPU
+MOE_TOL = dict(atol=1e-5, rtol=1e-5)
 PREFILL_TIMING_REPS = 8
 SCHED_REQUESTS, SCHED_SLOTS, SCHED_NEW = 8, 4, 32
 PROFILE_STEPS = 16              # decode steps at a full ring, profiled
@@ -984,7 +1020,7 @@ def serve_phase(torch, dev) -> dict:
     fd.reset_launches()
     pg.reset_launches()
     res = serve(params, cfg, **kw)
-    launches = {**fd.LAUNCHES, **pg.LAUNCHES}
+    launches = {"flash_decode": fd.LAUNCHES["flash_decode"], **pg.LAUNCHES}
     check(all(v >= 1 for v in launches.values()),
           f"serving main path missed a kernel: launches {launches}")
     check(launches["flash_decode"] == steps * cfg.n_layers,
@@ -1044,46 +1080,17 @@ def profile_phase(torch, run: dict) -> None:
     """Phase 8: where a decode step's time goes at a full ring (n_valid
     512): 16 steps that continue the main run, timed on the host clock,
     then 16 more under the profiler for the device time by kind."""
-    from repro_torch.distributed.step import make_serve_step
-
     cfg, params, res = run["cfg"], run["params"], run["res"]
-    step = make_serve_step(cfg)
-    dev = params["embed"].device
-    carry = [res.state, torch.from_numpy(res.tokens[-1]).to(dev)]
-
-    def steps():
-        state, tokens = carry
-        for _ in range(PROFILE_STEPS):
-            logits, state = step(params, state, tokens)
-            tokens = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(
-                torch.int32)
-        torch.cuda.synchronize()
-        carry[:] = [state, tokens]
-
-    steps()                                               # warm
-    t0 = time.perf_counter()
-    steps()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-
-    def enough(acts):
-        kinds = split_by_kind(acts, tuple(KERNEL_NAMES.values()),
-                              "port_kernels")
-        return kinds["port_kernels"] > 0 and kinds["matmuls"] > 0
-
-    kinds = {k: v / PROFILE_STEPS for k, v in split_by_kind(   # ms/step
-        device_events(torch, steps, enough), tuple(KERNEL_NAMES.values()),
-        "port_kernels").items()}
-    check(kinds["port_kernels"] > 0 and kinds["matmuls"] > 0,
-          f"the profile of the decode steps saw no kernels: {kinds}")
-    busy = sum(kinds.values())
-    main_ms = res.seconds * 1e3 / run["steps"]
+    wall_ms, kinds = decode_split(
+        torch, cfg, params, res.state,
+        torch.from_numpy(res.tokens[-1]).to(params["embed"].device),
+        PROFILE_STEPS)
+    check(kinds["port_kernels"] > 0,
+          f"the profile of the decode steps saw no port kernel: {kinds}")
     say("profile", decode_steps=PROFILE_STEPS,
         n_valid=min(res.state["cur"], res.state["k"].shape[2]),
-        wall_ms_per_step=f"{wall_ms:.3f}",
-        device_busy_ms_per_step=f"{busy:.3f}",
-        **{f"{k}_ms_per_step": f"{v:.4f}" for k, v in kinds.items()},
-        idle_share=f"{1 - busy / wall_ms:.4f}",
-        main_run_ms_per_step=f"{main_ms:.3f}")
+        **split_fields(wall_ms, kinds),
+        main_run_ms_per_step=f"{res.seconds * 1e3 / run['steps']:.3f}")
 
 
 def scheduler_phase(torch, run: dict, seed: int) -> None:
@@ -1364,7 +1371,7 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
     window = cfg.swa_window
     positions = torch.arange(S, device=dev)[None, :]
     with torch.no_grad():
-        blk = {k: params["blocks"][k][0] for k in T.BLOCK_KEYS}
+        blk = T.layer(params["blocks"], 0)
         h = L.rms_norm(L.embed_tokens(params["embed"], tokens.long()),
                        blk["ln1"], cfg.norm_eps)
         q, k, v = T.attention_inputs(h, blk, cfg, positions)
@@ -1460,6 +1467,316 @@ def prefill_phase(torch, run: dict, seed: int, check_worst: float) -> dict:
                  f"(layer 0 of the run), causal, window {window}",
         "timing": timing_note(),
     }
+
+
+# --------------------------------------------- int8 caches, other families
+def int8_phase(torch, run: dict) -> dict:
+    """[int8]: the serving main path of h2o-danube-3-4b with
+    ``kv_dtype="int8"`` (the serve phase's weights and settings), checked
+    and measured; returns the int8 instance's row of the kernels line."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import page_gather as pg
+    from repro_torch.launch.serve import serve
+
+    kw = {k: v for k, v in SERVE.items() if k != "arch"}
+    cfg = dataclasses.replace(run["cfg"], kv_dtype="int8")
+    params, steps = run["params"], run["steps"]
+    fd.reset_launches()
+    pg.reset_launches()
+    res = serve(params, cfg, **kw)
+    launches = {**fd.LAUNCHES, **pg.LAUNCHES}
+    check(launches["flash_decode_int8"] == steps * cfg.n_layers
+          and launches["flash_decode"] == 0,
+          f"int8 serving ran {launches}, not {steps} x {cfg.n_layers} "
+          f"flash_decode_int8 launches and no float32 one")
+    st = res.state
+    check(st["k"].dtype == torch.int8 and st["k_scale"].dtype == torch.float16
+          and bool(torch.isfinite(st["k_scale"].float()).all()),
+          "the int8 run's caches are not int8 with finite float16 scales")
+    check(res.tokens.shape == (steps, kw["batch"])
+          and 0 <= res.tokens.min() and res.tokens.max() < cfg.vocab,
+          "greedy tokens out of shape or range")
+    stats = dict(res.tiered.stats, sim_ticks=res.tiered.sim_ticks)
+    check(stats == TIERED_PIN,
+          f"int8 tiered counters {stats} differ from the JAX pins")
+
+    q, n = run["q"], run["n_valid"]
+    layers = [(st["k"][i], st["v"][i], st["k_scale"][i], st["v_scale"][i])
+              for i in range(cfg.n_layers)]
+    errs = [decode_err(fd.flash_decode_int8(q, *c, n),
+                       fd.flash_decode_int8_plain(q, *c, n)) for c in layers]
+    worst = worst_of(errs)
+    check(all(decode_within(e) for e in errs),
+          f"flash_decode_int8 disagrees with its plain version on the run's "
+          f"caches: {worst}")
+    again = serve(params, cfg, **kw)
+    check(np.array_equal(again.tokens, res.tokens),
+          "two int8 greedy runs gave different tokens")
+    check(dict(again.tiered.stats, sim_ticks=again.tiered.sim_ticks) == stats,
+          "two int8 runs gave different tiered counters")
+    del again
+
+    # device time a call, rotating over the 24 layers' caches, beside the
+    # float32 kernel on the float run's caches at the same step, the plain
+    # version and the library call (dequantize + SDPA)
+    nl = len(layers)
+    fk, fv = run["res"].state["k"], run["res"].state["v"]
+    ms = device_ms(torch, lambda i: fd.flash_decode_int8(q, *layers[i % nl], n),
+                   match=KERNEL_NAMES["flash_decode"])
+    float_ms = device_ms(torch, lambda i: fd.flash_decode(
+        q, fk[i % nl], fv[i % nl], n), match=KERNEL_NAMES["flash_decode"])
+    plain_ms = device_ms(torch, lambda i: fd.flash_decode_int8_plain(
+        q, *layers[i % nl], n))
+
+    def library(i):
+        kc, vc, ks, vs = layers[i % nl]
+        k = fd.dequantize(kc[:, :n], ks[:, :n]).transpose(1, 2)
+        v = fd.dequantize(vc[:, :n], vs[:, :n]).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              enable_gqa=True)[:, :, 0]
+
+    lib_ms = device_ms(torch, library)
+    lib_err = float((library(0) - fd.flash_decode_int8_plain(
+        q, *layers[0], n)[0]).abs().max())
+    B, H, hd = q.shape
+    KV = st["k"].shape[3]
+    nbytes = (2 * B * n * KV * hd + 2 * 2 * B * n * KV
+              + 4 * (2 * B * H * hd + 2 * B * H))
+    flops = 4 * B * H * n * hd + 2 * B * n * KV * hd   # + the dequantization
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    say("int8", arch=cfg.name, kv_dtype="int8", steps=steps,
+        batch=kw["batch"],
+        tok_per_s=f"{kw['batch'] * steps / res.seconds:.1f}",
+        ms_per_step=f"{res.seconds / steps * 1e3:.3f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        tiered_vs_jax_pins="equal", greedy_tokens_second_run="identical",
+        full_width_check=f"{nl}_layers_n_valid_{n}",
+        max_out_err=f"{worst['out']:.3e}", max_m_err=f"{worst['m']:.3e}",
+        max_l_rel_err=f"{worst['l_rel']:.3e}",
+        first_tokens=json.dumps(res.tokens[:4].tolist(),
+                                separators=(",", ":")))
+    plan = fd.split_plan(n, hd, B * KV)
+    say("int8", flash_decode_int8_us=f"{ms * 1e3:.3f}",
+        flash_decode_float32_us=f"{float_ms * 1e3:.3f}",
+        plain_us=f"{plain_ms * 1e3:.3f}",
+        dequantize_sdpa_us=f"{lib_ms * 1e3:.3f}",
+        bound_us=f"{max(t_bytes, t_ops) * 1e6:.3f}", cache_bytes=nbytes,
+        sdpa_vs_plain_max_err=f"{lib_err:.3e}", ctas=plan.ctas,
+        cluster=plan.cluster, max_active_clusters=fd.max_active_clusters(
+            H // KV, hd, plan, int8=True))
+    return {
+        "name": "flash_decode_int8", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES, "launches": launches["flash_decode_int8"],
+        "max_abs_err": worst["out"], "tolerance": DECODE_TOL,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+        "library": "fd.dequantize + F.scaled_dot_product_attention"
+                   "(enable_gqa)",
+        "float32_kernel_ms": float_ms,
+        "shape": f"q {B}x{H}x{hd}, int8 caches {B}x{st['k'].shape[2]}x{KV}x"
+                 f"{hd} with float16 scales (the run's, one layer a call), "
+                 f"n_valid {n}",
+        "timing": timing_note(),
+    }
+
+
+def decode_split(torch, cfg, params, state, tokens, steps: int):
+    """``steps`` decode steps that go on from ``state`` (the caches are
+    updated in place), timed on the host clock after as many to warm up,
+    then as many more under the profiler: ``(host ms a step, device ms a
+    step by kind)``."""
+    from repro_torch.distributed.step import make_serve_step
+
+    step = make_serve_step(cfg)
+    carry = [state, tokens]
+
+    def run():
+        st, tok = carry
+        for _ in range(steps):
+            logits, st = step(params, st, tok)
+            tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(
+                torch.int32)
+        torch.cuda.synchronize()
+        carry[:] = [st, tok]
+
+    run()                                                # warm
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    own = tuple(KERNEL_NAMES.values())
+
+    def enough(acts):
+        return split_by_kind(acts, own, "port_kernels")["matmuls"] > 0
+
+    kinds = {k: v / steps for k, v in split_by_kind(
+        device_events(torch, run, enough), own, "port_kernels").items()}
+    check(kinds["matmuls"] > 0,
+          f"the profile of {cfg.name}'s decode steps saw no kernels: {kinds}")
+    return wall_ms, kinds
+
+
+def split_fields(wall_ms: float, kinds: dict) -> dict:
+    """The fields of a profile line: host ms and device ms by kind a step,
+    and the device's idle share of the host time."""
+    busy = sum(kinds.values())
+    return {"wall_ms_per_step": f"{wall_ms:.3f}",
+            "device_busy_ms_per_step": f"{busy:.3f}",
+            **{f"{k}_ms_per_step": f"{v:.4f}" for k, v in kinds.items()},
+            "idle_share": f"{1 - busy / wall_ms:.4f}"}
+
+
+def family_block(torch, dev, arch: str, layers, seed: int) -> None:
+    """[families]: one model at full width (depth cut to ``layers`` where
+    given): ``serve()`` twice, a prefill, decode against the prefill (or,
+    for the MoE, its layer against the CPU), launches and a profile."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.step import make_prefill_step, make_serve_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import moe_ffn_local
+
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    attn = cfg.n_layers if cfg.n_heads else 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed, torch_device=dev)
+    torch.cuda.synchronize()
+    param_gb = torch.cuda.memory_allocated() / 1e9
+    init_s = time.perf_counter() - t0
+
+    kw = dict(FAMILY_SERVE, seed=seed)
+    steps = kw["prompt_len"] + kw["gen"]
+    fd.reset_launches()
+    res = serve(params, cfg, **kw)
+    launches = fd.LAUNCHES["flash_decode"]
+    check(launches == steps * attn,
+          f"{cfg.name}: {launches} flash_decode launches, not {steps} steps "
+          f"x {attn} attention layers")
+    grid = (steps, kw["batch"]) + ((cfg.n_codebooks,) if cfg.n_codebooks
+                                   else ())
+    check(res.tokens.shape == grid and 0 <= res.tokens.min()
+          and res.tokens.max() < cfg.vocab,
+          f"{cfg.name}: greedy tokens out of shape or range")
+    check((res.tiered is None) == (attn == 0),
+          f"{cfg.name}: a tiered store where the model does not attend")
+    again = serve(params, cfg, **kw)
+    check(np.array_equal(again.tokens, res.tokens),
+          f"{cfg.name}: two greedy runs gave different tokens")
+    counters = [None if r.tiered is None else
+                dict(r.tiered.stats, sim_ticks=r.tiered.sim_ticks)
+                for r in (res, again)]
+    check(counters[0] == counters[1],
+          f"{cfg.name}: two runs gave different tiered counters")
+    serve_s, again_s = res.seconds, again.seconds
+    first = res.tokens[:2].tolist()
+    del again
+
+    split = split_fields(*decode_split(
+        torch, cfg, params, res.state,
+        torch.from_numpy(res.tokens[-1]).to(dev), FAMILY_PROFILE_STEPS))
+    del res
+
+    # prefill: one flash_attention launch an attention layer
+    B, S = FAMILY_PREFILL["batch"], FAMILY_PREFILL["seq"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    shape = (B, S) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    tokens = torch.randint(0, cfg.vocab, shape, device=dev, generator=gen,
+                           dtype=torch.int32)
+    step = make_prefill_step(cfg, torch_device=dev)
+    fa.reset_launches()
+    logits = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_launches = fa.LAUNCHES["flash_attention"]
+    check(prefill_launches == attn,
+          f"{cfg.name}: prefill ran {prefill_launches} flash_attention "
+          f"launches, not one an attention layer ({attn})")
+    check(tuple(logits.shape) == shape + (cfg.padded_vocab,)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: prefill logits of shape {tuple(logits.shape)} or "
+          f"not finite")
+    head = logits[0, :PARITY_TOKENS].clone()
+    del logits
+    t0 = time.perf_counter()
+    step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+
+    if cfg.moe is None:
+        # decode against the prefill: the first prompt, one token a step
+        serve_step = make_serve_step(cfg)
+        state = T.init_decode_state(params, cfg, 1, PARITY_TOKENS)
+        dec = []
+        for t in range(PARITY_TOKENS):
+            lg, state = serve_step(params, state, tokens[:1, t])
+            dec.append(lg[0])
+        dec = torch.stack(dec)
+        scale = float(head.abs().max())
+        err = float((dec - head).abs().max())
+        check(err <= PARITY_TOL * scale,
+              f"{cfg.name}: prefill logits differ from {PARITY_TOKENS} "
+              f"decode steps by {err:.3e}, over {PARITY_TOL} x {scale:.3f}")
+        check(torch.equal(dec[..., :cfg.vocab].argmax(-1),
+                          head[..., :cfg.vocab].argmax(-1)),
+              f"{cfg.name}: prefill and decode disagree on the greedy tokens")
+        parity = {"decode_parity_tokens": PARITY_TOKENS,
+                  "decode_parity_max_err": f"{err:.3e}",
+                  "max_logit": f"{scale:.3f}", "greedy_argmax": "equal"}
+        del state, dec
+    else:
+        # a 2048-token prefill drops other assignments than a 1-token
+        # decode, so the layer is held against the CPU on the same inputs
+        moe = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+        x = torch.randn(MOE_CHECK_TOKENS, cfg.d_model, device=dev,
+                        generator=gen)
+        with torch.no_grad():
+            got, aux = moe_ffn_local(x, moe, cfg.moe)
+            want, want_aux = moe_ffn_local(
+                x.cpu(), {k: v.cpu() for k, v in moe.items()}, cfg.moe)
+        err, _, ok = close_err(torch, got.cpu(), want, MOE_TOL)
+        check(ok and abs(float(aux) - float(want_aux)) <= MOE_TOL["atol"],
+              f"{cfg.name}: layer 0's moe_ffn_local on the card differs from "
+              f"the CPU's by {err:.3e}")
+        parity = {"moe_layer0_tokens": MOE_CHECK_TOKENS,
+                  "moe_card_vs_cpu_max_err": f"{err:.3e}",
+                  "moe_tol": json.dumps(MOE_TOL, separators=(",", ":"))}
+        del moe, x, got, want
+    say("families", arch=cfg.name, family=cfg.family,
+        layers=f"{cfg.n_layers}/{full.n_layers}",
+        cut="depth" if cfg.n_layers < full.n_layers else "none",
+        param_gb=f"{param_gb:.2f}", init_s=f"{init_s:.2f}",
+        batch=kw["batch"], steps=steps,
+        tok_per_s=f"{kw['batch'] * steps / serve_s:.1f}",
+        ms_per_step=f"{serve_s / steps * 1e3:.3f}",
+        second_run_ms_per_step=f"{again_s / steps * 1e3:.3f}",
+        flash_decode_launches=launches,
+        tiered=json.dumps(counters[0], separators=(",", ":")),
+        greedy_tokens_second_run="identical",
+        prefill_tokens=f"{B}x{S}", prefill_ms=f"{prefill_ms:.3f}",
+        flash_attention_launches=prefill_launches,
+        peak_device_bytes=torch.cuda.max_memory_allocated(), **parity,
+        first_tokens=json.dumps(first, separators=(",", ":")))
+    say("families", arch=cfg.name, profile_steps=FAMILY_PROFILE_STEPS,
+        **split)
+    del params, tokens, head
+    torch.cuda.empty_cache()
+
+
+def families_phase(torch, dev, seed: int) -> None:
+    """[families]: the moe, ssm, hybrid and audio families at full width."""
+    for arch, layers in FAMILY_RUNS:
+        family_block(torch, dev, arch, layers, seed)
 
 
 def fabric_phase(torch, dev, trace, direct, seed: int) -> dict:
@@ -3743,6 +4060,11 @@ def main() -> int:
     prefill_row = prefill_phase(torch, run, args.seed,
                                 prefill_kernel_checks(torch, dev, args.seed))
 
+    # 11a.-11b. int8 caches on the serving path; the other families ------
+    int8_row = int8_phase(torch, run)
+    del run
+    families_phase(torch, dev, args.seed)
+
     # 12. the tick-exact scan lane, after the host-bound serving loop so
     # that its python-lane replays leave nothing behind for that loop -----
     int32_ops_per_s = (torch.cuda.get_device_properties(0).multi_processor_count
@@ -3782,7 +4104,7 @@ def main() -> int:
         })
     print(card, flush=True)
     print(json.dumps({"kernels": rows + serve_rows + [
-        prefill_row, scan_row(scan, faults, multi, n, stream, sweeps),
+        int8_row, prefill_row, scan_row(scan, faults, multi, n, stream, sweeps),
         fleet_row(fleet)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

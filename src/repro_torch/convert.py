@@ -18,7 +18,11 @@ Every section is optional (a missing one keeps the device's Table I
 default); a section the named device does not have is refused.
 
 Model parameters (:func:`params_from_jax`): the pytree of the JAX
-package's ``init_params`` as numpy arrays, in the same stacked layout.
+package's ``init_params`` as numpy arrays, in the same stacked layout,
+its ``MoEParams`` and ``SSMParams`` named tuples taken as dicts by field
+name.  Decode states (:func:`decode_state_from_jax`): the JAX package's
+``init_decode_state`` / ``decode_step`` state (caches, int8 scales,
+``SSMState``, ``cur``), so that both can go on from one state.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from repro_torch.core.devices import (CXLLink, DRAMTiming, MemDevice,
                                       PMEMTiming, make_device)
 from repro_torch.core.ssd.hil import SSDConfig
 from repro_torch.core.ssd.pal import NANDTiming
-from repro_torch.models.transformer import param_shapes
+from repro_torch.models.transformer import decode_state_layout, param_shapes
 from repro_torch.torch_device import resolve
 
 # sections each device takes, by device name
@@ -77,29 +81,85 @@ def device_from_config(name: str, cfg: dict) -> MemDevice:
     return make_device(name, **kw)
 
 
+def _as_dict(node):
+    """A pytree node as a dict: a named tuple (``MoEParams``, ``SSMParams``,
+    ``SSMState``) by its field names."""
+    if hasattr(node, "_asdict"):
+        return dict(node._asdict())
+    if not isinstance(node, dict):
+        raise ValueError(f"expected a dict or a named tuple, got "
+                         f"{type(node).__name__}")
+    return node
+
+
+def _convert(tree, shapes, where, dev, dtypes=None):
+    """``tree`` as tensors on ``dev``, holding it to ``shapes`` (nested
+    dicts of shape tuples) key for key and, where ``dtypes`` names one, to
+    its dtype; a missing, extra or misshapen leaf is refused."""
+    tree = _as_dict(tree)
+    if set(tree) != set(shapes):
+        raise ValueError(f"{where}: expected keys {sorted(shapes)}, "
+                         f"got {sorted(tree)}")
+    out = {}
+    for k, shape in shapes.items():
+        if isinstance(shape, dict):
+            out[k] = _convert(tree[k], shape, f"{where}{k}/", dev,
+                              (dtypes or {}).get(k))
+            continue
+        a = np.asarray(tree[k])
+        if a.shape != tuple(shape):
+            raise ValueError(f"{where}{k}: expected shape {shape}, "
+                             f"got {a.shape}")
+        want = (dtypes or {}).get(k)
+        if want is not None and a.dtype != want:
+            raise ValueError(f"{where}{k}: expected dtype {want}, "
+                             f"got {a.dtype}")
+        out[k] = torch.from_numpy(np.array(a)).to(dev)   # owns a copy
+    return out
+
+
 def params_from_jax(params: dict, cfg: ArchConfig, torch_device="cuda"
                     ) -> dict:
     """The port's parameters from the JAX package's ``init_params`` pytree
-    (nested dicts of numpy arrays: ``embed``, ``lm_head``, ``final_norm``
-    and the stacked ``blocks``), on ``torch_device``.  The layout is the
-    same (``x @ W`` with ``W`` as ``(d_in, d_out)``), so each leaf is copied
-    as it is; a missing, extra or misshapen leaf is refused."""
-    dev = resolve(torch_device)
+    (nested dicts and named tuples of numpy arrays: ``embed``,
+    ``lm_head``, ``final_norm`` and the stacked ``blocks``, with their
+    ``moe`` and ``ssm`` parameters), on ``torch_device``.  The layout is
+    the same (``x @ W`` with ``W`` as ``(d_in, d_out)``), so each leaf is
+    copied as it is; a missing, extra or misshapen leaf is refused."""
+    return _convert(params, param_shapes(cfg), "params/",
+                    resolve(torch_device))
 
-    def convert(tree, shapes, where):
-        if set(tree) != set(shapes):
-            raise ValueError(f"{where}: expected keys {sorted(shapes)}, "
-                             f"got {sorted(tree)}")
-        out = {}
-        for k, shape in shapes.items():
-            if isinstance(shape, dict):
-                out[k] = convert(tree[k], shape, f"{where}{k}/")
-                continue
-            a = np.asarray(tree[k])
-            if a.shape != tuple(shape):
-                raise ValueError(f"{where}{k}: expected shape {shape}, "
-                                 f"got {a.shape}")
-            out[k] = torch.from_numpy(np.array(a)).to(dev)   # owns a copy
-        return out
 
-    return convert(params, param_shapes(cfg), "params/")
+def decode_state_from_jax(state: dict, cfg: ArchConfig, torch_device="cuda",
+                          dtype: torch.dtype = torch.float32) -> dict:
+    """The port's decode state from the JAX package's (``cur``; caches
+    ``k``, ``v``; int8 ``k_scale``, ``v_scale``; the stacked ``SSMState``
+    as ``ssm``), on ``torch_device``.  Every leaf is held to the shape and
+    dtype of :func:`repro_torch.models.transformer.decode_state_layout`
+    for the state's batch and ring and the model ``dtype``; a missing,
+    extra, misshapen or mistyped leaf is refused."""
+    state = _as_dict(state)
+    if "k" in state:
+        batch, ring = np.shape(state["k"])[1:3]
+    elif "ssm" in state:
+        batch, ring = np.shape(_as_dict(state["ssm"])["h"])[1], 1
+    else:
+        raise ValueError("state/: holds neither caches nor SSM states")
+    layout = decode_state_layout(cfg, batch, ring, dtype)
+    if "k" in layout and layout["k"][0][2] != ring:
+        raise ValueError(f"state/k: a ring of {ring} slots is longer than "
+                         f"{cfg.name}'s window {cfg.swa_window}")
+
+    def split(tree, i):
+        return {k: split(v, i) if isinstance(v, dict) else
+                (v[i] if i == 0 else _np_dtype(v[i]))
+                for k, v in tree.items()}
+
+    out = _convert(state, {"cur": (), **split(layout, 0)}, "state/",
+                   resolve(torch_device), split(layout, 1))
+    out["cur"] = int(out["cur"])
+    return out
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.zeros(0, dtype=dtype).numpy().dtype

@@ -1,14 +1,14 @@
-"""Step functions.  This slice of the port has the prefill and serve steps
-on one device; training and the sharded steps come with later slices
-(ROADMAP Queue A item 14)."""
+"""Step functions.  The port has the prefill and serve steps on one device,
+for every family that :mod:`repro_torch.models.transformer` runs;
+training and the sharded steps come with later slices (ROADMAP Queue A
+items 14c and 14d)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import (ROADMAP_ITEM, decode_step,
-                                            forward)
+from repro_torch.models.transformer import MESH_ITEM, decode_step, forward
 from repro_torch.torch_device import resolve
 
 
@@ -16,13 +16,14 @@ def _refuse_mesh(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
             f"a {what} step over a device mesh is not ported yet "
-            f"({ROADMAP_ITEM}); pass mesh=None")
+            f"({MESH_ITEM}); pass mesh=None")
 
 
 def make_prefill_step(cfg: ArchConfig, mesh=None, *, torch_device="cuda"):
     """Inference prefill: ``prefill_step(params, batch) -> logits`` of the
-    full-sequence forward, without gradients.  ``batch["tokens"]`` (B, S)
-    may be a tensor or an array; it is moved to ``torch_device``, where the
+    full-sequence forward, without gradients (the reference's prefill
+    step, which drops the MoE balance loss).  ``batch["tokens"]`` (B, S)
+    ((B, S, nq) for audio) may be a tensor or an array; it is moved to ``torch_device``, where the
     parameters must lie.  Only ``mesh=None`` (one device) is ported."""
     _refuse_mesh(mesh, "prefill")
     dev = resolve(torch_device)

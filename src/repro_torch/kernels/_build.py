@@ -47,7 +47,9 @@ SIGNATURES = {
     "flash_decode": {
         "flash_decode_launch": (_I, [_P] * 6 + [_I] * 8 + [_L] * 6
                                 + [ctypes.c_float, _P]),
-        "flash_decode_max_active_clusters": (_I, [_I] * 4
+        "flash_decode_int8_launch": (_I, [_P] * 8 + [_I] * 8 + [_L] * 12
+                                     + [ctypes.c_float, _P]),
+        "flash_decode_max_active_clusters": (_I, [_I] * 5
                                              + [ctypes.POINTER(_I)]),
         "flash_decode_error_string": (ctypes.c_char_p, [_I]),
     },

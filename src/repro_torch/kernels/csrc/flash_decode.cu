@@ -43,8 +43,25 @@
 // runs in the smallest G_MAX >= G.  hd need not be a power of two (120
 // floats are 30 float4 lanes); it must be a multiple of 4 with 16-byte
 // aligned rows and at most 512, which the wrapper checks.
+//
+// The int8 instance (Q8 = true; the wrapper's flash_decode_int8) reads
+// int8 caches with float16 scales, one a (slot, kv head), as the JAX
+// package's _attn_decode holds them, and computes the same function over
+// the dequantized rows k = (float)k_i8 * (float)k_scale: each element is
+// that one float32 product, the rounding of the reference's
+// dequantization, so the two differ only in summation order.  Rows are
+// staged as bytes: a head row is hd bytes and starts on a 4-byte boundary
+// of its slot (h2o's 120-byte rows sit at 8-byte offsets of a 960-byte
+// slot), so they are copied in 4-byte cp.async pieces into rows of an odd
+// number of words (32 rows read at one column hit 32 banks); the scales,
+// 2-byte values KV apart, are read with plain loads (a chunk's first into
+// shared memory beside the first copies, a later chunk's into a register
+// when its rows are put in flight, stored before they are needed).  The
+// cache reads are a quarter of the float32 kernel's; everything else (the
+// cluster split, the (m, l) partials, the merge) is the same code.
 
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -63,8 +80,10 @@ constexpr float kNegInf = -1e30f;
 
 struct Params {
   const float* q;                    // (B, H, hd) contiguous
-  const float* k;                    // (B, Skv, KV, hd), unit stride in hd
-  const float* v;
+  const void* k;                     // (B, Skv, KV, hd), unit stride in hd:
+  const void* v;                     // float, or int8 in the Q8 instance
+  const __half* k_scale;             // (B, Skv, KV), the Q8 instance only
+  const __half* v_scale;
   float* out;                        // (B, H, hd)
   float* m;                          // (B, H)
   float* l;                          // (B, H)
@@ -73,28 +92,39 @@ struct Params {
   int chunk;                         // rows of a shared-memory chunk (<= 64)
   long long k_sb, k_ss, k_sh;        // strides in elements
   long long v_sb, v_ss, v_sh;
+  long long ks_sb, ks_ss, ks_sh;     // the scales' strides in elements
+  long long vs_sb, vs_ss, vs_sh;
   float scale;
 };
 
 // Shared-memory row stride of the key chunk: an odd number of float4s, so
-// that 8 consecutive rows read at one column fall in 8 distinct bank groups
+// that 8 consecutive rows read at one column fall in 8 distinct bank
+// groups.  The Q8 instance's int8 key rows take the same number in bytes:
+// an odd number of words, so 32 consecutive rows fall in 32 banks.
 __host__ __device__ constexpr int key_stride(int hd) {
   return 4 * ((hd / 4) | 1);
 }
 
-// Floats of the K and V chunks, which the row-split partials of p . V
-// (kGroup float4s a thread) reuse once the last chunk is done
-__host__ __device__ constexpr int kv_floats(int hd, int chunk) {
-  return chunk * (key_stride(hd) + hd) > 16 * kThreads
-             ? chunk * (key_stride(hd) + hd)
+// Floats of the K and V chunks (Q8: int8 rows and their scales as
+// floats), which the row-split partials of p . V (kGroup float4s a
+// thread) reuse once the last chunk is done
+__host__ __device__ constexpr int chunk_floats(int hd, int chunk, bool q8) {
+  return q8 ? chunk * (key_stride(hd) + hd) / 4 + 2 * chunk
+            : chunk * (key_stride(hd) + hd);
+}
+
+__host__ __device__ constexpr int kv_floats(int hd, int chunk, bool q8) {
+  return chunk_floats(hd, chunk, q8) > 16 * kThreads
+             ? chunk_floats(hd, chunk, q8)
              : 16 * kThreads;
 }
 
 // Floats of shared memory: K and V chunks (or the row-split partials), q,
 // the scores, (m, l, corr), and the merge's inbox of every rank's slice of
 // acc, its (m, l) and weights.
-__host__ __device__ constexpr int smem_floats(int gmax, int hd, int chunk) {
-  return kv_floats(hd, chunk) + gmax * hd + kQuarters * gmax * chunk +
+__host__ __device__ constexpr int smem_floats(int gmax, int hd, int chunk,
+                                              bool q8) {
+  return kv_floats(hd, chunk, q8) + gmax * hd + kQuarters * gmax * chunk +
          4 * gmax +
          (gmax * hd + 4 * kMaxCluster) + 3 * kMaxCluster * gmax;
 }
@@ -108,6 +138,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// 4-byte copy from device memory to shared memory (the Q8 instance's rows)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
 }
 
 template <int N>
@@ -163,13 +200,33 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld,
   cp_async_commit();
 }
 
+// The same for int8 rows of nc words, a word a copy (ld and stride in
+// bytes)
+__device__ __forceinline__ void copy_rows8(signed char* dst, int ld,
+                                           const signed char* base,
+                                           long long stride, int r0, int rows,
+                                           int nc) {
+  for (int i = threadIdx.x; i < rows * nc; i += kThreads) {
+    const int r = i / nc;
+    const int c = i - r * nc;
+    cp_async4(dst + r * ld + 4 * c, base + (r0 + r) * stride + 4 * c);
+  }
+  cp_async_commit();
+}
+
+// Four int8 values times their row's scale, each one float32 product
+__device__ __forceinline__ float4 dequant4(const char4 x, const float s) {
+  return make_float4(static_cast<float>(x.x) * s, static_cast<float>(x.y) * s,
+                     static_cast<float>(x.z) * s, static_cast<float>(x.w) * s);
+}
+
 // CTAs an SM the kernel is compiled for: three (at most 80 registers a
 // thread), so that the serving shape's 256 CTAs in clusters of 8 run in one
 // wave on 132 SMs; two for 16 heads' accumulators.  With the score loop
 // unrolled twice, nothing spills.
 constexpr int min_blocks(int gmax) { return gmax >= 16 ? 2 : 3; }
 
-template <int GM>
+template <int GM, bool Q8>
 __global__ void __launch_bounds__(kThreads, min_blocks(GM))
 flash_decode_kernel(const Params p) {
   // p . V: a thread per (group of kGroup heads, float4 column), kSlots of
@@ -181,8 +238,14 @@ flash_decode_kernel(const Params p) {
   const int ks = key_stride(hd);
   float* k_s = smem;                             // (chunk, ks)
   float* v_s = k_s + chunk * ks;                 // (chunk, hd)
+  // Q8: int8 rows (chunk, ks bytes) and (chunk, hd bytes), then the rows'
+  // scales as floats
+  signed char* k8_s = reinterpret_cast<signed char*>(smem);
+  signed char* v8_s = k8_s + chunk * ks;
+  float* ksc_s = smem + chunk * (ks + hd) / 4;   // (chunk,)
+  float* vsc_s = ksc_s + chunk;                  // (chunk,)
   float4* red_s = reinterpret_cast<float4*>(smem);  // (kThreads, kGroup), after
-  float* q_s = smem + kv_floats(hd, chunk);      // (GM, hd)
+  float* q_s = smem + kv_floats(hd, chunk, Q8);  // (GM, hd)
   // (kQuarters, GM, chunk) partial scores of each column range; the first
   // GM * chunk then hold p
   float* s_s = q_s + GM * hd;
@@ -204,15 +267,34 @@ flash_decode_kernel(const Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nc = hd / 4;
   const int h0 = kvh * G;                        // first query head of the group
-  const float* kb = p.k + b * p.k_sb + kvh * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + kvh * p.v_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const signed char* kb8 =
+      static_cast<const signed char*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const signed char* vb8 =
+      static_cast<const signed char*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const __half* ksb = p.k_scale + b * p.ks_sb + kvh * p.ks_sh;
+  const __half* vsb = p.v_scale + b * p.vs_sb + kvh * p.vs_sh;
   const int lo = min(p.n_valid, rank * p.rows);  // this CTA's key range
   const int hi = min(p.n_valid, lo + p.rows);
   const int n_chunks = (hi - lo + chunk - 1) / chunk;   // 0: an empty range
+  // Q8: the scales of a later chunk's key (threads 0..) and value rows
+  // (threads kScoreRows..), held from their load to their store
+  float k_sc = 0.f, v_sc = 0.f;
+  const int vsc_row = tid - kScoreRows;
 
   if (n_chunks > 0) {
-    copy_rows(k_s, ks, kb, p.k_ss, lo, min(chunk, hi - lo), nc);
-    copy_rows(v_s, hd, vb, p.v_ss, lo, min(chunk, hi - lo), nc);
+    const int rows0 = min(chunk, hi - lo);
+    if constexpr (Q8) {
+      copy_rows8(k8_s, ks, kb8, p.k_ss, lo, rows0, nc);
+      copy_rows8(v8_s, hd, vb8, p.v_ss, lo, rows0, nc);
+      if (tid < rows0) ksc_s[tid] = __half2float(ksb[(lo + tid) * p.ks_ss]);
+      if (vsc_row >= 0 && vsc_row < rows0)
+        vsc_s[vsc_row] = __half2float(vsb[(lo + vsc_row) * p.vs_ss]);
+    } else {
+      copy_rows(k_s, ks, kb, p.k_ss, lo, rows0, nc);
+      copy_rows(v_s, hd, vb, p.v_ss, lo, rows0, nc);
+    }
   }
   const long long row = static_cast<long long>(b) * p.H + h0;
   for (int i = tid; i < G * hd; i += kThreads) q_s[i] = p.q[row * hd + i];
@@ -249,6 +331,9 @@ flash_decode_kernel(const Params p) {
     const int k0 = lo + t * chunk;
     const int rows = min(chunk, hi - k0);
     const bool more = t + 1 < n_chunks;
+    if constexpr (Q8) {          // this chunk's key scales, loaded earlier
+      if (t > 0 && tid < rows) ksc_s[tid] = k_sc;
+    }
     cp_async_wait<1>();          // this chunk's keys (its values may still fly)
     __syncthreads();
 
@@ -258,9 +343,11 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
       for (int g = 0; g < GM; ++g) d[g] = 0.f;
       const float4* krow = reinterpret_cast<const float4*>(k_s + j * ks);
+      const char4* krow8 = reinterpret_cast<const char4*>(k8_s + j * ks);
+      const float ksc = Q8 ? ksc_s[j] : 0.f;
 #pragma unroll 2
       for (int c = c_lo; c < c_hi; ++c) {
-        const float4 kv = krow[c];
+        const float4 kv = Q8 ? dequant4(krow8[c], ksc) : krow[c];
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
           if (g < G) {
@@ -275,9 +362,16 @@ flash_decode_kernel(const Params p) {
         if (g < G) part[g * chunk] = d[g];
     }
     __syncthreads();
-    if (more)                    // the key buffer is free: the next keys
-      copy_rows(k_s, ks, kb, p.k_ss, k0 + chunk,
-                min(chunk, hi - k0 - chunk), nc);
+    if (more) {                  // the key buffer is free: the next keys
+      const int next = min(chunk, hi - k0 - chunk);
+      if constexpr (Q8) {
+        copy_rows8(k8_s, ks, kb8, p.k_ss, k0 + chunk, next, nc);
+        if (tid < next)
+          k_sc = __half2float(ksb[(k0 + chunk + tid) * p.ks_ss]);
+      } else {
+        copy_rows(k_s, ks, kb, p.k_ss, k0 + chunk, next, nc);
+      }
+    }
 
     // online softmax: one warp per query head, two keys a lane
     for (int g = warp; g < G; g += kWarps) {
@@ -299,6 +393,9 @@ flash_decode_kernel(const Params p) {
         l_s[g] = l_s[g] * corr + sum;
         c_s[g] = corr;
       }
+    }
+    if constexpr (Q8) {          // this chunk's value scales, loaded earlier
+      if (t > 0 && vsc_row >= 0 && vsc_row < rows) vsc_s[vsc_row] = v_sc;
     }
     if (more)
       cp_async_wait<1>();        // this chunk's values; the next keys may fly
@@ -323,16 +420,26 @@ flash_decode_kernel(const Params p) {
         }
 #pragma unroll 2
         for (int j = split; j < rows; j += splits) {   // split 0 if slot > 0
-          const float4 vv = v4[j * nc + c];
+          const float4 vv =
+              Q8 ? dequant4(reinterpret_cast<const char4*>(v8_s + j * hd)[c],
+                            vsc_s[j])
+                 : v4[j * nc + c];
 #pragma unroll
           for (int h = 0; h < kGroup; ++h) fma4(acc[s][h], pg[h * chunk + j], vv);
         }
       }
     }
     __syncthreads();             // values and scores are reused
-    if (more)
-      copy_rows(v_s, hd, vb, p.v_ss, k0 + chunk,
-                min(chunk, hi - k0 - chunk), nc);
+    if (more) {
+      const int next = min(chunk, hi - k0 - chunk);
+      if constexpr (Q8) {
+        copy_rows8(v8_s, hd, vb8, p.v_ss, k0 + chunk, next, nc);
+        if (vsc_row >= 0 && vsc_row < next)
+          v_sc = __half2float(vsb[(k0 + chunk + vsc_row) * p.vs_ss]);
+      } else {
+        copy_rows(v_s, hd, vb, p.v_ss, k0 + chunk, next, nc);
+      }
+    }
   }
   if (splits > 1 && pair_of[0] >= 0) {   // the chunks' memory is free now
 #pragma unroll
@@ -423,25 +530,25 @@ int fail(cudaError_t err) {
   return static_cast<int>(err);
 }
 
-template <int GM>
+template <int GM, bool Q8>
 cudaError_t configure(int smem, int cluster) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_decode_kernel<GM, Q8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(flash_decode_kernel<GM>,
+    err = cudaFuncSetAttribute(flash_decode_kernel<GM, Q8>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   return err;
 }
 
-template <int GM>
+template <int GM, bool Q8>
 cudaLaunchConfig_t config(const Params& p, int groups, int cluster,
                           cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(groups) * cluster);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = sizeof(float) * smem_floats(GM, p.hd, p.chunk);
+  cfg.dynamicSmemBytes = sizeof(float) * smem_floats(GM, p.hd, p.chunk, Q8);
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -452,27 +559,51 @@ cudaLaunchConfig_t config(const Params& p, int groups, int cluster,
   return cfg;
 }
 
-template <int GM>
+template <int GM, bool Q8>
 int launch(const Params& p, int groups, int cluster, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<GM>(p, groups, cluster, stream, attr);
-  cudaError_t err = configure<GM>(static_cast<int>(cfg.dynamicSmemBytes),
-                                  cluster);
+  const cudaLaunchConfig_t cfg =
+      config<GM, Q8>(p, groups, cluster, stream, attr);
+  cudaError_t err = configure<GM, Q8>(static_cast<int>(cfg.dynamicSmemBytes),
+                                      cluster);
   if (err != cudaSuccess) return fail(err);
-  err = cudaLaunchKernelEx(&cfg, flash_decode_kernel<GM>, p);
+  err = cudaLaunchKernelEx(&cfg, flash_decode_kernel<GM, Q8>, p);
   if (err != cudaSuccess) return fail(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int GM>
+template <int GM, bool Q8>
 int max_clusters(const Params& p, int cluster, int* out) {
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<GM>(p, 1, cluster, nullptr, attr);
-  cudaError_t err = configure<GM>(static_cast<int>(cfg.dynamicSmemBytes),
-                                  cluster);
+  const cudaLaunchConfig_t cfg = config<GM, Q8>(p, 1, cluster, nullptr, attr);
+  cudaError_t err = configure<GM, Q8>(static_cast<int>(cfg.dynamicSmemBytes),
+                                      cluster);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(out, flash_decode_kernel<GM>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(out, flash_decode_kernel<GM, Q8>,
+                                         &cfg);
   return err == cudaSuccess ? 0 : fail(err);
+}
+
+// The instance for the smallest compiled G_MAX >= G; a G above 16 is
+// cudaErrorInvalidValue
+template <bool Q8>
+int launch_any(const Params& p, int groups, int cluster, cudaStream_t s) {
+  if (p.G <= 1) return launch<1, Q8>(p, groups, cluster, s);
+  if (p.G <= 2) return launch<2, Q8>(p, groups, cluster, s);
+  if (p.G <= 4) return launch<4, Q8>(p, groups, cluster, s);
+  if (p.G <= 8) return launch<8, Q8>(p, groups, cluster, s);
+  if (p.G <= 16) return launch<16, Q8>(p, groups, cluster, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool Q8>
+int max_clusters_any(const Params& p, int cluster, int* out) {
+  if (p.G <= 1) return max_clusters<1, Q8>(p, cluster, out);
+  if (p.G <= 2) return max_clusters<2, Q8>(p, cluster, out);
+  if (p.G <= 4) return max_clusters<4, Q8>(p, cluster, out);
+  if (p.G <= 8) return max_clusters<8, Q8>(p, cluster, out);
+  if (p.G <= 16) return max_clusters<16, Q8>(p, cluster, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -491,33 +622,46 @@ int flash_decode_launch(const float* q, const float* k, const float* v,
                         long long k_sb, long long k_ss, long long k_sh,
                         long long v_sb, long long v_ss, long long v_sh,
                         float scale, void* stream) {
-  const int G = H / KV;
-  const Params p{q, k, v, out, m, l, H, KV, G, hd, n_valid, rows, chunk,
-                 k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
-  const int groups = B * KV;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (G <= 1) return launch<1>(p, groups, cluster, s);
-  if (G <= 2) return launch<2>(p, groups, cluster, s);
-  if (G <= 4) return launch<4>(p, groups, cluster, s);
-  if (G <= 8) return launch<8>(p, groups, cluster, s);
-  if (G <= 16) return launch<16>(p, groups, cluster, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{q, k, v, nullptr, nullptr, out, m, l, H, KV, H / KV, hd,
+                 n_valid, rows, chunk, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                 0, 0, 0, 0, 0, 0, scale};
+  return launch_any<false>(p, B * KV, cluster,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The int8 instance: caches k, v int8 (B, Skv, KV, hd) and their float16
+// scales k_scale, v_scale (B, Skv, KV), all through their strides (in
+// elements).  hd, the cache strides and the base pointers must allow
+// 4-byte copies (the caller checks).  Returns as flash_decode_launch.
+int flash_decode_int8_launch(const float* q, const signed char* k,
+                             const signed char* v, const __half* k_scale,
+                             const __half* v_scale, float* out, float* m,
+                             float* l, int B, int H, int KV, int hd,
+                             int n_valid, int cluster, int rows, int chunk,
+                             long long k_sb, long long k_ss, long long k_sh,
+                             long long v_sb, long long v_ss, long long v_sh,
+                             long long ks_sb, long long ks_ss, long long ks_sh,
+                             long long vs_sb, long long vs_ss, long long vs_sh,
+                             float scale, void* stream) {
+  const Params p{q, k, v, k_scale, v_scale, out, m, l, H, KV, H / KV, hd,
+                 n_valid, rows, chunk, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                 ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh, scale};
+  return launch_any<true>(p, B * KV, cluster,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The most clusters of `cluster` CTAs that can be resident at once for a
-// group size G, head dim hd and chunk rows (cudaOccupancyMaxActiveClusters),
-// into *out; returns the CUDA error code.
+// group size G, head dim hd and chunk rows (cudaOccupancyMaxActiveClusters)
+// of the float32 (q8 = 0) or int8 (q8 = 1) instance, into *out; returns the
+// CUDA error code.
 int flash_decode_max_active_clusters(int G, int hd, int chunk, int cluster,
-                                     int* out) {
+                                     int q8, int* out) {
   Params p{};
+  p.G = G;
   p.hd = hd;
   p.chunk = chunk;
-  if (G <= 1) return max_clusters<1>(p, cluster, out);
-  if (G <= 2) return max_clusters<2>(p, cluster, out);
-  if (G <= 4) return max_clusters<4>(p, cluster, out);
-  if (G <= 8) return max_clusters<8>(p, cluster, out);
-  if (G <= 16) return max_clusters<16>(p, cluster, out);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return q8 ? max_clusters_any<true>(p, cluster, out)
+            : max_clusters_any<false>(p, cluster, out);
 }
 
 const char* flash_decode_error_string(int err) {

@@ -17,7 +17,10 @@ The loop (:func:`serve`) is the JAX package's ``repro.launch.serve`` loop:
 every ``kv_page_tokens`` steps it archives the ring segment of **K** (not
 V) into the store and, from the fourth segment on, reads two earlier
 segments back (lookback picks from the same numpy generator as the first
-tokens).
+tokens).  An int8 cache is archived as its int8 values, widened into the
+float32 capacity tier; a model without attention (mamba2) has no ring and
+no store; an audio model feeds ``(batch, n_codebooks)`` token grids, each
+codebook's greedy pick the argmax over its own logits.
 """
 
 from __future__ import annotations
@@ -47,18 +50,21 @@ class ServeResult:
     seconds: float                    # host wall time of the loop
     archive_seconds: float            # of which archiving and lookback reads
                                       # (with the wait for queued steps)
-    tokens: np.ndarray                # (steps, B) greedy picks, int32
-    tiered: TieredStore
+    tokens: np.ndarray                # (steps, B[, nq]) greedy picks, int32
+    tiered: Optional[TieredStore]     # None for a model without attention
     state: dict                       # final decode state
     logits: Optional[List[torch.Tensor]] = None   # per step, if kept
 
     def report(self) -> List[str]:
         """The ``[serve]`` lines of the JAX driver."""
-        t = self.tiered
-        return [
+        lines = [
             f"[serve] arch={self.cfg.name} batch={self.batch} "
             f"steps={self.steps} ({self.seconds:.2f}s, "
-            f"{self.batch * self.steps / self.seconds:.1f} tok/s)",
+            f"{self.batch * self.steps / self.seconds:.1f} tok/s)"]
+        t = self.tiered
+        if t is None:
+            return lines
+        return lines + [
             f"[serve] tiered-KV: hit-rate={t.hit_rate:.3f} "
             f"fills={t.stats['fills']} "
             f"writebacks={t.stats['writebacks']} "
@@ -74,31 +80,34 @@ def serve(params, cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
           keep_logits: bool = False) -> ServeResult:
     """Run ``prompt_len + gen`` greedy decode steps of ``params`` on their
     device, archiving KV segments into a :class:`TieredStore` backed by a
-    simulated CXL-SSD.  ``forced`` ``(steps, B)``, if given, is fed as the
-    next tokens instead of the greedy picks (teacher forcing; the picks are
-    still returned)."""
+    simulated CXL-SSD (when the model attends).  ``forced`` ``(steps, B[,
+    nq])``, if given, is fed as the next tokens instead of the greedy picks
+    (teacher forcing; the picks are still returned)."""
     dev = params["embed"].device
     serve_step = make_serve_step(cfg, mesh=None)
     state = init_decode_state(params, cfg, batch, context)
     # archived KV pages: a page is one ring segment of all layers,
     # (n_layers, batch, kv_page_tokens, KV, hd)
     n_kv_pages = max(context // kv_page_tokens * 4, 8)
-    tiered = TieredStore(
-        TieredStoreConfig(
-            n_logical_pages=n_kv_pages,
-            page_shape=(cfg.n_layers, batch, kv_page_tokens, cfg.n_kv_heads,
-                        cfg.resolved_head_dim),
-            hbm_pages=max(n_kv_pages // 4, 2),
-            policy=policy),
-        backing=make_device("cxl-ssd"), torch_device=dev)
+    tiered = None
+    if cfg.n_heads:
+        tiered = TieredStore(
+            TieredStoreConfig(
+                n_logical_pages=n_kv_pages,
+                page_shape=(cfg.n_layers, batch, kv_page_tokens,
+                            cfg.n_kv_heads, cfg.resolved_head_dim),
+                hbm_pages=max(n_kv_pages // 4, 2),
+                policy=policy),
+            backing=make_device("cxl-ssd"), torch_device=dev)
 
     rng = np.random.default_rng(seed)
+    shape = (batch, cfg.n_codebooks) if cfg.n_codebooks else (batch,)
     tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (batch,)).astype(np.int32)).to(dev)
+        rng.integers(0, cfg.vocab, shape).astype(np.int32)).to(dev)
 
     t0 = time.perf_counter()
     n_steps = prompt_len + gen
-    ring = state["k"].shape[2]
+    ring = state["k"].shape[2] if cfg.n_heads else 0
     picks_out, logits_out = [], []
     archive_s = 0.0
     for step in range(n_steps):
@@ -114,7 +123,7 @@ def serve(params, cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
                 np.asarray(forced[step], np.int32)).to(dev)
         # archive the K segment the ring has just filled into the capacity
         # tier (the paper's DRAM-cache-of-SSD flow)
-        if ring and (step + 1) % kv_page_tokens == 0:
+        if tiered is not None and ring and (step + 1) % kv_page_tokens == 0:
             seg = (step + 1) // kv_page_tokens - 1
             lo = (seg * kv_page_tokens) % ring
             if lo + kv_page_tokens <= ring:

@@ -1,6 +1,6 @@
 """Transformer layers of the serving and prefill paths in PyTorch: RMSNorm,
-split-half RoPE, SwiGLU, token embedding, full-sequence attention and
-single-token decode attention.
+split-half RoPE, SwiGLU, token and codebook embeddings, full-sequence
+attention and single-token decode attention.
 
 Each function keeps the JAX package's layout and numerics (float32
 normalisation and softmax, frequencies ``theta ** (arange / hd)`` in
@@ -13,6 +13,8 @@ prefill path's call into its kernel.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -121,3 +123,11 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 # ------------------------------------------------------------------ embeds
 def embed_tokens(table: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:
     return table[token_ids]
+
+
+def embed_codebooks(tables: torch.Tensor,
+                    token_grid: torch.Tensor) -> torch.Tensor:
+    """MusicGen-style: tables (nq, V, D), token_grid (B, S, nq) -> the sum
+    of the ``nq`` embeddings, added in codebook order."""
+    embs = [tables[i][token_grid[..., i]] for i in range(tables.shape[0])]
+    return functools.reduce(torch.add, embs)

@@ -835,3 +835,94 @@ def test_fleet_row_carries_the_contract_keys(smoke):
     assert row["ms"] == 40.0 and row["plain_ms"] == 90.0
     assert set(row["ms_by_case"]) == {"one-cta", "D1", "D8", "x512-D8"}
     assert (REPO / row["source"]).exists()
+
+
+# ------------------------------------------ int8 caches, other families
+def test_int8_and_families_phases_run_after_prefill_before_scan(smoke):
+    import inspect
+
+    src = inspect.getsource(smoke.main)
+    assert (src.index("prefill_phase(") < src.index("int8_phase(")
+            < src.index("families_phase(") < src.index("scan_phase("))
+    assert "int8_row, prefill_row" in src
+    for call in ("serve(", "kv_dtype=\"int8\"", "flash_decode_int8(",
+                 "flash_decode_int8_plain(", "reset_launches()"):
+        assert call in inspect.getsource(smoke.int8_phase), call
+    block = inspect.getsource(smoke.family_block)
+    for call in ("serve(", "make_prefill_step(", "make_serve_step(",
+                 "moe_ffn_local(", "reset_launches()", "decode_split("):
+        assert call in block, call
+
+
+def test_the_families_phase_takes_its_models(smoke):
+    from repro_torch.configs import get_arch
+
+    runs = dict(smoke.FAMILY_RUNS)
+    assert {get_arch(a).family for a in runs} == {"ssm", "hybrid", "audio",
+                                                  "moe"}
+    assert runs == {"mamba2-2_7b": None, "hymba-1_5b": None,
+                    "musicgen-large": None, "mixtral-8x7b": 4}
+    assert smoke.FAMILY_SERVE["prompt_len"] + smoke.FAMILY_SERVE["gen"] == \
+        smoke.PARITY_TOKENS == 64
+    path, line = smoke.INT8_REPLACES.split(":")
+    src = (REPO / path).read_text().splitlines()
+    assert src[int(line) - 1].strip().startswith("k_eff = k_cache.astype")
+    assert (REPO / smoke.INT8_SOURCE).exists()
+
+
+@pytest.fixture
+def cardless(smoke, monkeypatch):
+    """The phases on the CPU at reduced width: the card's memory counters,
+    synchronize and occupancy query stubbed, device events made up, every
+    failed check collected instead of ending the run."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels import flash_decode as fd
+
+    monkeypatch.setattr(fd, "max_active_clusters", lambda *a, **k: 0)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(smoke, "device_events", lambda torch, run, enough: (
+        run(), [_event("gemm", 10.0), _event("flash_decode_kernel", 5.0)])[1])
+    monkeypatch.setattr(smoke, "device_ms", lambda torch, fn, reps=24,
+                        match=None, names=None: (fn(0), fn(1), 0.01)[2])
+    full = configs.get_arch
+    monkeypatch.setattr(configs, "get_arch", lambda a: full(a).reduced())
+    monkeypatch.setattr(smoke, "FAMILY_PREFILL", dict(batch=2, seq=80))
+    failed = []
+    monkeypatch.setattr(smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    return failed
+
+
+def test_the_new_phases_rehearse_on_the_cpu(smoke, cardless, capsys):
+    """Every check of ``[int8]``, ``[profile]`` and ``[families]`` holds on
+    the CPU but the launch counts: the wrappers run their plain versions
+    there."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_arch("h2o-danube-3-4b")
+    kw = dict(batch=4, context=32, prompt_len=8, gen=24, policy="lru",
+              kv_page_tokens=4, seed=0)
+    smoke.SERVE = dict(arch=cfg.name, **kw)
+    params = init_params(cfg, 0, torch_device="cpu")
+    res = serve(params, cfg, **kw)
+    smoke.TIERED_PIN = dict(res.tiered.stats, sim_ticks=res.tiered.sim_ticks)
+    q = torch.randn(4, cfg.n_heads, cfg.resolved_head_dim)
+    row = smoke.int8_phase(torch, dict(cfg=cfg, params=params, res=res, q=q,
+                                       n_valid=32, steps=32))
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in row, key
+    assert row["name"] == "flash_decode_int8" and row["bound_by"] == "bytes"
+    smoke.profile_phase(torch, dict(cfg=cfg, params=params, res=res,
+                                    steps=32))
+    smoke.families_phase(torch, torch.device("cpu"), 0)
+    assert cardless and all("launches" in f for f in cardless), cardless
+    out = capsys.readouterr().out
+    assert out.count("[families] arch=") == 8
+    assert "greedy_argmax=equal" in out and "moe_card_vs_cpu_max_err" in out

@@ -15,6 +15,8 @@ within 2e-5.  A reduced-width forward on the card matches the CPU's within
 so it also runs where JAX is not installed.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -195,6 +197,107 @@ def test_flash_decode_reads_one_layer_of_the_stacked_state(card):
     odd = torch.randn(2, 64, 2, 30, device=card, generator=gen)
     with pytest.raises(ValueError, match="multiple of 4"):
         fd.flash_decode(q[:, :4, :30], odd, odd, 64)
+
+
+def _int8_inputs(card, seed, B, Skv, KV, G, hd, layers=()):
+    """q and int8 caches with float16 scales, as a decode state holds them
+    (a quantized random row per slot and KV head)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, KV * G, hd, device=card, generator=gen)
+    out = [q]
+    for _ in range(2):
+        rows = torch.randn(*layers, B, Skv, KV, hd, device=card, generator=gen)
+        scale = torch.clamp(rows.abs().amax(-1), min=1e-6) / 127.0
+        out.append(torch.round(rows / scale[..., None]).to(torch.int8))
+        out.append(scale.to(torch.float16))
+    q, kc, ks, vc, vs = out
+    return q, kc, vc, ks, vs
+
+
+# hd 120 (head rows at 8-byte offsets of a 960-byte slot), 64 and 128; G
+# 1, 4, 5 (hymba), 8; fill levels on and around the split edges (64 rows
+# a CTA) and a 4096-slot cache (ranges of two chunks and more)
+@pytest.mark.parametrize("Skv,n_valid", [(512, n) for n in (
+    1, 31, 63, 64, 65, 448, 512)] + [(4096, n) for n in (1025, 4096)])
+@pytest.mark.parametrize("G", [1, 4, 5, 8])
+@pytest.mark.parametrize("hd", [120, 64, 128])
+def test_flash_decode_int8_equals_plain(card, hd, G, Skv, n_valid):
+    args = _int8_inputs(card, hd * 100 + G, 4, Skv, 8 if G < 8 else 4, G, hd)
+    before = dict(fd.LAUNCHES)
+    got = fd.flash_decode_int8(*args, n_valid)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode_int8"] == before["flash_decode_int8"] + 1
+    assert fd.LAUNCHES["flash_decode"] == before["flash_decode"]
+    _decode_close(got, fd.flash_decode_int8_plain(*args, n_valid))
+
+
+@pytest.mark.parametrize("n_valid", [1, 40, 65, 200, 511])
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+@pytest.mark.parametrize("hd,G", [(120, 4), (64, 5), (128, 16)])
+def test_flash_decode_int8_forced_cluster_sizes_equal_plain(card, hd, G,
+                                                            cluster, n_valid):
+    q, kc, vc, ks, vs = _int8_inputs(card, cluster * 1000 + n_valid, 2, 512,
+                                     2, G, hd)
+    plan = fd.split_plan(n_valid, hd, 2 * 2, cluster=cluster)
+    _decode_close(fd._launch(q, kc, vc, n_valid, plan, scales=(ks, vs)),
+                  fd.flash_decode_int8_plain(q, kc, vc, ks, vs, n_valid))
+
+
+def test_flash_decode_int8_reads_one_layer_of_the_stacked_state(card):
+    """One layer of stacked (layers, B, Sc, KV, hd) caches and (layers, B,
+    Sc, KV) scales, read in place; rows not 4-byte aligned are refused."""
+    q, kc, vc, ks, vs = _int8_inputs(card, 2, 2, 64, 8, 4, 120, layers=(3,))
+    _decode_close(fd.flash_decode_int8(q, kc[1], vc[1], ks[1], vs[1], 40),
+                  fd.flash_decode_int8_plain(q, kc[1], vc[1], ks[1], vs[1],
+                                             40))
+    with pytest.raises(ValueError, match="4-byte"):
+        fd.flash_decode_int8(q[..., :116], kc[1, ..., 2:118],
+                             vc[1, ..., 2:118], ks[1], vs[1], 40)
+
+
+def test_flash_decode_int8_spreads_as_the_float_kernel(card):
+    for G, hd in ((4, 120), (16, 128), (5, 64)):
+        for n_valid in (64, 512, 4096):
+            p = fd.split_plan(n_valid, hd)
+            assert fd.max_active_clusters(G, hd, p, int8=True) >= \
+                fd.max_active_clusters(G, hd, p), (G, hd, p)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch,int8", [
+    ("mixtral-8x7b", False), ("mamba2-2_7b", False), ("hymba-1_5b", False),
+    ("musicgen-large", False), ("kimi-k2-1t-a32b", False),
+    ("h2o-danube-3-4b", True), ("hymba-1_5b", True)])
+def test_family_decode_on_the_card_equals_the_cpu(card, arch, int8):
+    """12 teacher-forced decode steps at reduced width through the
+    kernels: logits within 1e-4 of the CPU's, one decode kernel launch a
+    step and attention layer."""
+    cfg = get_arch(arch).reduced()
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_dtype="int8")
+    params = init_params(cfg, 8, torch_device="cpu")
+    kw = dict(batch=2, prompt_len=4, gen=8, context=16, kv_page_tokens=4,
+              seed=8)
+    cpu = serve(params, cfg, keep_logits=True, **kw)
+    fd.reset_launches()
+    gpu = serve(_to(params, card), cfg, forced=cpu.tokens, keep_logits=True,
+                **kw)
+    name = "flash_decode_int8" if int8 else "flash_decode"
+    attn = cfg.n_layers if cfg.n_heads else 0
+    assert fd.LAUNCHES[name] == 12 * attn
+    torch.testing.assert_close(torch.stack(gpu.logits).cpu(),
+                               torch.stack(cpu.logits), rtol=1e-4, atol=1e-4)
+    if int8:                  # inputs equal to float32 rounding: a code
+        for k in ("k", "v"):  # at most one apart, scales to float16's
+            diff = gpu.state[k].cpu().int() - cpu.state[k].int()
+            assert int(diff.abs().max()) <= 1, k
+            torch.testing.assert_close(gpu.state[f"{k}_scale"].cpu(),
+                                       cpu.state[f"{k}_scale"], rtol=1e-3,
+                                       atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

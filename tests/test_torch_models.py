@@ -237,9 +237,7 @@ def test_params_from_jax_refuses_a_wrong_tree():
                         torch_device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-2_7b",
-                                  "hymba-1_5b", "musicgen-large",
-                                  "llama-3_2-vision-90b"])
+@pytest.mark.parametrize("arch", ["llama-3_2-vision-90b"])
 def test_other_families_are_refused(arch):
     cfg = get_arch(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -247,9 +245,12 @@ def test_other_families_are_refused(arch):
 
 
 def test_int8_kv_and_a_mesh_are_refused():
+    """int8 caches run (``tests/test_torch_int8kv.py``) but not on the vlm
+    family, whose reference decode loop passes no scales."""
     _, cfg = _reduced()
-    with pytest.raises(NotImplementedError, match="int8"):
-        T.param_shapes(dataclasses.replace(cfg, kv_dtype="int8"))
+    vlm = get_arch("llama-3_2-vision-90b").reduced()
+    with pytest.raises(NotImplementedError, match="int8.*ROADMAP"):
+        T.param_shapes(dataclasses.replace(vlm, kv_dtype="int8"))
     with pytest.raises(NotImplementedError, match="mesh"):
         make_serve_step(cfg, mesh=object())
     params = T.init_params(cfg, 0, torch_device="cpu")

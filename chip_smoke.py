@@ -119,13 +119,14 @@ and ``nvcc``.  Phases, each printing one or more lines:
    ticks, hit, dirty-evict and poison flags, elapsed and end ticks, GC
    runs, the fault counters and the metrics bundle, and the availability
    series under transport faults): Table I's cached CXL-SSD over the main
-   path's trace under the golden ``faults-nand-retry@direct`` rates (NAND
+   path's first 2^18 accesses under the golden ``faults-nand-retry@direct``
+   rates (NAND
    read retries and poison; its 16 GB run no GC at this footprint); the
    golden scenario's GC-pressured flash under the same plan over the
    longest power-of-two seeded trace that the python lane finishes
    (blocks retired); Table I's device mounted h0 -> d0 on a 2 x 2
    spine-leaf with ECMP under CRC retries and a down window, over the
-   main path's first 2^18 accesses (link retries, degraded accesses and
+   main path's first 2^17 accesses (link retries, degraded accesses and
    failovers), with the host time of the
    fault-column builder apart from the kernel's device time; each
    replay's bytes an access, bound and serial-chain model with its fault
@@ -141,8 +142,8 @@ and ``nvcc``.  Phases, each printing one or more lines:
    this host on every field (each host's latency ticks, hit, dirty-evict
    and poison flags, elapsed, end and latency-sum ticks, the span, GC
    runs, the metrics bundle with its fault counters, each host's
-   availability series; that comparison at a quarter of the depth, each
-   host's first 2^16 accesses, the timed replay at the full depth): ``MultiHostDriver(targets, engine="scan")`` over
+   availability series; that comparison at a sixteenth of the depth,
+   each host's first 2^14 accesses, the timed replay at the full depth): ``MultiHostDriver(targets, engine="scan")`` over
    four Table I cached CXL-SSDs privately mounted on a two-level tree at
    4 x 2^18 accesses (the full-width path), three hosts on the golden
    ``multihost-qos-ecmp`` fabric pooling two DRAM devices at 2^20
@@ -182,7 +183,7 @@ and ``nvcc``.  Phases, each printing one or more lines:
    ``MultiHostReplay`` of its hosts; (c) ``fault_seed_sweep``:
    ``results/BENCH_replay.json``'s ``availability`` oracle (16 seeds at 4
    and 8 hosts) on every field, and two Table I mounts on the [multihost]
-   phase's down window with CRC retries over 16 seeds, 2 x 2^16
+   phase's down window with CRC retries over 16 seeds, 2 x 2^13
    accesses, three lanes equal to standalone runs; (d) a GC-overfilled
    sweep refused.  Each sweep's lanes and waves, kernel time, wall and
    host time, its checked lanes' standalone kernel times and the serial
@@ -203,6 +204,21 @@ and ``nvcc``.  Phases, each printing one or more lines:
    2, 4, 8; (d) ``host_count_sweep(sharded=True)`` of (a) at 16, 32 and
    64 hosts, a launch each, equal to the unsharded sweep; the kernel
    against its twin on five cases.
+
+11c. vlm: llama-3.2-vision-90b at full width cut to 2 super-blocks (10
+   self and 2 cross layers), gates 0.5, a seeded frontend: a 2 x 1024
+   prefill and 64 decode steps on ``init_decode_state(frontend=...)``
+   (12 ``flash_attention`` and 64 x 12 ``flash_decode`` launches), decode
+   against the prefill, cross layer 0's kernels against their plain
+   versions; prefill ms, ms a step, peak bytes;
+11d. train: the ``lse`` instance and the three backward kernels against
+   their plain versions (hd 64 / 120 / 128 x G 1-16 x five masks);
+   minicpm-2b at full width and depth through ``launch/train.main`` (2 x
+   2048, remat, 8 steps: 80 ``lse`` launches and 40 of each backward
+   kernel a step), a profiled step's split, the kernels at layer 0's
+   shape beside bounds, plain versions and SDPA; one step of the 2-layer
+   cut on the card against the CPU (int8 moments, compression) and a
+   checkpoint and resume (4 + 2 steps against 6).
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -284,6 +300,10 @@ SCAN_SCENARIOS = ([f"{d}@{a}" for d in SCAN_DEVICES
                   + ["dram@stream", "pmem@stream", "dram-qos@fabric",
                      "ssd-gc@direct"])
 SCAN_TWIN_ACCESSES = 4096
+# the python lane's comparison depth where it is slowest (20-31 s at
+# 2^20): the first 2^18 accesses, replayed on the card again; the main
+# path's replays stay at the whole trace
+SCAN_PYTHON_ACCESSES = {"cxl-ssd": 1 << 18, "cxl-ssd-cache": 1 << 18}
 # Table I's cached CXL-SSD against its twin past its 4096 frames: the
 # main-path trace's first 2^14 accesses touch about 10,000 of its 16,384
 # pages, so the cache fills, evicts and writes back
@@ -318,19 +338,23 @@ SCAN_OPS = {"dram": 39, "pmem": 43, "ssd-buf": 49, "ssd-cache": 75}
 # the faults phase: Table I's cached CXL-SSD under the golden
 # faults-nand-retry@direct rates, then mounted behind a 2 x 2 spine-leaf
 # with ECMP under CRC retries and a down window over the second quarter
-# of the main path's first 2^18 accesses (cut from 2^20 so that the
-# script keeps its time limit with the [sweep] phase: the python lane
-# took 111 s there); the golden scenario's GC-pressured flash on
+# of the main path's first 2^17 accesses (cut from 2^20 so that the
+# script keeps its time limit with the [sweep], [vlm] and [train]
+# phases: the python lane took 111 s at 2^20); the
+# golden scenario's GC-pressured flash on
 # the longest power-of-two seeded trace that the python lane finishes
 # (2^13 accesses run out of space, tests/test_torch_faults_scan.py)
 FAULT_NAND = dict(nand_read_retry_rate=0.3, erase_fail_rate=0.5,
                   poison_rate=0.1)
 FAULT_NAND_SEED = 0
+# the NAND-faulted replay runs the main path's first 2^18 accesses (at
+# 2^20 its python lane took 81 s)
+FAULT_NAND_ACCESSES = 1 << 18
 FAULT_FABRIC = dict(num_hosts=2, num_devices=2, num_leaves=2, num_spines=2,
                     ecmp=True)
 FAULT_LINK = dict(link_retry_rate=0.25,
-                  down_links=(("s0", "sp0", 1 << 16, 1 << 17),))
-FAULT_LINK_ACCESSES = 1 << 18
+                  down_links=(("s0", "sp0", 1 << 15, 1 << 16),))
+FAULT_LINK_ACCESSES = 1 << 17
 FAULT_LINK_SEED = 7
 FAULT_GC_SCENARIO = "faults-nand-retry@direct"
 FAULT_GC_TRACE = dict(seed=24, n=1 << 12, pages=16)
@@ -357,10 +381,11 @@ ALU_STEP_CYCLES = 4
 # multi-host scenarios
 MULTI_HOSTS = 4
 MULTI_PER_HOST = 1 << 18
-# the python lane's comparison runs the same cases at a quarter of the
+# the python lane's comparison runs the same cases at a sixteenth of the
 # depth, each host's first accesses (at 2^18 a host its taps took 171 s,
-# which the script's time limit no longer holds beside the [sweep] phase)
-MULTI_PYTHON_PER_HOST = 1 << 16
+# which the script's time limit no longer holds beside the [sweep],
+# [vlm] and [train] phases)
+MULTI_PYTHON_PER_HOST = 1 << 14
 MULTI_FABRIC = dict(num_leaves=2)
 MULTI_QOS = dict(num_hosts=3, num_devices=2, num_leaves=2, num_spines=2,
                  ecmp=True, qos_weights={"h0": 3.0, "h1": 1.0, "h2": 1.0})
@@ -428,7 +453,8 @@ STREAM_MULTI = dict(per_host=1 << 16, chunk=1 << 14)
 # [multihost] phase's four Table I mounts at 1-4 hosts, 2^18 accesses a
 # host; (c) results/BENCH_replay.json's availability oracle, and the
 # [multihost] phase's two-host down window with CRC retries, 16 seeds,
-# 2^16 accesses a host; (d) a GC-overfilled cache sweep, refused
+# 2^13 accesses a host (at 2^16 its column builder took 69 s);
+# (d) a GC-overfilled cache sweep, refused
 SWEEP_KERNEL = "replay_sweep_kernel"
 MULTI_SWEEP_KERNEL = "replay_multi_sweep_kernel"
 SWEEP_REPLACES = "src/repro/core/replay/sweep.py:56"
@@ -439,7 +465,7 @@ SWEEP_TWIN = dict(accesses=4096, caps=(256, 1024, 2048, 4096),
 SWEEP_HOSTS = (1, 2, 3, 4)
 SWEEP_HOST_PER_HOST = 1 << 18
 SWEEP_SEEDS = 16
-SWEEP_SEED_PER_HOST = 1 << 16
+SWEEP_SEED_PER_HOST = 1 << 13
 SWEEP_LINK = dict(link_retry_rate=0.15, link_retry_max=2)
 SWEEP_SEED_CHECKED = (0, 7, 15)        # lanes held against standalone runs
 # every lane check the phase prints, each of which must be equal
@@ -567,12 +593,62 @@ FAMILY_PROFILE_STEPS = 4       # decode steps under the profiler, per model
 MOE_CHECK_TOKENS = 64          # mixtral's layer-0 MoE, card against the CPU
 MOE_TOL = dict(atol=1e-5, rtol=1e-5)
 PREFILL_TIMING_REPS = 8
+# [vlm]: llama-3.2-vision-90b at full width, cut to 2 super-blocks (10
+# self layers, 2 cross layers: 43.4 GB of float32 weights; all 100 layers
+# would be ~363 GB), every cross gate at 0.5 (the reference's zero gates
+# would shut the cross layers out of every check), a seeded frontend
+VLM = dict(arch="llama-3_2-vision-90b", super_blocks=2, batch=2, seq=1024,
+           gate=0.5, frontend_scale=0.1, decode_steps=64)
+# [train]: minicpm-2b at full width and depth through launch/train.main
+TRAIN = dict(arch="minicpm-2b", steps=8, batch=2, seq=2048)
+TRAIN_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+TRAIN_REPLACES = "src/repro/models/flash_vjp.py:258"     # _flash_bwd (jnp)
+LSE_REPLACES = "src/repro/models/flash_vjp.py:250"       # _flash_fwd (jnp)
+BWD_KERNELS = {"flash_attention_bwd_delta": "flash_attention_bwd_delta_kernel",
+               "flash_attention_bwd_dkdv": "flash_attention_bwd_dkdv_kernel",
+               "flash_attention_bwd_dq": "flash_attention_bwd_dq_kernel"}
+# the CPU test's tolerance (tests/test_torch_flash_vjp.py): the backward
+# kernels take float32 products on the FP32 FMA units and sum over up to
+# Skv keys (dq) or S x G query rows (dk, dv) in another order than the
+# plain version (tests/test_torch_cuda.py holds the same)
+BWD_TOL = dict(atol=2e-5, rtol=2e-5)
+# (S, Skv, causal, window) of the backward checks: 64-row query and key
+# tiles; "edge" ends one row and one key past a tile, "cross_edge" one key
+BWD_MODES = {"causal": (256, 256, True, 0), "window": (320, 320, True, 100),
+             "cross": (160, 200, False, 0), "edge": (129, 129, True, 0),
+             "cross_edge": (64, 129, False, 0)}
+# every (hd, mask) pair and every (hd, G) pair once (G's index is the
+# mask's plus twice hd's, mod 5); tests/test_torch_cuda.py holds the
+# whole product on the card
+BWD_CHECKS = [(hd, (1, 4, 5, 8, 16)[(m + 2 * h) % 5], mode)
+              for h, hd in enumerate((64, 120, 128))
+              for m, mode in enumerate(BWD_MODES)]
+# the 2-layer cut of minicpm-2b: one step on the card against the CPU port
+# (int8 moments, compressed gradients; lr 1e-4: AdamW's first step moves a
+# parameter by about lr * g / (|g| + eps), so a gradient within rounding
+# of zero may move by up to 2 lr on the one side and not the other), and
+# a checkpoint and resume through launch/train.main (4 + 2 steps against
+# 6)
+TRAIN_CUT = dict(layers=2, batch=1, seq=64, lr=1e-4)
+TRAIN_RESUME = dict(layers=2, batch=2, seq=512, steps=6, every=4,
+                    lr="1e-4", moments="int8")
+GRAD_SHARE_TOL = 1e-4          # |grad error| / a leaf's largest |grad|
+TRAIN_LAYERS_FULL = 40
 SCHED_REQUESTS, SCHED_SLOTS, SCHED_NEW = 8, 4, 32
 PROFILE_STEPS = 16              # decode steps at a full ring, profiled
 TIMING_REPS = 24                # calls per device time, on rotating inputs
 COPY_ALTERNATIONS = 200         # page copy vs library call, in turn
 PROFILE_TRIES = 3               # profiler sessions before a timing gives up
 EVENT_TIMED: list = []          # timings taken by CUDA events instead
+
+
+START = time.perf_counter()
+
+
+def clock(phase: str) -> None:
+    """A ``[clock]`` line: seconds since the script started, as ``phase``
+    begins (the script's time limit is shared by every phase)."""
+    say("clock", at=phase, s=f"{time.perf_counter() - START:.1f}")
 
 
 def say(phase: str, **kw) -> None:
@@ -1779,6 +1855,669 @@ def families_phase(torch, dev, seed: int) -> None:
         family_block(torch, dev, arch, layers, seed)
 
 
+# --------------------------------------------------------------- the vlm
+def vlm_phase(torch, dev, seed: int) -> dict:
+    """[vlm]: llama-3.2-vision-90b at full width, cut to
+    ``VLM["super_blocks"]`` super-blocks: a prefill of ``batch x seq``
+    tokens over a seeded frontend (one ``flash_attention`` launch a self
+    and a cross layer), ``decode_steps`` decode steps on
+    ``init_decode_state(frontend=...)`` (one ``flash_decode`` launch a
+    self and a cross layer a step) against the prefill, and layer 0's
+    cross kernels against their plain versions.  Returns the launches
+    and errors that go into the two kernels' rows."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.step import make_prefill_step, make_serve_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    full = get_arch(VLM["arch"])
+    cfg = dataclasses.replace(
+        full, n_layers=VLM["super_blocks"] * full.cross_attn_every)
+    n_cross = T.n_cross(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed, torch_device=dev)
+    params["cross"]["gate"].fill_(VLM["gate"])
+    B, S, steps = VLM["batch"], VLM["seq"], VLM["decode_steps"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    frontend = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                           device=dev, generator=gen) * VLM["frontend_scale"]
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=dev, generator=gen,
+                           dtype=torch.int32)
+    torch.cuda.synchronize()
+    param_gb = torch.cuda.memory_allocated() / 1e9
+    init_s = time.perf_counter() - t0
+
+    # the main path: a prefill, then decode steps, counts from 0
+    prefill = make_prefill_step(cfg, torch_device=dev)
+    batch = {"tokens": tokens, "frontend": frontend}
+    fa.reset_launches()
+    fd.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    first_prefill_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(logits.shape) == (B, S, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"vlm prefill logits of shape {tuple(logits.shape)} or not finite")
+    head = logits[:, :steps].clone()
+    del logits
+    serve = make_serve_step(cfg)
+    state = T.init_decode_state(params, cfg, B, steps, frontend=frontend)
+    dec = []
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lg, state = serve(params, state, tokens[:, t])
+        dec.append(lg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "flash_decode": fd.LAUNCHES["flash_decode"]}
+    check(launches == {"flash_attention": cfg.n_layers + n_cross,
+                       "flash_decode": steps * (cfg.n_layers + n_cross)},
+          f"vlm launches {launches}: not one a self and a cross layer "
+          f"({cfg.n_layers} + {n_cross}) in the prefill and in each of "
+          f"{steps} decode steps")
+    dec = torch.stack(dec, dim=1)
+    scale = float(head.abs().max())
+    err = float((dec - head).abs().max())
+    check(bool(torch.isfinite(dec).all()) and err <= PARITY_TOL * scale,
+          f"vlm prefill logits differ from {steps} decode steps by "
+          f"{err:.3e}, over {PARITY_TOL} x {scale:.3f}")
+    check(torch.equal(dec[..., :cfg.vocab].argmax(-1),
+                      head[..., :cfg.vocab].argmax(-1)),
+          "vlm prefill and decode disagree on the greedy tokens")
+    del dec, head
+    t0 = time.perf_counter()
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+
+    # cross layer 0's kernels on its own tensors: its q of the embedded
+    # prompt, its k / v of the frontend (the decode state's cross_k / v)
+    with torch.no_grad():
+        blk = T.layer(params["cross"], 0)
+        x = L.embed_tokens(params["embed"], tokens.long())
+        q, k, v = T.cross_inputs(x, frontend, blk, cfg)
+        check(torch.equal(k, state["cross_k"][0])
+              and torch.equal(v, state["cross_v"][0]),
+              "the decode state's cross keys are not cross layer 0's")
+        fa_err, _, ok = close_err(
+            torch, fa.flash_attention(q, k, v, causal=False),
+            fa.flash_attention_plain(q, k, v, causal=False), PREFILL_TOL)
+        check(ok, f"cross flash_attention disagrees with its plain version "
+                  f"at {B}x{S} over {cfg.n_frontend_tokens} keys: {fa_err:.3e}")
+        q1 = q[:, 0].contiguous()
+        fd_err = decode_err(fd.flash_decode(q1, k, v, k.shape[1]),
+                            fd.flash_decode_plain(q1, k, v, k.shape[1]))
+        check(decode_within(fd_err),
+              f"cross flash_decode disagrees with its plain version at T = "
+              f"{k.shape[1]}: {fd_err}")
+        plan = fd.split_plan(k.shape[1], cfg.resolved_head_dim,
+                             B * cfg.n_kv_heads)
+    say("vlm", arch=cfg.name, layers=f"{cfg.n_layers}/{full.n_layers}",
+        cross_layers=f"{n_cross}/{T.n_cross(full)}", cut="depth",
+        param_gb=f"{param_gb:.2f}", init_s=f"{init_s:.2f}",
+        gate=VLM["gate"], frontend=f"{B}x{cfg.n_frontend_tokens}x"
+                                   f"{cfg.d_model}",
+        prefill_tokens=f"{B}x{S}", first_prefill_ms=f"{first_prefill_ms:.3f}",
+        prefill_ms=f"{prefill_ms:.3f}", decode_steps=steps,
+        ms_per_step=f"{decode_s / steps * 1e3:.3f}",
+        tok_per_s=f"{B * steps / decode_s:.1f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        decode_parity_max_err=f"{err:.3e}", max_logit=f"{scale:.3f}",
+        greedy_argmax="equal",
+        cross_flash_attention_max_abs_err=f"{fa_err:.3e}",
+        cross_flash_decode_err=json.dumps(fd_err, separators=(",", ":")),
+        cross_decode_plan=f"{plan.cluster}x{plan.rows}/{plan.chunk}",
+        peak_device_bytes=torch.cuda.max_memory_allocated())
+    del params, state, frontend, tokens, q, k, v, x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "fa_err": fa_err, "fd_err": fd_err}
+
+
+# ------------------------------------------------------------- training
+def train_kernel_checks(torch, dev, seed: int) -> dict:
+    """[train]: the ``lse`` instance of ``flash_attention`` and the three
+    backward kernels against their plain versions over ``BWD_CHECKS``;
+    the ``lse`` instance's out bit-equal to the inference instance's.
+    Returns each kernel's largest error."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    B, KV = 2, 2
+    worst = dict.fromkeys(("flash_attention_lse",) + tuple(BWD_KERNELS), 0.0)
+    bad = []
+    for hd, g, mode in BWD_CHECKS:
+        S, Skv, causal, window = BWD_MODES[mode]
+        kw = dict(causal=causal, window=window)
+        q = torch.randn(B, S, KV * g, hd, device=dev, generator=gen)
+        k, v = (torch.randn(B, Skv, KV, hd, device=dev, generator=gen)
+                for _ in range(2))
+        do = torch.randn(B, S, KV * g, hd, device=dev, generator=gen)
+        out, lse = fa.flash_attention_lse(q, k, v, **kw)
+        if not torch.equal(out, fa.flash_attention(q, k, v, **kw)):
+            bad.append((hd, g, mode, "lse instance's out differs"))
+        _, want_lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+        pairs = [("flash_attention_lse", lse, want_lse, PREFILL_TOL),
+                 ("flash_attention_bwd_delta",
+                  fa.flash_attention_bwd_delta(out, do),
+                  fa.flash_attention_bwd_delta_plain(out, do), PREFILL_TOL)]
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        pairs += [("flash_attention_bwd_dq", got[0], want[0], BWD_TOL),
+                  ("flash_attention_bwd_dkdv", got[1], want[1], BWD_TOL),
+                  ("flash_attention_bwd_dkdv", got[2], want[2], BWD_TOL)]
+        for name, a, b, tol in pairs:
+            err, _, ok = close_err(torch, a, b, tol)
+            worst[name] = max(worst[name], err)
+            if not ok:
+                bad.append((hd, g, mode, name, err))
+    check(not bad, f"training kernels disagree with their plain versions: "
+                   f"{bad}")
+    say("train", checks=len(BWD_CHECKS), B=B, KV=KV,
+        hd=listed(c[0] for c in BWD_CHECKS), G=listed(c[1] for c in BWD_CHECKS),
+        masks=json.dumps({m: dict(zip(("S", "Skv", "causal", "window"), c))
+                          for m, c in BWD_MODES.items()},
+                         separators=(",", ":")),
+        lse_out="bit-equal to the inference instance",
+        **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in worst.items()},
+        bwd_tol=json.dumps(BWD_TOL, separators=(",", ":")))
+    return worst
+
+
+def train_split(acts) -> dict:
+    """Device ms of a training step's events by kind."""
+    kinds = {"matmuls": 0.0, "attention_forward": 0.0,
+             "attention_backward": 0.0, "other_kernels": 0.0, "copies": 0.0}
+    for e in acts:
+        if "flash_attention_bwd" in e.name:
+            kind = "attention_backward"
+        elif PREFILL_KERNEL in e.name:
+            kind = "attention_forward"
+        elif e.name.startswith(("Memcpy", "Memset")):
+            kind = "copies"
+        elif any(k in e.name.lower() for k in ("gemm", "gemv", "splitk")):
+            kind = "matmuls"
+        else:
+            kind = "other_kernels"
+        kinds[kind] += e.device_time_total / 1e3
+    return kinds
+
+
+def cut_against_cpu(torch, dev, seed: int) -> dict:
+    """One train step of the 2-layer cut of minicpm-2b at full width on
+    the card and on the CPU port, from the same seeded state and batch
+    (int8 moments, compressed gradients): loss, every gradient, the
+    updated parameters and moment codes."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.distributed.step import make_grad_fn, make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, compress_init
+    from repro_torch.optim.schedules import wsd_schedule
+    from repro_torch.tree import tree_paths
+
+    c = TRAIN_CUT
+    cfg = dataclasses.replace(get_arch(TRAIN["arch"]), n_layers=c["layers"])
+    batch = ShardedLoader(cfg, c["seq"], c["batch"], seed=seed + 3).next()
+    card = init_params(cfg, seed, torch_device=dev)
+    cpu = {k: (v.to("cpu", copy=True) if torch.is_tensor(v) else
+               {n: t.to("cpu", copy=True) for n, t in v.items()})
+           for k, v in card.items()}
+    out = {}
+    for where, params in (("card", card), ("cpu", cpu)):
+        on = params["embed"].device
+        t0 = time.perf_counter()
+        loss, grads = make_grad_fn(cfg, remat=True)(
+            params, {k: torch.as_tensor(v, device=on)
+                     for k, v in batch.items()})
+        step = make_train_step(
+            cfg, lr_fn=wsd_schedule(c["lr"], 2, 4, 4),
+            adamw_cfg=AdamWConfig(moment_dtype="int8"), compress_grads=True)
+        opt = adamw_init(params, "int8")
+        params, opt, step_loss, comp = step(params, opt, batch, 3,
+                                            compress_init(params))
+        if on.type == "cuda":
+            torch.cuda.synchronize()
+        out[where] = dict(loss=float(loss), step_loss=float(step_loss),
+                          grads=grads, params=params, opt=opt, comp=comp,
+                          seconds=time.perf_counter() - t0)
+    a, b = out["card"], out["cpu"]
+    loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    check(loss_err <= 1e-4,
+          f"cut: the card's loss {a['loss']} against the CPU's {b['loss']}")
+    grad_share = 0.0
+    for (name, g), (_, w) in zip(tree_paths(a["grads"]),
+                                 tree_paths(b["grads"])):
+        share = float((g.cpu() - w).abs().max() / w.abs().max().clamp(
+            min=1e-30))
+        grad_share = max(grad_share, share)
+        check(share <= GRAD_SHARE_TOL,
+              f"cut: gradient {name} on the card differs from the CPU's by "
+              f"{share:.3e} of its largest element")
+    moved = total = 0
+    param_max = 0.0
+    for (name, p), (_, w) in zip(tree_paths(a["params"]),
+                                 tree_paths(b["params"])):
+        d = (p.cpu() - w).abs()
+        moved += int((d > 1e-5).sum())
+        total += d.numel()
+        param_max = max(param_max, float(d.max()))
+    check(param_max <= 2.2 * c["lr"] and moved <= 1e-4 * total,
+          f"cut: updated parameters differ by up to {param_max:.3e} "
+          f"({moved} of {total} beyond 1e-5)")
+    codes = diff_codes = 0
+    for key in ("mu_q", "nu_q"):
+        for (_, q), (_, w) in zip(tree_paths(a["opt"][key]),
+                                  tree_paths(b["opt"][key])):
+            diff_codes += int((q.cpu() != w).sum())
+            codes += q.numel()
+    check(diff_codes <= 2e-3 * codes,
+          f"cut: {diff_codes} of {codes} int8 moment codes differ")
+    say("train", cut=f"{cfg.n_layers}/{TRAIN_LAYERS_FULL} layers",
+        batch=f"{c['batch']}x{c['seq']}", moments="int8", compress="on",
+        lr=c["lr"], loss_card=f"{a['loss']:.6f}", loss_cpu=f"{b['loss']:.6f}",
+        loss_rel_err=f"{loss_err:.3e}",
+        grad_max_err_share_of_largest=f"{grad_share:.3e}",
+        grad_tol=GRAD_SHARE_TOL, param_max_abs_err=f"{param_max:.3e}",
+        params_beyond_1e_5=f"{moved}/{total}",
+        int8_codes_differing=f"{diff_codes}/{codes}",
+        card_s=f"{a['seconds']:.2f}", cpu_s=f"{b['seconds']:.2f}")
+    del out, card, cpu, a, b
+    torch.cuda.empty_cache()
+    return {"grad_share": grad_share, "param_max": param_max}
+
+
+def resume_against_uninterrupted(torch, dev, seed: int, ckpt: Path) -> dict:
+    """``launch/train.main`` on the 2-layer cut: 6 steps checkpointed
+    every 4 (and at the end) into ``ckpt``, the last checkpoint removed
+    and the run resumed from step 4: its 2 losses against the
+    uninterrupted run's."""
+    import shutil
+
+    from repro_torch.launch.train import main as train_main
+
+    r = TRAIN_RESUME
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = ["--arch", TRAIN["arch"], "--n-layers", str(r["layers"]),
+            "--steps", str(r["steps"]), "--batch", str(r["batch"]),
+            "--seq", str(r["seq"]), "--ckpt-every", str(r["every"]),
+            "--lr", r["lr"], "--moment-dtype", r["moments"],
+            "--seed", str(seed), "--log-every", "100", "--device", str(dev),
+            "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    full = train_main(args)
+    full_s = time.perf_counter() - t0
+    steps = sorted(int(p.name.split("_")[1]) for p in ckpt.glob("step_*"))
+    check(steps == [r["every"], r["steps"]],
+          f"resume: checkpoints at steps {steps}")
+    shutil.rmtree(ckpt / f"step_{r['steps']:08d}")
+    t0 = time.perf_counter()
+    resumed = train_main(args + ["--resume"])
+    resumed_s = time.perf_counter() - t0
+    want = full.losses[r["every"]:]
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed.losses, want))
+    check(resumed.start_step == r["every"] and len(resumed.losses) == len(want)
+          and err <= 1e-5 and all(np.isfinite(full.losses)),
+          f"resume: losses {resumed.losses} from step {resumed.start_step} "
+          f"against {want}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    say("train", resume=f"{r['every']}+{r['steps'] - r['every']} against "
+                        f"{r['steps']}", layers=r["layers"],
+        batch=f"{r['batch']}x{r['seq']}", moments=r["moments"],
+        losses=json.dumps([round(x, 6) for x in full.losses]),
+        resumed_losses=json.dumps([round(x, 6) for x in resumed.losses]),
+        max_rel_err=f"{err:.3e}",
+        equal="bit-equal" if resumed.losses == want else "within 1e-5",
+        full_run_s=f"{full_s:.2f}", resumed_run_s=f"{resumed_s:.2f}")
+    del full, resumed
+    torch.cuda.empty_cache()
+    return {"resume_err": err}
+
+
+def layer0_qkv(torch, dev, cfg, params, batch) -> tuple:
+    """Layer 0's attention q, k and v of ``batch``, as the forward makes
+    them."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    blk = T.layer(params["blocks"], 0)
+    h = L.rms_norm(L.embed_tokens(params["embed"], tokens), blk["ln1"],
+                   cfg.norm_eps)
+    positions = torch.arange(tokens.shape[1], device=dev)[None, :]
+    return T.attention_inputs(h, blk, cfg, positions)
+
+
+def profiled_ms(torch, fn, reps: int, sessions: int = 2) -> dict:
+    """Device ms a call of ``fn()`` from ``sessions`` profiler sessions of
+    ``reps`` calls each, every kernel, copy and memset of the call
+    counted, with the events each session saw a call (a session that
+    drops events reads as less time and fewer events).  A session that
+    records nothing in ``PROFILE_TRIES`` tries is timed by CUDA events
+    instead (its events a call None), as ``device_ms`` does."""
+    fn()
+    torch.cuda.synchronize()
+    out, names = [], set()
+    for _ in range(sessions):
+        acts = device_events(torch, lambda: [fn() for _ in range(reps)],
+                             lambda a: bool(a))
+        if not acts:
+            # as device_ms: timed by CUDA events instead, and said so
+            EVENT_TIMED.append("a library call")
+            say("timing", fallback="CUDA events", what="a library call",
+                reason=f"the profiler recorded no device activity in "
+                       f"{PROFILE_TRIES} sessions")
+            out.append((cuda_ms(torch, fn, reps=reps), None))
+            continue
+        out.append((sum(e.device_time_total for e in acts) / reps / 1e3,
+                    len(acts) / reps))
+        names |= {e.name[:48] for e in acts}
+    return {"ms": [round(m, 4) for m, _ in out],
+            "events_a_call": [n for _, n in out], "names": sorted(names)}
+
+
+def ratio(a: float, b: float) -> float:
+    """``a / b``, NaN where ``b`` is not positive (a time that read as
+    none)."""
+    return a / b if b > 0 else float("nan")
+
+
+def train_kernel_rows(torch, dev, seed: int, q, k, v, launches: dict,
+                      sweep: dict) -> list:
+    """The ``lse`` instance and the three backward kernels at the main
+    path's shapes (layer 0's ``q`` / ``k`` / ``v``, causal, and a seeded
+    dO): each against its plain version on the same tensors (the
+    forward's evaluated in float64; the ``lse`` instance's out also
+    bit-equal to the inference instance's), its
+    device time beside its bound, its plain version and a library call.
+    The kernels' times and the library's are taken by the profiler (every
+    kernel of a library call counted) and, as a cross-check, by CUDA
+    events.  Returns the four rows of the kernels line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    do = torch.randn(q.shape, device=dev, generator=gen)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    check(torch.equal(out, fa.flash_attention(q, k, v)),
+          "at layer 0's shape the lse instance's out differs from the "
+          "inference instance's")
+    # the forward against its plain version evaluated in float64: at a
+    # trained layer's scores the float32 plain version's own rounding is
+    # most of the tolerance (its distance is reported beside)
+    want_out, want_lse = fa.flash_attention_lse_plain(q, k, v)
+    ref_out, ref_lse = fa.flash_attention_lse_plain(
+        *(x.double() for x in (q, k, v)))
+    plain32 = {"plain_float32_vs_float64": close_err(
+        torch, want_out, ref_out, PREFILL_TOL)[:2],
+        "kernel_vs_plain_float32": close_err(
+        torch, out, want_out, PREFILL_TOL)[:2]}
+    delta = fa.flash_attention_bwd_delta(out, do)
+    want_delta = fa.flash_attention_bwd_delta_plain(out, do)
+    lib_delta = lambda: torch.einsum("bshd,bshd->bhs", do, out)  # noqa: E731
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    pairs = [("flash_attention_lse", out, ref_out, PREFILL_TOL),
+             ("flash_attention_lse", lse, ref_lse, PREFILL_TOL),
+             ("flash_attention_bwd_delta", delta, want_delta, PREFILL_TOL),
+             ("library_delta", lib_delta(), want_delta, PREFILL_TOL),
+             ("flash_attention_bwd_dq", got[0], want[0], BWD_TOL),
+             ("flash_attention_bwd_dkdv", got[1], want[1], BWD_TOL),
+             ("flash_attention_bwd_dkdv", got[2], want[2], BWD_TOL)]
+    err, share, bad = {}, {}, []
+    for name, a, b, tol in pairs:
+        e, sh, ok = close_err(torch, a, b, tol)
+        err[name], share[name] = max(err.get(name, 0.0), e), max(
+            share.get(name, 0.0), sh)
+        if not ok:
+            bad.append((name, e, sh))
+    check(not bad, f"at layer 0's shape the training kernels disagree with "
+                   f"their plain versions: {bad}")
+    del want, want_out, want_lse, ref_out, ref_lse, want_delta, got, delta
+    torch.cuda.empty_cache()
+
+    reps = PREFILL_TIMING_REPS
+    ms = {"flash_attention_lse": device_ms(
+        torch, lambda i: fa.flash_attention_lse(q, k, v), reps=reps,
+        match=PREFILL_KERNEL)}
+    ms["flash_attention_bwd_delta"] = device_ms(
+        torch, lambda i: fa.flash_attention_bwd_delta(out, do), reps=reps,
+        match=BWD_KERNELS["flash_attention_bwd_delta"])
+    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        ms[name] = device_ms(
+            torch, lambda i: fa.flash_attention_bwd(q, k, v, out, lse, do),
+            reps=reps, match=BWD_KERNELS[name])
+
+    def events_ms(fn, n):
+        fn()
+        return cuda_ms(torch, fn, reps=n)
+
+    # the plain versions (many kernels each) by CUDA events after a warm
+    # call, host gaps included
+    plain = {"flash_attention_lse": events_ms(
+        lambda: fa.flash_attention_lse_plain(q, k, v), 2),
+        "flash_attention_bwd_delta": events_ms(
+            lambda: fa.flash_attention_bwd_delta_plain(out, do), reps)}
+    plain["flash_attention_bwd_dkdv"] = plain["flash_attention_bwd_dq"] = \
+        events_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do), 2)
+    # the library: einsum for delta; SDPA's forward; autograd through SDPA
+    # less its forward.  Profiler (two sessions) and events, one run.
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    gqa = q.shape[2] != k.shape[2]         # minicpm-2b: G = 1, no flag
+
+    def sdpa_fwd():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=gqa)
+
+    def sdpa_both():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           enable_gqa=gqa)
+        torch.autograd.grad(o, leaves, dot)
+
+    def ours_bwd():
+        fa.flash_attention_bwd(q, k, v, out, lse, do)
+
+    prof = {name: profiled_ms(torch, fn, reps) for name, fn in (
+        ("delta", lib_delta), ("sdpa_forward", sdpa_fwd),
+        ("sdpa_forward_backward", sdpa_both), ("ours_backward", ours_bwd))}
+    ev = {name: events_ms(fn, reps) for name, fn in (
+        ("delta", lib_delta), ("sdpa_forward", sdpa_fwd),
+        ("sdpa_forward_backward", sdpa_both), ("ours_backward", ours_bwd),
+        ("ours_lse", lambda: fa.flash_attention_lse(q, k, v)))}
+    lib_delta_ms = prof["delta"]["ms"][-1]
+    lib_fwd = prof["sdpa_forward"]["ms"][-1]
+    lib_both = prof["sdpa_forward_backward"]["ms"][-1]
+    lib_bwd = lib_both - lib_fwd
+    ours_triple = sum(ms[n] for n in BWD_KERNELS)
+    B, S, H, hd = q.shape
+    pairs_live = S * (S + 1) // 2 * B * H          # live (q, k) pairs, causal
+    n_q, n_kv, n_row = q.numel(), k.numel(), B * H * S
+    work = {  # (flops of the float32 products, other flops, bytes)
+        "flash_attention_lse": (4 * hd * pairs_live, 0,
+                                4 * (2 * n_q + 2 * n_kv + n_row)),
+        "flash_attention_bwd_delta": (0, 2 * n_q, 4 * (2 * n_q + n_row)),
+        "flash_attention_bwd_dkdv": (8 * hd * pairs_live, 0,
+                                     4 * (2 * n_q + 4 * n_kv + 2 * n_row)),
+        "flash_attention_bwd_dq": (6 * hd * pairs_live, 0,
+                                   4 * (3 * n_q + 2 * n_kv + 2 * n_row)),
+    }
+    rows = []
+    for name, (mma, flops, nbytes) in work.items():
+        # float32 products at float32 accuracy: split TF32 on the tensor
+        # cores, 3 products each, the least time the card has for them
+        t_ops = TF32_SPLIT_TERMS * mma / TF32_FLOPS_PER_S + \
+            flops / FP32_FLOPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        lse_row = name == "flash_attention_lse"
+        row = {
+            "name": name, "route": "cuda",
+            "source": PREFILL_SOURCE if lse_row else TRAIN_SOURCE,
+            "replaces": (LSE_REPLACES + " (_flash_fwd, jnp; no Pallas kernel)"
+                         if lse_row else TRAIN_REPLACES +
+                         " (_flash_bwd, jnp; no Pallas kernel)"),
+            "launches": launches[name], "max_abs_err": err[name],
+            "max_err_share_of_tolerance": share[name],
+            "reference": ("the plain version evaluated in float64" if lse_row
+                          else "the plain version (float32)"),
+            "sweep_max_abs_err": sweep[name],
+            "tolerance": PREFILL_TOL if name in (
+                "flash_attention_lse", "flash_attention_bwd_delta")
+            else BWD_TOL,
+            "ms": ms[name], "plain_ms": plain[name],
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": (lib_fwd if lse_row else lib_delta_ms if
+                           name.endswith("delta") else lib_bwd),
+            "shape": f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{k.shape[2]}x{hd}"
+                     f" (layer 0 of the run), causal",
+            "timing": timing_note() + "; the library likewise, every kernel "
+                                      "of its call; the plain version by "
+                                      "CUDA events, host gaps included",
+        }
+        if mma:
+            row["bound_note"] = "3 x the product flops (split TF32) over " \
+                                "TF32's peak"
+        if lse_row:
+            row["library"] = "F.scaled_dot_product_attention(is_causal=True)"
+        elif name.endswith("delta"):
+            row["library"] = "torch.einsum('bshd,bshd->bhs', dout, out)"
+        else:
+            row["library"] = ("torch.autograd.grad through "
+                              "F.scaled_dot_product_attention(is_causal=True)"
+                              " less its forward: dq, dk and dv together")
+            row["plain_note"] = "the whole plain backward (dq, dk, dv)"
+            row["fp32_fma_bound_ms"] = mma / FP32_FLOPS_PER_S * 1e3
+        rows.append(row)
+    say("train", kernels_at="layer 0's shape", lse_out="bit-equal to the "
+        "inference instance",
+        **{f"{n}_max_abs_err": f"{e:.3e}" for n, e in err.items()},
+        **{f"{n}_share_of_tol": f"{e:.3f}" for n, e in share.items()},
+        forward_reference="float64",
+        **{f"{n}_max_abs_err_share": f"{e:.3e},{sh:.3f}"
+           for n, (e, sh) in plain32.items()})
+    say("train", **{f"{r['name']}_ms": f"{r['ms']:.4f}" for r in rows},
+        **{f"{r['name']}_bound_ms": f"{r['bound_ms']:.4f}" for r in rows},
+        **{f"{r['name']}_plain_ms": f"{r['plain_ms']:.4f}" for r in rows},
+        **{f"{r['name']}_fp32_fma_bound_ms": f"{r['fp32_fma_bound_ms']:.4f}"
+           for r in rows if "fp32_fma_bound_ms" in r},
+        library_delta_ms=f"{lib_delta_ms:.4f}",
+        sdpa_forward_ms=f"{lib_fwd:.4f}",
+        sdpa_forward_backward_ms=f"{lib_both:.4f}",
+        sdpa_backward_ms=f"{lib_bwd:.4f}",
+        ours_backward_ms=f"{ours_triple:.4f}",
+        backward_over_sdpa=f"{ratio(ours_triple, lib_bwd):.3f}")
+    ev_sdpa_bwd = ev["sdpa_forward_backward"] - ev["sdpa_forward"]
+    say("train", timing="the library and our backward, both ways",
+        profiler=json.dumps(prof, separators=(",", ":")),
+        events_ms=json.dumps({n: round(x, 4) for n, x in ev.items()},
+                             separators=(",", ":")),
+        backward_over_sdpa_events=f"{ratio(ev['ours_backward'], ev_sdpa_bwd):.3f}")
+    del out, lse, do, leaves, qt, kt, vt, dot
+    return rows
+
+
+def train_phase(torch, dev, seed: int, worst: dict,
+                ckpt: Path = ROOT / "build" / "train_resume_ckpt") -> list:
+    """[train]: minicpm-2b at full width and depth through
+    ``launch/train.main`` (remat, the ``lse`` forward twice a layer, the
+    backward kernels once), its profile and kernel times at layer 0's
+    shapes, the 2-layer cut against the CPU and a resume.  Returns the
+    four kernels' rows of the kernels line."""
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.distributed.step import make_train_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedules import wsd_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps, B, S = TRAIN["steps"], TRAIN["batch"], TRAIN["seq"]
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    res = train_main(["--arch", TRAIN["arch"], "--steps", str(steps),
+                      "--batch", str(B), "--seq", str(S), "--device",
+                      str(dev), "--seed", str(seed), "--log-every", "1"])
+    run_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    cfg, nl = res.cfg, res.cfg.n_layers
+    want = {"flash_attention": 0, "flash_attention_lse": steps * 2 * nl,
+            **{k: steps * nl for k in BWD_KERNELS}}
+    check(launches == want,
+          f"train launches {launches}, not {want} (the remat recompute: "
+          f"the lse forward twice a layer, each backward kernel once)")
+    check(len(res.losses) == steps and all(np.isfinite(res.losses)),
+          f"train losses {res.losses}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(res.step_seconds[1:])) * 1e3
+
+    # one more step under the profiler: the device split and idle share
+    loader = ShardedLoader(cfg, S, B, seed=seed + 1)
+    loader.restore({"step": steps, "seed": seed + 1})
+    step = make_train_step(cfg, lr_fn=wsd_schedule(3e-3, 5, 5, 2),
+                           adamw_cfg=AdamWConfig())
+    batch = loader.next()
+    box = [res.params, res.opt_state]
+    walls = []
+
+    def run():
+        t0 = time.perf_counter()
+        box[:2] = step(box[0], box[1], batch, steps)[:2]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    kinds = train_split(device_events(
+        torch, run, lambda a: train_split(a)["attention_backward"] > 0))
+    wall_ms = walls[-1]                  # the profiled step's host time
+    busy = sum(kinds.values())
+    check(kinds["attention_backward"] > 0 and kinds["matmuls"] > 0,
+          f"the profile of a train step saw no kernels: {kinds}")
+    say("train", arch=cfg.name, layers=nl, params=int(cfg.param_count()),
+        batch=f"{B}x{S}", steps=steps, remat="on", moments="f32",
+        losses=json.dumps([round(x, 4) for x in res.losses]),
+        run_s=f"{run_s:.2f}", ms_per_step=f"{step_ms:.3f}",
+        tok_per_s=f"{B * S / step_ms * 1e3:.1f}",
+        first_step_ms=f"{res.step_seconds[0] * 1e3:.3f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        peak_device_bytes=peak)
+    say("train", profile_step_wall_ms=f"{wall_ms:.3f}",
+        device_busy_ms=f"{busy:.3f}",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in kinds.items()},
+        idle_share=f"{1 - busy / wall_ms:.4f}")
+
+    # the kernels at the main path's shapes: layer 0's q / k / v of the
+    # batch (a seeded dO in train_kernel_rows)
+    params = box[0]
+    del box, res
+    with torch.no_grad():
+        q, k, v = layer0_qkv(torch, dev, cfg, params, batch)
+    del params
+    torch.cuda.empty_cache()
+    rows = train_kernel_rows(torch, dev, seed, q, k, v, launches, worst)
+    del q, k, v
+    torch.cuda.empty_cache()
+    cut = cut_against_cpu(torch, dev, seed)
+    resume = resume_against_uninterrupted(torch, dev, seed, ckpt)
+    for row in rows:
+        row.update(cut_grad_share=cut["grad_share"],
+                   resume_max_rel_err=resume["resume_err"])
+    return rows
+
+
 def fabric_phase(torch, dev, trace, direct, seed: int) -> dict:
     """[fabric]: the kernel lane on fabric mounts, the fault refusal, the
     torch hash twins and the congestion estimator, all on the card."""
@@ -2055,9 +2794,12 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
         runs[d] = (res, wall)
     for d in SCAN_DEVICES:
         res, wall = runs[d]
+        m = min(n, SCAN_PYTHON_ACCESSES.get(d, n))
+        if m < n:
+            res = TraceDriver(make_device(d), engine="scan").run(trace[:m])
         tap = FlagTap(make_device(d))
         t0 = time.perf_counter()
-        want = TraceDriver(tap).run(trace)
+        want = TraceDriver(tap).run(trace[:m])
         py_wall = time.perf_counter() - t0
         check(np.array_equal(res.latency_ticks,
                              np.asarray(tap.latency, np.int64)),
@@ -2069,6 +2811,7 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
             check(getattr(res, field) == getattr(want, field),
                   f"{d}: scan {field} differs from the python lane")
         python[d] = (np.asarray(tap.latency, np.int64), want)
+        res = runs[d][0]
         kernel_ms[d], how = scan_kernel_ms(torch, lambda: make_device(d),
                                            trace)
         cfg, _ = build_stack(make_device(d), size=64, outstanding=32,
@@ -2081,6 +2824,7 @@ def scan_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
                           + SCAN_HOP_TRIPS * cfg.num_hops) * smem_cycles
                      / (sm_clock_mhz * 1e3))
         say("scan", device=d, accesses=n, equal_to_python="all fields",
+            python_accesses=m,
             launches=launches[d], kernel_ms=f"{kernel_ms[d]:.3f}",
             timing=how, ns_per_access=f"{kernel_ms[d] * 1e6 / n:.1f}",
             driver_wall_s=f"{wall:.3f}", python_wall_s=f"{py_wall:.3f}",
@@ -2664,7 +3408,8 @@ def faults_phase(torch, trace, smem_cycles: float, sm_clock_mhz: float,
     gc_trace = make_trace(FAULT_GC_TRACE["seed"], n=FAULT_GC_TRACE["n"],
                           pages=FAULT_GC_TRACE["pages"])
     runs = {
-        "nand": faulted_replay(torch, "nand", nand, trace),
+        "nand": faulted_replay(torch, "nand", nand,
+                               trace[:FAULT_NAND_ACCESSES]),
         "gc": faulted_replay(torch, "gc",
                              lambda: make_target(FAULT_GC_SCENARIO),
                              gc_trace),
@@ -4047,9 +4792,11 @@ def main() -> int:
         elapsed_ticks=gres.elapsed_ticks, equal="all fields")
 
     # 6. the replay lane on the fabric ------------------------------------
+    clock("fabric")
     fabric = fabric_phase(torch, dev, trace, res, args.seed)
 
     # 7.-10. the serving path --------------------------------------------
+    clock("serve")
     check_worst = decode_kernel_checks(torch, dev, args.seed)
     run = serve_phase(torch, dev)
     profile_phase(torch, run)
@@ -4057,28 +4804,51 @@ def main() -> int:
     serve_rows = serve_kernel_rows(torch, dev, run, check_worst)
 
     # 11. the prefill path ------------------------------------------------
+    clock("prefill")
     prefill_row = prefill_phase(torch, run, args.seed,
                                 prefill_kernel_checks(torch, dev, args.seed))
 
     # 11a.-11b. int8 caches on the serving path; the other families ------
+    clock("int8")
     int8_row = int8_phase(torch, run)
     del run
+    clock("families")
     families_phase(torch, dev, args.seed)
+
+    # 11c.-11d. the vlm family; training on one card -------------------
+    clock("vlm")
+    vlm = vlm_phase(torch, dev, args.seed)
+    prefill_row.update(vlm_launches=vlm["launches"]["flash_attention"],
+                       vlm_cross_max_abs_err=vlm["fa_err"])
+    for row in serve_rows:
+        if row["name"] == "flash_decode":
+            row.update(vlm_launches=vlm["launches"]["flash_decode"],
+                       vlm_cross_err=vlm["fd_err"])
+    clock("train")
+    train_rows = train_phase(torch, dev, args.seed,
+                             train_kernel_checks(torch, dev, args.seed))
 
     # 12. the tick-exact scan lane, after the host-bound serving loop so
     # that its python-lane replays leave nothing behind for that loop -----
     int32_ops_per_s = (torch.cuda.get_device_properties(0).multi_processor_count
                        * INT32_LANES_PER_SM * sm_clock_mhz * 1e6)
+    clock("scan")
     scan = scan_phase(torch, trace, smem_cycles, sm_clock_mhz,
                       int32_ops_per_s)
+    clock("faults")
     faults = faults_phase(torch, trace, smem_cycles, sm_clock_mhz,
                           int32_ops_per_s)
+    clock("assoc")
     assoc_phase(torch, trace, scan)
+    clock("multihost")
     multi = multihost_phase(torch, args.seed, smem_cycles, sm_clock_mhz,
                             int32_ops_per_s)
+    clock("stream")
     stream = stream_phase(torch, trace, scan, args.seed)
+    clock("sweep")
     sweeps = sweep_phase(torch, trace, args.seed, scan, smem_cycles,
                          sm_clock_mhz, int32_ops_per_s)
+    clock("fleet")
     fleet = fleet_phase(torch, args.seed, probe_lib, smem_cycles,
                         sm_clock_mhz, int32_ops_per_s)
 
@@ -4102,10 +4872,11 @@ def main() -> int:
             "mismatches": mismatches[name],
             "fabric_launches": fabric["launches"][name],
         })
+    clock("end")
     print(card, flush=True)
     print(json.dumps({"kernels": rows + serve_rows + [
-        int8_row, prefill_row, scan_row(scan, faults, multi, n, stream, sweeps),
-        fleet_row(fleet)]}),
+        int8_row, prefill_row] + train_rows + [
+        scan_row(scan, faults, multi, n, stream, sweeps), fleet_row(fleet)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -94,12 +94,15 @@ def _unflatten(template, leaves: Dict[str, Any], prefix: str = ""):
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (a bfloat16 tensor as its bits, typed
-    ``bfloat16`` in the manifest by :meth:`CheckpointManager._write`)."""
+    """A leaf as a host numpy array of its own (a bfloat16 tensor as its
+    bits, typed ``bfloat16`` in the manifest by
+    :meth:`CheckpointManager._write`).  A CPU tensor is copied too: an
+    asynchronous save writes the snapshot while training goes on updating
+    the tensors in place."""
     import torch
 
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return _Bf16(t.view(torch.int16).numpy())
         return t.numpy()

@@ -18,11 +18,13 @@ Every section is optional (a missing one keeps the device's Table I
 default); a section the named device does not have is refused.
 
 Model parameters (:func:`params_from_jax`): the pytree of the JAX
-package's ``init_params`` as numpy arrays, in the same stacked layout,
-its ``MoEParams`` and ``SSMParams`` named tuples taken as dicts by field
-name.  Decode states (:func:`decode_state_from_jax`): the JAX package's
-``init_decode_state`` / ``decode_step`` state (caches, int8 scales,
-``SSMState``, ``cur``), so that both can go on from one state.
+package's ``init_params`` as numpy arrays, in the same stacked layout (a
+vlm's super-blocks and ``cross`` tree included), its ``MoEParams`` and
+``SSMParams`` named tuples taken as dicts by field name.  Decode states
+(:func:`decode_state_from_jax`): the JAX package's ``init_decode_state``
+/ ``decode_step`` state (caches, int8 scales, ``SSMState``, a vlm's
+``cross_k`` / ``cross_v``, ``cur``), so that both can go on from one
+state.
 """
 
 from __future__ import annotations
@@ -134,10 +136,11 @@ def decode_state_from_jax(state: dict, cfg: ArchConfig, torch_device="cuda",
                           dtype: torch.dtype = torch.float32) -> dict:
     """The port's decode state from the JAX package's (``cur``; caches
     ``k``, ``v``; int8 ``k_scale``, ``v_scale``; the stacked ``SSMState``
-    as ``ssm``), on ``torch_device``.  Every leaf is held to the shape and
-    dtype of :func:`repro_torch.models.transformer.decode_state_layout`
-    for the state's batch and ring and the model ``dtype``; a missing,
-    extra, misshapen or mistyped leaf is refused."""
+    as ``ssm``; a vlm's ``cross_k``, ``cross_v``), on ``torch_device``.
+    Every leaf is held to the shape and dtype of
+    :func:`repro_torch.models.transformer.decode_state_layout` for the
+    state's batch, ring and frontend length and the model ``dtype``; a
+    missing, extra, misshapen or mistyped leaf is refused."""
     state = _as_dict(state)
     if "k" in state:
         batch, ring = np.shape(state["k"])[1:3]
@@ -145,7 +148,9 @@ def decode_state_from_jax(state: dict, cfg: ArchConfig, torch_device="cuda",
         batch, ring = np.shape(_as_dict(state["ssm"])["h"])[1], 1
     else:
         raise ValueError("state/: holds neither caches nor SSM states")
-    layout = decode_state_layout(cfg, batch, ring, dtype)
+    frontend_tokens = (np.shape(state["cross_k"])[2] if "cross_k" in state
+                       else 0)
+    layout = decode_state_layout(cfg, batch, ring, dtype, frontend_tokens)
     if "k" in layout and layout["k"][0][2] != ring:
         raise ValueError(f"state/k: a ring of {ring} slots is longer than "
                          f"{cfg.name}'s window {cfg.swa_window}")

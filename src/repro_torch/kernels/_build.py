@@ -22,8 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("cache_sim", "flash_attention", "flash_decode",
-                        "page_gather", "replay_scan")}
+           for name in ("cache_sim", "flash_attention", "flash_attention_bwd",
+                        "flash_decode", "page_gather", "replay_scan")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,9 +40,17 @@ SIGNATURES = {
         "cache_sim_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
-        "flash_attention_launch": (_I, [_P] * 4 + [_I] * 6 + [_L] * 9
+        "flash_attention_launch": (_I, [_P] * 5 + [_I] * 6 + [_L] * 9
                                    + [_I, _I, ctypes.c_float, _P]),
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_delta_launch": (_I, [_P] * 3 + [_I] * 4 + [_P]),
+        "flash_attention_bwd_dkdv_launch": (_I, [_P] * 8 + [_I] * 8
+                                            + [ctypes.c_float, _P]),
+        "flash_attention_bwd_dq_launch": (_I, [_P] * 7 + [_I] * 8
+                                          + [ctypes.c_float, _P]),
+        "flash_attention_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_decode": {
         "flash_decode_launch": (_I, [_P] * 6 + [_I] * 8 + [_L] * 6

@@ -18,7 +18,8 @@
 // tf32(x) and small = tf32(x - big), tf32 being cvt.rna.tf32.f32 (round to
 // nearest, ties away from zero), and every product a . b is taken as
 // small_a . big_b + big_a . small_b + big_a . big_b, in that order, into
-// one float32 accumulator.  The dropped small . small term is ~2^-22
+// one float32 accumulator (for P . V a fresh one a k-step, then added to
+// O: see mma3_add).  The dropped small . small term is ~2^-22
 // relative, so the result keeps float32's accuracy.  The rounding is done
 // as (bits + 0x1000) & ~0x1fff, the same function for finite x on the
 // integer pipe; the conversion instruction itself made the kernel 10%
@@ -73,6 +74,15 @@
 //   compute warps' share); one block an SM, 212 / 221 KB of shared memory
 //   at hd 120 / 128 (Q 62 / 66 KB, two split buffers 134 / 138, raw V
 //   16 / 17).
+//
+// The training forward is the LSE instance of the same kernel: a template
+// parameter, not a runtime branch (branches cost 1-11% in this port's
+// other kernels), so the inference instance (LSE = false) is the code it
+// was.  It also writes each row's log-sum-exp, lse = m + log(max(l,
+// 1e-37)) with m the row's running maximum of the scaled scores, into lse
+// (B, H, S) float32: the residual that flash_attention_bwd.cu's backward
+// reads (models/flash_vjp.py's `_fwd_scan` keeps the same).  Its out is the
+// inference instance's, bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -117,6 +127,7 @@ struct Params {
   const float* k;                 // (B, Skv, KV, hd)
   const float* v;
   float* out;                     // (B, S, H, hd) contiguous
+  float* lse;                     // (B, H, S) contiguous, LSE instance only
   int S, Skv, H, KV, G, hd;
   int nk;                         // k-steps of 8 columns: ceil(hd / 8)
   long long q_sb, q_ss, q_sh;     // strides in elements
@@ -195,6 +206,23 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
   mma(d, as, bb[2 * h], bb[2 * h + 1]);
   mma(d, ab, bs[2 * h], bs[2 * h + 1]);
   mma(d, ab, bb[2 * h], bb[2 * h + 1]);
+}
+
+// d += a . b as mma3, through an accumulator that starts at zero and is
+// added to d by one float32 add.  Straight onto O (l times out), each of
+// a band's 3 x Skv / 8 products lost low bits the same way: out was
+// 1.8e-4 from float64 at a trained layer of minicpm-2b (scores up to 80),
+// 1.4x the tolerance, where the split's own rounding gives 3e-6.  Here
+// the add rounds to nearest once a k-step: 1.5e-5 (chip_smoke.py).
+__device__ __forceinline__ void mma3_add(float (&d)[4],
+                                         const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4],
+                                         const uint32_t (&bb)[4],
+                                         const uint32_t (&bs)[4], int h) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(t, ab, as, bb, bs, h);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
 // named barrier `id` over n threads: wait for all, or arrive and go on
@@ -300,8 +328,8 @@ __device__ __forceinline__ void split_tile(const Params& p, float* kbig,
 }
 
 // NK: k-steps of 8 columns compiled in; EXACT: NK == p.nk, else p.nk <= NK
-// and the steps past p.nk are skipped.
-template <int NK, bool EXACT>
+// and the steps past p.nk are skipped; LSE: also write each row's lse.
+template <int NK, bool EXACT, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const Params p) {
   constexpr int ST = tile_stride(NK);
@@ -500,7 +528,9 @@ flash_attention_kernel(const Params p) {
       // fragment (a0, a1, a2, a3) = (s0, s2, s1, s3); V^T's columns hold the
       // keys in the matching order; B fragments of n-tiles 2np, 2np + 1 by
       // one ldmatrix4
-#pragma unroll
+      // at hd 64 all four k-steps unrolled take 168 registers and spill
+      // (the fresh accumulators of mma3_add); two at a time take 160
+#pragma unroll (NK == 8 ? 2 : kNT)
       for (int j = 0; j < kNT; ++j) {
         uint32_t ab[4], as[4];
         split(s[j][0], ab[0], as[0]);
@@ -513,9 +543,9 @@ flash_attention_kernel(const Params p) {
           uint32_t bb[4], bs[4];
           ldmatrix4(bb, vb_u + np * 16 * kVST + j * 8);
           ldmatrix4(bs, vb_u + VT + np * 16 * kVST + j * 8);
-          mma3(o[2 * np], ab, as, bb, bs, 0);
+          mma3_add(o[2 * np], ab, as, bb, bs, 0);
           if (2 * np + 1 < NK && (EXACT || 2 * np + 1 < p.nk))
-            mma3(o[2 * np + 1], ab, as, bb, bs, 1);
+            mma3_add(o[2 * np + 1], ab, as, bb, bs, 1);
         }
       }
       FA_PHASE(4);
@@ -536,6 +566,9 @@ flash_attention_kernel(const Params p) {
     float* orow = p.out + ((static_cast<long long>(b) * p.S + pos) * p.H + h) *
                               p.hd;
     const float den = half ? den_b : den_a;
+    if (LSE && tq == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.S + pos] =
+          (half ? m_b : m_a) + logf(den);
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
       const int c = n * 8 + 2 * tq;
@@ -548,15 +581,21 @@ flash_attention_kernel(const Params p) {
   FA_PHASE_END();
 }
 
-template <int NK, bool EXACT>
-int launch(const Params& p, dim3 grid, cudaStream_t stream) {
+template <int NK, bool EXACT, bool LSE>
+int launch_instance(const Params& p, dim3 grid, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) * smem_floats(NK);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<NK, EXACT>,
+      flash_attention_kernel<NK, EXACT, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_kernel<NK, EXACT><<<grid, kThreads, smem, stream>>>(p);
+  flash_attention_kernel<NK, EXACT, LSE><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NK, bool EXACT>
+int launch(const Params& p, dim3 grid, cudaStream_t stream) {
+  return p.lse ? launch_instance<NK, EXACT, true>(p, grid, stream)
+               : launch_instance<NK, EXACT, false>(p, grid, stream);
 }
 
 }  // namespace
@@ -565,11 +604,13 @@ extern "C" {
 
 // Launch on `stream`: q (B, S, H, hd), k / v (B, Skv, KV, hd), read through
 // their strides (in elements; unit stride in hd, every row 16-byte aligned:
-// the caller checks), into out (B, S, H, hd) contiguous.  Returns the CUDA
-// error code of the launch (0 on success), or a negative code for a shape
-// the kernel does not take.
+// the caller checks), into out (B, S, H, hd) contiguous and, unless lse is
+// null (the inference instance), lse (B, H, S) contiguous.  Returns the
+// CUDA error code of the launch (0 on success), or a negative code for a
+// shape the kernel does not take.
 int flash_attention_launch(const float* q, const float* k, const float* v,
-                           float* out, int B, int S, int Skv, int H, int KV,
+                           float* out, float* lse, int B, int S, int Skv,
+                           int H, int KV,
                            int hd, long long q_sb, long long q_ss,
                            long long q_sh, long long k_sb, long long k_ss,
                            long long k_sh, long long v_sb, long long v_ss,
@@ -583,7 +624,7 @@ int flash_attention_launch(const float* q, const float* k, const float* v,
   if (static_cast<long long>(S) * G > (1LL << 30)) return -3;
   const int nk = (hd + 7) / 8;
   const int row_tiles = (S * G + kRows - 1) / kRows;
-  const Params p{q, k, v, out, S, Skv, H, KV, G, hd, nk,
+  const Params p{q, k, v, out, lse, S, Skv, H, KV, G, hd, nk,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                  causal, window, scale, row_tiles};
   const dim3 grid(row_tiles, KV, B);

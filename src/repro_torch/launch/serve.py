@@ -82,7 +82,18 @@ def serve(params, cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
     device, archiving KV segments into a :class:`TieredStore` backed by a
     simulated CXL-SSD (when the model attends).  ``forced`` ``(steps, B[,
     nq])``, if given, is fed as the next tokens instead of the greedy picks
-    (teacher forcing; the picks are still returned)."""
+    (teacher forcing; the picks are still returned).
+
+    A vlm config is refused: the loop builds its decode state without a
+    frontend, as the JAX package's ``serve`` does (whose first
+    ``decode_step`` then fails).  Drive a vlm through ``make_prefill_step``
+    and ``make_serve_step`` on ``init_decode_state(..., frontend=...)``."""
+    if cfg.cross_attn_every:
+        raise ValueError(
+            f"{cfg.name}: serve() builds its decode state without a "
+            "frontend, so it cannot run a vlm config (its cross layers "
+            "attend over frontend embeddings); use make_prefill_step / "
+            "make_serve_step on init_decode_state(..., frontend=...)")
     dev = params["embed"].device
     serve_step = make_serve_step(cfg, mesh=None)
     state = init_decode_state(params, cfg, batch, context)

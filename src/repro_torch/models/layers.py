@@ -63,9 +63,13 @@ def _block_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Prefill attention through the hand-written kernel (its plain version
-    for CPU tensors).  q: (B, S, H, hd); k, v: (B, Skv, KV, hd).  JAX's
-    ``q_block`` / ``kv_block`` / ``impl`` pick tilings of its jnp path and
-    do not change the function; the kernel has its own tiles."""
+    for CPU tensors).  q: (B, S, H, hd); k, v: (B, Skv, KV, hd).  When
+    autograd records and an input requires a gradient, the call goes
+    through :class:`repro_torch.kernels.flash_attention.FlashAttention`
+    (the kernel's ``lse`` instance, then the backward kernels), as the
+    reference's goes through its custom VJP.  JAX's ``q_block`` /
+    ``kv_block`` / ``impl`` pick tilings of its jnp path and do not change
+    the function; the kernels have their own tiles."""
     # imported here: the kernel module builds on this one
     from repro_torch.kernels.flash_attention import flash_attention as kernel
     return kernel(q, k, v, causal=causal, window=window)
@@ -76,17 +80,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q_start: int = 0) -> torch.Tensor:
     """O(S * Skv)-memory reference attention.  q: (B, S, H, hd) holds the
     rows at positions ``q_start ..`` of the sequence (a chunk of a longer
-    one); k, v: (B, Skv, KV, hd), any Skv when not ``causal``."""
+    one); k, v: (B, Skv, KV, hd), any Skv when not ``causal``.  It
+    computes in float32, or in float64 for float64 inputs."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(B, S, KV, H // KV, hd)
-    s = torch.einsum("bqkgd,bckd->bkgqc", qg.float(), k.float()) * hd ** -0.5
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg.to(ct), k.to(ct)) * hd ** -0.5
     if causal:
         q_pos = torch.arange(q_start, q_start + S, device=q.device)
         mask = _block_mask(q_pos, torch.arange(Skv, device=q.device), window)
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqc,bckd->bqkgd", p, v.float())
+    out = torch.einsum("bkgqc,bckd->bqkgd", p, v.to(ct))
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 

@@ -1,6 +1,6 @@
-"""Decoder models: parameters, the full-sequence forward (prefill), the
-ring-buffer decode state and one-token decode, in PyTorch, for the
-dense, moe, ssm, hybrid and audio families.
+"""Decoder models: parameters, the full-sequence forward (prefill and
+training), the ring-buffer decode state and one-token decode, in PyTorch,
+for the dense, moe, ssm, hybrid, vlm and audio families.
 
 The layout is the JAX package's: layer parameters are stacked along a
 leading ``n_layers`` axis in a plain dict (``params["blocks"]["wq"]`` is
@@ -12,7 +12,13 @@ min(context, window)`` slots, with ``kv_dtype="int8"`` int8 caches and
 float16 scales ``(n_layers, B, Sc, KV)`` (one a slot and KV head), and
 the SSM states ``{"h", "conv_buf"}`` stacked the same way.  Audio models
 embed ``(B, S, nq)`` token grids through ``nq`` codebooks and predict
-``(B, S, nq, V)`` logits.
+``(B, S, nq, V)`` logits.  VLM models (``cross_attn_every``) keep the
+reference's super-block layout: the self blocks stacked ``(n_cross,
+cross_attn_every, ...)`` and ``params["cross"]`` (``wq wk wv wo ln
+gate``) stacked ``(n_cross, ...)``, one gated cross-attention layer after
+each group of self layers, over ``batch["frontend"]`` ``(B, T, D)``;
+their decode state carries the frontend's keys and values ``cross_k`` /
+``cross_v`` ``(n_cross, B, T, KV, hd)``.
 
 Where JAX scans over the stacked layers, this module loops in Python, and
 where JAX returns new caches and states, :func:`decode_step` writes this
@@ -20,21 +26,30 @@ token's K/V (and scales) and each layer's new SSM state into the state in
 place (no copy of a cache).  Attention goes through the hand-written
 kernels: prefill through
 :func:`repro_torch.kernels.flash_attention.flash_attention` (once per
-attention layer), decode through
-:func:`repro_torch.kernels.flash_decode.flash_decode`, or
+attention layer, cross layers included; with gradients through its
+autograd form, its ``FlashAttention``), decode through
+:func:`repro_torch.kernels.flash_decode.flash_decode` (the vlm's cross
+layers too, over all ``T`` frontend keys), or
 :func:`~repro_torch.kernels.flash_decode.flash_decode_int8` over int8
-caches.
+caches.  ``forward(remat=True)`` checkpoints each block (and each vlm
+super-block) with ``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` does; ``remat_policy="dots"`` keeps the outputs of the
+matrix products (``aten.mm``), as ``dots_with_no_batch_dims_saveable``
+does.
 
-The port runs one device, for inference.  The vlm family
-(cross-attention layers), a device mesh and ``remat=True`` (a training
-option) raise ``NotImplementedError``.
+The port runs one device: a device mesh raises ``NotImplementedError``,
+and so does the vlm family with ``kv_dtype="int8"`` (the reference's vlm
+decode loop passes no scales).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_int8
@@ -47,19 +62,16 @@ from repro_torch.models.ssm import (init_ssm_params, ssd_decode_step,
 from repro_torch.torch_device import resolve
 
 ROADMAP_ITEM = "ROADMAP Queue A item 14"
-VLM_ITEM = "ROADMAP Queue A item 14b, the vlm bullet"
 MESH_ITEM = "ROADMAP Queue A item 14d"
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def require_ported(cfg: ArchConfig) -> None:
     """Refuse what the port does not run."""
-    if cfg.cross_attn_every:
-        also = (" (and with kv_dtype='int8' the reference's vlm decode "
-                "loop passes no scales)" if cfg.kv_dtype == "int8" else "")
+    if cfg.cross_attn_every and cfg.kv_dtype == "int8":
         raise NotImplementedError(
-            f"{cfg.name}: cross-attention layers are not ported yet{also} "
-            f"({VLM_ITEM})")
+            f"{cfg.name}: kv_dtype='int8' with cross-attention layers: the "
+            f"reference's vlm decode loop passes no scales ({ROADMAP_ITEM})")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
@@ -70,10 +82,24 @@ def require_ported(cfg: ArchConfig) -> None:
             f"({ROADMAP_ITEM})")
 
 
+def n_cross(cfg: ArchConfig) -> int:
+    """Cross-attention layers (super-blocks) of a vlm config, else 0."""
+    return cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every else 0
+
+
+def layer_lead(cfg: ArchConfig) -> tuple:
+    """The leading axes of the stacked self blocks: ``(n_layers,)``, or
+    ``(n_cross, cross_attn_every)`` super-blocks for a vlm config."""
+    if cfg.cross_attn_every:
+        return (n_cross(cfg), cfg.cross_attn_every)
+    return (cfg.n_layers,)
+
+
 def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
     """Shape of every parameter, in the layout of :func:`init_params`."""
     require_ported(cfg)
-    d, f, nl, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.padded_vocab
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    lead = layer_lead(cfg)
     qd = cfg.n_heads * cfg.resolved_head_dim
     kvd = cfg.n_kv_heads * cfg.resolved_head_dim
     shapes: Dict[str, Any] = {}
@@ -85,22 +111,28 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
         if not cfg.tie_embeddings:
             shapes["lm_head"] = (d, V)
     shapes["final_norm"] = (d,)
-    blocks: Dict[str, Any] = {"ln1": (nl, d)}
+    blocks: Dict[str, Any] = {"ln1": lead + (d,)}
     if cfg.family == "ssm":
-        blocks["ssm"] = ssm_param_shapes(d, cfg.ssm, (nl,))
+        blocks["ssm"] = ssm_param_shapes(d, cfg.ssm, lead)
     else:
-        blocks.update({"ln2": (nl, d), "wq": (nl, d, qd), "wk": (nl, d, kvd),
-                       "wv": (nl, d, kvd), "wo": (nl, qd, d)})
+        blocks.update({"ln2": lead + (d,), "wq": lead + (d, qd),
+                       "wk": lead + (d, kvd), "wv": lead + (d, kvd),
+                       "wo": lead + (qd, d)})
         if cfg.family == "hybrid":
-            blocks["ssm"] = ssm_param_shapes(d, cfg.ssm, (nl,))
-            blocks["norm_attn"] = (nl, d)
-            blocks["norm_ssm"] = (nl, d)
+            blocks["ssm"] = ssm_param_shapes(d, cfg.ssm, lead)
+            blocks["norm_attn"] = lead + (d,)
+            blocks["norm_ssm"] = lead + (d,)
         if cfg.moe is not None:
-            blocks["moe"] = moe_param_shapes(d, cfg.moe, (nl,))
+            blocks["moe"] = moe_param_shapes(d, cfg.moe, lead)
         elif f:
-            blocks.update({"w_gate": (nl, d, f), "w_up": (nl, d, f),
-                           "w_down": (nl, f, d)})
+            blocks.update({"w_gate": lead + (d, f), "w_up": lead + (d, f),
+                           "w_down": lead + (f, d)})
     shapes["blocks"] = blocks
+    if cfg.cross_attn_every:
+        nc = n_cross(cfg)
+        shapes["cross"] = {"wq": (nc, d, qd), "wk": (nc, d, kvd),
+                           "wv": (nc, d, kvd), "wo": (nc, qd, d),
+                           "ln": (nc, d), "gate": (nc, 1)}
     return shapes
 
 
@@ -109,13 +141,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, torch_device="cuda",
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Random parameters with the JAX package's scales (normal draws times
     ``d_in ** -0.5``, embeddings times 0.02, norms at one, the SSM's
-    constants), drawn from one ``torch.Generator`` seeded with ``seed`` on
-    ``torch_device``.  The draws are not JAX's: to run JAX's weights,
-    convert them with :func:`repro_torch.convert.params_from_jax`."""
+    constants, the vlm's cross-attention gates at zero), drawn from one
+    ``torch.Generator`` seeded with ``seed`` on ``torch_device``.  The
+    draws are not JAX's: to run JAX's weights, convert them with
+    :func:`repro_torch.convert.params_from_jax`."""
     dev = resolve(torch_device)
     shapes = param_shapes(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, f, nl = cfg.d_model, cfg.d_ff, cfg.n_layers
+    d, f, lead = cfg.d_model, cfg.d_ff, layer_lead(cfg)
     qd = cfg.n_heads * cfg.resolved_head_dim
 
     def normal(shape, std):
@@ -139,14 +172,21 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, torch_device="cuda",
     for k, shape in shapes["blocks"].items():
         if k == "ssm":
             blocks[k] = init_ssm_params(d, cfg.ssm, normal, device=dev,
-                                        dtype=dtype, lead=(nl,))
+                                        dtype=dtype, lead=lead)
         elif k == "moe":
-            blocks[k] = init_moe_params(d, cfg.moe, normal, lead=(nl,))
+            blocks[k] = init_moe_params(d, cfg.moe, normal, lead=lead)
         elif k in std:
             blocks[k] = normal(shape, std[k])
         else:                                  # ln1, ln2, norm_attn, norm_ssm
             blocks[k] = ones(shape)
     params["blocks"] = blocks
+    if "cross" in shapes:                      # gated cross-attn (llama3.2)
+        cs = shapes["cross"]
+        params["cross"] = {k: normal(cs[k], std[k])
+                           for k in ("wq", "wk", "wv", "wo")}
+        params["cross"]["ln"] = ones(cs["ln"])
+        params["cross"]["gate"] = torch.zeros(cs["gate"], device=dev,
+                                              dtype=dtype)
     return params
 
 
@@ -154,6 +194,16 @@ def layer(tree, i: int):
     """Layer ``i`` of a stacked parameter or state tree."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def self_block(params, cfg: ArchConfig, i: int):
+    """The parameters of self layer ``i`` (of ``n_layers``) in either
+    layout (for a vlm, slot ``i % cross_attn_every`` of super-block ``i //
+    cross_attn_every``)."""
+    if cfg.cross_attn_every:
+        g, j = divmod(i, cfg.cross_attn_every)
+        return layer(layer(params["blocks"], g), j)
+    return layer(params["blocks"], i)
 
 
 # -------------------------------------------------------------- forward
@@ -189,6 +239,33 @@ def _attn_forward(x, blk, cfg: ArchConfig, positions):
     return o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) @ blk["wo"]
 
 
+def cross_kv(frontend, blk, cfg: ArchConfig):
+    """k and v (B, T, KV, hd) of one cross-attention layer over the
+    frontend embeddings (B, T, D) (no RoPE)."""
+    B, hd = frontend.shape[0], cfg.resolved_head_dim
+    return ((frontend @ blk["wk"]).reshape(B, -1, cfg.n_kv_heads, hd),
+            (frontend @ blk["wv"]).reshape(B, -1, cfg.n_kv_heads, hd))
+
+
+def cross_inputs(x, frontend, blk, cfg: ArchConfig):
+    """q (B, S, H, hd) of the normalised x, and :func:`cross_kv`, of one
+    cross-attention layer."""
+    B, S, _ = x.shape
+    xn = L.rms_norm(x, blk["ln"], cfg.norm_eps)
+    q = (xn @ blk["wq"]).reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    return (q,) + cross_kv(frontend, blk, cfg)
+
+
+def _cross_attn_forward(x, blk, cfg: ArchConfig, frontend):
+    """x (B, S, D) attends over the frontend embeddings (B, T, D), not
+    causally, through its gate: ``x + tanh(gate) * attention``."""
+    B, S, _ = x.shape
+    q, k, v = cross_inputs(x, frontend, blk, cfg)
+    o = L.flash_attention(q, k, v, causal=False)
+    o = o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) @ blk["wo"]
+    return x + torch.tanh(blk["gate"]) * o
+
+
 def _ffn_forward(x, blk, cfg: ArchConfig):
     """The block's FFN on x (B, S, D): the MoE layer, SwiGLU, or nothing.
     Returns (y, aux)."""
@@ -222,28 +299,81 @@ def _block_forward(x, blk, cfg: ArchConfig, positions):
     return x + y, aux
 
 
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of matrix products without batch dimensions (``x
+    @ W``) and recompute the rest, as JAX's
+    ``dots_with_no_batch_dims_saveable`` (batched products, ``bmm``, are
+    recomputed)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: bool, remat_policy: Optional[str]):
+    """``fn`` checkpointed (recomputed in the backward pass) when
+    ``remat`` and autograd records, else ``fn`` itself."""
+    if remat_policy not in (None, "dots"):
+        raise ValueError(f"remat_policy={remat_policy!r}: the reference "
+                         "knows None and 'dots'")
+    if not remat:
+        return fn
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
 def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-            ctx=None, remat: bool = False):
+            ctx=None, remat: bool = False, unroll: bool = False,
+            remat_policy: Optional[str] = None):
     """Full-sequence forward.  batch["tokens"]: (B, S) integer token ids
-    ((B, S, nq) for audio) on the parameters' device.  Returns ``(logits
-    (B, S, padded_vocab) (audio: (B, S, nq, padded_vocab)), aux)``; ``aux``
-    is the layers' summed MoE balance loss (a tensor), 0.0 for families
-    without experts.  ``remat`` only matters for a backward pass, which
-    is not ported."""
+    ((B, S, nq) for audio) on the parameters' device; a vlm batch also
+    carries ``batch["frontend"]`` (B, T, D).  Returns ``(logits (B, S,
+    padded_vocab) (audio: (B, S, nq, padded_vocab)), aux)``; ``aux`` is
+    the layers' summed MoE balance loss (a tensor), 0.0 for families
+    without experts.  ``remat`` checkpoints each block (and each vlm
+    super-block) for the backward pass; ``unroll`` (the reference's
+    Python loop in place of ``lax.scan``) changes nothing here, where the
+    layers are a Python loop."""
     require_ported(cfg)
     if ctx is not None:
         raise NotImplementedError(
             f"a forward on a device mesh is not ported yet ({MESH_ITEM})")
-    if remat:
-        raise NotImplementedError(
-            f"remat=True is a training option and training is not ported "
-            f"yet ({ROADMAP_ITEM}c); pass remat=False")
     x = _embed(params, cfg, batch["tokens"].long())
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    body = _remat(lambda x, blk: _block_forward(x, blk, cfg, positions),
+                  remat, remat_policy)
     aux = 0.0
-    for i in range(cfg.n_layers):
-        x, a = _block_forward(x, layer(params["blocks"], i), cfg, positions)
-        aux = aux + a
+    if cfg.cross_attn_every:
+        frontend = torch.as_tensor(batch["frontend"], device=x.device)
+
+        def super_block(x, g):
+            a = 0.0
+            for i in range(g * cfg.cross_attn_every,
+                           (g + 1) * cfg.cross_attn_every):
+                x, ai = body(x, self_block(params, cfg, i))
+                a = a + ai
+            x = _cross_attn_forward(x, layer(params["cross"], g), cfg,
+                                    frontend)
+            return x, a
+
+        super_block = _remat(super_block, remat, remat_policy)
+        for g in range(n_cross(cfg)):
+            x, a = super_block(x, g)
+            aux = aux + a
+    else:
+        for i in range(cfg.n_layers):
+            x, a = body(x, layer(params["blocks"], i))
+            aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), aux
 
@@ -256,13 +386,16 @@ def kv_cache_len(cfg: ArchConfig, context_len: int) -> int:
 
 
 def decode_state_layout(cfg: ArchConfig, batch: int, context_len: int,
-                        dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                        dtype: torch.dtype = torch.float32,
+                        frontend_tokens: int = 0) -> Dict[str, Any]:
     """``(shape, dtype)`` of each tensor of the decode state, nested as the
     state is: ring-buffer caches ``k``, ``v`` ``(n_layers, batch, Sc, KV,
     hd)`` where the model attends (int8, with float16 ``k_scale``,
     ``v_scale`` ``(n_layers, batch, Sc, KV)``, one a slot and KV head,
-    under ``kv_dtype="int8"``), and SSM states ``ssm`` (``h`` float32
-    whatever ``dtype``) where it has an SSM."""
+    under ``kv_dtype="int8"``), SSM states ``ssm`` (``h`` float32
+    whatever ``dtype``) where it has an SSM, and for a vlm given
+    ``frontend_tokens`` T the frontend's keys and values ``cross_k``,
+    ``cross_v`` ``(n_cross, batch, T, KV, hd)``."""
     require_ported(cfg)
     nl = cfg.n_layers
     out: Dict[str, Any] = {}
@@ -277,14 +410,20 @@ def decode_state_layout(cfg: ArchConfig, batch: int, context_len: int,
         shapes = ssm_state_shapes(batch, cfg.d_model, cfg.ssm, (nl,))
         out["ssm"] = {"h": (shapes["h"], torch.float32),
                       "conv_buf": (shapes["conv_buf"], dtype)}
+    if cfg.cross_attn_every and frontend_tokens:
+        out["cross_k"] = out["cross_v"] = (
+            (n_cross(cfg), batch, frontend_tokens, cfg.n_kv_heads,
+             cfg.resolved_head_dim), dtype)
     return out
 
 
 def init_decode_state(params, cfg: ArchConfig, batch: int, context_len: int,
-                      dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                      dtype: torch.dtype = torch.float32,
+                      frontend=None) -> Dict[str, Any]:
     """Decode state on the parameters' device: the step counter ``cur``
-    (a Python int) and the zeroed tensors of
-    :func:`decode_state_layout`."""
+    (a Python int), the zeroed tensors of :func:`decode_state_layout`
+    and, for a vlm given ``frontend`` (B, T, D), each cross layer's
+    ``frontend @ wk`` / ``frontend @ wv`` as ``cross_k`` / ``cross_v``."""
     dev = params["embed"].device
 
     def zeros(tree):
@@ -292,8 +431,15 @@ def init_decode_state(params, cfg: ArchConfig, batch: int, context_len: int,
                 torch.zeros(v[0], dtype=v[1], device=dev)
                 for k, v in tree.items()}
 
-    return {"cur": 0, **zeros(decode_state_layout(cfg, batch, context_len,
-                                                  dtype))}
+    state = {"cur": 0, **zeros(decode_state_layout(cfg, batch, context_len,
+                                                   dtype))}
+    if cfg.cross_attn_every and frontend is not None:
+        frontend = torch.as_tensor(frontend, device=dev)
+        kv = [cross_kv(frontend, layer(params["cross"], g), cfg)
+              for g in range(n_cross(cfg))]
+        state["cross_k"] = torch.stack([k for k, _ in kv])
+        state["cross_v"] = torch.stack([v for _, v in kv])
+    return state
 
 
 def _quantize_kv(t):
@@ -332,6 +478,17 @@ def _attn_decode(x, blk, cfg: ArchConfig, k_cache, v_cache, cur: int,
     return o.to(x.dtype).reshape(B, cfg.n_heads * hd) @ blk["wo"]
 
 
+def _cross_decode(x, blk, cfg: ArchConfig, cross_k, cross_v):
+    """x (B, D) attends over all T frontend keys of one cross layer (the
+    reference's ``decode_attention`` at ``cur_len = T``), through its
+    gate."""
+    B = x.shape[0]
+    q = (L.rms_norm(x, blk["ln"], cfg.norm_eps) @ blk["wq"]) \
+        .reshape(B, cfg.n_heads, cfg.resolved_head_dim)
+    o, _, _ = flash_decode(q, cross_k, cross_v, cross_k.shape[1])
+    return x + torch.tanh(blk["gate"]) * (o.reshape(B, -1) @ blk["wo"])
+
+
 def _ssm_decode(h, blk, cfg: ArchConfig, ssm_state, i: int):
     """The SSM's one-token step on h (B, D), writing layer ``i``'s new
     state into the stacked ``ssm_state`` in place."""
@@ -347,12 +504,18 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any],
     audio) on the parameters' device.  Returns ``(logits (B, padded_vocab)
     (audio: (B, nq, padded_vocab)), new_state)``; the new state shares the
     caches and SSM states of ``state``, which this step updated in
-    place."""
+    place.  A vlm's state must come from ``init_decode_state(...,
+    frontend=...)``."""
     require_ported(cfg)
     if ctx is not None:
         raise NotImplementedError(
             f"decode on a device mesh (distributed/decode.py) is not ported "
             f"yet ({MESH_ITEM})")
+    every = cfg.cross_attn_every
+    if every and "cross_k" not in state:
+        raise ValueError(
+            f"{cfg.name}: a vlm decode state needs the frontend's keys and "
+            "values: build it with init_decode_state(..., frontend=...)")
     tokens = tokens.long()
     x = _embed(params, cfg, tokens[:, None] if tokens.dim() == 1
                else tokens[:, None, :])[:, 0]
@@ -360,7 +523,7 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any],
     scales = ((state["k_scale"], state["v_scale"]) if "k_scale" in state
               else (None, None))
     for i in range(cfg.n_layers):
-        blk = layer(params["blocks"], i)
+        blk = self_block(params, cfg, i)
         hn = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
         if cfg.family == "ssm":
             x = x + _ssm_decode(hn, blk, cfg, state["ssm"], i)
@@ -373,5 +536,9 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any],
         h2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
         y, _ = _ffn_forward(h2[:, None], blk, cfg)
         x = x + y[:, 0]
+        if every and (i + 1) % every == 0:
+            g = i // every
+            x = _cross_decode(x, layer(params["cross"], g), cfg,
+                              state["cross_k"][g], state["cross_v"][g])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x[:, None])[:, 0], dict(state, cur=cur + 1)

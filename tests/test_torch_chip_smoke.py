@@ -926,3 +926,150 @@ def test_the_new_phases_rehearse_on_the_cpu(smoke, cardless, capsys):
     out = capsys.readouterr().out
     assert out.count("[families] arch=") == 8
     assert "greedy_argmax=equal" in out and "moe_card_vs_cpu_max_err" in out
+
+
+# ------------------------------------------------- the vlm and training
+def test_vlm_and_train_phases_run_after_families_before_scan(smoke):
+    import inspect
+
+    src = inspect.getsource(smoke.main)
+    assert (src.index("families_phase(") < src.index("vlm_phase(")
+            < src.index("train_phase(") < src.index("scan_phase("))
+    assert "train_kernel_checks(" in src and "prefill_row] + train_rows" in src
+    block = inspect.getsource(smoke.vlm_phase)
+    for call in ("make_prefill_step(", "make_serve_step(",
+                 "init_decode_state(", "frontend=frontend",
+                 "reset_launches()", "flash_decode_plain(",
+                 "flash_attention_plain("):
+        assert call in block, call
+    block = inspect.getsource(smoke.train_phase)
+    for call in ("train_main(", "reset_launches()", "device_events(",
+                 "train_kernel_rows(", "cut_against_cpu(",
+                 "resume_against_uninterrupted("):
+        assert call in block, call
+    # the kernels at the main path's shape: held against their plain
+    # versions there, and timed beside the library calls
+    block = inspect.getsource(smoke.train_kernel_rows)
+    for call in ("flash_attention_lse_plain(", "flash_attention_bwd_plain(",
+                 "flash_attention_bwd_delta_plain(", "close_err(",
+                 "torch.equal(out, fa.flash_attention(q, k, v))",
+                 "scaled_dot_product_attention(", "torch.einsum(",
+                 "profiled_ms(", "device_ms("):
+        assert call in block, call
+
+
+def test_the_vlm_and_train_phases_take_their_models(smoke):
+    from repro_torch.configs import get_arch
+
+    vlm = get_arch(smoke.VLM["arch"])
+    assert vlm.family == "vlm" and vlm.n_frontend_tokens == 1600
+    assert smoke.VLM["super_blocks"] * vlm.cross_attn_every == 10
+    assert smoke.VLM["decode_steps"] == smoke.PARITY_TOKENS
+    train = get_arch(smoke.TRAIN["arch"])
+    assert (train.family, train.n_layers, train.n_heads // train.n_kv_heads,
+            train.resolved_head_dim) == ("dense", smoke.TRAIN_LAYERS_FULL, 1,
+                                         64)
+    for ref, name in ((smoke.TRAIN_REPLACES, "def _flash_bwd"),
+                      (smoke.LSE_REPLACES, "def _flash_fwd")):
+        path, line = ref.split(":")
+        assert (REPO / path).read_text().splitlines()[int(line) - 1] \
+            .startswith(name)
+    assert (REPO / smoke.TRAIN_SOURCE).exists()
+    src = (REPO / smoke.TRAIN_SOURCE).read_text()
+    for kernel in smoke.BWD_KERNELS.values():
+        assert kernel in src
+    assert {m[2] for m in smoke.BWD_MODES.values()} == {True, False}
+    assert {c[0] for c in smoke.BWD_CHECKS} == {64, 120, 128}
+    assert {c[1] for c in smoke.BWD_CHECKS} == {1, 4, 5, 8, 16}
+
+
+def test_profiled_ms_reads_each_session_and_its_events_a_call(
+        smoke, sessions):
+    """A session that drops a kernel reads as less time and fewer events
+    a call: both sessions are reported, so a drop shows."""
+    whole = [_event("fwd", 300.0), _event("bwd", 900.0)]
+    sessions.queue = [whole * 4, whole * 3 + [_event("fwd", 300.0)]]
+    calls = []
+    got = smoke.profiled_ms(_TORCH, lambda: calls.append(1), reps=4)
+    assert got["ms"] == [1.2, 0.975]
+    assert got["events_a_call"] == [2.0, 1.75]
+    assert got["names"] == ["bwd", "fwd"]
+    assert len(calls) == 1 + 2 * 4          # a warm call, then 2 sessions
+
+
+def test_profiled_ms_times_an_empty_session_by_events(smoke, sessions,
+                                                      monkeypatch):
+    """A session that records nothing in every try is timed by CUDA
+    events, and the kernels line's timing note says so."""
+    sessions.queue = [[_event("fwd", 500.0)] * 4] + [[]] * smoke.PROFILE_TRIES
+    monkeypatch.setattr(smoke, "cuda_ms", lambda torch, fn, reps=1: 0.7)
+    monkeypatch.setattr(smoke, "EVENT_TIMED", [])
+    got = smoke.profiled_ms(_TORCH, lambda: None, reps=4)
+    assert got["ms"] == [0.5, 0.7] and got["events_a_call"] == [1.0, None]
+    assert "a library call" in smoke.timing_note()
+
+
+def test_train_split_sorts_a_steps_kernels(smoke):
+    kinds = smoke.train_split([
+        _event("flash_attention_bwd_dkdv_kernel<64>", 3000.0),
+        _event("flash_attention_kernel<8, true, true>", 2000.0),
+        _event("sm90_xmma_gemm_f32f32", 5000.0),
+        _event("Memcpy DtoD", 100.0), _event("elementwise", 700.0)])
+    assert kinds == {"matmuls": 5.0, "attention_forward": 2.0,
+                     "attention_backward": 3.0, "other_kernels": 0.7,
+                     "copies": 0.1}
+
+
+def test_the_vlm_and_train_phases_rehearse_on_the_cpu(smoke, cardless,
+                                                       monkeypatch, tmp_path,
+                                                       capsys):
+    """Every check of ``[vlm]`` and ``[train]`` holds on the CPU at
+    reduced width but the launch counts (the wrappers run their plain
+    versions there), and the train phase's four rows carry the kernels
+    line's keys."""
+    import repro_torch.launch.train as train
+
+    full = train.get_arch
+    monkeypatch.setattr(train, "get_arch", lambda a: full(a).reduced())
+    monkeypatch.setattr(smoke, "device_events", lambda torch, run, enough: (
+        run(), [_event("gemm", 10.0), _event("flash_attention_kernel", 5.0),
+                _event("flash_attention_bwd_dq_kernel", 4.0)])[1])
+    monkeypatch.setattr(smoke, "cuda_ms", lambda torch, fn, reps=1: (
+        fn(), 0.01)[1])
+    monkeypatch.setattr(smoke, "VLM", dict(smoke.VLM, seq=80,
+                                           decode_steps=16))
+    monkeypatch.setattr(smoke, "PARITY_TOKENS", 16)
+    monkeypatch.setattr(smoke, "TRAIN", dict(smoke.TRAIN, steps=3, seq=64))
+    monkeypatch.setattr(smoke, "TRAIN_CUT", dict(smoke.TRAIN_CUT, seq=16))
+    monkeypatch.setattr(smoke, "TRAIN_RESUME",
+                        dict(smoke.TRAIN_RESUME, seq=32))
+    monkeypatch.setattr(smoke, "BWD_CHECKS", smoke.BWD_CHECKS[::7])
+    cpu = torch.device("cpu")
+    out = smoke.vlm_phase(torch, cpu, 0)
+    assert set(out) == {"launches", "fa_err", "fd_err"}
+    worst = smoke.train_kernel_checks(torch, cpu, 0)
+    rows = smoke.train_phase(torch, cpu, 0, worst, ckpt=tmp_path / "ckpt")
+    assert cardless and all("launches" in f for f in cardless), cardless
+    assert [r["name"] for r in rows] == ["flash_attention_lse"] + list(
+        smoke.BWD_KERNELS)
+    for row in rows:
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "sweep_max_abs_err",
+                    "max_err_share_of_tolerance"):
+            assert key in row, key
+        assert row["library_ms"] is not None, row["name"]
+        assert row["sweep_max_abs_err"] == worst[row["name"]]
+    assert {r["bound_by"] for r in rows} <= {"operations", "bytes"}
+    # the backward's products are bounded by split TF32's rate, below
+    # their FP32 FMA figure (here, at a reduced width, the bytes bound)
+    for row in rows[2:]:
+        assert "split TF32" in row["bound_note"], row["name"]
+        assert row["bound_by"] == "bytes" or (
+            row["bound_ms"] < row["fp32_fma_bound_ms"]), row["name"]
+    text = capsys.readouterr().out
+    assert "[vlm] arch=" in text and "greedy_argmax=equal" in text
+    assert "[train] resume=4+2 against 6" in text
+    assert "[train] kernels_at=layer 0's shape" in text
+    assert "backward_over_sdpa_events=" in text
+    assert "int8_codes_differing=" in text

@@ -432,6 +432,110 @@ def test_forward_on_the_card_runs_the_kernel_and_matches_the_cpu(card):
     torch.testing.assert_close(logits, gpu, rtol=0, atol=0)
 
 
+# --------------------------------------------------- the training kernels
+# the CPU test's tolerance (tests/test_torch_flash_vjp.py): the backward
+# kernels take float32 products on the FP32 FMA units and sum over up to
+# Skv keys (dq) or S x G query rows (dk, dv) in another order than the
+# plain version
+BWD_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _bwd_inputs(card, seed, mode, G, hd, q_scale=1.0):
+    S, Skv, causal, window = PREFILL_MODES[mode]
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(2, S, 2 * G, hd, device=card, generator=gen) * q_scale
+    k, v = (torch.randn(2, Skv, 2, hd, device=card, generator=gen)
+            for _ in range(2))
+    do = torch.randn(2, S, 2 * G, hd, device=card, generator=gen)
+    return q, k, v, do, dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("mode", sorted(PREFILL_MODES))
+@pytest.mark.parametrize("G", [1, 4, 5, 8, 16])
+@pytest.mark.parametrize("hd", [64, 120, 128, 36])
+def test_flash_attention_lse_instance_equals_plain(card, hd, G, mode):
+    """The training forward: lse within 2e-5 of the plain version's, and
+    its out bit-equal to the inference instance's."""
+    q, k, v, _, kw = _bwd_inputs(card, hd * 10 + G, mode, G, hd, 4.0)
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.flash_attention_lse(q, k, v, **kw)
+    inference = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_lse"] == \
+        before["flash_attention_lse"] + 1
+    assert torch.equal(out, inference)
+    want_out, want_lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+    torch.testing.assert_close(out, want_out, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("hd", [64, 120, 128, 36])
+def test_flash_attention_keeps_a_large_running_sum_exact(card, hd):
+    """Diffuse rows over long sequences: O grows to l times out (2048
+    keys of values near 8), where products summed straight onto it lose
+    low bits; the kernel is held to the plain version in float64."""
+    gen = torch.Generator(device=card).manual_seed(hd)
+    S = 2048
+    q = torch.randn(1, S, 4, hd, device=card, generator=gen) * 0.3
+    k = torch.randn(1, S, 4, hd, device=card, generator=gen)
+    v = torch.randn(1, S, 4, hd, device=card, generator=gen) + 8.0
+    out, lse = fa.flash_attention_lse(q, k, v)
+    want_out, want_lse = fa.flash_attention_lse_plain(
+        *(x.double() for x in (q, k, v)))
+    torch.testing.assert_close(out.double(), want_out, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse.double(), want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("mode", sorted(PREFILL_MODES))
+@pytest.mark.parametrize("G", [1, 4, 5, 8, 16])
+@pytest.mark.parametrize("hd", [64, 120, 128, 36])
+def test_flash_attention_bwd_equals_plain(card, hd, G, mode):
+    q, k, v, do, kw = _bwd_inputs(card, hd * 100 + G, mode, G, hd)
+    out, lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name in ("delta", "dkdv", "dq"):
+        key = f"flash_attention_bwd_{name}"
+        assert fa.LAUNCHES[key] == before[key] + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for name, a, b in zip("qkv", got, want):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, **BWD_TOL, msg=f"d{name}")
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    for a, b in zip(got, again):                 # no atomics: same bits
+        assert torch.equal(a, b)
+
+
+def test_autograd_on_the_card_goes_through_the_kernels(card):
+    from repro_torch.models import layers as L
+
+    q, k, v, do, kw = _bwd_inputs(card, 5, "window", 4, 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launches()
+    out = L.flash_attention(*leaves, **kw)
+    out.backward(do)
+    assert {n: fa.LAUNCHES[n] for n in fa.LAUNCHES} == {
+        "flash_attention": 0, "flash_attention_lse": 1,
+        "flash_attention_bwd_delta": 1, "flash_attention_bwd_dkdv": 1,
+        "flash_attention_bwd_dq": 1}
+    o, lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, **BWD_TOL)
+
+
+def test_flash_decode_at_the_vlm_cross_length(card):
+    """The vlm's cross decode: one query over all T = 1600 frontend keys of
+    llama-3.2-vision-90b's 64 / 8 heads of 128."""
+    gen = torch.Generator(device=card).manual_seed(16)
+    q = torch.randn(2, 64, 128, device=card, generator=gen)
+    k, v = (torch.randn(2, 1600, 8, 128, device=card, generator=gen)
+            for _ in range(2))
+    _decode_close(fd.flash_decode(q, k, v, 1600),
+                  fd.flash_decode_plain(q, k, v, 1600))
+
+
 # ------------------------------------------------------------- the fabric
 def test_hash_twins_on_the_card_equal_numpy(card):
     from repro_torch.core.fabric.routing import (flow_choices,

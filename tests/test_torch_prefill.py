@@ -185,31 +185,45 @@ def test_swa_ring_buffer_decode_matches_windowed_forward():
 # -------------------------------------------------------------- refusals
 @pytest.mark.parametrize("arch", ["llama-3_2-vision-90b"])
 def test_forward_refuses_other_families(arch):
+    """The vlm family runs (tests/test_torch_vlm.py); a family the port
+    does not know, and the vlm with int8 caches, are refused."""
     cfg = get_arch(arch).reduced()
+    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
-        T.forward({}, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+        T.forward({}, dataclasses.replace(cfg, family="retnet"), batch)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
+        T.forward({}, dataclasses.replace(cfg, kv_dtype="int8"), batch)
 
 
 def test_prefill_refuses_a_mesh_remat_and_cross_attention():
+    """A mesh is refused; ``remat=True`` runs (it changes nothing without
+    a backward pass) and an unknown remat policy is refused; a vlm batch
+    needs its frontend."""
     _, _, cfg, params = _reduced()
     with pytest.raises(NotImplementedError, match="mesh"):
         make_prefill_step(cfg, mesh=object(), torch_device="cpu")
     batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError,
-                       match="remat.*ROADMAP Queue A item 14"):
-        T.forward(params, cfg, batch, remat=True)
+    with torch.no_grad():
+        assert torch.equal(T.forward(params, cfg, batch, remat=True)[0],
+                           T.forward(params, cfg, batch)[0])
+    with pytest.raises(ValueError, match="remat_policy"):
+        T.forward(params, cfg, batch, remat=True, remat_policy="everything")
     with pytest.raises(NotImplementedError, match="mesh"):
         T.forward(params, cfg, batch, ctx=object())
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        T.forward(params, dataclasses.replace(cfg, cross_attn_every=2), batch)
+    vlm = get_arch("llama-3_2-vision-90b").reduced()
+    with pytest.raises(KeyError, match="frontend"):
+        T.forward(T.init_params(vlm, 0, torch_device="cpu"), vlm, batch)
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take():
     q, k, v = map(_t, _qkv(4, 1, 8, 8, 2, 2, 16))
-    with pytest.raises(ValueError, match="gradient"):
-        fa.flash_attention(q.clone().requires_grad_(), k, v)
-    with pytest.raises(ValueError, match="gradient"):
-        L.flash_attention(q, k, v.clone().requires_grad_())
+    # inputs that require a gradient take the differentiable route
+    # (tests/test_torch_flash_vjp.py), with the same refusals
+    assert fa.flash_attention(q.clone().requires_grad_(), k, v).grad_fn \
+        is not None
+    with pytest.raises(ValueError, match="head_dim"):
+        L.flash_attention(*(_t(a).requires_grad_()
+                            for a in _qkv(5, 1, 8, 8, 2, 2, 18)))
     for hd in (18, 132):
         bad = [_t(a) for a in _qkv(5, 1, 8, 8, 2, 2, hd)]
         with pytest.raises(ValueError, match="head_dim"):

@@ -607,10 +607,11 @@ LSE_REPLACES = "src/repro/models/flash_vjp.py:250"       # _flash_fwd (jnp)
 BWD_KERNELS = {"flash_attention_bwd_delta": "flash_attention_bwd_delta_kernel",
                "flash_attention_bwd_dkdv": "flash_attention_bwd_dkdv_kernel",
                "flash_attention_bwd_dq": "flash_attention_bwd_dq_kernel"}
-# the CPU test's tolerance (tests/test_torch_flash_vjp.py): the backward
-# kernels take float32 products on the FP32 FMA units and sum over up to
-# Skv keys (dq) or S x G query rows (dk, dv) in another order than the
-# plain version (tests/test_torch_cuda.py holds the same)
+# the CPU tests' tolerance (tests/test_torch_flash_vjp.py,
+# tests/test_torch_attention_bwd_tf32.py): the backward kernels take every
+# product in split TF32 on the tensor cores (float32 accuracy) and sum over
+# up to Skv keys (dq) or S x G query rows (dk, dv) in another order than
+# the plain version (tests/test_torch_cuda.py holds the same)
 BWD_TOL = dict(atol=2e-5, rtol=2e-5)
 # (S, Skv, causal, window) of the backward checks: 64-row query and key
 # tiles; "edge" ends one row and one key past a tile, "cross_edge" one key
@@ -2225,6 +2226,23 @@ def profiled_ms(torch, fn, reps: int, sessions: int = 2) -> dict:
             "events_a_call": [n for _, n in out], "names": sorted(names)}
 
 
+def fullest_ms(prof: dict) -> float:
+    """A ``profiled_ms`` result's time from its session that saw the most
+    events a call (a session that drops events reads low); the last of
+    equals, and the last session when none was profiled."""
+    seen = [(n, i) for i, n in enumerate(prof["events_a_call"])
+            if n is not None]
+    return prof["ms"][max(seen)[1] if seen else -1]
+
+
+def whole_sessions(prof: dict) -> bool:
+    """Whether every session of a ``profiled_ms`` result was profiled and
+    saw the same whole number of events a call (a session that drops
+    events reads a fraction a call, or fewer than another)."""
+    n = prof["events_a_call"]
+    return None not in n and len(set(n)) == 1 and float(n[0]).is_integer()
+
+
 def ratio(a: float, b: float) -> float:
     """``a / b``, NaN where ``b`` is not positive (a time that read as
     none)."""
@@ -2266,7 +2284,18 @@ def train_kernel_rows(torch, dev, seed: int, q, k, v, launches: dict,
     want_delta = fa.flash_attention_bwd_delta_plain(out, do)
     lib_delta = lambda: torch.einsum("bshd,bshd->bhs", do, out)  # noqa: E731
     got = fa.flash_attention_bwd(q, k, v, out, lse, do)
-    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    # the backward likewise against its plain version in float64, on the
+    # kernels' own out and lse (the float32 plain's distance beside)
+    want = fa.flash_attention_bwd_plain(
+        *(x.double() for x in (q, k, v, out, lse, do)))
+    want32 = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), want32, want):
+        plain32[f"bwd_{name}_plain_float32_vs_float64"] = close_err(
+            torch, a, b, BWD_TOL)[:2]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want32):
+        plain32[f"bwd_{name}_kernel_vs_plain_float32"] = close_err(
+            torch, a, b, BWD_TOL)[:2]
+    del want32
     pairs = [("flash_attention_lse", out, ref_out, PREFILL_TOL),
              ("flash_attention_lse", lse, ref_lse, PREFILL_TOL),
              ("flash_attention_bwd_delta", delta, want_delta, PREFILL_TOL),
@@ -2336,11 +2365,22 @@ def train_kernel_rows(torch, dev, seed: int, q, k, v, launches: dict,
         ("delta", lib_delta), ("sdpa_forward", sdpa_fwd),
         ("sdpa_forward_backward", sdpa_both), ("ours_backward", ours_bwd),
         ("ours_lse", lambda: fa.flash_attention_lse(q, k, v)))}
-    lib_delta_ms = prof["delta"]["ms"][-1]
-    lib_fwd = prof["sdpa_forward"]["ms"][-1]
-    lib_both = prof["sdpa_forward_backward"]["ms"][-1]
-    lib_bwd = lib_both - lib_fwd
-    ours_triple = sum(ms[n] for n in BWD_KERNELS)
+
+    def lib_ms(*names):
+        # by the profiler where every session of each term saw whole
+        # calls, else every term by CUDA events: like from like
+        if all(whole_sessions(prof[n]) for n in names):
+            return [fullest_ms(prof[n]) for n in names], "profiler"
+        return [ev[n] for n in names], "CUDA events"
+
+    (lib_delta_ms,), delta_by = lib_ms("delta")
+    (lib_fwd,), fwd_by = lib_ms("sdpa_forward")
+    (lib_both, lib_fwd_b), bwd_by = lib_ms("sdpa_forward_backward",
+                                           "sdpa_forward")
+    lib_bwd = lib_both - lib_fwd_b
+    ours_triple_by = ours_triple = sum(ms[n] for n in BWD_KERNELS)
+    if bwd_by != "profiler":
+        ours_triple_by = ev["ours_backward"]
     B, S, H, hd = q.shape
     pairs_live = S * (S + 1) // 2 * B * H          # live (q, k) pairs, causal
     n_q, n_kv, n_row = q.numel(), k.numel(), B * H * S
@@ -2369,8 +2409,10 @@ def train_kernel_rows(torch, dev, seed: int, q, k, v, launches: dict,
                          " (_flash_bwd, jnp; no Pallas kernel)"),
             "launches": launches[name], "max_abs_err": err[name],
             "max_err_share_of_tolerance": share[name],
-            "reference": ("the plain version evaluated in float64" if lse_row
-                          else "the plain version (float32)"),
+            "reference": ("the plain version (float32)"
+                          if name.endswith("delta") else
+                          "the plain version evaluated in float64" if lse_row
+                          else "the plain version evaluated in float64"),
             "sweep_max_abs_err": sweep[name],
             "tolerance": PREFILL_TOL if name in (
                 "flash_attention_lse", "flash_attention_bwd_delta")
@@ -2380,11 +2422,16 @@ def train_kernel_rows(torch, dev, seed: int, q, k, v, launches: dict,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": (lib_fwd if lse_row else lib_delta_ms if
                            name.endswith("delta") else lib_bwd),
+            "library_timed_by": (fwd_by if lse_row else delta_by if
+                                 name.endswith("delta") else bwd_by),
             "shape": f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{k.shape[2]}x{hd}"
                      f" (layer 0 of the run), causal",
             "timing": timing_note() + "; the library likewise, every kernel "
-                                      "of its call; the plain version by "
-                                      "CUDA events, host gaps included",
+                                      "of its call, where each profiler "
+                                      "session saw whole calls, else by CUDA "
+                                      "events (library_timed_by); the plain "
+                                      "version by CUDA events, host gaps "
+                                      "included",
         }
         if mma:
             row["bound_note"] = "3 x the product flops (split TF32) over " \
@@ -2404,7 +2451,7 @@ def train_kernel_rows(torch, dev, seed: int, q, k, v, launches: dict,
         "inference instance",
         **{f"{n}_max_abs_err": f"{e:.3e}" for n, e in err.items()},
         **{f"{n}_share_of_tol": f"{e:.3f}" for n, e in share.items()},
-        forward_reference="float64",
+        forward_reference="float64", backward_reference="float64",
         **{f"{n}_max_abs_err_share": f"{e:.3e},{sh:.3f}"
            for n, (e, sh) in plain32.items()})
     say("train", **{f"{r['name']}_ms": f"{r['ms']:.4f}" for r in rows},
@@ -2413,11 +2460,11 @@ def train_kernel_rows(torch, dev, seed: int, q, k, v, launches: dict,
         **{f"{r['name']}_fp32_fma_bound_ms": f"{r['fp32_fma_bound_ms']:.4f}"
            for r in rows if "fp32_fma_bound_ms" in r},
         library_delta_ms=f"{lib_delta_ms:.4f}",
-        sdpa_forward_ms=f"{lib_fwd:.4f}",
+        sdpa_forward_ms=f"{lib_fwd_b:.4f}",
         sdpa_forward_backward_ms=f"{lib_both:.4f}",
-        sdpa_backward_ms=f"{lib_bwd:.4f}",
-        ours_backward_ms=f"{ours_triple:.4f}",
-        backward_over_sdpa=f"{ratio(ours_triple, lib_bwd):.3f}")
+        sdpa_backward_ms=f"{lib_bwd:.4f}", sdpa_timed_by=bwd_by,
+        ours_backward_ms=f"{ours_triple_by:.4f}",
+        backward_over_sdpa=f"{ratio(ours_triple_by, lib_bwd):.3f}")
     ev_sdpa_bwd = ev["sdpa_forward_backward"] - ev["sdpa_forward"]
     say("train", timing="the library and our backward, both ways",
         profiler=json.dumps(prof, separators=(",", ":")),
@@ -4624,6 +4671,12 @@ def main() -> int:
                            "flash_attention_kernel")
     say("prefill", kernel="flash_attention", spill_bytes=spilled)
     check(spilled == 0, f"flash_attention spills {spilled} bytes: {ptxas}")
+    for kernel in ("flash_attention_bwd_dkdv_kernel",
+                   "flash_attention_bwd_dq_kernel"):
+        spilled = ptxas_spills(_build.build_log.get("flash_attention_bwd", ""),
+                               kernel)
+        say("train", kernel=kernel, spill_bytes=spilled)
+        check(spilled == 0, f"{kernel} spills {spilled} bytes: {ptxas}")
 
     # 3. kernels against their plain versions, on the card --------------
     table1 = make_device("cxl-ssd-cache")

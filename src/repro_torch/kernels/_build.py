@@ -3,8 +3,8 @@
 
 Each source has a plain C interface, so it compiles in seconds (no PyTorch
 headers) into its own shared library.  Libraries are named by a hash of
-their source and flags, so an edited source is never served from a stale
-build.  They land, at first use, in ``build/repro_torch/`` at the
+their source, the headers under ``csrc/`` and the flags, so an edited
+source or header is never served from a stale build.  They land, at first use, in ``build/repro_torch/`` at the
 repository root when the package lies in a checkout's ``src/``, else in
 ``build/`` inside the installed package.  Nothing here runs at import
 time: the CPU tests import every module of the package.
@@ -109,9 +109,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{digest}.so"
+    """Where library ``name`` goes, named by a hash of its source, of every
+    header under ``csrc/`` (a source may include any of them) and of the
+    flags."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:

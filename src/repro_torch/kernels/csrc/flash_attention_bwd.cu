@@ -1,5 +1,6 @@
 // Backward of prefill attention (causal / sliding-window / cross,
-// grouped-query) on Hopper (sm_90a), float32, deterministic (no atomics).
+// grouped-query) on Hopper (sm_90a), float32 in and out, every product on
+// the tensor cores in split TF32 (3xTF32), deterministic (no atomics).
 //
 // Replaces no Pallas kernel: the JAX package differentiates its attention
 // through a jnp custom VJP, models/flash_vjp.py `_flash_bwd` (and `_tri_bwd`
@@ -16,41 +17,157 @@
 //
 // Three kernels:
 // - delta: one warp a (b, i, h) row, delta = rowsum(dO * O);
-// - dkdv: a block a (key tile of 64, KV head, b).  K and V stay in shared
-//   memory; the block walks the G heads and every query tile of 64 rows
-//   that its keys' causal / window band reaches, recomputing S and dO . V^T
-//   there, and keeps its dK and dV in registers to the end;
-// - dq: a block a (query tile of 64, head, b).  Q and dO stay in shared
-//   memory; it walks the key tiles its band reaches, recomputing S and
-//   dO . V^T, and keeps dQ in registers.
-// Each output element is summed by one thread in one order: reruns give
-// the same bits.
+// - dkdv: a block a (key tile, KV head, b).  Its keys' raw K and V rows
+//   stay in shared memory; it walks the query rows of its keys' causal /
+//   window band, a tile at a time, and keeps dK and dV in registers to the
+//   end;
+// - dq: a block a (query row tile, KV head, b).  Its rows' raw Q and dO
+//   stay in shared memory; it walks the key tiles its band reaches and
+//   keeps dQ in registers.
+// As in the forward, the rows of a KV head are its (position, head) pairs
+// R = i * G + g, so the G query heads of a group share every tile.  Each
+// output element is summed by one thread in one fixed order: reruns give
+// the same bits.  dQ has a kernel of its own for that (no atomicAdd into
+// dQ, no per-key-tile partials).
 //
-// Numerics: plain FP32 FMA on the CUDA cores, float32 products and sums
-// (no TF32).  The CPU version (kernels/flash_attention.py,
-// `flash_attention_bwd_plain`) takes the same float32 products and sums
-// them in another order; each sum runs over at most Skv (or S x G) terms,
-// so the two agree to float32 rounding (held at 2e-5 absolute and
-// relative, the CPU tests' tolerance against the reference).
+// Numerics: tf32_mma.cuh's split TF32, the forward's: every product is
+// small . big + big . small + big . big on TF32 mma.sync, float32
+// accumulators.  mma.sync truncates (its products cut to 2^-25 of the
+// largest term, its sum to float32; tools/mma_rounding.cu), so nothing is
+// summed onto a large running value inside it:
+// - S and dP (sums over hd) are kept as hi + lo (`products`): each
+//   k-step's big . big onto hi, then again onto what that add changed,
+//   negated, which gives back what its truncation lost; that and the
+//   small terms onto lo (`step_hi_lo`);
+//   P = exp2((hi scale - lse + lo scale) log2e), dS = P ((dP_hi - delta) +
+//   dP_lo) scale;
+// - dV, dK and dQ (sums over S x G rows or Skv keys) add each k-step of 8
+//   to the running sum by Fast2Sum, the step's products summed onto the
+//   error the previous add left, the last error added at the end of the
+//   tile (`accumulate`).
+// At a trained layer's scores (to ~80) that keeps dq, dk and dv within
+// atol = rtol = 2e-5 of the plain version in float64, where the float32
+// plain version itself is not (tests/test_torch_attention_bwd_tf32.py
+// models the arithmetic on the CPU, mma.sync's rounding included; plain
+// TF32 misses that tolerance).
 //
-// What bounds it: operations.  At minicpm-2b's training shape (B 2, S
-// 2048, 36 / 36 heads of 64, causal) dkdv takes four products of 2 hd
-// flops a live (q, k) pair and dq three: 1.35e11 flops, 2.0 ms on the
-// FP32 FMA units at 67 TFLOP/s, against 0.13 GB of inputs and outputs
-// (0.04 ms).  A tile's four products run from shared memory, a 4 x 4 register
-// tile a thread (ty, tx) of 16 x 16: rows ty + 16 i, columns tx + 16 j.
-// Rows are padded to HD + 1 floats, so the 16 rows a warp reads at one
-// column fall in distinct banks.  Making it fast (wgmma on split TF32 as
-// the forward, TMA) is later work.
+// What bounds it on this card: tensor-core operations.  At minicpm-2b's
+// training shape (B 2, S 2048, 36 / 36 heads of 64, causal) dkdv takes
+// four products of 2 hd flops a live (q, k) pair and dq three: 1.35e11
+// flops, three times over in the split, 0.82 ms at 495 TFLOP/s (TF32
+// dense), against 2.0 ms for the same flops on the FP32 FMA units and
+// 0.13 GB of inputs and outputs (0.04 ms).  mma.sync reaches ~320 of the
+// 495 TFLOP/s (tools/mma_rate.cu).
+//
+// What the design does about it:
+// - mma.sync.m16n8k8 TF32, as the forward.  wgmma takes TF32 operands from
+//   shared memory K-major only and multiplies 64-row warpgroup tiles: the
+//   transposed operands (dO^T, Q^T, K^T) would still need copies of their
+//   own, and a 64-key dK and dV at hd 128 would not fit a warpgroup's
+//   registers.  mma.sync lets an accumulator feed the next product.
+// - Keys are the M rows in dkdv: a warp owns 16 keys and computes S^T =
+//   K . Q^T and dP^T = V . dO^T.  P^T and dS^T come out in accumulator
+//   registers and feed dV += P^T . dO and dK += dS^T . Q as A operands
+//   unchanged, through the key permutation of tf32_mma.cuh's `permuted`
+//   (dO^T and Q^T are stored with their query columns in that order).  In
+//   dq, a warp owns 16 rows and dS feeds dQ += dS . K the same way (K^T
+//   key-permuted).  Nothing goes through shared memory between the
+//   products and there is no block barrier inside a step.
+// - A block is W compute warps and 4 producer warps.  The producers copy
+//   the next streamed tile (Q and dO rows in dkdv, K and V rows in dq)
+//   with cp.async into one of two buffers while the compute warps run the
+//   other, and split it there once, not once a warp: raw rows split in
+//   place into big copies, small copies beside them, and the transposed,
+//   permuted big and small copies the second product reads.  Named
+//   barriers hand each buffer over (full) and back (free; bar.arrive
+//   alone: the compute warps only read it).  The block's own tile (K and
+//   V in dkdv, Q and dO in dq) stays raw; a warp splits its A fragment at
+//   use, as the forward does with Q.
+// - Registers.  With more than 8 warps a block, a sub-partition holds 3
+//   of them and its 16,384 registers cap every thread at 168, which
+//   spilled dK / dV.  At NK <= 8 (12 warps) `setmaxnreg` moves registers
+//   from the producer warpgroup (56 a thread, dq's 40) to the two compute
+//   ones (224, dq's 232); the CTA's pool holds 12 x 168 = 2,016 a lane.
+//   Fully unrolled, ptxas still hoisted a whole phase's loads and spilled
+//   a few values: a run-time bound it cannot see past (never taken) on
+//   each hd pair of dkdv's accumulate and each k-step of dq's keeps every
+//   instance at 0 bytes of spill, at no measured cost.
+// - Row strides are 4 mod 8 floats, so every ldmatrix phase (8 rows of 16
+//   bytes) and every transposed store of a warp hit 32 distinct banks.
+// - Longest bands first: dkdv's key tile 0 and dq's last row tile have the
+//   longest causal bands and take the lowest blockIdx.x.  A warp skips a
+//   tile masked for all of its rows (keys), and only tiles on the
+//   diagonal, the window's edge or past Skv pay for the mask.  Rows past
+//   S * G (and keys past Skv) are zero-filled: their Q and dO rows add
+//   nothing to dK, dV (dO = 0, so dP = delta = 0) or dQ.
+// - Instances are templates: NK k-steps of 8 columns (8, 15, 16 exact,
+//   8 and 16 bounding the rest), no runtime branch on the width.  NK <= 8
+//   runs 8 compute warps (128 owned keys or rows) and 32-row / 32-key
+//   streamed tiles; NK > 8 runs 4 compute warps (255 registers without
+//   setmaxnreg) and 16-row / 16-key tiles, S and dP one after the other,
+//   so that dK and dV (128 registers a thread at hd 128) and the buffers
+//   (209-217 KB) fit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tf32_mma.cuh"   // split TF32 mma, ldmatrix, cp.async, barriers
+
+// Per-phase clock64 stamps of the compute warps; a stamped copy of this
+// source defines these (tools/time_attention.py --backward --phases).
+// Here they compile to nothing.
+#ifndef BWD_PHASE
+#define BWD_PHASE_BEGIN()
+#define BWD_PHASE(k)
+#define BWD_PHASE_END()
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;        // 16 x 16 threads
-constexpr int kTile = 64;            // query rows and keys a tile
-constexpr int kPL = kTile + 1;       // row stride of the P / dS tiles
+constexpr int kDeltaThreads = 256;
+// named barriers (0 is __syncthreads): the block's own tile landed in the
+// compute warps; buffer u full (kBarFull + u) and free (kBarFree + u);
+// the producers' own
+constexpr int kBarOwn = 1, kBarFull = 2, kBarFree = 4, kBarProd = 6;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The tiling of the dkdv (DQ false) or dq instance with NK k-steps of 8
+// columns.  Each choice was measured on the card against its
+// alternatives (PERF.md, the backward's findings).
+template <int NK, bool DQ>
+struct Tiling {
+  static constexpr bool WIDE = NK <= 8;
+  static constexpr int W = WIDE ? 8 : 4;         // compute warps
+  static constexpr int kProducers = 128;         // four warps copy and split
+  static constexpr int kThreads = W * 32 + kProducers;
+  static constexpr int OWN = 16 * W;             // keys (dkdv) / rows (dq)
+  static constexpr int T = WIDE ? 32 : 16;       // rows / keys streamed
+  // S and dP one after the other (fewer live registers) past hd 64
+  static constexpr bool SDP_SPLIT = !WIDE;
+  // a run-time bound ptxas cannot see past, in the accumulate of the
+  // exact instances: on each hd pair (dkdv) or on each k-step (dq); it
+  // keeps ptxas from hoisting a whole phase's loads, which spilled
+  static constexpr int ACC_GUARD = DQ ? 2 : 1;
+  // setmaxnreg: the producer warpgroup keeps 56 registers a thread (dq's
+  // 40), the two compute ones take 224 (232): 8 x 224 + 4 x 56 = 12 x 168,
+  // the CTA's pool a lane
+  static constexpr bool REGS = WIDE;
+  static constexpr int COMPUTE_REGS = DQ ? 232 : 224;
+  static constexpr int PRODUCER_REGS = DQ ? 40 : 56;
+  static constexpr int NT = T / 8;               // n-tiles of a step's S
+  static constexpr int NP = (NK + 1) / 2;        // pairs of hd n-tiles
+  static constexpr int ST = 8 * NK + 4;          // row-major row stride
+  static constexpr int TS = T + 4;               // transposed row stride
+  static constexpr int RT = T * ST;              // a row-major tile
+  static constexpr int TT = 16 * NP * TS;        // a transposed tile
+  // dkdv's buffer: Q and dO big / small row-major, Q^T and dO^T big /
+  // small, lse and delta of the rows
+  static constexpr int DKDV_BUF = 4 * RT + 4 * TT + 2 * T;
+  // dq's buffer: K and V big / small row-major, K^T big / small
+  static constexpr int DQ_BUF = 4 * RT + 2 * TT;
+  static constexpr int DKDV_FLOATS = 2 * OWN * ST + 2 * DKDV_BUF;
+  static constexpr int DQ_FLOATS = 2 * OWN * ST + 2 * DQ_BUF;
+};
 
 struct Params {
   const float* q;      // (B, S, H, hd) contiguous
@@ -62,98 +179,294 @@ struct Params {
   float* dq;           // (B, S, H, hd)
   float* dk;           // (B, Skv, KV, hd)
   float* dv;
-  int S, Skv, H, KV, G, hd, causal, window;
+  int S, Skv, H, KV, G, hd;
+  int nk;              // k-steps of 8 columns: ceil(hd / 8)
+  int causal, window;
   float scale;
 };
 
-__host__ __device__ constexpr int row_floats(int hd_pad) { return hd_pad + 1; }
+// Offset (floats) of row R = i * G + g of KV head kvh in a (B, S, H, hd)
+// tensor; rows past S * G give row 0 (never read: the copy zero-fills).
+__device__ __forceinline__ long long row_offset(const Params& p, int b,
+                                                int kvh, int R) {
+  const bool ok = R < p.S * p.G;
+  const int pos = ok ? R / p.G : 0;
+  const int g = ok ? R - pos * p.G : 0;
+  return ((static_cast<long long>(b) * p.S + pos) * p.H + kvh * p.G + g) *
+         p.hd;
+}
 
-// Rows r0 .. r0 + kTile - 1 of one head of a (rows, heads, hd) tensor
-// (src at the head's row 0, row stride `stride` floats) into dst (row
-// stride HD + 1); rows at or past `rows` and columns at or past hd are
-// zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int rows, long long stride,
-                                          int hd) {
-  constexpr int C4 = HD / 4;
-  for (int idx = threadIdx.x; idx < kTile * C4; idx += kThreads) {
-    const int r = idx / C4, c = 4 * (idx - r * C4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < rows && c < hd)
-      x = *reinterpret_cast<const float4*>(src + (r0 + r) * stride + c);
-    float* d = dst + r * row_floats(HD) + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
+// Start copying `rows` rows of a and c into da / dc (row stride ST): rows
+// R0 + r of a KV head's (position, head) rows when `by_head`, else keys
+// R0 + r of (B, Skv, KV, hd) tensors; warp w of `warps` copies rows w, w +
+// warps, ..., a float4 a lane; rows past the end are zero-filled.
+template <int ST>
+__device__ __forceinline__ void copy_rows(const Params& p, float* da,
+                                          float* dc, const float* a,
+                                          const float* c, int b, int kvh,
+                                          int R0, int rows, bool by_head,
+                                          int w, int warps) {
+  const int lane = threadIdx.x & 31;
+  if (lane >= p.hd / 4) return;
+  const int end = by_head ? p.S * p.G : p.Skv;
+  for (int r = w; r < rows; r += warps) {
+    const int R = R0 + r;
+    const bool ok = R < end;
+    const long long off =
+        by_head ? row_offset(p, b, kvh, R)
+                : ((static_cast<long long>(b) * p.Skv + (ok ? R : 0)) * p.KV +
+                   kvh) * p.hd;
+    cp_async16(da + r * ST + 4 * lane, a + off + 4 * lane, ok);
+    cp_async16(dc + r * ST + 4 * lane, c + off + 4 * lane, ok);
   }
 }
 
-// s[i][j] = a_row(ty + 16 i) . b_row(tx + 16 j) and t[i][j] = c_row . d_row
-// over HD columns (two products in one pass over the columns)
-template <int HD>
-__device__ __forceinline__ void two_products(float (&s)[4][4],
-                                             float (&t)[4][4], const float* a,
-                                             const float* b, const float* c,
-                                             const float* d, int ty, int tx) {
-  constexpr int LD = row_floats(HD);
+// Zero columns hd .. hd + 3 (hd % 8 == 4) of `rows` rows at `at` (row
+// stride ST): a copy never writes them, and the products read them.
+template <int ST>
+__device__ __forceinline__ void zero_pad(const Params& p, float* at,
+                                         int rows, int i0, int n) {
+  for (int r = i0; r < rows; r += n)
+    *reinterpret_cast<float4*>(at + r * ST + p.hd) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Split one float4 of a landed row in place: big over the raw values,
+// small at the same place of `small`; with `tbig` non-null also into the
+// transposed copies (row = column of the tile, stride TS), at the
+// permuted column the caller points them at.
+template <int TS>
+__device__ __forceinline__ void split4(float* big, float* small, float* tbig,
+                                       float* tsmall) {
+  const float4 x = *reinterpret_cast<const float4*>(big);
+  uint4 b4, s4;
+  split(x.x, b4.x, s4.x);
+  split(x.y, b4.y, s4.y);
+  split(x.z, b4.z, s4.z);
+  split(x.w, b4.w, s4.w);
+  *reinterpret_cast<uint4*>(big) = b4;
+  *reinterpret_cast<uint4*>(small) = s4;
+  if (tbig) {
+    tbig[0] = __uint_as_float(b4.x);
+    tbig[TS] = __uint_as_float(b4.y);
+    tbig[2 * TS] = __uint_as_float(b4.z);
+    tbig[3 * TS] = __uint_as_float(b4.w);
+    tsmall[0] = __uint_as_float(s4.x);
+    tsmall[TS] = __uint_as_float(s4.y);
+    tsmall[2 * TS] = __uint_as_float(s4.z);
+    tsmall[3 * TS] = __uint_as_float(s4.w);
+  }
+}
+
+// A fragments of the warp's 16 rows of a raw tile (stride ST) at k-step
+// kk, split at use: lane l reads row 8 ((l / 8) % 2) + l % 8, columns + 4
+// (l / 16), so register i is (rows gr, gr + 8 x columns tq, tq + 4).
+__device__ __forceinline__ void a_split(const float* at, uint32_t (&ab)[4],
+                                        uint32_t (&as)[4]) {
+  uint32_t raw[4];
+  ldmatrix4(raw, at);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(raw[i]), ab[i], as[i]);
+}
+
+// An accumulator (rows gr, gr + 8 x columns 2tq, 2tq + 1 of a k-step of 8)
+// as the A operand of a product summed over those columns: (d0, d2, d1,
+// d3), split.
+__device__ __forceinline__ void acc_as_a(const float (&d)[4],
+                                         uint32_t (&ab)[4],
+                                         uint32_t (&as)[4]) {
+  split(d[0], ab[0], as[0]);
+  split(d[2], ab[1], as[1]);
+  split(d[1], ab[2], as[2]);
+  split(d[3], ab[3], as[3]);
+}
+
+// One k-step of a product kept as hi + lo (products below): the two
+// small terms onto lo; big . big onto hi, t = hi + a . b (truncated at
+// hi's scale); then big . big again onto hi - t (exact: t is near hi),
+// which leaves the step's products, cut only at their own scale, less
+// what t took of them; that onto lo, and t is the new hi.  h: n-tile of
+// a pair.
+__device__ __forceinline__ void step_hi_lo(float (&hi)[4], float (&lo)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[4],
+                                           const uint32_t (&bs)[4], int h) {
+  mma(lo, as, bb[2 * h], bb[2 * h + 1]);
+  mma(lo, ab, bs[2 * h], bs[2 * h + 1]);
+  float t[4] = {hi[0], hi[1], hi[2], hi[3]};
+  mma(t, ab, bb[2 * h], bb[2 * h + 1]);
+  float e[4] = {hi[0] - t[0], hi[1] - t[1], hi[2] - t[2], hi[3] - t[3]};
+  mma(e, ab, bb[2 * h], bb[2 * h + 1]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
-#pragma unroll 4
-  for (int e = 0; e < HD; ++e) {
-    float av[4], bv[4], cv[4], dv[4];
+  for (int i = 0; i < 4; ++i) {
+    lo[i] += e[i];
+    hi[i] = t[i];
+  }
+}
+
+// s (16 rows x T) = A . B^T and dp = C . D^T over NK k-steps of 8, each
+// as hi + lo (s + sl, dp + dpl): A, C the warp's 16 rows of raw tiles
+// (a_at into them), split at use; B, D row-major split tiles (big at b /
+// d, small at + RT), a pair of n-tiles an ldmatrix4 each.  SPLIT: the two
+// products one after the other (fewer live registers), else in one pass
+// over the k-steps.
+//
+// mma.sync rounds as tools/mma_rounding.cu measured on the card: its 8
+// products and C are aligned to the largest exponent, each cut to 2^-25
+// of it, summed, and the sum truncated to float32.  Summed onto a running
+// value, at a trained layer's scores (to ~80) that biased S, so P, by
+// several ulps of S: dv 1.7x its tolerance from float64 (PERF.md, the
+// backward's findings).  Here a second big . big product gives back what
+// the first one's truncation at the running value's scale lost
+// (step_hi_lo): what is left is the cut of products 2^-5 and more below
+// the sum of their k-step.
+template <int NK, int NT, int ST, int RT, bool SPLIT, bool EXACT>
+__device__ __forceinline__ void products(float (&s)[NT][4],
+                                         float (&sl)[NT][4],
+                                         float (&dp)[NT][4],
+                                         float (&dpl)[NT][4],
+                                         const float* a, const float* b,
+                                         const float* c, const float* d,
+                                         int lm, int lc, const Params& p) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = a[(ty + 16 * i) * LD + e];
-      cv[i] = c[(ty + 16 * i) * LD + e];
-      bv[i] = b[(tx + 16 * i) * LD + e];
-      dv[i] = d[(tx + 16 * i) * LD + e];
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = dp[j][e] = dpl[j][e] = 0.f;
+#pragma unroll
+  for (int pass = 0; pass < (SPLIT ? 2 : 1); ++pass) {
+    const bool do_s = !SPLIT || pass == 0, do_dp = !SPLIT || pass == 1;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      if (!EXACT && kk >= p.nk) break;
+      uint32_t ab[4], as[4], cb[4], cs[4];
+      if (do_s) a_split(a + kk * 8, ab, as);
+      if (do_dp) a_split(c + kk * 8, cb, cs);
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        const int at = (jp * 16 + lm) * ST + lc + kk * 8;
+        uint32_t bb[4], bs[4];
+        if (do_s) {
+          ldmatrix4(bb, b + at);
+          ldmatrix4(bs, b + RT + at);
+          step_hi_lo(s[2 * jp], sl[2 * jp], ab, as, bb, bs, 0);
+          step_hi_lo(s[2 * jp + 1], sl[2 * jp + 1], ab, as, bb, bs, 1);
+        }
+        if (do_dp) {
+          ldmatrix4(bb, d + at);
+          ldmatrix4(bs, d + RT + at);
+          step_hi_lo(dp[2 * jp], dpl[2 * jp], cb, cs, bb, bs, 0);
+          step_hi_lo(dp[2 * jp + 1], dpl[2 * jp + 1], cb, cs, bb, bs, 1);
+        }
+      }
+    }
+  }
+}
+
+// d += a . b as mma3, compensated (Fast2Sum): the step's products are
+// summed onto the rounding error `e` that the previous step's add onto d
+// left, then added to d, and the error of that add is kept in e.
+__device__ __forceinline__ void mma3_comp(float (&d)[4], float (&e)[4],
+                                          const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4],
+                                          const uint32_t (&bb)[4],
+                                          const uint32_t (&bs)[4], int h) {
+  float t[4] = {e[0], e[1], e[2], e[3]};
+  mma3(t, ab, as, bb, bs, h);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float s = d[i] + t[i];
+    e[i] = t[i] - (s - d[i]);
+    d[i] = s;
+  }
+}
+
+// d (rows x hd) += a . B over a tile's NT k-steps of 8 of a's columns: a
+// is an accumulator of NT n-tiles fed as A operands (acc_as_a, split
+// once); B is read from a transposed tile (big at bt, small at bt + TT)
+// whose columns hold a's columns in `permuted` order, a pair of hd
+// n-tiles an ldmatrix4 each.  For each pair, the k-steps' split products
+// are added to d compensated (mma3_comp) and the error left is added at
+// the end of the tile: d takes one rounding a tile instead of one a
+// k-step.  GUARD (exact instances): a run-time bound on each hd pair (1)
+// or each k-step (2) that is never taken.
+template <int NK, int NT, int NP, int TS, bool EXACT, int GUARD>
+__device__ __forceinline__ void accumulate(float (&d)[NK][4],
+                                           const float (&a)[NT][4],
+                                           const float* bt, int TT, int lm,
+                                           int lc, const Params& p) {
+  uint32_t ab[NT][4], as[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc_as_a(a[j], ab[j], as[j]);
+#pragma unroll
+  for (int np = 0; np < NP; ++np) {
+    if ((!EXACT || GUARD == 1) && 2 * np >= p.nk) break;
+    const bool odd = 2 * np + 1 < NK && (EXACT || 2 * np + 1 < p.nk);
+    float e0[4] = {0.f, 0.f, 0.f, 0.f}, e1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (GUARD == 2 && j >= NT + p.nk) break;
+      const int at = (np * 16 + lm) * TS + lc + j * 8;
+      uint32_t bb[4], bs[4];
+      ldmatrix4(bb, bt + at);
+      ldmatrix4(bs, bt + TT + at);
+      mma3_comp(d[2 * np], e0, ab[j], as[j], bb, bs, 0);
+      if (odd) mma3_comp(d[2 * np + 1], e1, ab[j], as[j], bb, bs, 1);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-        t[i][j] = fmaf(cv[i], dv[j], t[i][j]);
-      }
+    for (int i = 0; i < 4; ++i) {
+      d[2 * np][i] += e0[i];
+      if (odd) d[2 * np + 1][i] += e1[i];
+    }
   }
 }
 
-// is the (query position, key) pair live?
+// (hi + lo) scale - lse, the exponent of P: hi scale - lse rounded once
+// (small where P is not), then lo's share
+__device__ __forceinline__ float logit(float hi, float lo, float lse,
+                                       float scale) {
+  return fmaf(lo, scale, fmaf(hi, scale, -lse));
+}
+
 __device__ __forceinline__ bool live(const Params& p, int pos, int key) {
-  bool ok = pos < p.S && key < p.Skv;
-  if (p.causal) ok = ok && pos >= key && (p.window <= 0 || pos - key < p.window);
+  bool ok = key < p.Skv;
+  if (p.causal)
+    ok = ok && pos >= key && (p.window <= 0 || pos - key < p.window);
   return ok;
 }
 
-// P and dS of a tile from S = Q . K^T and dP = dO . V^T, rows of query
-// positions q0 + ty + 16 i, keys k0 + tx + 16 j
-__device__ __forceinline__ void scores(const Params& p, float (&s)[4][4],
-                                       float (&dp)[4][4], const float* lse_s,
-                                       const float* delta_s, int q0, int k0,
-                                       int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      float pij = 0.f;
-      if (live(p, q0 + r, k0 + c)) pij = expf(s[i][j] * p.scale - lse_s[r]);
-      s[i][j] = pij;
-      dp[i][j] = pij * (dp[i][j] - delta_s[r]) * p.scale;
-    }
-  }
+// The compute warps hand buffer u back.  They only read it, and bar.arrive
+// orders this thread's earlier shared-memory accesses before the barrier
+// completes (PTX ISA): bar_arrive's fence cost 1-2% here.
+__device__ __forceinline__ void hand_back(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+// blockIdx.x read again, a value the compiler cannot carry over from
+// before a loop (which would hold a register, or spill, through it)
+__device__ __forceinline__ int ctaid_x() {
+  int x;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(x));
+  return x;
+}
+
+// Hand registers back (producers) or take them (compute warps), a whole
+// warpgroup at once.
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__global__ void __launch_bounds__(kDeltaThreads)
 flash_attention_bwd_delta_kernel(const float* dout, const float* out,
                                  float* delta, int S, int H, int hd,
                                  long long rows) {
-  const long long r = (static_cast<long long>(blockIdx.x) * kThreads +
+  const long long r = (static_cast<long long>(blockIdx.x) * kDeltaThreads +
                        threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
@@ -174,218 +487,429 @@ flash_attention_bwd_delta_kernel(const float* dout, const float* out,
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+// NK: k-steps of 8 columns compiled in; EXACT: NK == p.nk, else p.nk <= NK
+// and the steps past p.nk are skipped.
+template <int NK, bool EXACT>
+__global__ void __launch_bounds__(Tiling<NK, false>::kThreads, 1)
 flash_attention_bwd_dkdv_kernel(const Params p) {
-  constexpr int LD = row_floats(HD);
-  constexpr int NJ = HD / 16;                 // dK / dV columns a thread
+  using C = Tiling<NK, false>;
+  constexpr int W = C::W, T = C::T, NT = C::NT, NP = C::NP;
+  constexpr int ST = C::ST, TS = C::TS, RT = C::RT, TT = C::TT;
+  constexpr int BUF = C::DKDV_BUF;
+  // the block's raw K and V rows, then buffers u = 0, 1 at buf + u BUF:
+  // Q big (raw Q lands there and is split in place), Q small, dO big, dO
+  // small (RT each), Q^T big, Q^T small, dO^T big, dO^T small (TT each),
+  // lse, delta (T each)
   extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                          // kTile x LD each
-  float* v_s = k_s + kTile * LD;
-  float* q_s = v_s + kTile * LD;
-  float* do_s = q_s + kTile * LD;
-  float* p_s = do_s + kTile * LD;             // kTile x kPL, [row][key]
-  float* ds_s = p_s + kTile * kPL;
-  float* lse_s = ds_s + kTile * kPL;          // kTile
-  float* delta_s = lse_s + kTile;
+  float* k_s = smem;
+  float* v_s = k_s + C::OWN * ST;
+  float* buf = v_s + C::OWN * ST;
 
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * C::OWN;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long kv_stride = static_cast<long long>(p.KV) * p.hd;
-  const long long q_stride = static_cast<long long>(p.H) * p.hd;
-  const float* kb = p.k + (static_cast<long long>(b) * p.Skv * p.KV + kvh) * p.hd;
-  const float* vb = p.v + (static_cast<long long>(b) * p.Skv * p.KV + kvh) * p.hd;
-  load_tile<HD>(k_s, kb, k0, p.Skv, kv_stride, p.hd);
-  load_tile<HD>(v_s, vb, k0, p.Skv, kv_stride, p.hd);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rows_total = p.S * p.G;
+  const int nk = EXACT ? NK : p.nk;
 
-  // the query tiles this key tile's band reaches
-  const int k1 = min(k0 + kTile, p.Skv) - 1;
-  int q_lo = 0, q_hi = p.S - 1;
+  // the row tiles this key tile's band reaches: when causal, positions
+  // k0 .. min(S, last key + window) - 1
+  int r_lo = 0, r_hi = rows_total - 1;
   if (p.causal) {
-    q_lo = k0;
-    if (p.window > 0) q_hi = min(q_hi, k1 + p.window - 1);
+    r_lo = k0 * p.G;
+    if (p.window > 0) {
+      const long long last = min(static_cast<long long>(p.S) - 1,
+                                 min(k0 + C::OWN, p.Skv) - 2LL + p.window);
+      r_hi = static_cast<int>((last + 1) * p.G - 1);
+    }
   }
-  const int t_lo = q_lo / kTile, t_hi = q_hi / kTile;
+  const int t_lo = r_lo / T, t_hi = r_hi / T;
 
-  float dk[4][NJ], dv[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int g = 0; g < p.G; ++g) {
-    const int h = kvh * p.G + g;
-    const float* qb = p.q + (static_cast<long long>(b) * p.S * p.H + h) * p.hd;
-    const float* dob = p.dout + (static_cast<long long>(b) * p.S * p.H + h) * p.hd;
-    const float* lseb = p.lse + (static_cast<long long>(b) * p.H + h) * p.S;
-    const float* deltab = p.delta + (static_cast<long long>(b) * p.H + h) * p.S;
+  if (warp >= W) {
+    if constexpr (C::REGS) regs_dec<C::PRODUCER_REGS>();
+    // The producers: row tile t into buffer (t - t_lo) % 2, once the
+    // compute warps are done with tile t - 2 there.
+    const int pt = threadIdx.x - W * 32;
+    if (p.hd % 8)
+      for (int u = 0; u < 2; ++u)
+        for (int m = 0; m < 2; ++m)
+          zero_pad<ST>(p, buf + u * BUF + 2 * m * RT, T, pt,
+                       C::kProducers);
     for (int t = t_lo; t <= t_hi; ++t) {
-      const int q0 = t * kTile;
-      __syncthreads();                        // the last tile's reads done
-      load_tile<HD>(q_s, qb, q0, p.S, q_stride, p.hd);
-      load_tile<HD>(do_s, dob, q0, p.S, q_stride, p.hd);
-      if (threadIdx.x < kTile) {
-        const int pos = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = pos < p.S ? lseb[pos] : 0.f;
-        delta_s[threadIdx.x] = pos < p.S ? deltab[pos] : 0.f;
+      const int u = (t - t_lo) & 1;
+      float* qb = buf + u * BUF;
+      float* dob = qb + 2 * RT;
+      float* qtb = qb + 4 * RT;
+      float* lse_s = qtb + 4 * TT;
+      if (t - t_lo >= 2) bar_sync(kBarFree + u, C::kThreads);
+      copy_rows<ST>(p, qb, dob, p.q, p.dout, b, kvh, t * T, T, true,
+                    warp - W, C::kProducers / 32);
+      cp_async_commit();
+      for (int i = pt; i < T; i += C::kProducers) {
+        const int R = t * T + i;
+        float l = 0.f, d = 0.f;
+        if (R < rows_total) {
+          const int pos = R / p.G;
+          const long long at =
+              (static_cast<long long>(b) * p.H + kvh * p.G + R - pos * p.G) *
+                  p.S + pos;
+          l = p.lse[at];
+          d = p.delta[at];
+        }
+        lse_s[i] = l;
+        lse_s[T + i] = d;
       }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      // S = Q . K^T and dP = dO . V^T: rows = queries, columns = keys
-      two_products<HD>(s, dp, q_s, k_s, do_s, v_s, ty, tx);
-      scores(p, s, dp, lse_s, delta_s, q0, k0, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          p_s[(ty + 16 * i) * kPL + tx + 16 * j] = s[i][j];
-          ds_s[(ty + 16 * i) * kPL + tx + 16 * j] = dp[i][j];
+      cp_async_wait_all();
+      bar_sync(kBarProd, C::kProducers);     // landed for every producer
+      // item (row r, float4 c): lanes take consecutive rows; Q, then dO
+      for (int m = 0; m < 2; ++m)
+        for (int i = pt; i < T * 2 * nk; i += C::kProducers) {
+          const int r = i % T, c = i / T;
+          const int at = 2 * m * RT + r * ST + 4 * c;
+          const int tat = 2 * m * TT + 4 * c * TS + permuted(r);
+          split4<TS>(qb + at, qb + RT + at, qtb + tat, qtb + TT + tat);
         }
-      __syncthreads();
-      // dV += P^T . dO, dK += dS^T . Q: rows = keys ty + 16 i, columns =
-      // head dims tx + 16 j
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float pv[4], dsv[4], dov[NJ], qv[NJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = p_s[r * kPL + ty + 16 * i];
-          dsv[i] = ds_s[r * kPL + ty + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dov[j] = do_s[r * LD + tx + 16 * j];
-          qv[j] = q_s[r * LD + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            dv[i][j] = fmaf(pv[i], dov[j], dv[i][j]);
-            dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
-          }
-      }
+      bar_arrive(kBarFull + u, C::kThreads);
     }
+    return;
+  }
+
+  if constexpr (C::REGS) regs_inc<C::COMPUTE_REGS>();
+  // the block's K and V rows, raw
+  copy_rows<ST>(p, k_s, v_s, p.k, p.v, b, kvh, k0, C::OWN, false, warp, W);
+  cp_async_commit();
+  if (p.hd % 8) {
+    zero_pad<ST>(p, k_s, C::OWN, threadIdx.x, W * 32);
+    zero_pad<ST>(p, v_s, C::OWN, threadIdx.x, W * 32);
+  }
+  cp_async_wait_all();
+  bar_sync(kBarOwn, W * 32);
+  BWD_PHASE_BEGIN();
+
+  const int gr = lane >> 2, tq = lane & 3;
+  const int kw0 = k0 + warp * 16;            // the warp's first key
+  const bool warp_live = kw0 < p.Skv;
+  const int key_a = kw0 + gr, key_b = key_a + 8;
+  // A fragments: the warp's K and V rows; B fragments: lane l reads row
+  // 8 (l / 16) + l % 8, columns + 4 ((l / 8) % 2) of a pair of n-tiles
+  const int a_at = (warp * 16 + 8 * ((lane >> 3) & 1) + (lane & 7)) * ST +
+                   4 * (lane >> 4);
+  const int lm = 8 * (lane >> 4) + (lane & 7);
+  const int lc = 4 * ((lane >> 3) & 1);
+
+  // dK, dV: keys (gr, gr + 8) x columns (8 n + 2 tq, + 1)
+  float dk[NK][4], dv[NK][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int u = (t - t_lo) & 1;
+    bar_sync(kBarFull + u, C::kThreads);     // tile t split into buffer u
+    BWD_PHASE(0);
+    const float* qb = buf + u * BUF;
+    const float* qtb = qb + 4 * RT;
+    const float* lse_s = qtb + 4 * TT;
+    const int r0 = t * T;
+    const int pos_lo = r0 / p.G;
+    const int pos_hi = (min(r0 + T, rows_total) - 1) / p.G;
+    // a tile masked for every key of the warp adds nothing: skip it
+    if (warp_live &&
+        !(p.causal && (pos_hi < kw0 ||
+                       (p.window > 0 && pos_lo - (kw0 + 15) >= p.window)))) {
+      // does any (row, key) pair of the warp's tile need the mask?
+      const bool edge = kw0 + 15 >= p.Skv ||
+                        (p.causal && (kw0 + 15 > pos_lo ||
+                                      (p.window > 0 &&
+                                       pos_hi - kw0 >= p.window)));
+
+      // S^T = K . Q^T and dP^T = V . dO^T: keys x rows
+      float s[NT][4], dp[NT][4], sl[NT][4], dpl[NT][4];
+      products<NK, NT, ST, RT, C::SDP_SPLIT, EXACT>(
+          s, sl, dp, dpl, k_s + a_at, qb, v_s + a_at, qb + 2 * RT, lm, lc,
+          p);
+      BWD_PHASE(1);
+
+      // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale; the
+      // thread's rows are 8 j + 2 tq (+ 1)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * tq);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(lse_s + T + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float l = e & 1 ? l2.y : l2.x;
+          const float d = e & 1 ? d2.y : d2.x;
+          float pe = ex2(logit(s[j][e], sl[j][e], l, p.scale) * kLog2e);
+          if (edge) {
+            const int R = r0 + 8 * j + 2 * tq + (e & 1);
+            if (!live(p, R / p.G, e < 2 ? key_a : key_b)) pe = 0.f;
+          }
+          s[j][e] = pe;
+          dp[j][e] = pe * ((dp[j][e] - d) + dpl[j][e]) * p.scale;
+        }
+      }
+      BWD_PHASE(2);
+
+      // dV += P^T . dO, then dK += dS^T . Q, a k-step of 8 rows at a
+      // time: the accumulators are the A operands; dO^T and Q^T hold the
+      // rows in the matching order
+      accumulate<NK, NT, NP, TS, EXACT, C::ACC_GUARD>(dv, s, qtb + 2 * TT,
+                                                     TT, lm, lc, p);
+      accumulate<NK, NT, NP, TS, EXACT, C::ACC_GUARD>(dk, dp, qtb, TT, lm,
+                                                     lc, p);
+      BWD_PHASE(3);
+    }
+    if (t + 2 <= t_hi) hand_back(kBarFree + u, C::kThreads);    // u free
+    BWD_PHASE(4);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key_b : key_a;
     if (key >= p.Skv) continue;
-    const long long row = (static_cast<long long>(b) * p.Skv + key) * p.KV + kvh;
+    const long long row =
+        ((static_cast<long long>(b) * p.Skv + key) * p.KV + kvh) * p.hd;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < p.hd) {
-        p.dk[row * p.hd + c] = dk[i][j];
-        p.dv[row * p.hd + c] = dv[i][j];
-      }
+    for (int n = 0; n < NK; ++n) {
+      const int c = n * 8 + 2 * tq;
+      if (c >= p.hd) break;                  // hd is a multiple of 4
+      *reinterpret_cast<float2*>(p.dk + row + c) =
+          make_float2(dk[n][2 * half], dk[n][2 * half + 1]);
+      *reinterpret_cast<float2*>(p.dv + row + c) =
+          make_float2(dv[n][2 * half], dv[n][2 * half + 1]);
     }
   }
+  BWD_PHASE(5);
+  BWD_PHASE_END();
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+template <int NK, bool EXACT>
+__global__ void __launch_bounds__(Tiling<NK, true>::kThreads, 1)
 flash_attention_bwd_dq_kernel(const Params p) {
-  constexpr int LD = row_floats(HD);
-  constexpr int NJ = HD / 16;                 // dQ columns a thread
+  using C = Tiling<NK, true>;
+  constexpr int W = C::W, T = C::T, NT = C::NT, NP = C::NP;
+  constexpr int ST = C::ST, TS = C::TS, RT = C::RT, TT = C::TT;
+  constexpr int BUF = C::DQ_BUF;
+  // the block's raw Q and dO rows, then buffers u = 0, 1 at buf + u BUF:
+  // K big (raw K lands there and is split in place), K small, V big, V
+  // small (RT each), K^T big, K^T small (TT each)
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                          // kTile x LD each
-  float* do_s = q_s + kTile * LD;
-  float* k_s = do_s + kTile * LD;
-  float* v_s = k_s + kTile * LD;
-  float* ds_s = v_s + kTile * LD;             // kTile x kPL, [row][key]
-  float* lse_s = ds_s + kTile * kPL;
-  float* delta_s = lse_s + kTile;
+  float* q_s = smem;
+  float* do_s = q_s + C::OWN * ST;
+  float* buf = do_s + C::OWN * ST;
 
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
+  const int row_tiles = (p.S * p.G + C::OWN - 1) / C::OWN;
+  const int tile = row_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int kvh = h / p.G;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long kv_stride = static_cast<long long>(p.KV) * p.hd;
-  const long long q_stride = static_cast<long long>(p.H) * p.hd;
-  const float* qb = p.q + (static_cast<long long>(b) * p.S * p.H + h) * p.hd;
-  const float* dob = p.dout + (static_cast<long long>(b) * p.S * p.H + h) * p.hd;
-  const float* kb = p.k + (static_cast<long long>(b) * p.Skv * p.KV + kvh) * p.hd;
-  const float* vb = p.v + (static_cast<long long>(b) * p.Skv * p.KV + kvh) * p.hd;
-  load_tile<HD>(q_s, qb, q0, p.S, q_stride, p.hd);
-  load_tile<HD>(do_s, dob, q0, p.S, q_stride, p.hd);
-  if (threadIdx.x < kTile) {
-    const int pos = q0 + threadIdx.x;
-    const long long at = (static_cast<long long>(b) * p.H + h) * p.S + pos;
-    lse_s[threadIdx.x] = pos < p.S ? p.lse[at] : 0.f;
-    delta_s[threadIdx.x] = pos < p.S ? p.delta[at] : 0.f;
-  }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rows_total = p.S * p.G;
+  const int nk = EXACT ? NK : p.nk;
+  const int r0 = tile * C::OWN;
+  const int p_lo = r0 / p.G;
+  const int p_hi = (min(r0 + C::OWN, rows_total) - 1) / p.G;
 
-  // the key tiles this query tile's band reaches
-  const int q1 = min(q0 + kTile, p.S) - 1;
-  int c_lo = 0, c_hi = p.Skv - 1;
+  // the key tiles this block's band reaches
+  int t_lo = 0;
+  int t_hi = (p.Skv - 1) / T;
   if (p.causal) {
-    c_hi = min(c_hi, q1);
-    if (p.window > 0) c_lo = max(q0 - p.window + 1, 0);
+    t_hi = min(p_hi, p.Skv - 1) / T;
+    if (p.window > 0) t_lo = max(p_lo - p.window + 1, 0) / T;
   }
 
-  float dq[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dq[i][j] = 0.f;
+  if (warp >= W) {
+    if constexpr (C::REGS) regs_dec<C::PRODUCER_REGS>();
+    // The producers: key tile t into buffer (t - t_lo) % 2
+    const int pt = threadIdx.x - W * 32;
+    if (p.hd % 8)
+      for (int u = 0; u < 2; ++u)
+        for (int m = 0; m < 2; ++m)
+          zero_pad<ST>(p, buf + u * BUF + 2 * m * RT, T, pt,
+                       C::kProducers);
+    for (int t = t_lo; t <= t_hi; ++t) {
+      const int u = (t - t_lo) & 1;
+      float* kb = buf + u * BUF;
+      float* vb = kb + 2 * RT;
+      float* ktb = kb + 4 * RT;
+      if (t - t_lo >= 2) bar_sync(kBarFree + u, C::kThreads);
+      copy_rows<ST>(p, kb, vb, p.k, p.v, b, kvh, t * T, T, false, warp - W,
+                    C::kProducers / 32);
+      cp_async_commit();
+      cp_async_wait_all();
+      bar_sync(kBarProd, C::kProducers);     // landed for every producer
+      // K (with its transposed copies), then V
+      for (int i = pt; i < T * 2 * nk; i += C::kProducers) {
+        const int r = i % T, c = i / T;
+        const int at = r * ST + 4 * c, tat = 4 * c * TS + permuted(r);
+        split4<TS>(kb + at, kb + RT + at, ktb + tat, ktb + TT + tat);
+      }
+      for (int i = pt; i < T * 2 * nk; i += C::kProducers) {
+        const int at = i % T * ST + 4 * (i / T);
+        split4<TS>(vb + at, vb + RT + at, nullptr, nullptr);
+      }
+      bar_arrive(kBarFull + u, C::kThreads);
+    }
+    return;
+  }
 
-  for (int t = c_lo / kTile; t <= c_hi / kTile; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();                          // the last tile's reads done
-    load_tile<HD>(k_s, kb, k0, p.Skv, kv_stride, p.hd);
-    load_tile<HD>(v_s, vb, k0, p.Skv, kv_stride, p.hd);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    two_products<HD>(s, dp, q_s, k_s, do_s, v_s, ty, tx);
-    scores(p, s, dp, lse_s, delta_s, q0, k0, ty, tx);
+  if constexpr (C::REGS) regs_inc<C::COMPUTE_REGS>();
+  copy_rows<ST>(p, q_s, do_s, p.q, p.dout, b, kvh, r0, C::OWN, true, warp,
+                W);
+  cp_async_commit();
+  if (p.hd % 8) {
+    zero_pad<ST>(p, q_s, C::OWN, threadIdx.x, W * 32);
+    zero_pad<ST>(p, do_s, C::OWN, threadIdx.x, W * 32);
+  }
+
+  // this thread's rows: Ra (fragment rows gr) and Rb = Ra + 8
+  const int gr = lane >> 2, tq = lane & 3;
+  const int w_lo = r0 + warp * 16;
+  const int Ra = w_lo + gr, Rb = Ra + 8;
+  const int pos_a = Ra / p.G, pos_b = Rb / p.G;
+  const bool warp_live = w_lo < rows_total;
+  const int wp_lo = w_lo / p.G;
+  const int wp_hi = (min(w_lo + 16, rows_total) - 1) / p.G;
+  float lse_a = 0.f, lse_b = 0.f, del_a = 0.f, del_b = 0.f;
+  if (Ra < rows_total) {
+    const long long at = (static_cast<long long>(b) * p.H + kvh * p.G +
+                          Ra - pos_a * p.G) * p.S + pos_a;
+    lse_a = p.lse[at];
+    del_a = p.delta[at];
+  }
+  if (Rb < rows_total) {
+    const long long at = (static_cast<long long>(b) * p.H + kvh * p.G +
+                          Rb - pos_b * p.G) * p.S + pos_b;
+    lse_b = p.lse[at];
+    del_b = p.delta[at];
+  }
+  cp_async_wait_all();
+  bar_sync(kBarOwn, W * 32);
+  BWD_PHASE_BEGIN();
+
+  const int a_at = (warp * 16 + 8 * ((lane >> 3) & 1) + (lane & 7)) * ST +
+                   4 * (lane >> 4);
+  const int lm = 8 * (lane >> 4) + (lane & 7);
+  const int lc = 4 * ((lane >> 3) & 1);
+
+  // dQ: rows (gr, gr + 8) x columns (8 n + 2 tq, + 1)
+  float dq[NK][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ds_s[(ty + 16 * i) * kPL + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    // dQ += dS . K: rows = queries ty + 16 i, columns = head dims tx + 16 j
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dsv[4], kv[NJ];
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int u = (t - t_lo) & 1;
+    bar_sync(kBarFull + u, C::kThreads);     // tile t split into buffer u
+    BWD_PHASE(0);
+    const float* kb = buf + u * BUF;
+    const float* ktb = kb + 4 * RT;
+    const int k0 = t * T, k1 = k0 + T - 1;
+    if (warp_live &&
+        !(p.causal && (k0 > wp_hi ||
+                       (p.window > 0 && wp_lo - k1 >= p.window)))) {
+      const bool edge = k1 >= p.Skv ||
+                        (p.causal && (k1 > wp_lo || (p.window > 0 &&
+                                                     wp_hi - k0 >= p.window)));
+
+      // S = Q . K^T and dP = dO . V^T: rows x keys
+      float s[NT][4], dp[NT][4], sl[NT][4], dpl[NT][4];
+      products<NK, NT, ST, RT, C::SDP_SPLIT, EXACT>(
+          s, sl, dp, dpl, q_s + a_at, kb, do_s + a_at, kb + 2 * RT, lm, lc,
+          p);
+      BWD_PHASE(1);
+
+      // P = exp(S scale - lse), dS = P (dP - delta) scale; the thread's
+      // keys are k0 + 8 j + 2 tq (+ 1)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = ds_s[(ty + 16 * i) * kPL + c];
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = k_s[c * LD + tx + 16 * j];
+        for (int e = 0; e < 4; ++e) {
+          const bool a = e < 2;
+          float pe = ex2(logit(s[j][e], sl[j][e], a ? lse_a : lse_b,
+                               p.scale) * kLog2e);
+          if (edge &&
+              !live(p, a ? pos_a : pos_b, k0 + 8 * j + 2 * tq + (e & 1)))
+            pe = 0.f;
+          dp[j][e] = pe * ((dp[j][e] - (a ? del_a : del_b)) + dpl[j][e]) *
+                     p.scale;
+        }
+      BWD_PHASE(2);
+
+      // dQ += dS . K, a k-step of 8 keys at a time: dS is the A operand;
+      // K^T holds the keys in the matching order
+      accumulate<NK, NT, NP, TS, EXACT, C::ACC_GUARD>(dq, dp, ktb, TT, lm, lc,
+                                                     p);
+      BWD_PHASE(3);
+    }
+    if (t + 2 <= t_hi) hand_back(kBarFree + u, C::kThreads);    // u free
+    BWD_PHASE(4);
+  }
+
+  // the rows again from the block index, so that Ra need not live
+  // through the loop
+  const int Re = (row_tiles - 1 - ctaid_x()) * C::OWN + warp * 16 + gr;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int half = 0; half < 2; ++half) {
+    const int R = Re + 8 * half;
+    if (R >= rows_total) continue;
+    float* row = p.dq + row_offset(p, b, kvh, R);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) dq[i][j] = fmaf(dsv[i], kv[j], dq[i][j]);
+    for (int n = 0; n < NK; ++n) {
+      const int c = n * 8 + 2 * tq;
+      if (c >= p.hd) break;                  // hd is a multiple of 4
+      *reinterpret_cast<float2*>(row + c) =
+          make_float2(dq[n][2 * half], dq[n][2 * half + 1]);
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int pos = q0 + ty + 16 * i;
-    if (pos >= p.S) continue;
-    float* row = p.dq + ((static_cast<long long>(b) * p.S + pos) * p.H + h) * p.hd;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < p.hd) row[c] = dq[i][j];
-    }
-  }
+  BWD_PHASE(5);
+  BWD_PHASE_END();
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, const Params& p, dim3 grid, int smem_floats,
-           cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(float)) * smem_floats;
+int launch(Kernel kernel, const Params& p, dim3 grid, int threads,
+           int floats, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(float)) * floats;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the dkdv (grid: key tiles x KV x B) or the dq kernel (grid: row
+// tiles x KV x B) of the instance for p.nk.
+template <int NK, bool EXACT>
+int launch_instance(bool dkdv, const Params& p, int B, cudaStream_t s) {
+  using K = Tiling<NK, false>;
+  using Q = Tiling<NK, true>;
+  static_assert(K::DKDV_FLOATS * 4 <= 232448 && Q::DQ_FLOATS * 4 <= 232448,
+                "a block's shared memory is at most 227 KB");
+  if (dkdv)
+    return launch(flash_attention_bwd_dkdv_kernel<NK, EXACT>, p,
+                  dim3((p.Skv + K::OWN - 1) / K::OWN, p.KV, B), K::kThreads,
+                  K::DKDV_FLOATS, s);
+  return launch(flash_attention_bwd_dq_kernel<NK, EXACT>, p,
+                dim3((p.S * p.G + Q::OWN - 1) / Q::OWN, p.KV, B),
+                Q::kThreads, Q::DQ_FLOATS, s);
+}
+
+// exact builds for the configured families' head dims (64, 120, 128)
+int dispatch(bool dkdv, const Params& p, int B, cudaStream_t s) {
+  switch (p.nk) {
+    case 8: return launch_instance<8, true>(dkdv, p, B, s);
+    case 15: return launch_instance<15, true>(dkdv, p, B, s);
+    case 16: return launch_instance<16, true>(dkdv, p, B, s);
+    default:
+      return p.nk < 8 ? launch_instance<8, false>(dkdv, p, B, s)
+                      : launch_instance<16, false>(dkdv, p, B, s);
+  }
 }
 
 int check_shape(int B, int S, int Skv, int H, int KV, int hd, int causal) {
@@ -393,6 +917,7 @@ int check_shape(int B, int S, int Skv, int H, int KV, int hd, int causal) {
   if (KV < 1 || H % KV) return -2;
   if (B < 1 || B > 65535 || H > 65535 || KV > 65535 || S < 1 || Skv < 1)
     return -3;
+  if (static_cast<long long>(S) * (H / KV) > (1LL << 30)) return -3;
   if (causal && Skv != S) return -4;
   return 0;
 }
@@ -402,16 +927,7 @@ Params make_params(const float* q, const float* k, const float* v,
                    float* dq, float* dk, float* dv, int S, int Skv, int H,
                    int KV, int hd, int causal, int window, float scale) {
   return Params{q, k, v, dout, lse, delta, dq, dk, dv, S, Skv, H, KV,
-                H / KV, hd, causal, window, scale};
-}
-
-// shared memory of the two tile kernels, floats: four hd tiles, the P / dS
-// tiles (dkdv two, dq one), lse and delta
-constexpr int dkdv_floats(int hd_pad) {
-  return 4 * kTile * row_floats(hd_pad) + 2 * kTile * kPL + 2 * kTile;
-}
-constexpr int dq_floats(int hd_pad) {
-  return 4 * kTile * row_floats(hd_pad) + kTile * kPL + 2 * kTile;
+                H / KV, hd, (hd + 7) / 8, causal, window, scale};
 }
 
 }  // namespace
@@ -425,10 +941,11 @@ int flash_attention_bwd_delta_launch(const float* dout, const float* out,
                                      int hd, void* stream) {
   if (B < 1 || S < 1 || H < 1 || hd < 1) return -3;
   const long long rows = static_cast<long long>(B) * S * H;
-  const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
+  const long long blocks = (rows * 32 + kDeltaThreads - 1) / kDeltaThreads;
   if (blocks > 0x7fffffffLL) return -3;
-  flash_attention_bwd_delta_kernel<<<static_cast<unsigned>(blocks), kThreads,
-                                     0, static_cast<cudaStream_t>(stream)>>>(
+  flash_attention_bwd_delta_kernel<<<static_cast<unsigned>(blocks),
+                                     kDeltaThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
       dout, out, delta, S, H, hd, rows);
   return static_cast<int>(cudaGetLastError());
 }
@@ -447,13 +964,7 @@ int flash_attention_bwd_dkdv_launch(const float* q, const float* k,
   if (bad) return bad;
   const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, S,
                                Skv, H, KV, hd, causal, window, scale);
-  const dim3 grid((Skv + kTile - 1) / kTile, KV, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd <= 64
-             ? launch(flash_attention_bwd_dkdv_kernel<64>, p, grid,
-                      dkdv_floats(64), s)
-             : launch(flash_attention_bwd_dkdv_kernel<128>, p, grid,
-                      dkdv_floats(128), s);
+  return dispatch(true, p, B, static_cast<cudaStream_t>(stream));
 }
 
 // dq (B, S, H, hd) contiguous; the rest as above.
@@ -468,13 +979,7 @@ int flash_attention_bwd_dq_launch(const float* q, const float* k,
   const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr,
                                nullptr, S, Skv, H, KV, hd, causal, window,
                                scale);
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd <= 64
-             ? launch(flash_attention_bwd_dq_kernel<64>, p, grid,
-                      dq_floats(64), s)
-             : launch(flash_attention_bwd_dq_kernel<128>, p, grid,
-                      dq_floats(128), s);
+  return dispatch(false, p, B, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_bwd_error_string(int err) {

@@ -22,8 +22,10 @@ cost no copy.  It takes both products on the tensor cores in split TF32:
 each float32 operand ``x`` enters as ``big = tf32(x)`` and ``small =
 tf32(x - big)``, and ``a . b`` is ``small_a . big_b + big_a . small_b +
 big_a . big_b``, so the result keeps float32's accuracy (plain TF32 would
-not: ``tests/test_torch_attention_tf32.py``).  The backward kernels run
-FP32 FMA.  cuBLAS's float32 products elsewhere keep TF32 off.  Every path
+not: ``tests/test_torch_attention_tf32.py``).  The backward's dk / dv and
+dq kernels take all their products the same way
+(``tests/test_torch_attention_bwd_tf32.py``).  cuBLAS's float32 products
+elsewhere keep TF32 off.  Every path
 takes float32 only, head dims that are multiples of 4 up to 128 and the
 group sizes in ``GROUP_SIZES``, and raises ``ValueError`` on anything
 else.
@@ -249,25 +251,30 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     elements: ``P = exp(S * scale - lse)``, ``delta = rowsum(dout *
     out)``, ``dV = P^T dout``, ``dS = P * (dout V^T - delta) * scale``,
     ``dK = dS^T Q``, ``dQ = dS K`` (dK and dV summed over each KV head's G
-    query heads)."""
+    query heads).  Float64 inputs are computed in float64, as
+    :func:`flash_attention_lse_plain` does: the reference the kernels are
+    held to where float32's own rounding is a large share of the
+    tolerance.  Float32 inputs compute in float32."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = hd ** -0.5
-    kf, vf = k.float(), v.float()
-    dq = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
-    dk = torch.zeros((B, Skv, KV, hd), dtype=torch.float32, device=q.device)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    kf, vf = k.to(ct), v.to(ct)
+    dq = torch.empty((B, S, H, hd), dtype=ct, device=q.device)
+    dk = torch.zeros((B, Skv, KV, hd), dtype=ct, device=q.device)
     dv = torch.zeros_like(dk)
     rows = max(1, PLAIN_SCORES // (B * H * Skv))
     for s0 in range(0, S, rows):
         sl = slice(s0, s0 + rows)
         n = q[:, sl].shape[1]
-        qg = q[:, sl].reshape(B, n, KV, G, hd).float()
-        dog = dout[:, sl].reshape(B, n, KV, G, hd).float()
-        og = out[:, sl].reshape(B, n, KV, G, hd).float()
+        qg = q[:, sl].reshape(B, n, KV, G, hd).to(ct)
+        dog = dout[:, sl].reshape(B, n, KV, G, hd).to(ct)
+        og = out[:, sl].reshape(B, n, KV, G, hd).to(ct)
         delta = (dog * og).sum(-1).permute(0, 2, 3, 1)        # (B,KV,G,n)
         s = _plain_scores(q[:, sl], k, causal, window, s0)
-        p = torch.exp(s - lse[:, :, sl].reshape(B, KV, G, n)[..., None])
+        p = torch.exp(s - lse[:, :, sl].reshape(B, KV, G, n)[..., None]
+                      .to(ct))
         dv += torch.einsum("bkgqc,bqkgd->bckd", p, dog)
         dp = torch.einsum("bqkgd,bckd->bkgqc", dog, vf)
         ds = p * (dp - delta[..., None]) * scale

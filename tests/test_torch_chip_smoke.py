@@ -995,6 +995,33 @@ def test_profiled_ms_reads_each_session_and_its_events_a_call(
     assert got["events_a_call"] == [2.0, 1.75]
     assert got["names"] == ["bwd", "fwd"]
     assert len(calls) == 1 + 2 * 4          # a warm call, then 2 sessions
+    # the library's time is read from the fullest session, not the last
+    assert smoke.fullest_ms(got) == 1.2
+    sessions.queue = [whole * 3 + [_event("fwd", 300.0)], whole * 4]
+    assert smoke.fullest_ms(smoke.profiled_ms(_TORCH, lambda: None,
+                                              reps=4)) == 1.2
+
+
+def test_fullest_ms_takes_the_last_of_equals_and_skips_event_timings(smoke):
+    assert smoke.fullest_ms({"ms": [1.0, 1.1], "events_a_call": [6, 6]}) \
+        == 1.1
+    assert smoke.fullest_ms({"ms": [1.0, 0.7],
+                             "events_a_call": [3.5, None]}) == 1.0
+    assert smoke.fullest_ms({"ms": [0.9, 0.7],
+                             "events_a_call": [None, None]}) == 0.7
+
+
+def test_whole_sessions_trusts_only_equal_whole_counts(smoke):
+    """The library's profiler time is used only where every session saw
+    the same whole number of events a call; else its terms are all timed
+    by CUDA events (a session that dropped events, or one timed by
+    events, would make a difference of unlike readings)."""
+    assert smoke.whole_sessions({"ms": [1.0, 1.1], "events_a_call": [6, 6]})
+    assert smoke.whole_sessions({"ms": [1.0, 1.0],
+                                 "events_a_call": [6.0, 6.0]})
+    for counts in ([2.625, 2.625], [6, 5], [6, None], [None, None]):
+        assert not smoke.whole_sessions({"ms": [1.0, 1.0],
+                                         "events_a_call": counts}), counts
 
 
 def test_profiled_ms_times_an_empty_session_by_events(smoke, sessions,

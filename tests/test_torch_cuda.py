@@ -433,10 +433,11 @@ def test_forward_on_the_card_runs_the_kernel_and_matches_the_cpu(card):
 
 
 # --------------------------------------------------- the training kernels
-# the CPU test's tolerance (tests/test_torch_flash_vjp.py): the backward
-# kernels take float32 products on the FP32 FMA units and sum over up to
-# Skv keys (dq) or S x G query rows (dk, dv) in another order than the
-# plain version
+# the CPU tests' tolerance (tests/test_torch_flash_vjp.py,
+# tests/test_torch_attention_bwd_tf32.py): the backward kernels take every
+# product in split TF32 on the tensor cores (float32 accuracy) and sum over
+# up to Skv keys (dq) or S x G query rows (dk, dv) in another order than
+# the plain version
 BWD_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
@@ -484,6 +485,26 @@ def test_flash_attention_keeps_a_large_running_sum_exact(card, hd):
         *(x.double() for x in (q, k, v)))
     torch.testing.assert_close(out.double(), want_out, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(lse.double(), want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("hd", [64, 120, 128])
+def test_flash_attention_bwd_keeps_a_large_running_sum_exact(card, hd):
+    """The backward over the same diffuse rows (S 2048, G 4, values near
+    8): dq, dk and dv, summed over 2048 keys or 8192 (position, head)
+    rows, held to the plain backward evaluated in float64 on the kernels'
+    own out and lse."""
+    gen = torch.Generator(device=card).manual_seed(hd + 1)
+    S = 2048
+    q = torch.randn(1, S, 16, hd, device=card, generator=gen) * 0.3
+    k = torch.randn(1, S, 4, hd, device=card, generator=gen)
+    v = torch.randn(1, S, 4, hd, device=card, generator=gen) + 8.0
+    do = torch.randn(1, S, 16, hd, device=card, generator=gen)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_plain(
+        *(x.double() for x in (q, k, v, out, lse, do)))
+    for name, a, b in zip("qkv", got, want):
+        torch.testing.assert_close(a.double(), b, **BWD_TOL, msg=f"d{name}")
 
 
 @pytest.mark.parametrize("mode", sorted(PREFILL_MODES))

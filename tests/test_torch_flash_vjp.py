@@ -177,3 +177,71 @@ def test_the_plain_forward_computes_float64_inputs_in_float64(mode):
                                rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(
         lse, torch.logsumexp(s, -1).reshape(2, 8, S), rtol=1e-12, atol=1e-12)
+
+
+def _bwd_plain_float32_before(q, k, v, out, lse, dout, causal, window):
+    """``flash_attention_bwd_plain`` as it read before it took float64:
+    every operand cast to float32."""
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((B, S, H, hd), dtype=torch.float32)
+    dk = torch.zeros((B, Skv, KV, hd), dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    rows = max(1, fa.PLAIN_SCORES // (B * H * Skv))
+    for s0 in range(0, S, rows):
+        sl = slice(s0, s0 + rows)
+        n = q[:, sl].shape[1]
+        qg = q[:, sl].reshape(B, n, KV, G, hd).float()
+        dog = dout[:, sl].reshape(B, n, KV, G, hd).float()
+        og = out[:, sl].reshape(B, n, KV, G, hd).float()
+        delta = (dog * og).sum(-1).permute(0, 2, 3, 1)
+        s = fa._plain_scores(q[:, sl], k, causal, window, s0)
+        p = torch.exp(s - lse[:, :, sl].reshape(B, KV, G, n)[..., None])
+        dv += torch.einsum("bkgqc,bqkgd->bckd", p, dog)
+        dp = torch.einsum("bqkgd,bckd->bkgqc", dog, vf)
+        ds = p * (dp - delta[..., None]) * scale
+        dk += torch.einsum("bkgqc,bqkgd->bckd", ds, qg)
+        dq[:, sl] = torch.einsum("bkgqc,bckd->bqkgd", ds, kf) \
+            .reshape(B, n, H, hd)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("mode", ["causal", "window", "cross"])
+def test_the_plain_backward_computes_float64_inputs_in_float64(mode):
+    """``flash_attention_bwd_plain`` on float64 inputs keeps float64 (the
+    reference the kernels are held to at a trained layer and over long
+    sums): it equals autograd through a float64 softmax attention to
+    float64's rounding, and float32 inputs still give float32, bit for bit
+    what it gave before it took float64."""
+    S, Skv, causal, window = MODES[mode]
+    q, k, v, do = _inputs(13, S, Skv, 2, 4, 32)
+    args = [torch.from_numpy(x).double().requires_grad_() for x in (q, k, v)]
+    out, lse = fa.flash_attention_lse_plain(*args, causal=causal,
+                                            window=window)
+    dout = torch.from_numpy(do).double()
+    got = fa.flash_attention_bwd_plain(
+        *(a.detach() for a in args), out.detach(), lse.detach(), dout,
+        causal=causal, window=window)
+    assert all(g.dtype == torch.float64 for g in got)
+    qg = args[0].reshape(2, S, 2, 4, 32)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, args[1]) * 32 ** -0.5
+    if causal:
+        i, j = torch.arange(S)[:, None], torch.arange(Skv)[None, :]
+        keep = (i >= j) & ((window <= 0) | (i - j < window))
+        s = s.masked_fill(~keep, float("-inf"))
+    o = torch.einsum("bkgqc,bckd->bqkgd", torch.softmax(s, -1), args[2])
+    want = torch.autograd.grad(o.reshape(2, S, 8, 32), args, dout)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    q32, k32, v32, do32 = map(torch.from_numpy, (q, k, v, do))
+    o32, lse32 = fa.flash_attention_lse_plain(q32, k32, v32, causal=causal,
+                                              window=window)
+    now = fa.flash_attention_bwd_plain(q32, k32, v32, o32, lse32, do32,
+                                       causal=causal, window=window)
+    before = _bwd_plain_float32_before(q32, k32, v32, o32, lse32, do32,
+                                       causal, window)
+    for a, b in zip(now, before):
+        assert a.dtype == torch.float32 and torch.equal(a, b)

@@ -218,7 +218,21 @@ and ``nvcc``.  Phases, each printing one or more lines:
    kernel a step), a profiled step's split, the kernels at layer 0's
    shape beside bounds, plain versions and SDPA; one step of the 2-layer
    cut on the card against the CPU (int8 moments, compression) and a
-   checkpoint and resume (4 + 2 steps against 6).
+   checkpoint and resume (4 + 2 steps against 6);
+11e. mesh: ``make_serve_step(cfg, mesh)`` on a data 2 x model 2 mesh of
+   four processes on this card (gloo, ``run_local_ranks``), each rank on
+   its blocks (``init_local_params``, ``init_local_decode_state``):
+   h2o-danube-3-4b at full width and depth, a 64-slot ring over 96 steps
+   (the second shard empty for 32, the ring wrapping at 64), logits
+   against the one-device decode of the same seeded weights and tokens
+   run first on this card (2e-3 of the largest, equal argmax); int8
+   caches over 40 steps, held at steps 31 and 39 from the ranks' own
+   caches; mixtral-8x7b cut to 2 layers, ``tp`` experts with and without
+   ``resident_experts``; every rank's ``flash_decode`` launches equal to
+   its (step, layer) pairs with a non-empty shard, its partials against
+   the plain version on its final caches; ms a step beside the
+   one-device step's, peak bytes a rank.  It runs after ``[train]`` and
+   before ``[scan]`` (phase 12 on).
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -635,6 +649,34 @@ TRAIN_RESUME = dict(layers=2, batch=2, seq=512, steps=6, every=4,
                     lr="1e-4", moments="int8")
 GRAD_SHARE_TOL = 1e-4          # |grad error| / a leaf's largest |grad|
 TRAIN_LAYERS_FULL = 40
+# [mesh]: serving on a data 2 x model 2 mesh, four processes on the one
+# card over gloo (repro_torch.launch.mesh.run_local_ranks), each rank on
+# its blocks: h2o-danube-3-4b at full width and depth, a 64-slot ring (32
+# slots a model rank) over 96 steps, so that the first 32 steps leave the
+# second shard empty and the ring wraps at 64; int8 caches over 40 steps
+# (past 32, so that both shards attend); mixtral-8x7b cut to 2 of its 32
+# layers (2.8 GB of experts a layer a rank), its 'tp' body with and
+# without resident_experts.  Logits within MESH_TOL x the largest |logit|
+# of the one-device decode of the same weights and tokens, on the card.
+# int8 caches quantize projections that the mesh computes as column
+# blocks: an ulp of difference from the one-device product moves a value
+# across a rounding edge now and then (a code 1 off), and from there the
+# two free runs hold different caches and drift apart.  So the int8 run
+# is held where the caches are equal: at steps 31 (the second shard still
+# empty) and 39 (both shards attend), each from the ranks' own caches
+# (gathered), against one one-device step from the same caches; the free
+# run's drift and its differing codes are shown.  The MoE's capacity
+# counts the tokens a rank routes (the reference's ep and tp bodies): at
+# mixtral's factor 1.25 a rank's 2 tokens get 1 slot an expert where one
+# device's 4 get 2, so the two drop different assignments.  The mesh runs
+# take factor 8, at which neither drops (the reference's reduced configs
+# take it "for parity"); every width stays.
+MESH = dict(arch="h2o-danube-3-4b", shape=(2, 2), batch=4, context=64,
+            steps=96, int8_steps=40, int8_held=(31, 39),
+            moe_arch="mixtral-8x7b", moe_layers=2, moe_steps=16,
+            moe_capacity=8.0)
+MESH_TOL = 2e-3
+MESH_TIMEOUT_S = 600
 SCHED_REQUESTS, SCHED_SLOTS, SCHED_NEW = 8, 4, 32
 PROFILE_STEPS = 16              # decode steps at a full ring, profiled
 TIMING_REPS = 24                # calls per device time, on rotating inputs
@@ -2473,6 +2515,315 @@ def train_kernel_rows(torch, dev, seed: int, q, k, v, launches: dict,
         backward_over_sdpa_events=f"{ratio(ev['ours_backward'], ev_sdpa_bwd):.3f}")
     del out, lse, do, leaves, qt, kt, vt, dot
     return rows
+
+
+def mesh_runs(seed: int) -> dict:
+    """[mesh]'s runs: ``(config, steps, resident_experts)`` by label, and
+    the seeded tokens (steps, batch) each feeds."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    dense = get_arch(MESH["arch"])
+    full = get_arch(MESH["moe_arch"])
+    moe = dataclasses.replace(
+        full, n_layers=MESH["moe_layers"],
+        moe=dataclasses.replace(full.moe,
+                                capacity_factor=MESH["moe_capacity"]))
+    runs = {"float32": (dense, MESH["steps"], False),
+            "int8": (dataclasses.replace(dense, kv_dtype="int8"),
+                     MESH["int8_steps"], False),
+            "moe_tp": (moe, MESH["moe_steps"], False),
+            "moe_resident": (moe, MESH["moe_steps"], True)}
+    rng = np.random.default_rng(seed + 32)
+    tokens = {k: rng.integers(0, cfg.vocab, (steps, MESH["batch"]))
+              for k, (cfg, steps, _) in runs.items() if k != "moe_resident"}
+    tokens["moe_resident"] = tokens["moe_tp"]   # one reference for both
+    return {"runs": runs, "tokens": tokens}
+
+
+CACHE_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def mesh_one_device(torch, cfg, seed: int, tokens: np.ndarray) -> dict:
+    """The one-device decode of ``tokens`` on the card, the reference of a
+    mesh run: its logits on the host, ms a step, peak device bytes, and
+    for int8 caches the final caches on the host."""
+    from repro_torch.distributed.step import make_serve_step
+    from repro_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, seed)
+    state = T.init_decode_state(params, cfg, tokens.shape[1],
+                                MESH["context"])
+    step = make_serve_step(cfg)
+    toks = torch.as_tensor(tokens, device="cuda")
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(len(toks)):
+        logits, state = step(params, state, toks[t])
+        out.append(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"logits": torch.stack(out).cpu(),
+           "ms_per_step": wall / len(toks) * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if "k_scale" in state:
+        res["final"] = {k: state[k].cpu() for k in CACHE_KEYS}
+    del params, state, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_from_caches(torch, cfg, seed: int, held: dict,
+                     tokens: np.ndarray) -> dict:
+    """For each step ``cur`` of ``held`` (its caches on the host), one
+    one-device decode step from those caches: its logits on the host."""
+    from repro_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    params = T.init_params(cfg, seed)
+    out = {}
+    for cur, caches in held.items():
+        state = {"cur": cur, **{k: v.cuda() for k, v in caches.items()}}
+        logits, _ = T.decode_step(params, cfg, state,
+                                  torch.as_tensor(tokens[cur], device="cuda"))
+        out[cur] = logits.cpu()
+        del state
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_run(torch, cfg, mesh, params, tokens: np.ndarray, steps: int,
+                  resident: bool, seed: int) -> dict:
+    """One run of the sharded serve step on this rank: its logits, the
+    kernel launches against the (step, layer) pairs whose shard holds a
+    valid slot, ms a step, and each layer's partial against its plain
+    version on this rank's final caches; for int8 caches also the caches
+    before each held step, and after the last."""
+    from repro_torch.distributed import step as S
+    from repro_torch.distributed.collectives import axis_index, axis_size
+    from repro_torch.distributed.decode import shard_fill
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.transformer import kv_cache_len
+
+    state = S.init_local_decode_state(cfg, mesh, MESH["batch"],
+                                      MESH["context"])
+    serve_step = S.make_serve_step(cfg, mesh, resident_experts=resident)
+    toks = torch.as_tensor(tokens, device="cuda")
+    quant = "k_scale" in state
+    res = {}
+    fd.reset_launches()
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        if quant and t in MESH["int8_held"]:
+            res.setdefault("held", {})[t] = {
+                k: state[k].to("cpu", copy=True) for k in CACHE_KEYS}
+        logits, state = serve_step(params, state, toks[t])
+        out.append(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fd.LAUNCHES)
+    if quant:
+        res["final"] = {k: state[k].cpu() for k in CACHE_KEYS}
+    ring = kv_cache_len(cfg, MESH["context"])
+    n_tp, tpi = axis_size(mesh, "model"), axis_index(mesh, "model")
+    filled = sum(shard_fill(cur, ring, n_tp, tpi) >= 1
+                 for cur in range(steps))
+    n_loc = shard_fill(steps - 1, ring, n_tp, tpi)
+    errs = []
+    if n_loc:
+        B, H, hd = state["k"].shape[1], cfg.n_heads, cfg.resolved_head_dim
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        q = torch.randn((B, H, hd), generator=gen, device="cuda")
+        for i in range(cfg.n_layers):
+            args = (q, state["k"][i], state["v"][i])
+            if quant:
+                args += (state["k_scale"][i], state["v_scale"][i])
+                pair = (fd.flash_decode_int8, fd.flash_decode_int8_plain)
+            else:
+                pair = (fd.flash_decode, fd.flash_decode_plain)
+            errs.append(decode_err(pair[0](*args, n_loc),
+                                   pair[1](*args, n_loc)))
+    return dict(res, logits=torch.stack(out).cpu(), launches=launches,
+                pairs=filled * cfg.n_layers, ms_per_step=wall / steps * 1e3,
+                n_local_last=n_loc,
+                kernel_err=worst_of(errs) if errs else None)
+
+
+def mesh_gather(torch, blocks: dict) -> dict:
+    """Cache blocks by (data, model) coordinates put together: batch over
+    data (dimension 1), slots over model (dimension 2)."""
+    shape = MESH["shape"]
+    return {k: torch.cat([torch.cat([blocks[(d, t)][k]
+                                     for t in range(shape[1])], dim=2)
+                          for d in range(shape[0])], dim=1)
+            for k in CACHE_KEYS}
+
+
+def mesh_rank(rank: int, seed: int) -> dict:
+    """A rank of [mesh] (run by ``run_local_ranks``): its blocks of each
+    run's weights, drawn as the one-device run draws them, then the runs."""
+    import torch
+
+    from repro_torch.distributed import step as S
+    from repro_torch.distributed.sharding import mesh_coords
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.cuda.set_device(0)
+    mesh = make_debug_mesh(*MESH["shape"])
+    coords = mesh_coords(mesh)
+    b_loc = MESH["batch"] // MESH["shape"][0]
+    rows = slice(coords["data"] * b_loc, (coords["data"] + 1) * b_loc)
+    plan = mesh_runs(seed)
+    out = {"coords": coords, "runs": {}}
+    params, layout = None, None
+    torch.cuda.reset_peak_memory_stats()
+    for label, (cfg, steps, resident) in plan["runs"].items():
+        specs = S.serve_param_specs(cfg, mesh, resident_experts=resident)
+        if (cfg.name, repr(specs)) != layout:
+            params = None
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            params = S.init_local_params(cfg, seed, mesh, specs)
+            torch.cuda.synchronize()
+            out[f"init_s_{cfg.name}"] = time.perf_counter() - t0
+            out[f"param_bytes_{cfg.name}"] = torch.cuda.memory_allocated()
+            layout = (cfg.name, repr(specs))
+        out["runs"][label] = mesh_rank_run(
+            torch, cfg, mesh, params, plan["tokens"][label][:, rows], steps,
+            resident, seed)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mesh_phase(torch, seed: int) -> dict:
+    """[mesh]: the serve step on a 2 x 2 mesh of four processes on this
+    card, each run held against the one-device decode of the same weights
+    and tokens (run here first); each rank's partials against the plain
+    version; launches equal to the (step, layer) pairs with a non-empty
+    shard."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_local_ranks
+
+    plan = mesh_runs(seed)
+    ref = {}
+    for label, (cfg, steps, _) in plan["runs"].items():
+        if label == "moe_resident":          # the same weights and tokens
+            ref[label] = ref["moe_tp"]
+            continue
+        ref[label] = mesh_one_device(torch, cfg, seed, plan["tokens"][label])
+    torch.cuda.empty_cache()
+    say("mesh", parent_allocated_bytes=torch.cuda.memory_allocated())
+    work = tempfile.mkdtemp(prefix="mesh-")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_local_ranks(mesh_rank, MESH["shape"][0] * MESH["shape"][1],
+                                work, args=(seed,), timeout_s=MESH_TIMEOUT_S)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0
+    by = {(r["coords"]["data"], r["coords"]["model"]): r for r in ranks}
+    totals = {"flash_decode": 0, "flash_decode_int8": 0}
+    for label, (cfg, steps, resident) in plan["runs"].items():
+        runs = {k: r["runs"][label] for k, r in by.items()}
+        for k, run in runs.items():
+            name = "flash_decode_int8" if cfg.kv_dtype == "int8" \
+                else "flash_decode"
+            check(run["launches"][name] == run["pairs"]
+                  and sum(run["launches"].values()) == run["pairs"],
+                  f"[mesh] {label} rank {k}: launches {run['launches']}, "
+                  f"not the {run['pairs']} (step, layer) pairs with a "
+                  "non-empty shard")
+            totals[name] += run["launches"][name]
+            if run["kernel_err"] is not None:
+                check(decode_within(run["kernel_err"]),
+                      f"[mesh] {label} rank {k}: {name} against its plain "
+                      f"version {run['kernel_err']}")
+        got = torch.cat([runs[(d, 0)]["logits"]
+                         for d in range(MESH["shape"][0])], dim=1)
+        tp_equal = all(torch.equal(runs[(d, 0)]["logits"],
+                                   runs[(d, t)]["logits"])
+                       for d in range(MESH["shape"][0])
+                       for t in range(MESH["shape"][1]))
+        want = ref[label]["logits"]
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"[mesh] {label}: logits {tuple(got.shape)}, not finite or "
+              f"not {tuple(want.shape)}")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        if cfg.kv_dtype == "int8":
+            # each held step from the same caches; the free runs' codes
+            tf = mesh_from_caches(
+                torch, cfg, seed,
+                {t: mesh_gather(torch, {k: r["held"][t]
+                                        for k, r in runs.items()})
+                 for t in MESH["int8_held"]}, plan["tokens"][label])
+            held = {"step": ",".join(map(str, tf)),
+                    "from": "the ranks' caches",
+                    "err": max(float((got[t] - w).abs().max())
+                               for t, w in tf.items()),
+                    "scale": min(float(w.abs().max()) for w in tf.values()),
+                    "argmax": all(torch.equal(got[t].argmax(-1),
+                                              w.argmax(-1))
+                                  for t, w in tf.items())}
+            final = mesh_gather(torch, {k: r["final"]
+                                        for k, r in runs.items()})
+            diff = [(final[k].int() - ref[label]["final"][k].int()).abs()
+                    for k in ("k", "v")]
+            held.update(codes_differing=sum(int((d != 0).sum())
+                                            for d in diff),
+                        codes=sum(d.numel() for d in diff),
+                        max_code_diff=max(int(d.max()) for d in diff))
+        else:
+            held = {"step": "all", "from": "zero caches", "err": err,
+                    "scale": scale, "argmax": agree == 1.0}
+        check(held["err"] <= MESH_TOL * held["scale"] and held["argmax"],
+              f"[mesh] {label}: logits {held['err']:.3e} from the one-device "
+              f"decode (limit {MESH_TOL} x {held['scale']:.3e}) at steps "
+              f"{held['step']}, argmax equal {held['argmax']}")
+        errs = [r["kernel_err"] for r in runs.values() if r["kernel_err"]]
+        say("mesh", run=label, arch=cfg.name, layers=cfg.n_layers,
+            kv=cfg.kv_dtype, resident_experts=resident, steps=steps,
+            batch=MESH["batch"], ring=MESH["context"],
+            ms_per_step=listed(f"{r['ms_per_step']:.3f}"
+                               for r in runs.values()),
+            one_device_ms_per_step=f"{ref[label]['ms_per_step']:.3f}",
+            held_step=held["step"], held_from=repr(held["from"]),
+            held_err=f"{held['err']:.3e}", held_largest=f"{held['scale']:.3e}",
+            held_rel=f"{held['err'] / held['scale']:.3e}",
+            held_argmax="equal",
+            free_run_max_err=f"{err:.3e}", free_run_rel=f"{err / scale:.3e}",
+            free_run_argmax_agree=f"{agree:.4f}",
+            free_run_codes_differing=held.get("codes_differing", "n/a"),
+            codes=held.get("codes", "n/a"),
+            max_code_diff=held.get("max_code_diff", "n/a"),
+            tp_ranks_bit_equal=tp_equal,
+            launches=json.dumps({f"{d}{t}": r["launches"]
+                                 for (d, t), r in runs.items()},
+                                separators=(",", ":")),
+            pairs=json.dumps({f"{d}{t}": r["pairs"]
+                              for (d, t), r in runs.items()},
+                             separators=(",", ":")),
+            kernel_vs_plain=(json.dumps(worst_of(errs), separators=(",", ":"))
+                             if errs else "no_valid_slot"),
+            one_device_peak_bytes=ref[label]["peak_bytes"])
+    say("mesh", ranks=len(ranks), ranks_wall_s=f"{ranks_s:.1f}",
+        peak_bytes_by_rank=listed(r["peak_bytes"] for r in ranks),
+        init_s=json.dumps({f"{d}{t}": {k: round(v, 3) for k, v in r.items()
+                                       if k.startswith("init_s")}
+                           for (d, t), r in by.items()},
+                          separators=(",", ":")),
+        launches=json.dumps(totals, separators=(",", ":")))
+    return {"launches": totals}
 
 
 def train_phase(torch, dev, seed: int, worst: dict,
@@ -4880,6 +5231,13 @@ def main() -> int:
     clock("train")
     train_rows = train_phase(torch, dev, args.seed,
                              train_kernel_checks(torch, dev, args.seed))
+
+    # 11e. serving on a device mesh: four processes on this card ---------
+    clock("mesh")
+    mesh = mesh_phase(torch, args.seed)
+    for row in serve_rows + [int8_row]:
+        if row["name"] in mesh["launches"]:
+            row["mesh_launches"] = mesh["launches"][row["name"]]
 
     # 12. the tick-exact scan lane, after the host-bound serving loop so
     # that its python-lane replays leave nothing behind for that loop -----

@@ -15,7 +15,7 @@ by ``/``.  The directory layout, the raw ``.bin`` leaves and the manifest
 are the JAX package's, so a flat checkpoint written by either package
 restores with the other's :meth:`CheckpointManager.restore_flat`.  The
 elastic re-mesh restore (``mesh=`` / ``specs=``) belongs to the sharded
-paths (ROADMAP Queue A item 14d) and is refused.
+training path (ROADMAP Queue A item 14d iii) and is refused.
 """
 
 from __future__ import annotations
@@ -231,7 +231,7 @@ class CheckpointManager:
         if mesh is not None or specs is not None:
             raise NotImplementedError(
                 "elastic re-mesh restore (mesh=, specs=) comes with the "
-                "sharded paths, ROADMAP Queue A item 14d")
+                "sharded training path, ROADMAP Queue A item 14d iii")
         manifest, leaf, step = self._leaves(step, verify)
         restored = {}
         for key, tmpl in _flatten(template).items():
@@ -269,7 +269,7 @@ class CheckpointManager:
         if mesh is not None or specs is not None:
             raise NotImplementedError(
                 "elastic re-mesh restore (mesh=, specs=) comes with the "
-                "sharded paths, ROADMAP Queue A item 14d")
+                "sharded training path, ROADMAP Queue A item 14d iii")
         errors = []
         for step in sorted(self.all_steps(), reverse=True):
             try:

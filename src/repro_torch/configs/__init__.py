@@ -1,4 +1,6 @@
-from repro_torch.configs.base import (ARCH_IDS, ArchConfig, MoEConfig,
-                                     SSMConfig, get_arch)
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, ArchConfig, MoEConfig,
+                                     ShapeConfig, SSMConfig, cell_applicable,
+                                     get_arch)
 
-__all__ = ["ARCH_IDS", "ArchConfig", "MoEConfig", "SSMConfig", "get_arch"]
+__all__ = ["ARCH_IDS", "SHAPES", "ArchConfig", "MoEConfig", "ShapeConfig",
+           "SSMConfig", "cell_applicable", "get_arch"]

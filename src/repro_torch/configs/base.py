@@ -1,10 +1,11 @@
-"""Architecture configuration schema.
+"""Architecture and shape configuration schema.
 
 Every architecture is a frozen :class:`ArchConfig`, one module per
 architecture under ``repro_torch.configs`` (data only, the same values as
-the JAX package's).  :func:`get_arch` maps ``--arch`` ids to them.  The
-model code of this package runs the dense family only and refuses the
-others (:mod:`repro_torch.models.transformer`).
+the JAX package's); the four input shapes are :class:`ShapeConfig`
+(:data:`SHAPES`).  :func:`get_arch` maps ``--arch`` ids to them.  The
+model code (:mod:`repro_torch.models.transformer`) runs all six families
+on one device, and the dense and moe families on a device mesh.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -75,6 +76,15 @@ class ArchConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the 500k-context shape: SSM / hybrid / SWA archs."""
+        return self.family in ("ssm", "hybrid") or self.swa_window > 0
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + layers + head)."""
         d, V = self.d_model, self.vocab
@@ -122,6 +132,14 @@ class ArchConfig:
                     + self._ffn_params())
         return norms + self._attn_params() + self._ffn_params()
 
+    def active_param_count(self) -> int:
+        """Active parameters per token (= total for non-MoE)."""
+        if self.moe is None:
+            return self.param_count()
+        full_ffn = self.moe.n_experts * 3 * self.d_model * self.moe.d_expert
+        active_ffn = self.moe.top_k * 3 * self.d_model * self.moe.d_expert
+        return self.param_count() - self.n_layers * (full_ffn - active_ffn)
+
     def reduced(self, **overrides) -> "ArchConfig":
         """A tiny same-family config for CPU smoke tests."""
         small: Dict = dict(
@@ -148,6 +166,21 @@ class ArchConfig:
         return dataclasses.replace(self, **small)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 ARCH_IDS = [
     "minicpm-2b",
     "codeqwen1_5-7b",
@@ -167,3 +200,12 @@ def get_arch(arch_id: str) -> ArchConfig:
     key = arch_id.replace(".", "_").replace("-", "_")
     mod = importlib.import_module(f"repro_torch.configs.{key}")
     return mod.CONFIG
+
+
+def cell_applicable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Is this (arch x shape) cell runnable?  The 500k-token decode needs
+    sub-quadratic attention."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, ("full-attention arch: 500k decode requires "
+                       "sub-quadratic attention (skip per assignment)")
+    return True, ""

@@ -24,7 +24,11 @@ vlm's super-blocks and ``cross`` tree included), its ``MoEParams`` and
 (:func:`decode_state_from_jax`): the JAX package's ``init_decode_state``
 / ``decode_step`` state (caches, int8 scales, ``SSMState``, a vlm's
 ``cross_k`` / ``cross_v``, ``cur``), so that both can go on from one
-state.
+state.  On a device mesh, :func:`shard_params_from_jax` and
+:func:`shard_decode_state_from_jax` give one rank its blocks of either, by
+the specs of :mod:`repro_torch.distributed.sharding`: each leaf is cut on
+the host and only the block is copied to the device, so a rank's device
+holds its blocks only.
 """
 
 from __future__ import annotations
@@ -94,10 +98,12 @@ def _as_dict(node):
     return node
 
 
-def _convert(tree, shapes, where, dev, dtypes=None):
+def _convert(tree, shapes, where, dev, dtypes=None, specs=None, cut=None):
     """``tree`` as tensors on ``dev``, holding it to ``shapes`` (nested
     dicts of shape tuples) key for key and, where ``dtypes`` names one, to
-    its dtype; a missing, extra or misshapen leaf is refused."""
+    its dtype; a missing, extra or misshapen leaf is refused.  With
+    ``cut``, each leaf becomes ``cut(array, spec)`` (its ``specs`` leaf)
+    before it is copied."""
     tree = _as_dict(tree)
     if set(tree) != set(shapes):
         raise ValueError(f"{where}: expected keys {sorted(shapes)}, "
@@ -106,7 +112,8 @@ def _convert(tree, shapes, where, dev, dtypes=None):
     for k, shape in shapes.items():
         if isinstance(shape, dict):
             out[k] = _convert(tree[k], shape, f"{where}{k}/", dev,
-                              (dtypes or {}).get(k))
+                              (dtypes or {}).get(k),
+                              specs[k] if specs is not None else None, cut)
             continue
         a = np.asarray(tree[k])
         if a.shape != tuple(shape):
@@ -116,6 +123,8 @@ def _convert(tree, shapes, where, dev, dtypes=None):
         if want is not None and a.dtype != want:
             raise ValueError(f"{where}{k}: expected dtype {want}, "
                              f"got {a.dtype}")
+        if cut is not None:
+            a = cut(a, specs[k])
         out[k] = torch.from_numpy(np.array(a)).to(dev)   # owns a copy
     return out
 
@@ -132,6 +141,27 @@ def params_from_jax(params: dict, cfg: ArchConfig, torch_device="cuda"
                     resolve(torch_device))
 
 
+def _cutter(mesh, coords):
+    from repro_torch.distributed.sharding import mesh_coords, shard_leaf
+    coords = mesh_coords(mesh) if coords is None else coords
+    return lambda a, spec: shard_leaf(a, spec, mesh, coords)
+
+
+def shard_params_from_jax(params: dict, cfg: ArchConfig, mesh, specs=None,
+                          coords=None, torch_device="cuda") -> dict:
+    """The blocks of :func:`params_from_jax` that the rank at ``coords``
+    (this rank of the live ``mesh`` when not given) holds under ``specs``
+    (the serve step's layout,
+    :func:`repro_torch.distributed.step.serve_param_specs`, when not
+    given)."""
+    if specs is None:
+        from repro_torch.distributed.step import serve_param_specs
+        specs = serve_param_specs(cfg, mesh)
+    return _convert(params, param_shapes(cfg), "params/",
+                    resolve(torch_device), specs=specs,
+                    cut=_cutter(mesh, coords))
+
+
 def decode_state_from_jax(state: dict, cfg: ArchConfig, torch_device="cuda",
                           dtype: torch.dtype = torch.float32) -> dict:
     """The port's decode state from the JAX package's (``cur``; caches
@@ -141,6 +171,22 @@ def decode_state_from_jax(state: dict, cfg: ArchConfig, torch_device="cuda",
     :func:`repro_torch.models.transformer.decode_state_layout` for the
     state's batch, ring and frontend length and the model ``dtype``; a
     missing, extra, misshapen or mistyped leaf is refused."""
+    return _decode_state(state, cfg, resolve(torch_device), dtype)
+
+
+def shard_decode_state_from_jax(state: dict, cfg: ArchConfig, mesh,
+                                batch_replicated: bool = False, coords=None,
+                                torch_device="cuda",
+                                dtype: torch.dtype = torch.float32) -> dict:
+    """The blocks of :func:`decode_state_from_jax` that the rank at
+    ``coords`` (this rank when not given) holds under
+    ``decode_state_specs``.  A ring that does not split over the model
+    axis is refused: the sequence-sharded decode needs it cut."""
+    return _decode_state(state, cfg, resolve(torch_device), dtype,
+                         (mesh, batch_replicated, coords))
+
+
+def _decode_state(state, cfg: ArchConfig, dev, dtype, on_mesh=None) -> dict:
     state = _as_dict(state)
     if "k" in state:
         batch, ring = np.shape(state["k"])[1:3]
@@ -160,8 +206,19 @@ def decode_state_from_jax(state: dict, cfg: ArchConfig, torch_device="cuda",
                 (v[i] if i == 0 else _np_dtype(v[i]))
                 for k, v in tree.items()}
 
-    out = _convert(state, {"cur": (), **split(layout, 0)}, "state/",
-                   resolve(torch_device), split(layout, 1))
+    shapes = {"cur": (), **split(layout, 0)}
+    specs = cut = None
+    if on_mesh is not None:
+        from repro_torch.distributed.sharding import decode_state_specs
+        mesh, batch_replicated, coords = on_mesh
+        specs = decode_state_specs(shapes, cfg, mesh,
+                                   batch_replicated=batch_replicated)
+        if "k" in specs and specs["k"][2] is None:
+            raise ValueError(f"state/k: a ring of {ring} slots does not "
+                             "split over the model axis")
+        cut = _cutter(mesh, coords)
+    out = _convert(state, shapes, "state/", dev, split(layout, 1), specs,
+                   cut)
     out["cur"] = int(out["cur"])
     return out
 

@@ -13,21 +13,26 @@ scatter-adds each token's weighted expert outputs, this module gathers
 them and adds them in expert order, which is the reference's order and
 needs no atomics on the card, so a run is repeatable bit for bit.
 
-Only the one-device path is here: ``moe_ffn_sharded`` (a ``shard_map``
-over a device mesh) raises ``NotImplementedError``.
+:func:`moe_ffn_sharded` is the reference's ``shard_map`` MoE over a
+device mesh, run by each rank on its own blocks over ``torch.distributed``
+(:mod:`repro_torch.distributed.collectives`), in its three bodies:
+resident experts (the decode layout: tokens gathered over dp, expert
+weights never move), ``ep`` (an ``all_to_all`` of ``(E, C, D)`` blocks to
+the experts' owners and back) and ``tp`` (each expert's hidden dimension
+cut over tp, partial outputs summed).  :func:`expert_specs` gives the
+blocks each body takes, which are its ``shard_map``'s ``in_specs``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 
-SHARDED_ITEM = "ROADMAP Queue A item 14d"
 MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
 
 
@@ -38,14 +43,16 @@ def moe_param_shapes(d_model: int, cfg: MoEConfig, lead=()) -> Dict[str, tuple]:
             "w_up": lead + (E, d_model, Fd), "w_down": lead + (E, Fd, d_model)}
 
 
-def init_moe_params(d_model: int, cfg: MoEConfig, normal, lead=()
-                    ) -> Dict[str, torch.Tensor]:
+def init_moe_params(d_model: int, cfg: MoEConfig, normal, lead=(),
+                    place=None) -> Dict[str, torch.Tensor]:
     """Random expert parameters with the reference's scales, drawn by
     ``normal(shape, std)``, with ``lead`` axes in front (the stacked
-    layers)."""
+    layers); ``place(name, tensor)``, when given, takes each one as soon
+    as it is drawn (to cut it to a rank's block)."""
     shapes = moe_param_shapes(d_model, cfg, lead)
     s_in, s_out = d_model ** -0.5, cfg.d_expert ** -0.5
-    return {k: normal(shapes[k], s_out if k == "w_down" else s_in)
+    place = place or (lambda _, t: t)
+    return {k: place(k, normal(shapes[k], s_out if k == "w_down" else s_in))
             for k in MOE_KEYS}
 
 
@@ -99,6 +106,39 @@ def _expert_ffn(xe, w_gate, w_up, w_down):
     return torch.bmm(h, w_down)
 
 
+def _combine(ye, weights, idx, n_experts: int, capacity: int, e_lo: int = 0):
+    """Each token's weighted outputs (T, D) from ``ye`` (E_y, C, D), the
+    capacity slots of experts ``[e_lo, e_lo + E_y)``, added in expert
+    order (the reference's scatter order); assignments past the capacity,
+    or to other experts, add nothing."""
+    T, K = idx.shape
+    E_y, C = ye.shape[0], capacity
+    flat = idx.reshape(-1)
+    # where each assignment t * K + k landed: its rank within its expert
+    order, _, start = _grouping(flat, n_experts)
+    rank = torch.empty_like(flat)
+    rank[order] = torch.arange(flat.numel(), device=idx.device) - start[flat[order]]
+    kept = ((rank < C).reshape(T, K) & (idx >= e_lo) & (idx < e_lo + E_y))
+    by_expert = torch.argsort(idx, dim=1)
+    e_sorted = torch.gather(idx, 1, by_expert) - e_lo
+    r_sorted = torch.gather(rank.reshape(T, K), 1, by_expert)
+    w_sorted = torch.gather(weights * kept, 1, by_expert)
+    k_sorted = torch.gather(kept, 1, by_expert)
+    out = torch.zeros((T, ye.shape[-1]), dtype=ye.dtype, device=ye.device)
+    for k in range(K):
+        rows = ye[torch.clamp(e_sorted[:, k], 0, E_y - 1),
+                  torch.clamp(r_sorted[:, k], max=C - 1)]
+        out = out + torch.where(k_sorted[:, k, None],
+                                rows * w_sorted[:, k, None], 0.0)
+    return out
+
+
+def _grouped_tokens(x, slots, valid, K: int):
+    """The tokens of ``x`` (T, D) in their experts' capacity slots (E, C,
+    D); empty slots zero."""
+    return x[slots // K] * valid[..., None]
+
+
 def moe_ffn_local(x, p: Dict[str, torch.Tensor], cfg: MoEConfig,
                   capacity_factor: Optional[float] = None):
     """One-device MoE: x (T, D) -> ((T, D), aux_loss)."""
@@ -107,32 +147,112 @@ def moe_ffn_local(x, p: Dict[str, torch.Tensor], cfg: MoEConfig,
     weights, idx, aux = _route(x, p["router"], K)
     C = capacity_for(T, cfg, capacity_factor)
     slots, valid = _dispatch_indices(idx, cfg.n_experts, C)
-    token_of = slots // K                                     # (E, C)
-    xe = x[token_of] * valid[..., None]                       # (E, C, D)
+    xe = _grouped_tokens(x, slots, valid, K)                  # (E, C, D)
     ye = _expert_ffn(xe.to(x.dtype), p["w_gate"], p["w_up"], p["w_down"])
-    # where each assignment t * K + k landed: its rank within its expert
-    flat = idx.reshape(-1)
-    order, _, start = _grouping(flat, cfg.n_experts)
-    rank = torch.empty_like(flat)
-    rank[order] = torch.arange(flat.numel(), device=x.device) - start[flat[order]]
-    kept = (rank < C).reshape(T, K)
-    # each token's K weighted outputs, added in expert order (the
-    # reference's scatter order); dropped assignments add nothing
-    by_expert = torch.argsort(idx, dim=1)
-    e_sorted = torch.gather(idx, 1, by_expert)
-    r_sorted = torch.gather(rank.reshape(T, K), 1, by_expert)
-    w_sorted = torch.gather(weights * kept, 1, by_expert)
-    k_sorted = torch.gather(kept, 1, by_expert)
-    out = torch.zeros((T, D), dtype=ye.dtype, device=x.device)
-    for k in range(K):
-        rows = ye[e_sorted[:, k], torch.clamp(r_sorted[:, k], max=C - 1)]
-        out = out + torch.where(k_sorted[:, k, None],
-                                rows * w_sorted[:, k, None], 0.0)
-    return out.to(x.dtype), aux
+    return _combine(ye, weights, idx, cfg.n_experts, C).to(x.dtype), aux
 
 
-def moe_ffn_sharded(*args, **kwargs):
-    """The reference's ``shard_map`` MoE over a device mesh: not ported."""
-    raise NotImplementedError(
-        f"moe_ffn_sharded runs over a device mesh, which is not ported yet "
-        f"({SHARDED_ITEM}); use moe_ffn_local on one device")
+# ----------------------------------------------------------- on a mesh
+def moe_mode(cfg: MoEConfig, n_tp: int, resident_experts: bool = False
+             ) -> str:
+    """Which body of :func:`moe_ffn_sharded` runs: ``"resident"``,
+    ``"ep"`` or ``"tp"``, as the reference chooses it."""
+    if resident_experts and cfg.sharding == "ep" and n_tp > 1:
+        return "resident"
+    if cfg.sharding == "ep" and cfg.n_experts % n_tp == 0 and n_tp > 1:
+        return "ep"
+    return "tp"
+
+
+def expert_specs(mode: str, dp_axes: Tuple[str, ...], tp_axis: str,
+                 batch_replicated: bool = False) -> Dict[str, P]:
+    """The blocks of ``router``, ``w_gate``, ``w_up``, ``w_down`` (without
+    the layer axis) that body ``mode`` takes: the reference's
+    ``in_specs``."""
+    from repro_torch.distributed.sharding import P
+
+    dp = None if batch_replicated or not dp_axes else tuple(dp_axes)
+    tp = tp_axis
+    if mode == "resident":
+        return {"router": P(None, None), "w_gate": P(tp, None, dp),
+                "w_up": P(tp, None, dp), "w_down": P(tp, dp, None)}
+    if mode == "ep":
+        return {"router": P(None, None), "w_gate": P(tp, None, None),
+                "w_up": P(tp, None, None), "w_down": P(tp, None, None)}
+    return {"router": P(None, None), "w_gate": P(None, None, tp),
+            "w_up": P(None, None, tp), "w_down": P(None, tp, None)}
+
+
+def moe_ffn_sharded(x, p: Dict[str, torch.Tensor], cfg: MoEConfig, mesh,
+                    dp_axes: Tuple[str, ...], tp_axis: str,
+                    capacity_factor: Optional[float] = None,
+                    batch_replicated: bool = False,
+                    resident_experts: bool = False):
+    """The MoE layer over a (dp..., tp) ``DeviceMesh``, on this rank's
+    blocks: x (B_loc, S, D), its rows this rank's part of the batch over
+    ``dp_axes`` (or the whole batch with ``batch_replicated``); ``p`` the
+    blocks :func:`expert_specs` names for :func:`moe_mode`'s body.
+    Returns (this rank's (B_loc, S, D), the aux loss).
+
+    ``resident_experts`` (for ``ep`` configs) is the decode layout:
+    experts over tp and their hidden dimension over dp stay put, and the
+    few decode tokens are gathered instead.  Capacity counts the tokens a
+    body routes: all of them there, this rank's in the ``ep`` and ``tp``
+    bodies."""
+    # imported here: repro_torch.distributed builds on the models
+    from repro_torch.distributed import collectives as col
+
+    B, S, D = x.shape
+    K, E = cfg.top_k, cfg.n_experts
+    n_tp = col.axis_size(mesh, tp_axis)
+    dp_axes = () if batch_replicated else tuple(dp_axes)
+    mode = moe_mode(cfg, n_tp, resident_experts)
+    xf = x.reshape(-1, D)
+    T_loc = xf.shape[0]
+    if mode == "resident":
+        # every token (tiny at decode) to every rank, which serves its
+        # resident experts; gathered innermost axis first, so that the
+        # rows run in the batch's (pod-major) order
+        for axn in reversed(dp_axes):
+            xf = col.all_gather(xf, mesh, axn, 0)
+        weights, idx, aux = _route(xf, p["router"], K)
+        C = capacity_for(xf.shape[0], cfg, capacity_factor)
+        slots, valid = _dispatch_indices(idx, E, C)
+        e_loc = p["w_gate"].shape[0]
+        lo = col.axis_index(mesh, tp_axis) * e_loc
+        xe = _grouped_tokens(xf, slots[lo:lo + e_loc], valid[lo:lo + e_loc], K)
+        ye = _expert_ffn(xe, p["w_gate"], p["w_up"], p["w_down"])
+        # the expert hidden dimension is cut over dp: partial sums
+        for axn in dp_axes:
+            ye = col.psum(ye, mesh, axn)
+        out = col.psum(_combine(ye.float(), weights, idx, E, C, lo), mesh,
+                       tp_axis)
+        if dp_axes:                       # keep my dp slice of the tokens
+            dpi = 0
+            for axn in dp_axes:
+                dpi = dpi * col.axis_size(mesh, axn) + col.axis_index(mesh, axn)
+            out = out[dpi * T_loc:(dpi + 1) * T_loc]
+        aux = col.pmean(aux, mesh, tp_axis)
+        return out.reshape(x.shape).to(x.dtype), aux
+    weights, idx, aux = _route(xf, p["router"], K)
+    C = capacity_for(T_loc, cfg, capacity_factor)
+    slots, valid = _dispatch_indices(idx, E, C)
+    xe = _grouped_tokens(xf, slots, valid, K)                  # (E, C, D)
+    if mode == "ep":
+        # each expert's block to its owner; rows now hold my experts'
+        # tokens from every source rank
+        xr = col.all_to_all(xe, mesh, tp_axis)
+        e_loc = E // n_tp
+        xr = xr.reshape(n_tp, e_loc, C, D).transpose(0, 1) \
+               .reshape(e_loc, n_tp * C, D)
+        yr = _expert_ffn(xr, p["w_gate"], p["w_up"], p["w_down"])
+        yr = yr.reshape(e_loc, n_tp, C, D).transpose(0, 1).reshape(E, C, D)
+        ye = col.all_to_all(yr, mesh, tp_axis)
+    else:
+        ye = col.psum(_expert_ffn(xe, p["w_gate"], p["w_up"], p["w_down"]),
+                      mesh, tp_axis)             # reduce over F shards
+    out = _combine(ye.float(), weights, idx, E, C)
+    aux = col.pmean(aux, mesh, tp_axis)
+    for axn in dp_axes:
+        aux = col.pmean(aux, mesh, axn)
+    return out.reshape(x.shape).to(x.dtype), aux

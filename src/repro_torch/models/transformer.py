@@ -37,15 +37,27 @@ super-block) with ``torch.utils.checkpoint``, as the reference's
 matrix products (``aten.mm``), as ``dots_with_no_batch_dims_saveable``
 does.
 
-The port runs one device: a device mesh raises ``NotImplementedError``,
-and so does the vlm family with ``kv_dtype="int8"`` (the reference's vlm
-decode loop passes no scales).
+On a device mesh (a :class:`MeshCtx`), :func:`decode_step` runs the
+dense and moe families, each rank on its own blocks (the layouts of
+:mod:`repro_torch.distributed.sharding`) over ``torch.distributed``,
+doing by hand what the reference's partitioner does from its specs: the
+embedding cut over the vocab (a local lookup, then ``psum``), attention
+sequence-sharded through the kernel
+(:func:`repro_torch.distributed.decode.decode_attn_sharded`) when the
+model axis has more than one rank, the SwiGLU column- then row-parallel
+(then ``psum``), the MoE layer's ``moe_ffn_sharded``, the LM head cut
+over the vocab (its logits gathered), norms replicated, batch rows over
+the dp axes (or replicated).  The other families on a mesh, and a mesh in
+:func:`forward`, raise ``NotImplementedError``; so does the vlm family
+with ``kv_dtype="int8"`` (the reference's vlm decode loop passes no
+scales).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -55,15 +67,40 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_int8
 from repro_torch.models import layers as L
 from repro_torch.models.moe import (init_moe_params, moe_ffn_local,
-                                    moe_param_shapes)
+                                    moe_ffn_sharded, moe_param_shapes)
 from repro_torch.models.ssm import (init_ssm_params, ssd_decode_step,
                                     ssd_forward, ssm_param_shapes,
                                     ssm_state_shapes)
 from repro_torch.torch_device import resolve
 
 ROADMAP_ITEM = "ROADMAP Queue A item 14"
-MESH_ITEM = "ROADMAP Queue A item 14d"
+MESH_ITEM = "ROADMAP Queue A item 14d iii"
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+MESH_FAMILIES = ("dense", "moe")
+
+
+@dataclass(frozen=True)
+class MeshCtx:
+    """Distribution context of a decode step on a device mesh (None: one
+    device): the ``DeviceMesh``, its dp axes and tp axis."""
+    mesh: Any
+    dp_axes: Tuple[str, ...]
+    tp_axis: str
+    # long-context decode with a tiny batch: the batch replicated over dp,
+    # only the KV sequence axis cut over tp
+    batch_replicated: bool = False
+    # decode-time MoE layout: expert weights resident (tp x dp), tokens
+    # gathered (repro_torch.models.moe.moe_ffn_sharded)
+    resident_experts: bool = False
+
+
+def require_mesh_ported(cfg: ArchConfig) -> None:
+    """Refuse the families whose decode on a mesh is not ported."""
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: decode of the {cfg.family} family on a device mesh "
+            f"is not ported yet ({MESH_ITEM}); the dense and moe families "
+            "run on a mesh")
 
 
 def require_ported(cfg: ArchConfig) -> None:
@@ -138,14 +175,23 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
 
 # ----------------------------------------------------------------- init
 def init_params(cfg: ArchConfig, seed: int = 0, *, torch_device="cuda",
-                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                dtype: torch.dtype = torch.float32,
+                place=None) -> Dict[str, Any]:
     """Random parameters with the JAX package's scales (normal draws times
     ``d_in ** -0.5``, embeddings times 0.02, norms at one, the SSM's
     constants, the vlm's cross-attention gates at zero), drawn from one
     ``torch.Generator`` seeded with ``seed`` on ``torch_device``.  The
     draws are not JAX's: to run JAX's weights, convert them with
-    :func:`repro_torch.convert.params_from_jax`."""
+    :func:`repro_torch.convert.params_from_jax`.
+
+    ``place(path, tensor)``, when given, takes each parameter as soon as
+    it is drawn (``path`` as ``.blocks.wq``) and returns what the tree
+    keeps: on a mesh, this rank's block of it
+    (:func:`repro_torch.distributed.step.init_local_params`), so that at
+    most one full parameter exists at a time.  The draws are the same
+    with or without it."""
     dev = resolve(torch_device)
+    keep = place or (lambda _, t: t)
     shapes = param_shapes(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, f, lead = cfg.d_model, cfg.d_ff, layer_lead(cfg)
@@ -158,10 +204,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, torch_device="cuda",
     def ones(shape):
         return torch.ones(shape, device=dev, dtype=dtype)
 
-    params: Dict[str, Any] = {"embed": normal(shapes["embed"], 0.02)}
+    params: Dict[str, Any] = {"embed": keep(".embed",
+                                            normal(shapes["embed"], 0.02))}
     if "lm_head" in shapes:
-        params["lm_head"] = normal(shapes["lm_head"], d ** -0.5)
-    params["final_norm"] = ones(shapes["final_norm"])
+        params["lm_head"] = keep(".lm_head",
+                                 normal(shapes["lm_head"], d ** -0.5))
+    params["final_norm"] = keep(".final_norm", ones(shapes["final_norm"]))
     std = {"wq": d ** -0.5, "wk": d ** -0.5, "wv": d ** -0.5,
            "w_gate": d ** -0.5, "w_up": d ** -0.5}
     if qd:
@@ -171,22 +219,26 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, torch_device="cuda",
     blocks = {}
     for k, shape in shapes["blocks"].items():
         if k == "ssm":
-            blocks[k] = init_ssm_params(d, cfg.ssm, normal, device=dev,
-                                        dtype=dtype, lead=lead)
+            ssm = init_ssm_params(d, cfg.ssm, normal, device=dev, dtype=dtype,
+                                  lead=lead)
+            blocks[k] = {n: keep(f".blocks.ssm.{n}", t)
+                         for n, t in ssm.items()}
         elif k == "moe":
-            blocks[k] = init_moe_params(d, cfg.moe, normal, lead=lead)
+            blocks[k] = init_moe_params(
+                d, cfg.moe, normal, lead=lead,
+                place=lambda n, t: keep(f".blocks.moe.{n}", t))
         elif k in std:
-            blocks[k] = normal(shape, std[k])
+            blocks[k] = keep(f".blocks.{k}", normal(shape, std[k]))
         else:                                  # ln1, ln2, norm_attn, norm_ssm
-            blocks[k] = ones(shape)
+            blocks[k] = keep(f".blocks.{k}", ones(shape))
     params["blocks"] = blocks
     if "cross" in shapes:                      # gated cross-attn (llama3.2)
         cs = shapes["cross"]
-        params["cross"] = {k: normal(cs[k], std[k])
+        params["cross"] = {k: keep(f".cross.{k}", normal(cs[k], std[k]))
                            for k in ("wq", "wk", "wv", "wo")}
-        params["cross"]["ln"] = ones(cs["ln"])
-        params["cross"]["gate"] = torch.zeros(cs["gate"], device=dev,
-                                              dtype=dtype)
+        params["cross"]["ln"] = keep(".cross.ln", ones(cs["ln"]))
+        params["cross"]["gate"] = keep(".cross.gate", torch.zeros(
+            cs["gate"], device=dev, dtype=dtype))
     return params
 
 
@@ -207,17 +259,35 @@ def self_block(params, cfg: ArchConfig, i: int):
 
 
 # -------------------------------------------------------------- forward
-def _embed(params, cfg: ArchConfig, tokens):
+def _embed(params, cfg: ArchConfig, tokens, ctx: Optional[MeshCtx] = None):
+    """Token embeddings.  On a mesh whose embedding is cut over the vocab,
+    each rank looks up the ids in its rows (zeros elsewhere) and the model
+    axis sums them: one nonzero term, so the sum is exact."""
     if cfg.n_codebooks:
         return L.embed_codebooks(params["embed"], tokens)
-    return L.embed_tokens(params["embed"], tokens)
+    table = params["embed"]
+    if ctx is None or table.shape[0] == cfg.padded_vocab:
+        return L.embed_tokens(table, tokens)
+    from repro_torch.distributed import collectives as col
+    v_loc = table.shape[0]
+    local = tokens - col.axis_index(ctx.mesh, ctx.tp_axis) * v_loc
+    inside = (local >= 0) & (local < v_loc)
+    rows = L.embed_tokens(table, torch.clamp(local, 0, v_loc - 1))
+    return col.psum(torch.where(inside[..., None], rows, 0.0), ctx.mesh,
+                    ctx.tp_axis)
 
 
-def _unembed(params, cfg: ArchConfig, x):
+def _unembed(params, cfg: ArchConfig, x, ctx: Optional[MeshCtx] = None):
+    """Logits.  On a mesh whose head is cut over the vocab, each rank's
+    columns, gathered along the vocab."""
     if cfg.n_codebooks:
         return torch.einsum("bsd,qdv->bsqv", x, params["lm_head"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    logits = x @ head
+    if ctx is None or head.shape[-1] == cfg.padded_vocab:
+        return logits
+    from repro_torch.distributed import collectives as col
+    return col.all_gather(logits, ctx.mesh, ctx.tp_axis, logits.dim() - 1)
 
 
 def attention_inputs(x, blk, cfg: ArchConfig, positions):
@@ -266,15 +336,26 @@ def _cross_attn_forward(x, blk, cfg: ArchConfig, frontend):
     return x + torch.tanh(blk["gate"]) * o
 
 
-def _ffn_forward(x, blk, cfg: ArchConfig):
+def _ffn_forward(x, blk, cfg: ArchConfig, ctx: Optional[MeshCtx] = None):
     """The block's FFN on x (B, S, D): the MoE layer, SwiGLU, or nothing.
-    Returns (y, aux)."""
+    Returns (y, aux).  On a mesh: ``moe_ffn_sharded``, or the SwiGLU on
+    this rank's hidden columns (``w_gate`` / ``w_up`` column blocks,
+    ``w_down`` a row block) summed over the model axis."""
     if cfg.moe is not None:
+        if ctx is not None:
+            return moe_ffn_sharded(x, blk["moe"], cfg.moe, ctx.mesh,
+                                   ctx.dp_axes, ctx.tp_axis,
+                                   batch_replicated=ctx.batch_replicated,
+                                   resident_experts=ctx.resident_experts)
         B, S, D = x.shape
         y, aux = moe_ffn_local(x.reshape(-1, D), blk["moe"], cfg.moe)
         return y.reshape(B, S, D), aux
     if cfg.d_ff:
-        return L.swiglu(x, blk["w_gate"], blk["w_up"], blk["w_down"]), 0.0
+        y = L.swiglu(x, blk["w_gate"], blk["w_up"], blk["w_down"])
+        if ctx is not None and blk["w_down"].shape[-2] != cfg.d_ff:
+            from repro_torch.distributed import collectives as col
+            y = col.psum(y, ctx.mesh, ctx.tp_axis)
+        return y, 0.0
     return torch.zeros_like(x), 0.0
 
 
@@ -451,10 +532,18 @@ def _quantize_kv(t):
 
 
 def _attn_decode(x, blk, cfg: ArchConfig, k_cache, v_cache, cur: int,
-                 k_scale=None, v_scale=None):
+                 k_scale=None, v_scale=None, ctx: Optional[MeshCtx] = None):
     """x: (B, D).  Writes this token's K/V (quantized, with their scales,
     when ``k_scale`` is given) at slot ``cur % Sc`` of the layer's caches,
-    in place, and attends over the valid slots."""
+    in place, and attends over the valid slots.  With a ``MeshCtx`` whose
+    model axis has more than one rank, the sequence-sharded path
+    (:func:`repro_torch.distributed.decode.decode_attn_sharded`)."""
+    if ctx is not None:
+        from repro_torch.distributed import collectives as col
+        if col.axis_size(ctx.mesh, ctx.tp_axis) > 1:
+            from repro_torch.distributed.decode import decode_attn_sharded
+            return decode_attn_sharded(x, blk, cfg, k_cache, v_cache, cur,
+                                       ctx, k_scale=k_scale, v_scale=v_scale)
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     Sc = k_cache.shape[1]
@@ -505,12 +594,15 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any],
     (audio: (B, nq, padded_vocab)), new_state)``; the new state shares the
     caches and SSM states of ``state``, which this step updated in
     place.  A vlm's state must come from ``init_decode_state(...,
-    frontend=...)``."""
+    frontend=...)``.
+
+    With a :class:`MeshCtx`, every argument and result is this rank's
+    block (:func:`repro_torch.distributed.step.plan_shardings` and
+    ``serve_param_specs``): tokens and logits the rank's batch rows, the
+    logits over the whole vocab; the caches the rank's slot range."""
     require_ported(cfg)
     if ctx is not None:
-        raise NotImplementedError(
-            f"decode on a device mesh (distributed/decode.py) is not ported "
-            f"yet ({MESH_ITEM})")
+        require_mesh_ported(cfg)
     every = cfg.cross_attn_every
     if every and "cross_k" not in state:
         raise ValueError(
@@ -518,7 +610,7 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any],
             "values: build it with init_decode_state(..., frontend=...)")
     tokens = tokens.long()
     x = _embed(params, cfg, tokens[:, None] if tokens.dim() == 1
-               else tokens[:, None, :])[:, 0]
+               else tokens[:, None, :], ctx)[:, 0]
     cur = int(state["cur"])
     scales = ((state["k_scale"], state["v_scale"]) if "k_scale" in state
               else (None, None))
@@ -529,16 +621,18 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any],
             x = x + _ssm_decode(hn, blk, cfg, state["ssm"], i)
             continue
         a = _attn_decode(hn, blk, cfg, state["k"][i], state["v"][i], cur,
-                         *(s[i] if s is not None else None for s in scales))
+                         *(s[i] if s is not None else None for s in scales),
+                         ctx=ctx)
         if cfg.family == "hybrid":
             a = _mix(a, _ssm_decode(hn, blk, cfg, state["ssm"], i), blk, cfg)
         x = x + a
         h2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-        y, _ = _ffn_forward(h2[:, None], blk, cfg)
+        y, _ = _ffn_forward(h2[:, None], blk, cfg, ctx)
         x = x + y[:, 0]
         if every and (i + 1) % every == 0:
             g = i // every
             x = _cross_decode(x, layer(params["cross"], g), cfg,
                               state["cross_k"][g], state["cross_v"][g])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x[:, None])[:, 0], dict(state, cur=cur + 1)
+    return (_unembed(params, cfg, x[:, None], ctx)[:, 0],
+            dict(state, cur=cur + 1))

@@ -1482,3 +1482,77 @@ def test_sweeps_on_the_card_equal_their_cpu_runs(card):
             x["availability"], sort_keys=True)
         assert g["fault_stats"] == x["fault_stats"]
         assert g["result"].elapsed_ticks == x["result"].elapsed_ticks
+
+
+# ------------------------------------------------- serving on a mesh
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("n_local", [0, 1, 17, 32])
+def test_a_shards_partial_on_the_card_is_the_plain_partial(card, n_local,
+                                                          int8):
+    """The sequence-sharded decode's local partial: the kernel (float32 or
+    its int8 instance) on the shard's first ``n_local`` slots against the
+    reference's plain partial; an empty shard launches nothing and weighs
+    0 in the merge."""
+    from repro_torch.distributed import decode as D
+
+    gen = torch.Generator(device=card).manual_seed(n_local)
+    q = torch.randn((2, 32, 120), generator=gen, device=card)
+    kc, vc = (torch.randn((2, 32, 8, 120), generator=gen, device=card)
+              for _ in range(2))
+    scales = ()
+    if int8:
+        ks, vs = (torch.rand((2, 32, 8), generator=gen, device=card)
+                  .mul_(0.02).half() for _ in range(2))
+        kc, vc = ((t * 40).round().clamp(-127, 127).to(torch.int8)
+                  for t in (kc, vc))
+        scales = (ks, vs)
+    fd.reset_launches()
+    out, m, l = D.local_partial(q, kc, vc, n_local, *scales)
+    name = "flash_decode_int8" if int8 else "flash_decode"
+    assert fd.LAUNCHES[name] == (1 if n_local else 0)
+    if n_local == 0:
+        assert not out.any() and not l.any() and bool((m == -1e30).all())
+        return
+    k_eff = fd.dequantize(kc, scales[0]) if int8 else kc
+    v_eff = fd.dequantize(vc, scales[1]) if int8 else vc
+    wo, wm, wl = D._partial_attn(q, k_eff, v_eff, n_local)
+    torch.testing.assert_close(out, wo, atol=2e-5, rtol=0)
+    torch.testing.assert_close(m, wm, atol=1e-5, rtol=0)
+    torch.testing.assert_close(l, wl, atol=0, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "mixtral-8x7b"])
+def test_sharded_serve_on_one_card_matches_the_one_device_decode(card, arch,
+                                                                tmp_path):
+    """Four ranks on the one card (gloo, a 2 x 2 mesh) serve a reduced
+    model through the kernel: logits within 1e-4 x max(1, |logit|) of the
+    one-device decode with equal argmax, launches only where a shard
+    holds a valid slot."""
+    import torch_mesh_ranks as R
+    from repro_torch.distributed.decode import shard_fill
+    from repro_torch.launch.mesh import run_local_ranks
+    from repro_torch.models import transformer as T
+
+    steps = 12
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, 0)
+    state = T.init_decode_state(params, cfg, R.SERVE["batch"],
+                                R.SERVE["context"])
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (steps, R.SERVE["batch"])))
+    want = []
+    for t in range(steps):
+        lg, state = T.decode_step(params, cfg, state, tokens[t].cuda())
+        want.append(lg.cpu())
+    want = torch.stack(want)
+    ranks = {(r["coords"]["data"], r["coords"]["model"]): r
+             for r in run_local_ranks(R.serve_card, 4, tmp_path,
+                                      args=(arch, steps), timeout_s=300)}
+    got = torch.cat([ranks[(d, 0)]["logits"] for d in range(2)], dim=1)
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    ring = T.kv_cache_len(cfg, R.SERVE["context"])
+    for (d, t), r in ranks.items():
+        pairs = sum(shard_fill(c, ring, 2, t) >= 1 for c in range(steps))
+        assert r["launches"]["flash_decode"] == pairs * cfg.n_layers

@@ -169,9 +169,43 @@ def test_moe_ffn_local_matches_jax(arch, cf, tied):
         assert not _np(got)[alone].any()
 
 
-def test_moe_ffn_sharded_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14d"):
-        M.moe_ffn_sharded(None, None, None, None, (), "model")
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "kimi-k2-1t-a32b"])
+def test_moe_ffn_sharded_on_one_rank_is_moe_ffn_local(arch, tmp_path):
+    """The sharded MoE on a 1 x 1 gloo mesh of this process (its
+    collectives move nothing) gives moe_ffn_local's output and aux; its
+    body is the reference's choice (``tp`` whenever the model axis has
+    one rank), with its ``in_specs`` as the blocks.  The 2 x 2 mesh runs
+    in tests/test_torch_mesh_islands.py."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cfg = get_arch(arch).reduced().moe
+    for n_tp, resident, want in ((1, True, "tp"), (2, False, cfg.sharding),
+                                 (2, True, "resident" if cfg.sharding == "ep"
+                                  else "tp"), (3, False, "tp")):
+        assert M.moe_mode(cfg, n_tp, resident) == want
+    assert M.expert_specs("tp", ("data",), "model")["w_down"] == \
+        (None, "model", None)
+    assert M.expert_specs("resident", ("data",), "model")["w_gate"] == \
+        ("model", None, "data")
+    x = np.random.default_rng(4).standard_normal((3, 2, 64)).astype(
+        np.float32)
+    p = {k: _t(v) for k, v in JM.init_moe_params(
+        jax.random.PRNGKey(4), 64, jax_get_arch(arch).reduced().moe
+    )._asdict().items()}
+    want, aux_want = M.moe_ffn_local(_t(x).reshape(-1, 64), p, cfg)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        for resident in (False, True):
+            got, aux = M.moe_ffn_sharded(_t(x), p, cfg, mesh, ("data",),
+                                         "model", resident_experts=resident)
+            assert torch.equal(got.reshape(-1, 64), want)
+            assert float(aux) == float(aux_want)
+    finally:
+        dist.destroy_process_group()
 
 
 # --------------------------------------------------------------------- ssm

@@ -249,17 +249,61 @@ def test_other_families_are_refused(arch):
                       torch_device="cpu")
 
 
+class _FakeMesh:
+    shape = {"data": 2, "model": 2}
+    axis_names = ("data", "model")
+
+
 def test_int8_kv_and_a_mesh_are_refused():
     """int8 caches run (``tests/test_torch_int8kv.py``) but not on the vlm
-    family, whose reference decode loop passes no scales."""
-    _, cfg = _reduced()
+    family, whose reference decode loop passes no scales.  The dense and
+    moe families serve on a mesh (``tests/test_torch_mesh_serve.py``);
+    the vlm's decode on a mesh is refused, naming the item that brings
+    it."""
     vlm = get_arch("llama-3_2-vision-90b").reduced()
     with pytest.raises(NotImplementedError, match="int8.*ROADMAP"):
         T.param_shapes(dataclasses.replace(vlm, kv_dtype="int8"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_serve_step(cfg, mesh=object())
-    params = T.init_params(cfg, 0, torch_device="cpu")
-    state = T.init_decode_state(params, cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.decode_step(params, cfg, state, torch.zeros(1, dtype=torch.int32),
-                      ctx=object())
+    with pytest.raises(NotImplementedError, match="mesh.*item 14d iii"):
+        make_serve_step(vlm, mesh=_FakeMesh())
+    params = T.init_params(vlm, 0, torch_device="cpu")
+    state = T.init_decode_state(params, vlm, 1, 8,
+                                frontend=torch.zeros(1, 8, vlm.d_model))
+    with pytest.raises(NotImplementedError, match="mesh.*item 14d iii"):
+        T.decode_step(params, vlm, state, torch.zeros(1, dtype=torch.int32),
+                      ctx=T.MeshCtx(_FakeMesh(), ("data",), "model"))
+
+
+def test_decode_on_a_one_rank_mesh_is_the_one_device_decode(tmp_path):
+    """The serve step on a 1 x 1 gloo mesh of this process (blocks that
+    are the whole tensors, collectives that move nothing) gives the
+    one-device decode's logits bit for bit through the ring wrap; the
+    2 x 2 mesh runs in tests/test_torch_mesh_serve.py."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import step as S
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    _, cfg = _reduced()
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (10, 2)))
+    params = T.init_params(cfg, 3, torch_device="cpu")
+    state = T.init_decode_state(params, cfg, 2, 8)
+    want = []
+    for t in tokens:
+        logits, state = T.decode_step(params, cfg, state, t)
+        want.append(logits)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        local = S.init_local_params(cfg, 3, mesh, torch_device="cpu")
+        for k, v in S.serve_param_specs(cfg, mesh)["blocks"].items():
+            assert torch.equal(local["blocks"][k], params["blocks"][k]), k
+        state = S.init_local_decode_state(cfg, mesh, 2, 8,
+                                          torch_device="cpu")
+        step = make_serve_step(cfg, mesh)
+        for t, w in zip(tokens, want):
+            got, state = step(local, state, t)
+            assert torch.equal(got, w)
+    finally:
+        dist.destroy_process_group()

@@ -37,21 +37,24 @@ SHIM = ("import jax, jax.experimental\n"
 
 
 def run_reference(code: str, workdir: Path, inputs: dict | None = None,
-                  timeout: float = 600) -> dict:
+                  timeout: float = 600, env: dict | None = None) -> dict:
     """Run ``code`` against the JAX package in a child Python process.
 
     The child gets ``JAX_PLATFORMS=cpu``, ``PYTHONPATH`` set to the repo's
     ``src`` and the alias above before anything else.  ``code`` reads its
     inputs from the dict ``IN`` (numpy arrays) and leaves its results in the
     dict ``OUT`` (numpy-convertible values, no objects); both travel through
-    ``.npz`` files in ``workdir``."""
+    ``.npz`` files in ``workdir``.  ``env`` adds variables to the child's
+    environment only (``XLA_FLAGS`` must be set before JAX starts, as a
+    forced host device count is)."""
     workdir = Path(workdir)
     inp, out = workdir / "reference_in.npz", workdir / "reference_out.npz"
     np.savez(inp, **(inputs or {}))
     script = (SHIM + "import numpy as np\n"
               f"IN = dict(np.load({str(inp)!r}))\nOUT = {{}}\n"
               + code + f"\nnp.savez({str(out)!r}, **OUT)\n")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(SRC))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(SRC),
+               **(env or {}))
     proc = subprocess.run([sys.executable, "-c", script], cwd=workdir,
                           env=env, capture_output=True, text=True,
                           timeout=timeout)
@@ -98,6 +101,14 @@ def test_child_reference_runs_the_replay_lane(tmp_path):
         tmp_path, {"a": np.arange(0, 640, 64)})
     np.testing.assert_array_equal(out["a"], np.arange(0, 640, 64))
     assert int(out["size"]) == 64
+
+
+def test_child_reference_takes_its_own_environment(tmp_path):
+    flags = "--xla_force_host_platform_device_count=4"
+    out = run_reference("import jax\nOUT['n'] = len(jax.devices())\n",
+                        tmp_path, env={"XLA_FLAGS": flags})
+    assert int(out["n"]) == 4
+    assert os.environ.get("XLA_FLAGS") != flags
 
 
 def test_child_reference_reports_failures(tmp_path):

@@ -87,9 +87,10 @@ and ``nvcc``.  Phases, each printing one or more lines:
    final caches of all 24 layers; its device time a call beside the
    float32 kernel's on the float run's caches, its plain version,
    dequantize + ``F.scaled_dot_product_attention`` and its bytes bound;
-11b. families: mamba2-2.7b (ssm, 64 layers), hymba-1.5b (hybrid, 32),
-   musicgen-large (audio, 4 codebooks, 48) and mixtral-8x7b (moe, 4 of
-   its 32 layers: one float32 layer's experts are 5.6 GB) at full width
+11b. families: mamba2-2.7b (ssm, 32 of its 64 layers), hymba-1.5b
+   (hybrid, 16 of 32), musicgen-large (audio, 4 codebooks, 24 of 48) and
+   mixtral-8x7b (moe, 4 of its 32 layers: one float32 layer's experts
+   are 5.6 GB) at full width
    with seeded weights: ``serve()`` at batch 4, 32 + 32 steps, twice
    (identical tokens and store counters; ``flash_decode`` launches = steps
    x attention layers, 0 for mamba2, and no store without attention);
@@ -183,7 +184,7 @@ and ``nvcc``.  Phases, each printing one or more lines:
    ``MultiHostReplay`` of its hosts; (c) ``fault_seed_sweep``:
    ``results/BENCH_replay.json``'s ``availability`` oracle (16 seeds at 4
    and 8 hosts) on every field, and two Table I mounts on the [multihost]
-   phase's down window with CRC retries over 16 seeds, 2 x 2^13
+   phase's down window with CRC retries over 16 seeds, 2 x 2^12
    accesses, three lanes equal to standalone runs; (d) a GC-overfilled
    sweep refused.  Each sweep's lanes and waves, kernel time, wall and
    host time, its checked lanes' standalone kernel times and the serial
@@ -232,7 +233,22 @@ and ``nvcc``.  Phases, each printing one or more lines:
    its (step, layer) pairs with a non-empty shard, its partials against
    the plain version on its final caches; ms a step beside the
    one-device step's, peak bytes a rank.  It runs after ``[train]`` and
-   before ``[scan]`` (phase 12 on).
+   before ``[scan]`` (phase 12 on);
+11f. mesh-train: training and prefill on a device mesh (four gloo
+   processes on this card, see ``MESH_TRAIN``): (a) minicpm-2b at full
+   width, 8 layers, data 2 x model 2, 4 x 2048, remat, ZeRO-1 AdamW, 4
+   steps: step 1's loss and every gathered gradient against the
+   one-device ones, later losses, ``lse`` 2 and each backward kernel 1
+   launch a layer a step on every rank, each rank's layer-0 heads
+   through the training kernels against their plain versions; (b) the
+   same on pod 2 x data 1 x model 2, 3 steps on one batch (the loss
+   falls); (c) mixtral-8x7b, 1 layer, ``tp`` experts FSDP-cut over data,
+   2 steps; (d) the mesh prefill's logits and argmax against one device's;
+   (e) ``pipeline_forward`` of (a)'s 8 blocks over 4 stages against the
+   sequential forward, its launches a stage; (f) (a)'s step-2 checkpoint
+   restored onto data 1 x model 2 (blocks bit-equal to the saved
+   leaves), steps 3-4 against (a)'s; ms a step a rank beside one
+   device's, peak bytes a rank, collectives a step.
 
 Then the card's name and power limit, one JSON line of every kernel
 (launches on its main path, error against the plain version, device times,
@@ -361,14 +377,15 @@ SCAN_OPS = {"dram": 39, "pmem": 43, "ssd-buf": 49, "ssd-cache": 75}
 FAULT_NAND = dict(nand_read_retry_rate=0.3, erase_fail_rate=0.5,
                   poison_rate=0.1)
 FAULT_NAND_SEED = 0
-# the NAND-faulted replay runs the main path's first 2^18 accesses (at
-# 2^20 its python lane took 81 s)
-FAULT_NAND_ACCESSES = 1 << 18
+# the NAND-faulted replay runs the main path's first 2^17 accesses (at
+# 2^20 its python lane took 81 s, at 2^18 16 s: cut to make room for
+# [mesh-train])
+FAULT_NAND_ACCESSES = 1 << 17
 FAULT_FABRIC = dict(num_hosts=2, num_devices=2, num_leaves=2, num_spines=2,
                     ecmp=True)
 FAULT_LINK = dict(link_retry_rate=0.25,
                   down_links=(("s0", "sp0", 1 << 15, 1 << 16),))
-FAULT_LINK_ACCESSES = 1 << 17
+FAULT_LINK_ACCESSES = 1 << 16     # at 2^17 its python lane took 12.7 s
 FAULT_LINK_SEED = 7
 FAULT_GC_SCENARIO = "faults-nand-retry@direct"
 FAULT_GC_TRACE = dict(seed=24, n=1 << 12, pages=16)
@@ -395,11 +412,12 @@ ALU_STEP_CYCLES = 4
 # multi-host scenarios
 MULTI_HOSTS = 4
 MULTI_PER_HOST = 1 << 18
-# the python lane's comparison runs the same cases at a sixteenth of the
-# depth, each host's first accesses (at 2^18 a host its taps took 171 s,
-# which the script's time limit no longer holds beside the [sweep],
-# [vlm] and [train] phases)
-MULTI_PYTHON_PER_HOST = 1 << 14
+# the python lane's comparison runs the same cases at a thirty-second of
+# the depth, each host's first accesses (at 2^18 a host its taps took
+# 171 s, which the script's time limit no longer holds beside the
+# [sweep], [vlm], [train] and [mesh-train] phases; 2^14 before
+# [mesh-train] came)
+MULTI_PYTHON_PER_HOST = 1 << 13
 MULTI_FABRIC = dict(num_leaves=2)
 MULTI_QOS = dict(num_hosts=3, num_devices=2, num_leaves=2, num_spines=2,
                  ecmp=True, qos_weights={"h0": 3.0, "h1": 1.0, "h2": 1.0})
@@ -467,7 +485,8 @@ STREAM_MULTI = dict(per_host=1 << 16, chunk=1 << 14)
 # [multihost] phase's four Table I mounts at 1-4 hosts, 2^18 accesses a
 # host; (c) results/BENCH_replay.json's availability oracle, and the
 # [multihost] phase's two-host down window with CRC retries, 16 seeds,
-# 2^13 accesses a host (at 2^16 its column builder took 69 s);
+# 2^12 accesses a host (at 2^16 its column builder took 69 s, at 2^13 7
+# s);
 # (d) a GC-overfilled cache sweep, refused
 SWEEP_KERNEL = "replay_sweep_kernel"
 MULTI_SWEEP_KERNEL = "replay_multi_sweep_kernel"
@@ -479,7 +498,7 @@ SWEEP_TWIN = dict(accesses=4096, caps=(256, 1024, 2048, 4096),
 SWEEP_HOSTS = (1, 2, 3, 4)
 SWEEP_HOST_PER_HOST = 1 << 18
 SWEEP_SEEDS = 16
-SWEEP_SEED_PER_HOST = 1 << 13
+SWEEP_SEED_PER_HOST = 1 << 12
 SWEEP_LINK = dict(link_retry_rate=0.15, link_retry_max=2)
 SWEEP_SEED_CHECKED = (0, 7, 15)        # lanes held against standalone runs
 # every lane check the phase prints, each of which must be equal
@@ -597,9 +616,11 @@ PARITY_TOL = 2e-3              # tests/test_models_smoke.py prefill/decode
 INT8_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
 INT8_REPLACES = "src/repro/models/transformer.py:365"
 # [families]: (arch, layers on the card, None for all) at full width; one
-# layer of mixtral's float32 experts is 5.6 GB, so it runs 4 of its 32
-FAMILY_RUNS = (("mamba2-2_7b", None), ("hymba-1_5b", None),
-               ("musicgen-large", None), ("mixtral-8x7b", 4))
+# layer of mixtral's float32 experts is 5.6 GB, so it runs 4 of its 32;
+# for the script's time limit beside [mesh-train], mamba2 runs 32 of its
+# 64 layers, hymba 16 of 32, musicgen 24 of 48
+FAMILY_RUNS = (("mamba2-2_7b", 32), ("hymba-1_5b", 16),
+               ("musicgen-large", 24), ("mixtral-8x7b", 4))
 FAMILY_SERVE = dict(batch=4, context=512, prompt_len=32, gen=32,
                     policy="lru", kv_page_tokens=16)
 FAMILY_PREFILL = dict(batch=2, seq=1024)
@@ -614,7 +635,8 @@ PREFILL_TIMING_REPS = 8
 VLM = dict(arch="llama-3_2-vision-90b", super_blocks=2, batch=2, seq=1024,
            gate=0.5, frontend_scale=0.1, decode_steps=64)
 # [train]: minicpm-2b at full width and depth through launch/train.main
-TRAIN = dict(arch="minicpm-2b", steps=8, batch=2, seq=2048)
+# (4 steps: the script's time limit)
+TRAIN = dict(arch="minicpm-2b", steps=4, batch=2, seq=2048)
 TRAIN_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 TRAIN_REPLACES = "src/repro/models/flash_vjp.py:258"     # _flash_bwd (jnp)
 LSE_REPLACES = "src/repro/models/flash_vjp.py:250"       # _flash_fwd (jnp)
@@ -677,6 +699,35 @@ MESH = dict(arch="h2o-danube-3-4b", shape=(2, 2), batch=4, context=64,
             moe_capacity=8.0)
 MESH_TOL = 2e-3
 MESH_TIMEOUT_S = 600
+# [mesh-train]: training and prefill on a device mesh, four gloo processes
+# on the one card (a fifth and sixth for the restore), float32 seeded
+# weights, TF32 off, each cell against its one-device run on this card:
+# (a) minicpm-2b at full width cut to 8 of its 40 layers on data 2 x
+# model 2, global batch 4 x 2048 of the seeded Markov corpus, remat, f32
+# AdamW with ZeRO-1 moments, 4 steps of WSD at peak 3e-3 (steps 1-4:
+# warmup 1, stable 2, decay 1); step 1's gradients, every rank's layer-0
+# heads through the training kernels; (b) the same model on pod 2 x data
+# 1 x model 2, 3 steps on one batch; (c) mixtral-8x7b at full width cut
+# to 1 of its 32 layers, 'tp' experts FSDP-cut over data, capacity factor
+# 8 (a rank's capacity counts its own tokens: at 1.25 it drops what one
+# device keeps, [mesh] above), batch 4 x 512, 2 steps; (d) the prefill of
+# (a)'s model at its initial weights on 4 x 2048; (e) pipeline_forward of
+# (a)'s 8 blocks over a 4-stage pod mesh, x 8 x 2048 x 2304, 4
+# microbatches; (f) (a) saves at step 2, a data 1 x model 2 group restores
+# it and takes steps 3-4.
+MESH_TRAIN = dict(arch="minicpm-2b", layers=8, shape=(2, 2), batch=4,
+                  seq=2048, steps=4, save_at=2, peak_lr=3e-3,
+                  pod_shape=(2, 1, 2), pod_steps=3,
+                  moe_arch="mixtral-8x7b", moe_layers=1, moe_batch=4,
+                  moe_seq=512, moe_steps=2, moe_capacity=8.0, stages=4,
+                  pipe_batch=8, microbatches=4, restore_shape=(1, 2))
+# step 1's loss (relative) and gradients (of a leaf's largest |value|),
+# later steps' losses, prefill logits and the pipeline (of the largest
+# |value|), the restored run's losses against (a)'s
+MESH_TRAIN_GATES = dict(loss1_rtol=1e-4, grad_share=1e-4, loss_rtol=1e-3,
+                        prefill_share=1e-4, pipe_share=1e-4,
+                        restore_rtol=1e-4)
+MESH_TRAIN_TIMEOUT_S = 900
 SCHED_REQUESTS, SCHED_SLOTS, SCHED_NEW = 8, 4, 32
 PROFILE_STEPS = 16              # decode steps at a full ring, profiled
 TIMING_REPS = 24                # calls per device time, on rotating inputs
@@ -1752,8 +1803,10 @@ def split_fields(wall_ms: float, kinds: dict) -> dict:
 
 def family_block(torch, dev, arch: str, layers, seed: int) -> None:
     """[families]: one model at full width (depth cut to ``layers`` where
-    given): ``serve()`` twice, a prefill, decode against the prefill (or,
-    for the MoE, its layer against the CPU), launches and a profile."""
+    given; a cut never deepens the model, so a reduced configuration keeps
+    its own depth): ``serve()`` twice, a prefill, decode against the
+    prefill (or, for the MoE, its layer against the CPU), launches and a
+    profile."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1765,7 +1818,8 @@ def family_block(torch, dev, arch: str, layers, seed: int) -> None:
     from repro_torch.models.moe import moe_ffn_local
 
     full = get_arch(arch)
-    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    cfg = (dataclasses.replace(full, n_layers=min(layers, full.n_layers))
+           if layers else full)
     attn = cfg.n_layers if cfg.n_heads else 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2824,6 +2878,629 @@ def mesh_phase(torch, seed: int) -> dict:
                           separators=(",", ":")),
         launches=json.dumps(totals, separators=(",", ":")))
     return {"launches": totals}
+
+
+# ------------------------------------------------------------ [mesh-train]
+def mt_configs():
+    """[mesh-train]'s two models: minicpm-2b cut to ``layers`` layers and
+    mixtral-8x7b cut to ``moe_layers`` at capacity factor 8, both at full
+    width."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    dense = dataclasses.replace(get_arch(MESH_TRAIN["arch"]),
+                                n_layers=MESH_TRAIN["layers"])
+    full = get_arch(MESH_TRAIN["moe_arch"])
+    moe = dataclasses.replace(
+        full, n_layers=MESH_TRAIN["moe_layers"],
+        moe=dataclasses.replace(full.moe,
+                                capacity_factor=MESH_TRAIN["moe_capacity"]))
+    return dense, moe
+
+
+def mt_batches(cfg, seq: int, batch: int, n: int, seed: int) -> list:
+    """``n`` global batches of the seeded Markov corpus, on the card."""
+    import torch
+
+    from repro_torch.data.pipeline import ShardedLoader
+
+    loader = ShardedLoader(cfg, seq, batch, seed=seed + 33)
+    return [{k: torch.as_tensor(v, device="cuda")
+             for k, v in loader.next().items()} for _ in range(n)]
+
+
+def mt_lr():
+    """WSD at peak 3e-3 over steps 1-4 (warmup 1, stable 2, decay 1)."""
+    from repro_torch.optim.schedules import wsd_schedule
+    return wsd_schedule(MESH_TRAIN["peak_lr"], 1, 2, 1)
+
+
+def mt_hidden(torch, seed: int):
+    """[mesh-train] (e)'s seeded activations, the same in every process."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    return torch.randn((MESH_TRAIN["pipe_batch"], MESH_TRAIN["seq"],
+                        mt_configs()[0].d_model), generator=gen,
+                       device="cuda")
+
+
+def mt_save_grads(torch, grads, where: Path) -> dict:
+    """Each leaf of ``grads`` (step 1's gradients, or the first moments
+    they set) as ``where/<path>.npy``; its largest |value|."""
+    from repro_torch.tree import tree_paths
+
+    where.mkdir(parents=True, exist_ok=True)
+    largest = {}
+    for path, g in tree_paths(grads):
+        np.save(where / f"{path.replace('/', '__')}.npy", g.cpu().numpy())
+        largest[path] = float(g.abs().max())
+    return largest
+
+
+def mt_steps(torch, step, params, opt, batches, first: int) -> tuple:
+    """Train steps ``first, first + 1, ...`` over ``batches``: losses, ms
+    a step, and the kernel launches and collectives of all of them."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.reset_launches()
+    col.reset_calls()
+    losses, ms, calls = [], [], []
+    for i, batch in enumerate(batches):
+        before = dict(col.CALLS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch, first + i)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        calls.append(sum(col.CALLS.values()) - sum(before.values()))
+    return params, opt, {"losses": losses, "ms": ms,
+                         "launches": dict(fa.LAUNCHES),
+                         "collectives_a_step": calls}
+
+
+def mt_one_device(torch, seed: int, work: Path) -> dict:
+    """[mesh-train]'s one-device references on this card: (d) the
+    prefill's logits, (a) 4 steps and step 1's first moments, (b) 3 steps
+    on one batch, (c) mixtral's 2 steps and step-1 moments, (e) the
+    sequential forward of (a)'s 8 blocks.  Arrays the ranks compare
+    against go to ``work``; the rest is returned."""
+    from repro_torch.distributed import step as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as A
+
+    cfg, moe = mt_configs()
+    MT = MESH_TRAIN
+    ref: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    batches = mt_batches(cfg, MT["seq"], MT["batch"], MT["steps"], seed)
+    params = T.init_params(cfg, seed)
+    t0 = time.perf_counter()
+    logits = S.make_prefill_step(cfg)(params, batches[0])
+    torch.cuda.synchronize()
+    ref["d_ms"] = (time.perf_counter() - t0) * 1e3
+    top = logits.topk(2, dim=-1).values
+    ref["d_largest"] = float(logits.abs().max())
+    np.save(work / "d_logits.npy", logits.cpu().numpy())
+    np.save(work / "d_argmax.npy", logits.argmax(-1).cpu().numpy())
+    np.save(work / "d_gap.npy", (top[..., 0] - top[..., 1]).cpu().numpy())
+    del logits, top
+    step = S.make_train_step(cfg, lr_fn=mt_lr())
+    params, opt, first = mt_steps(torch, step, params, A.adamw_init(params),
+                                  batches[:1], 1)
+    ref["a_largest"] = mt_save_grads(torch, opt["mu"], work / "a_mu")
+    params, opt, rest = mt_steps(torch, step, params, opt, batches[1:], 2)
+    ref["a"] = {k: first[k] + rest[k] for k in ("losses", "ms")}
+    del params, opt
+    torch.cuda.empty_cache()
+    params = T.init_params(cfg, seed)
+    params, opt, ref["b"] = mt_steps(torch, step, params,
+                                     A.adamw_init(params),
+                                     [batches[0]] * MT["pod_steps"], 1)
+    del params, opt
+    torch.cuda.empty_cache()
+    mb = mt_batches(moe, MT["moe_seq"], MT["moe_batch"], MT["moe_steps"],
+                    seed)
+    params = T.init_params(moe, seed)
+    step = S.make_train_step(moe, lr_fn=mt_lr())
+    params, opt, first = mt_steps(torch, step, params, A.adamw_init(params),
+                                  mb[:1], 1)
+    ref["c_largest"] = mt_save_grads(torch, opt["mu"], work / "c_mu")
+    params, opt, rest = mt_steps(torch, step, params, opt, mb[1:], 2)
+    ref["c"] = {k: first[k] + rest[k] for k in ("losses", "ms")}
+    del params, opt
+    torch.cuda.empty_cache()
+    blocks = T.init_params(cfg, seed)["blocks"]
+    h = mt_hidden(torch, seed)
+    positions = torch.arange(h.shape[1], device="cuda")[None, :]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            h = T._block_forward(h, T.layer(blocks, i), cfg, positions)[0]
+    torch.cuda.synchronize()
+    ref["e_ms"] = (time.perf_counter() - t0) * 1e3
+    ref["e_largest"] = float(h.abs().max())
+    np.save(work / "e_y.npy", h.cpu().numpy())
+    del blocks, h
+    ref["peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    (work / "ref.json").write_text(json.dumps(ref))
+    return ref
+
+
+def mt_grad_errs(torch, grads, specs, mesh, where: Path) -> dict:
+    """Each block of ``grads`` (laid out by ``specs``): its largest
+    |error| against this rank's block of the one-device leaf saved under
+    ``where``."""
+    from repro_torch.distributed.sharding import shard_leaf
+    from repro_torch.tree import tree_paths
+
+    flat = dict(tree_paths(specs))
+    errs = {}
+    for path, g in tree_paths(grads):
+        full = np.load(where / f"{path.replace('/', '__')}.npy",
+                       mmap_mode="r")
+        want = torch.from_numpy(np.array(
+            shard_leaf(full, flat[path], mesh))).to(g.device)
+        errs[path] = float((g - want).abs().max())
+    return errs
+
+
+def mt_layer0_kernels(torch, cfg, mesh, specs, params, tokens, seed) -> dict:
+    """This rank's layer-0 heads (q, k, v of its ``wq`` / ``wk`` / ``wv``
+    column blocks over its batch rows) through the ``lse`` instance and
+    the three backward kernels, each against its plain version at
+    ``[train]``'s tolerances (the ``lse`` forward's plain version in
+    float64); the ``lse`` instance's out bit-equal to the inference
+    instance's."""
+    from repro_torch.distributed import step as S
+    from repro_torch.distributed.sharding import regather
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    ctx = S.make_mesh_ctx(mesh, cfg=cfg, specs=specs)
+    with torch.no_grad():
+        top = {"embed": regather(params["embed"], specs["embed"],
+                                 ctx.cspecs["embed"], mesh)}
+        x = T._embed(top, cfg, tokens.long(), ctx)
+        blk = T._compute_layout(T.layer(params["blocks"], 0), ctx, "blocks")
+        h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
+        B, Sq, _ = h.shape
+        hd = cfg.resolved_head_dim
+        pos = torch.arange(Sq, device=h.device)[None, :]
+        q, k, v = ((h @ blk[w]).reshape(B, Sq, -1, hd) for w in
+                   ("wq", "wk", "wv"))
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+        out, lse = fa.flash_attention_lse(q, k, v)
+        same = torch.equal(out, fa.flash_attention(q, k, v))
+        _, want_lse = fa.flash_attention_lse_plain(q.double(), k.double(),
+                                                   v.double())
+        gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+        do = torch.randn(q.shape, generator=gen, device="cuda")
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+        pairs = {"flash_attention_lse": (lse.double(), want_lse, PREFILL_TOL),
+                 "flash_attention_bwd_delta": (
+                     fa.flash_attention_bwd_delta(out, do),
+                     fa.flash_attention_bwd_delta_plain(out, do),
+                     PREFILL_TOL),
+                 "flash_attention_bwd_dq": (got[0], want[0], BWD_TOL),
+                 "flash_attention_bwd_dkdv": (torch.cat([got[1], got[2]]),
+                                              torch.cat([want[1], want[2]]),
+                                              BWD_TOL)}
+        res = {"heads": q.shape[2], "kv_heads": k.shape[2],
+               "lse_out_bit_equal": same}
+        for name, (a, b, tol) in pairs.items():
+            err, share, ok = close_err(torch, a, b, tol)
+            res[name] = {"err": err, "share": share, "ok": ok}
+    return res
+
+
+def mt_prefill(torch, cfg, mesh, specs, params, batch, work: Path) -> dict:
+    """(d): the mesh prefill's logit block against this rank's block of
+    the one-device logits; its rows' vocab-block maxima and their ids."""
+    from repro_torch.distributed import step as S
+    from repro_torch.distributed.sharding import P, shard_leaf
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.reset_launches()
+    step = S.make_prefill_step(cfg, mesh, specs=specs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = step(params, S.local_batch(batch, mesh))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fa.LAUNCHES)
+    full = np.load(work / "d_logits.npy", mmap_mode="r")
+    want = torch.from_numpy(np.array(shard_leaf(
+        full, P(("data",), None, "model"), mesh))).cuda()
+    err = float((logits - want).abs().max())
+    top = logits.max(dim=-1)
+    res = {"ms": ms, "launches": launches, "err": err,
+           "finite": bool(torch.isfinite(logits).all()),
+           "block_max": top.values.cpu(), "block_argmax": top.indices.cpu(),
+           "v_loc": logits.shape[-1]}
+    del logits, want
+    return res
+
+
+def mt_train(torch, cfg, mesh, specs, params, batches, work: Path,
+             save: bool, check_grads: bool) -> dict:
+    """(a) / (b) / (c) on this rank: the train steps, step 1's gradients
+    against the one-device ones (``check_grads``), read from the first
+    moment they set (from zero, ``mu = (1 - b1) * clip * g``: the
+    gradient times one scalar a side), and for (a) its parameters and
+    moments saved after step ``save_at``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import step as S
+
+    local = [S.local_batch(b, mesh) for b in batches]
+    opt = S.init_local_opt_state(cfg, mesh, specs)
+    ospecs = S.train_opt_specs(cfg, mesh, specs)
+    step = S.make_train_step(cfg, mesh, lr_fn=mt_lr(), specs=specs)
+    res: dict = {"losses": [], "ms": [], "collectives_a_step": [],
+                 "launches": {}}
+    cuts = sorted({1, MESH_TRAIN["save_at"] if save else 1, len(local)})
+    done = 0
+    for end in cuts:
+        params, opt, run = mt_steps(torch, step, params, opt,
+                                    local[done:end], done + 1)
+        for k in ("losses", "ms", "collectives_a_step"):
+            res[k] += run[k]
+        for k, n in run["launches"].items():
+            res["launches"][k] = res["launches"].get(k, 0) + n
+        if end == 1 and check_grads:
+            res["grad_errs"] = mt_grad_errs(
+                torch, opt["mu"], ospecs["mu"], mesh,
+                work / f"{'c' if cfg.moe is not None else 'a'}_mu")
+        if save and end == MESH_TRAIN["save_at"]:
+            t0 = time.perf_counter()
+            CheckpointManager(str(work / "ckpt")).save(
+                end, {"params": params, "opt": opt},
+                {"losses": res["losses"]}, mesh=mesh,
+                specs={"params": specs, "opt": ospecs})
+            res["save_s"] = time.perf_counter() - t0
+        done = end
+    res["params"], res["opt"] = params, opt
+    return res
+
+
+def mesh_train_rank(rank: int, seed: int, work: str) -> dict:
+    """A rank of [mesh-train] (run by ``run_local_ranks``): (d), (a), (b),
+    (c) and (e) in turn, each from its own seeded weights."""
+    import torch
+
+    from repro_torch.distributed import step as S
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.sharding import mesh_coords
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_debug_mesh, make_stage_mesh
+    from repro_torch.models import transformer as T
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    MT, work = MESH_TRAIN, Path(work)
+    cfg, moe = mt_configs()
+    out: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_debug_mesh(*MT["shape"])
+    out["coords"] = mesh_coords(mesh)
+    batches = mt_batches(cfg, MT["seq"], MT["batch"], MT["steps"], seed)
+    specs = S.train_param_specs(cfg, mesh)
+    params = S.init_local_params(cfg, seed, mesh, specs)
+    out["d"] = mt_prefill(torch, cfg, mesh, specs, params, batches[0], work)
+    a = mt_train(torch, cfg, mesh, specs, params, batches, work, save=True,
+                 check_grads=True)
+    out["a_kernels"] = mt_layer0_kernels(
+        torch, cfg, mesh, specs, a.pop("params"),
+        S.local_batch(batches[0], mesh)["tokens"].cuda(), seed)
+    del a["opt"], params
+    out["a"] = a
+    out["a_peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    pod = make_debug_mesh(MT["pod_shape"][1], MT["pod_shape"][2],
+                          n_pod=MT["pod_shape"][0])
+    pspecs = S.train_param_specs(cfg, pod)
+    b = mt_train(torch, cfg, pod, pspecs,
+                 S.init_local_params(cfg, seed, pod, pspecs),
+                 [batches[0]] * MT["pod_steps"], work, save=False,
+                 check_grads=False)
+    del b["params"], b["opt"]
+    out["b"], out["pod_coords"] = b, mesh_coords(pod)
+    torch.cuda.empty_cache()
+
+    mspecs = S.train_param_specs(moe, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    c = mt_train(torch, moe, mesh, mspecs,
+                 S.init_local_params(moe, seed, mesh, mspecs),
+                 mt_batches(moe, MT["moe_seq"], MT["moe_batch"],
+                            MT["moe_steps"], seed), work, save=False,
+                 check_grads=True)
+    del c["params"], c["opt"]
+    out["c"] = c
+    out["c_peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    stages = make_stage_mesh(MT["stages"])
+    blocks = T.init_params(cfg, seed)["blocks"]
+    h = mt_hidden(torch, seed)
+    positions = torch.arange(h.shape[1], device="cuda")[None, :]
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y = pipeline_forward(
+            lambda x, blk: T._block_forward(x, blk, cfg, positions)[0],
+            stages, microbatches=MT["microbatches"])(h, blocks)
+    torch.cuda.synchronize()
+    want = torch.from_numpy(np.load(work / "e_y.npy")).cuda()
+    out["e"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                "launches": dict(fa.LAUNCHES),
+                "err": float((y - want).abs().max()),
+                "stage": stages.get_local_rank("pod")}
+    del blocks, h, y, want
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mesh_restore_rank(rank: int, seed: int, work: str) -> dict:
+    """A rank of [mesh-train] (f): a data 1 x model 2 group restores (a)'s
+    step-2 checkpoint (``mesh=`` / ``specs=``), each block held bit-equal
+    to this rank's block of the saved leaf (read raw from its file), then
+    takes steps 3-4."""
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import step as S
+    from repro_torch.distributed.sharding import mesh_coords, shard_leaf
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.tree import tree_map, tree_paths
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    MT, work = MESH_TRAIN, Path(work)
+    cfg, _ = mt_configs()
+    mesh = make_debug_mesh(*MT["restore_shape"])
+    specs = S.train_param_specs(cfg, mesh)
+    all_specs = {"params": specs,
+                 "opt": S.train_opt_specs(cfg, mesh, specs)}
+
+    def meta(shapes):
+        return tree_map(lambda s: torch.empty(s, device="meta"), shapes)
+
+    template = {"params": meta(param_shapes(cfg)),
+                "opt": S.meta_opt_state(cfg)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, extra, step_no = CheckpointManager(
+        str(work / "ckpt")).restore_latest_good(
+        template, mesh=mesh, specs=all_specs, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    cdir = work / "ckpt" / f"step_{step_no:08d}"
+    manifest = json.loads((cdir / "manifest.json").read_text())
+    flat_specs = dict(tree_paths(all_specs))
+    unequal, leaves = [], 0
+    for key, got in tree_paths(tree):
+        ent = manifest["leaves"][key]
+        raw = np.memmap(cdir / ent["file"], dtype=np.dtype(ent["dtype"]),
+                        mode="r", shape=tuple(ent["shape"]) or (1,))
+        raw = raw.reshape(tuple(ent["shape"]))
+        spec = flat_specs.get(key)
+        block = raw if spec is None else shard_leaf(raw, spec, mesh)
+        leaves += 1
+        if not torch.equal(torch.from_numpy(np.array(block)), got.cpu()):
+            unequal.append(key)
+    batches = mt_batches(cfg, MT["seq"], MT["batch"], MT["steps"], seed)
+    params, opt = tree["params"], tree["opt"]
+    step = S.make_train_step(cfg, mesh, lr_fn=mt_lr(), specs=specs)
+    _, _, run = mt_steps(torch, step, params, opt,
+                         [S.local_batch(b, mesh) for b in
+                          batches[step_no:]], step_no + 1)
+    return {"coords": mesh_coords(mesh), "step": step_no, "extra": extra,
+            "restore_s": restore_s, "leaves": leaves, "unequal": unequal,
+            "run": run, "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def mesh_train_phase(torch, seed: int) -> dict:
+    """[mesh-train]: training and prefill on a device mesh, four gloo
+    processes on this card (see MESH_TRAIN), each cell held against its
+    one-device run on this card, computed here first.  Returns the
+    kernels' launches on the ranks' main paths."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_local_ranks
+
+    MT, G = MESH_TRAIN, MESH_TRAIN_GATES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, moe = mt_configs()
+    work = Path(tempfile.mkdtemp(prefix="mesh-train-"))
+    try:
+        t0 = time.perf_counter()
+        ref = mt_one_device(torch, seed, work)
+        one_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_local_ranks(mesh_train_rank, 4, work / "ranks4",
+                                args=(seed, str(work)),
+                                timeout_s=MESH_TRAIN_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = run_local_ranks(mesh_restore_rank, 2, work / "ranks2",
+                                   args=(seed, str(work)),
+                                   timeout_s=MESH_TRAIN_TIMEOUT_S)
+        restore_group_s = time.perf_counter() - t0
+        d_argmax = torch.from_numpy(np.load(work / "d_argmax.npy"))
+        d_gap = torch.from_numpy(np.load(work / "d_gap.npy"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    by = {(r["coords"]["data"], r["coords"]["model"]): r for r in ranks}
+    nl = cfg.n_layers
+    lse_want = 2 * nl * MT["steps"]
+    bwd_want = nl * MT["steps"]
+    for label, largest, cell_ref, steps in (
+            ("a", ref["a_largest"], ref["a"], MT["steps"]),
+            ("b", None, ref["b"], MT["pod_steps"]),
+            ("c", ref["c_largest"], ref["c"], MT["moe_steps"])):
+        runs = [r[label] for r in ranks]
+        losses = np.array([run["losses"] for run in runs])
+        check(bool((losses == losses[0]).all()),
+              f"[mesh-train] ({label}) the ranks' losses differ: {losses}")
+        want = np.array(cell_ref["losses"])
+        rel = np.abs(losses[0] - want) / np.abs(want)
+        check(bool(np.isfinite(losses).all()) and rel[0] <= G["loss1_rtol"]
+              and bool((rel[1:] <= G["loss_rtol"]).all()),
+              f"[mesh-train] ({label}) losses {losses[0]} against one "
+              f"device's {want}: relative {rel}")
+        if label == "b":
+            check(losses[0][-1] < losses[0][0],
+                  f"[mesh-train] (b) the loss did not fall: {losses[0]}")
+        grad_share = None
+        if largest is not None:
+            share = {p: max(r[label]["grad_errs"][p] for r in ranks)
+                     / max(largest[p], 1e-30) for p in largest}
+            grad_share = max(share.values())
+            check(grad_share <= G["grad_share"],
+                  f"[mesh-train] ({label}) gradients against one device's: "
+                  f"{ {p: f'{s:.2e}' for p, s in share.items()} }")
+        if label in ("a", "b"):
+            per = steps * nl
+            for r in runs:
+                got = r["launches"]
+                check(got["flash_attention_lse"] == 2 * per
+                      and all(got[k] == per for k in BWD_KERNELS)
+                      and got["flash_attention"] == 0,
+                      f"[mesh-train] ({label}) launches {got}, not "
+                      f"{2 * per} lse and {per} of each backward kernel")
+        ranks_ms = [float(np.median(r[label]["ms"][1:])) for r in ranks]
+        say("mesh-train", cell=label,
+            arch=(moe if label == "c" else cfg).name,
+            layers=(moe if label == "c" else cfg).n_layers,
+            mesh=("pod 2 x data 1 x model 2" if label == "b"
+                  else "data 2 x model 2"),
+            batch=(f"{MT['moe_batch']}x{MT['moe_seq']}" if label == "c"
+                   else f"{MT['batch']}x{MT['seq']}"), steps=steps,
+            losses=json.dumps([round(x, 6) for x in losses[0]]),
+            one_device_losses=json.dumps([round(x, 6) for x in want]),
+            loss_rel=listed(f"{x:.3e}" for x in rel),
+            grad_share=("n/a" if grad_share is None
+                        else f"{grad_share:.3e}"),
+            grads_read_from="step 1's first moment (1 - b1) * clip * g",
+            ms_per_step=listed(f"{x:.1f}" for x in ranks_ms),
+            one_device_ms_per_step=(
+                f"{float(np.median(cell_ref['ms'][1:])):.1f}"),
+            collectives_a_step=listed(runs[0]["collectives_a_step"]),
+            launches=json.dumps(runs[0]["launches"], separators=(",", ":")),
+            peak_bytes_by_rank=listed(
+                r["c_peak_bytes" if label == "c" else
+                  ("a_peak_bytes" if label == "a" else "peak_bytes")]
+                for r in ranks))
+    kern = [r["a_kernels"] for r in ranks]
+    for k in kern:
+        check(k["lse_out_bit_equal"] and all(
+            k[n]["ok"] for n in ("flash_attention_lse",) + tuple(BWD_KERNELS)),
+            f"[mesh-train] a rank's layer-0 kernels against their plain "
+            f"versions: {k}")
+    say("mesh-train", cell="a", check="layer-0 kernels",
+        heads_a_rank=kern[0]["heads"], kv_heads_a_rank=kern[0]["kv_heads"],
+        lse_out="bit-equal to the inference instance",
+        **{f"{n}_max_abs_err": f"{max(k[n]['err'] for k in kern):.3e}"
+           for n in ("flash_attention_lse",) + tuple(BWD_KERNELS)},
+        save_s=listed(f"{r['a']['save_s']:.2f}" for r in ranks))
+
+    # (d): the blocks' maxima put together over the model axis
+    d_err = max(r["d"]["err"] for r in ranks)
+    scale = ref["d_largest"]
+    check(all(r["d"]["finite"] for r in ranks) and
+          d_err <= G["prefill_share"] * scale,
+          f"[mesh-train] (d) prefill logits {d_err:.3e} from one device's "
+          f"(limit {G['prefill_share']} x {scale:.3e})")
+    rows = []
+    for d in range(MT["shape"][0]):
+        blocks = [by[(d, t)]["d"] for t in range(MT["shape"][1])]
+        vals = torch.stack([b["block_max"] for b in blocks])
+        ids = torch.stack([b["block_argmax"] + t * b["v_loc"]
+                           for t, b in enumerate(blocks)])
+        rows.append(torch.gather(ids, 0, vals.argmax(0, keepdim=True))[0])
+    got_argmax = torch.cat(rows)
+    sure = d_gap > G["prefill_share"] * scale
+    agree = bool((got_argmax[sure] == d_argmax[sure]).all())
+    check(agree, "[mesh-train] (d) argmax differs where one device's top "
+                 "two logits are apart")
+    say("mesh-train", cell="d", what="make_prefill_step(cfg, mesh)",
+        batch=f"{MT['batch']}x{MT['seq']}",
+        launches_by_rank=listed(r["d"]["launches"]["flash_attention"]
+                                for r in ranks),
+        max_abs_err=f"{d_err:.3e}", largest=f"{scale:.3e}",
+        rel=f"{d_err / scale:.3e}",
+        argmax_checked=int(sure.sum()), argmax_equal=agree,
+        ms_by_rank=listed(f"{r['d']['ms']:.1f}" for r in ranks),
+        one_device_ms=f"{ref['d_ms']:.1f}")
+    # (e)
+    e_err = max(r["e"]["err"] for r in ranks)
+    e_per = MT["microbatches"] * nl // MT["stages"]
+    check(e_err <= G["pipe_share"] * ref["e_largest"]
+          and all(r["e"]["launches"]["flash_attention"] == e_per
+                  for r in ranks),
+          f"[mesh-train] (e) pipeline {e_err:.3e} from the sequential "
+          f"forward (limit {G['pipe_share']} x {ref['e_largest']:.3e}), "
+          f"launches {[r['e']['launches'] for r in ranks]} (want {e_per} "
+          "a stage)")
+    say("mesh-train", cell="e", what="pipeline_forward", stages=MT["stages"],
+        microbatches=MT["microbatches"],
+        x=f"{MT['pipe_batch']}x{MT['seq']}x{cfg.d_model}",
+        launches_by_stage=listed(r["e"]["launches"]["flash_attention"]
+                                 for r in sorted(ranks, key=lambda r:
+                                                 r["e"]["stage"])),
+        sequential_launches=nl, max_abs_err=f"{e_err:.3e}",
+        largest=f"{ref['e_largest']:.3e}",
+        ms_by_rank=listed(f"{r['e']['ms']:.1f}" for r in ranks),
+        sequential_ms=f"{ref['e_ms']:.1f}")
+    # (f)
+    a_losses = ranks[0]["a"]["losses"]
+    for r in restored:
+        check(r["step"] == MT["save_at"] and not r["unequal"]
+              and r["leaves"] > 0,
+              f"[mesh-train] (f) restored step {r['step']}, blocks unequal "
+              f"to the saved leaves: {r['unequal'][:8]}")
+        rel = [abs(x - w) / abs(w) for x, w in
+               zip(r["run"]["losses"], a_losses[MT["save_at"]:])]
+        check(max(rel) <= G["restore_rtol"],
+              f"[mesh-train] (f) steps 3-4 {r['run']['losses']} against "
+              f"(a)'s {a_losses[MT['save_at']:]}: relative {rel}")
+    say("mesh-train", cell="f", what="restore(mesh=, specs=)",
+        saved_on="data 2 x model 2", restored_on="data 1 x model 2",
+        leaves=restored[0]["leaves"], blocks="bit-equal to the saved leaves",
+        losses=json.dumps(restored[0]["run"]["losses"]),
+        a_losses=json.dumps(a_losses[MT["save_at"]:]),
+        rel=listed(f"{abs(x - w) / abs(w):.3e}" for x, w in
+                   zip(restored[0]["run"]["losses"],
+                       a_losses[MT["save_at"]:])),
+        restore_s=listed(f"{r['restore_s']:.2f}" for r in restored),
+        ms_per_step=listed(f"{np.median(r['run']['ms']):.1f}"
+                           for r in restored),
+        peak_bytes_by_rank=listed(r["peak_bytes"] for r in restored))
+    say("mesh-train", one_device_s=f"{one_s:.1f}",
+        ranks_wall_s=f"{ranks_s:.1f}",
+        restore_group_wall_s=f"{restore_group_s:.1f}",
+        one_device_peak_bytes=ref["peak_bytes"])
+    return {"launches": {
+        "flash_attention_lse": sum(r["a"]["launches"]["flash_attention_lse"]
+                                   for r in ranks),
+        **{k: sum(r["a"]["launches"][k] for r in ranks) for k in BWD_KERNELS},
+        "flash_attention": sum(r["d"]["launches"]["flash_attention"]
+                               + r["e"]["launches"]["flash_attention"]
+                               for r in ranks)}}
 
 
 def train_phase(torch, dev, seed: int, worst: dict,
@@ -5238,6 +5915,13 @@ def main() -> int:
     for row in serve_rows + [int8_row]:
         if row["name"] in mesh["launches"]:
             row["mesh_launches"] = mesh["launches"][row["name"]]
+
+    # 11f. training and prefill on a device mesh ---------------------------
+    clock("mesh-train")
+    mesh_train = mesh_train_phase(torch, args.seed)
+    for row in train_rows + [prefill_row]:
+        if row["name"] in mesh_train["launches"]:
+            row["mesh_train_launches"] = mesh_train["launches"][row["name"]]
 
     # 12. the tick-exact scan lane, after the host-bound serving loop so
     # that its python-lane replays leave nothing behind for that loop -----

@@ -8,14 +8,21 @@
   ``wait()`` joins before the next save.
 * **Placed**: ``restore(template, device=...)`` puts the restored leaves on
   an explicit torch device.
+* **Elastic**: ``restore(template, mesh=, specs=)`` gives each rank of
+  whatever mesh the restarted job has its block of every leaf (the
+  reference's ``NamedSharding`` placement): a checkpoint saved on one
+  mesh restores onto another.  A sharded run saves with ``save(...,
+  mesh=, specs=)``: every leaf is put back together from the ranks'
+  blocks, one rank writes, and a barrier holds the others until the
+  checkpoint is published.
 
 A tree is nested dicts (keys in sorted order), tuples and lists whose
 leaves are torch tensors or numpy arrays; a leaf's key is its path joined
 by ``/``.  The directory layout, the raw ``.bin`` leaves and the manifest
-are the JAX package's, so a flat checkpoint written by either package
-restores with the other's :meth:`CheckpointManager.restore_flat`.  The
-elastic re-mesh restore (``mesh=`` / ``specs=``) belongs to the sharded
-training path (ROADMAP Queue A item 14d iii) and is refused.
+are the JAX package's, so a checkpoint written by either package
+restores with the other's (:meth:`CheckpointManager.restore_flat`, or
+:meth:`CheckpointManager.restore` into a template with the same keys),
+on one device or onto a mesh.
 """
 
 from __future__ import annotations
@@ -25,10 +32,13 @@ import json
 import os
 import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+IO_THREADS = 4                 # leaves written or read at once
 
 
 def _fsync_write(path: Path, data) -> None:
@@ -36,7 +46,7 @@ def _fsync_write(path: Path, data) -> None:
     durability half of the tmp-dir + ``os.replace`` publish protocol: a
     power cut after the rename can never expose a published checkpoint
     whose contents still sit in the page cache."""
-    mode = "wb" if isinstance(data, bytes) else "w"
+    mode = "w" if isinstance(data, str) else "wb"
     with open(path, mode) as fh:
         fh.write(data)
         fh.flush()
@@ -93,6 +103,24 @@ def _unflatten(template, leaves: Dict[str, Any], prefix: str = ""):
     return leaves[prefix]
 
 
+def _spec_lookup(specs):
+    """``key -> spec`` over a spec tree (dicts of ``P``; a key it does not
+    hold is replicated)."""
+    from repro_torch.distributed.sharding import P
+
+    flat: Dict[str, Any] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else str(k))
+        elif node is not None:
+            flat[path] = P(*node)
+
+    walk(specs or {}, "")
+    return lambda key: flat.get(key, P())
+
+
 def _to_host(leaf) -> np.ndarray:
     """A leaf as a host numpy array of its own (a bfloat16 tensor as its
     bits, typed ``bfloat16`` in the manifest by
@@ -120,16 +148,18 @@ def _dtype_name(arr: np.ndarray) -> str:
     return "bfloat16" if isinstance(arr, _Bf16) else str(arr.dtype)
 
 
-def _from_raw(raw: bytes, ent: Dict):
+def _from_raw(raw: bytes, ent: Dict, copy: bool = True):
     """The manifest entry's leaf: a numpy array, or for ``bfloat16`` a
-    torch tensor (numpy has no such type)."""
+    torch tensor (numpy has no such type); without ``copy``, a read-only
+    array over ``raw`` (its caller copies what it keeps)."""
     if ent["dtype"] == "bfloat16":
         import torch
 
         bits = np.frombuffer(raw, np.int16).reshape(ent["shape"]).copy()
         return torch.from_numpy(bits).view(torch.bfloat16)
-    return np.frombuffer(raw, dtype=np.dtype(ent["dtype"])) \
-        .reshape(ent["shape"]).copy()
+    arr = np.frombuffer(raw, dtype=np.dtype(ent["dtype"])) \
+        .reshape(ent["shape"])
+    return arr.copy() if copy else arr
 
 
 class CheckpointManager:
@@ -140,8 +170,31 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> Path:
-        return self._write(step, self._host(tree), extra or {})
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, *,
+             mesh=None, specs: Any = None) -> Path:
+        """Write ``tree`` as checkpoint ``step``.  With ``mesh`` and
+        ``specs``, ``tree`` holds this rank's blocks: every rank of the
+        mesh makes the call, each leaf is put back together
+        (``unshard_leaf``, one leaf at a time), global rank 0 writes the
+        whole leaves, and every rank returns after it has published."""
+        if mesh is None:
+            return self._write(step, self._host(tree), extra or {})
+        import torch.distributed as dist
+
+        from repro_torch.distributed.sharding import unshard_leaf
+
+        spec_of = _spec_lookup(specs)
+        writer = dist.get_rank() == 0
+        host = {}
+        for key, leaf in _flatten(tree).items():
+            whole = unshard_leaf(leaf, spec_of(key), mesh)
+            if writer:
+                host[key] = _to_host(whole)
+            del whole
+        if writer:
+            self._write(step, host, extra or {})
+        dist.barrier()
+        return self.dir / f"step_{step:08d}"
 
     def save_async(self, step: int, tree: Any,
                    extra: Optional[Dict] = None) -> None:
@@ -168,15 +221,22 @@ class CheckpointManager:
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         manifest = {"step": step, "extra": extra, "leaves": {}}
-        for key, leaf in flat.items():
+
+        def write(key):
+            leaf = flat[key]
             fname = key.replace("/", "__") + ".bin"
-            raw = np.ascontiguousarray(leaf).tobytes()
+            # the array's bytes as they lie, not a copy of them
+            raw = memoryview(np.ascontiguousarray(leaf).reshape(-1)
+                             .view(np.uint8))
             _fsync_write(tmp / fname, raw)
-            manifest["leaves"][key] = {
-                "file": fname, "shape": list(leaf.shape),
-                "dtype": _dtype_name(leaf),
-                "sha256": hashlib.sha256(raw).hexdigest(),
-            }
+            return {"file": fname, "shape": list(leaf.shape),
+                    "dtype": _dtype_name(leaf),
+                    "sha256": hashlib.sha256(raw).hexdigest()}
+
+        # leaves are hashed and written on threads (both release the GIL)
+        with ThreadPoolExecutor(IO_THREADS) as pool:
+            entries = list(pool.map(write, flat))
+        manifest["leaves"] = dict(zip(flat, entries))
         _fsync_write(tmp / "manifest.json", json.dumps(manifest, indent=1))
         _fsync_dir(tmp)
         if final.exists():
@@ -200,7 +260,7 @@ class CheckpointManager:
         steps = self.all_steps()
         return max(steps) if steps else None
 
-    def _leaves(self, step: Optional[int], verify: bool):
+    def _leaves(self, step: Optional[int], verify: bool, copy: bool = True):
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -216,7 +276,7 @@ class CheckpointManager:
                 digest = hashlib.sha256(raw).hexdigest()
                 if digest != ent["sha256"]:
                     raise IOError(f"checksum mismatch for {key!r}")
-            return _from_raw(raw, ent)
+            return _from_raw(raw, ent, copy)
 
         return manifest, leaf, step
 
@@ -225,25 +285,49 @@ class CheckpointManager:
                 device="cpu"):
         """Restore into the structure of ``template``: tensor leaves come
         back as tensors on ``device``, array leaves as numpy arrays.
-        Returns ``(tree, extra, step)``."""
+        Returns ``(tree, extra, step)``.
+
+        With ``mesh`` (a live ``DeviceMesh``; ``specs`` a tree of
+        :class:`~repro_torch.distributed.sharding.P` over the template's
+        keys, a missing one replicated) each leaf comes back as this
+        rank's block of it (``shard_leaf``), the elastic re-mesh restore.
+        The template holds whole shapes (tensors, on the ``meta`` device
+        if need be, or arrays), which are checked against the
+        manifest's."""
         import torch
 
-        if mesh is not None or specs is not None:
-            raise NotImplementedError(
-                "elastic re-mesh restore (mesh=, specs=) comes with the "
-                "sharded training path, ROADMAP Queue A item 14d iii")
-        manifest, leaf, step = self._leaves(step, verify)
-        restored = {}
-        for key, tmpl in _flatten(template).items():
-            arr = leaf(key)
+        if specs is not None and mesh is None:
+            raise ValueError("specs= places leaves on a mesh: pass mesh= too")
+        cut = None
+        if mesh is not None:
+            from repro_torch.distributed.sharding import (mesh_coords,
+                                                          shard_leaf)
+            spec_of, coords = _spec_lookup(specs), mesh_coords(mesh)
+
+            def cut(key, arr):                       # a block of its own
+                block = shard_leaf(arr, spec_of(key), mesh, coords)
+                return (block.clone() if isinstance(block, torch.Tensor)
+                        else np.array(block))
+
+        manifest, leaf, step = self._leaves(step, verify, copy=cut is None)
+        flat_t = _flatten(template)
+
+        def load(key):
+            tmpl, arr = flat_t[key], leaf(key)
             if list(arr.shape) != list(tmpl.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{tuple(arr.shape)} vs {tuple(tmpl.shape)}")
+            if cut is not None:
+                arr = cut(key, arr)
             if isinstance(tmpl, torch.Tensor):
                 t = arr if isinstance(arr, torch.Tensor) \
                     else torch.from_numpy(arr)
                 arr = t.to(device)
-            restored[key] = arr
+            return arr
+
+        # leaves are read and verified on threads (both release the GIL)
+        with ThreadPoolExecutor(IO_THREADS) as pool:
+            restored = dict(zip(flat_t, pool.map(load, flat_t)))
         return _unflatten(template, restored), manifest["extra"], step
 
     def restore_flat(self, step: Optional[int] = None, verify: bool = True):
@@ -265,18 +349,17 @@ class CheckpointManager:
         file).  ``.tmp`` directories — crashes mid-save — are invisible by
         construction (:meth:`all_steps` excludes them).  With
         ``template=None`` restores the flat mapping (:meth:`restore_flat`).
-        Raises ``FileNotFoundError`` when no checkpoint restores cleanly."""
-        if mesh is not None or specs is not None:
-            raise NotImplementedError(
-                "elastic re-mesh restore (mesh=, specs=) comes with the "
-                "sharded training path, ROADMAP Queue A item 14d iii")
+        Raises ``FileNotFoundError`` when no checkpoint restores cleanly.
+        ``mesh`` / ``specs``: as :meth:`restore`."""
+        if specs is not None and mesh is None:
+            raise ValueError("specs= places leaves on a mesh: pass mesh= too")
         errors = []
         for step in sorted(self.all_steps(), reverse=True):
             try:
                 if template is None:
                     return self.restore_flat(step, verify=verify)
-                return self.restore(template, step, verify=verify,
-                                    device=device)
+                return self.restore(template, step, mesh=mesh, specs=specs,
+                                    verify=verify, device=device)
             except (OSError, KeyError, ValueError,
                     json.JSONDecodeError) as exc:
                 errors.append(f"step {step}: {type(exc).__name__}: {exc}")

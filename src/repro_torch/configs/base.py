@@ -4,8 +4,9 @@ Every architecture is a frozen :class:`ArchConfig`, one module per
 architecture under ``repro_torch.configs`` (data only, the same values as
 the JAX package's); the four input shapes are :class:`ShapeConfig`
 (:data:`SHAPES`).  :func:`get_arch` maps ``--arch`` ids to them.  The
-model code (:mod:`repro_torch.models.transformer`) runs all six families
-on one device, and the dense and moe families on a device mesh.
+model code (:mod:`repro_torch.models.transformer`) serves, prefills and
+trains all six families on one device, and the dense and moe families on
+a device mesh too (the other four on a mesh: ROADMAP item 14d iii-b).
 """
 
 from __future__ import annotations

@@ -153,13 +153,47 @@ def shard_params_from_jax(params: dict, cfg: ArchConfig, mesh, specs=None,
     (this rank of the live ``mesh`` when not given) holds under ``specs``
     (the serve step's layout,
     :func:`repro_torch.distributed.step.serve_param_specs`, when not
-    given)."""
+    given; the train and prefill steps take
+    :func:`~repro_torch.distributed.step.train_param_specs`)."""
     if specs is None:
         from repro_torch.distributed.step import serve_param_specs
         specs = serve_param_specs(cfg, mesh)
     return _convert(params, param_shapes(cfg), "params/",
                     resolve(torch_device), specs=specs,
                     cut=_cutter(mesh, coords))
+
+
+def shard_opt_state_from_jax(state: dict, cfg: ArchConfig, mesh, specs=None,
+                             coords=None, torch_device="cuda") -> dict:
+    """The blocks of the JAX package's AdamW state (``adamw_init`` /
+    ``adamw_update``'s ``{"mu", "nu", "count"}``, or the int8 moments'
+    ``{"mu_q", "mu_s", "nu_q", "nu_s", "count"}``) that the rank at
+    ``coords`` holds when the parameters lie under ``specs``
+    (:func:`repro_torch.distributed.step.train_param_specs` when not
+    given): the moments' ZeRO-1 layout of ``train_opt_specs``.  ``count``
+    stays a 0-d int32 tensor on the host, as ``adamw_init`` makes it."""
+    from repro_torch.distributed.step import (meta_opt_state,
+                                              train_opt_specs,
+                                              train_param_specs)
+    from repro_torch.tree import tree_map
+
+    specs = train_param_specs(cfg, mesh) if specs is None else specs
+    moment_dtype = "int8" if "mu_q" in state else "f32"
+    ospecs = train_opt_specs(cfg, mesh, specs, moment_dtype)
+    meta = meta_opt_state(cfg, moment_dtype)
+    if set(state) != set(meta):
+        raise ValueError(f"opt/: expected keys {sorted(meta)}, got "
+                         f"{sorted(state)}")
+    dev = resolve(torch_device)
+    out = {"count": torch.as_tensor(np.asarray(state["count"]),
+                                    dtype=torch.int32)}
+    for k in meta:
+        if k != "count":
+            out[k] = _convert(state[k], tree_map(lambda t: tuple(t.shape),
+                                                 meta[k]),
+                              f"opt/{k}/", dev, specs=ospecs[k],
+                              cut=_cutter(mesh, coords))
+    return out
 
 
 def decode_state_from_jax(state: dict, cfg: ArchConfig, torch_device="cuda",

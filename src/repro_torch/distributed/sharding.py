@@ -57,7 +57,12 @@ class P(tuple):
 
 def axis_names(mesh) -> Tuple[str, ...]:
     names = getattr(mesh, "mesh_dim_names", None)
-    return tuple(names if names is not None else mesh.axis_names)
+    if names is None:
+        names = getattr(mesh, "axis_names", None)
+    if names is None:
+        raise TypeError(f"a {type(mesh).__name__} is not a device mesh: it "
+                        "has no axis names")
+    return tuple(names)
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -366,3 +371,111 @@ def shard_tree(tree, specs, mesh, coords: Optional[Mapping[str, int]] = None):
     """:func:`shard_leaf` over a tree and its spec tree (views)."""
     coords = mesh_coords(mesh) if coords is None else coords
     return tree_map(lambda x, s: shard_leaf(x, s, mesh, coords), tree, specs)
+
+
+# ------------------------------------------------ blocks put back together
+def spec_axes(spec: P) -> Tuple[str, ...]:
+    """Every mesh axis ``spec`` cuts over, in its order."""
+    return tuple(a for e in spec for a in _axes(e))
+
+
+def _entries(spec: P, ndim: int) -> tuple:
+    return tuple(spec)[:ndim] + (None,) * (ndim - len(spec))
+
+
+def unshard_leaf(local, spec: P, mesh):
+    """The whole tensor of which ``local`` is this rank's block under
+    ``spec`` (a collective over every axis the spec cuts, so every rank
+    of the mesh makes the call): what a global ``jax.Array`` is to the
+    reference.  A dimension cut over several axes is put together
+    innermost axis first, the inverse of :func:`block_slices`'
+    row-major cut."""
+    from repro_torch.distributed import collectives as col
+
+    if not hasattr(local, "dim"):           # a Python scalar (``cur``)
+        return local
+    for d, entry in enumerate(_entries(spec, local.dim())):
+        for a in reversed(_axes(entry)):
+            local = col.all_gather(local, mesh, a, d)
+    return local
+
+
+def unshard_tree(local, specs, mesh):
+    """:func:`unshard_leaf` over a tree and its spec tree."""
+    return tree_map(lambda x, s: unshard_leaf(x, s, mesh), local, specs)
+
+
+def tp_only(spec: P, tp: str) -> P:
+    """``spec`` with every axis but ``tp`` dropped: the layout a layer
+    computes in."""
+    return P(*(tp if tp in _axes(e) else None for e in spec))
+
+
+def compute_specs(params, cfg: ArchConfig, mesh,
+                  ax: Optional[MeshAxes] = None):
+    """The layout each parameter is used in by the mesh forward: the
+    train rules' (:func:`_rule`) tp entries only, or replicated where
+    they do not divide the leaf.  A leaf stored under any spec is
+    gathered to this one, differentiably, just before its layer uses it
+    (:func:`regather`)."""
+    ax = ax or MeshAxes.for_mesh(mesh)
+
+    def leaf_spec(path, leaf):
+        shape = _shape(leaf)
+        spec = tp_only(P(*tuple(_rule(path, cfg, ax))[:len(shape)]), ax.tp)
+        return spec if _spec_fits(mesh, shape, spec) else P()
+
+    return map_with_path(leaf_spec, params)
+
+
+def regather(x, spec: P, cspec: P, mesh, ax: Optional[MeshAxes] = None):
+    """This rank's block ``x`` under ``spec`` as its block under the
+    compute spec ``cspec`` (tp entries only), differentiably.
+
+    Forward: every dimension ``spec`` cuts otherwise than ``cspec`` is
+    gathered over its axes (innermost first), then every dimension
+    ``cspec`` cuts is narrowed to this rank's tp block.  Backward: each
+    gather sums over a dp axis (the ranks' batch rows differ) and over
+    the tp axis when ``cspec`` cuts over it (the tp ranks' blocks then
+    hold disjoint gradients), and keeps this rank's piece; a tp cut that
+    ``spec`` does not hold is summed over tp (``copy_to``) before the
+    narrow.  So the gradient that comes back is this rank's block of the
+    gradient of its own rows' objective summed over the dp axes that
+    ``spec`` cuts; :func:`dp_reduce` sums the dp axes it does not."""
+    from repro_torch.distributed import collectives as col
+
+    ax = ax or MeshAxes.for_mesh(mesh)
+    s, c = _entries(spec, x.dim()), _entries(cspec, x.dim())
+    if s == c:
+        return x
+    tp_used = any(e is not None for e in c)
+    for d in range(x.dim()):
+        if s[d] != c[d]:
+            for a in reversed(_axes(s[d])):
+                x = col.gather(x, mesh, a, d, summed=a in ax.dp or tp_used)
+    if tp_used and ax.tp not in spec_axes(P(*s)):
+        x = col.copy_to(x, mesh, ax.tp)
+    for d in range(x.dim()):
+        if c[d] is not None and s[d] != c[d]:
+            n = col.axis_size(mesh, ax.tp)
+            step = x.shape[d] // n
+            x = x.narrow(d, col.axis_index(mesh, ax.tp) * step, step)
+    return x
+
+
+def dp_reduce(grads, specs, mesh, ax: Optional[MeshAxes] = None):
+    """Each gradient summed over the dp axes its leaf's spec does not cut
+    (the leaf is replicated over them, each rank holding the gradient of
+    its own rows; :func:`regather` summed the dp axes the spec cuts), in
+    place."""
+    from repro_torch.distributed import collectives as col
+
+    ax = ax or MeshAxes.for_mesh(mesh)
+
+    def leaf(g, spec):
+        for a in ax.dp:
+            if a not in spec_axes(spec):
+                col.psum_(g, mesh, a)
+        return g
+
+    return tree_map(leaf, grads, specs)

@@ -3,7 +3,8 @@
 ``make_production_mesh`` and ``make_debug_mesh`` are functions, not
 module-level constants, so importing this module builds nothing.  Each
 returns a :class:`~torch.distributed.device_mesh.DeviceMesh` with the JAX
-package's axis names (``data``, ``model``; ``pod``, ``data``, ``model``),
+package's axis names (``data``, ``model``; ``pod``, ``data``, ``model``;
+a pipeline's 1-D ``pod`` stage axis),
 over the default process group, which the caller initialises first
 (``torch.distributed.init_process_group`` with its own rank and world
 size; several processes may share one card, over gloo).  The world size
@@ -60,6 +61,13 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2, n_pod: int = 0,
     return _mesh((n_data, n_model), ("data", "model"), device_type)
 
 
+def make_stage_mesh(n_stages: int = 4, axis: str = "pod",
+                    device_type: str = "cuda"):
+    """A 1-D mesh of ``n_stages`` pipeline stages (the reference's
+    ``jax.make_mesh((4,), ("pod",))``)."""
+    return _mesh((n_stages,), (axis,), device_type)
+
+
 def _rank_main(rank: int, fn, world: int, workdir: str, args, timeout_s):
     import torch
     import torch.distributed as dist
@@ -76,7 +84,8 @@ def _rank_main(rank: int, fn, world: int, workdir: str, args, timeout_s):
 
 
 def run_local_ranks(fn, world: int, workdir, args=(), timeout_s: float = 600):
-    """Run ``fn(rank, *args)`` in ``world`` spawned processes, each a rank
+    """Run ``fn(rank, *args)`` in ``world`` (any count: 2 for a data 1 x
+    model 2 restore, 4 for a 2 x 2 mesh) spawned processes, each a rank
     of a gloo default process group (rendezvous in ``workdir``, which must
     hold no earlier rendezvous file).  ``fn`` must be importable by the
     child (a module-level function) and return tensors, numbers or

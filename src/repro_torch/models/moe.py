@@ -62,8 +62,8 @@ def capacity_for(tokens: int, cfg: MoEConfig,
     return max(1, math.ceil(tokens * cfg.top_k / cfg.n_experts * f))
 
 
-def _route(x, router, top_k: int):
-    """x: (T, D) -> (weights (T, K), expert_idx (T, K), aux_loss)."""
+def _route_probs(x, router, top_k: int):
+    """x: (T, D) -> (weights (T, K), expert_idx (T, K), probs (T, E))."""
     logits = x.float() @ router.float()                       # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort: equal probabilities keep the lower index
@@ -71,11 +71,22 @@ def _route(x, router, top_k: int):
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, idx = weights[:, :top_k], idx[:, :top_k]
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
-    E = router.shape[1]
+    return weights, idx, probs
+
+
+def _balance(idx, probs):
+    """The Switch balance loss of a token set: ``E`` times the sum over
+    experts of the share of tokens whose first choice it is times its mean
+    probability."""
+    E = probs.shape[1]
     density = F.one_hot(idx[:, 0], E).float().mean(dim=0)
-    mean_prob = probs.mean(dim=0)
-    aux = E * torch.sum(density * mean_prob)
-    return weights, idx, aux
+    return E * torch.sum(density * probs.mean(dim=0))
+
+
+def _route(x, router, top_k: int):
+    """x: (T, D) -> (weights (T, K), expert_idx (T, K), aux_loss)."""
+    weights, idx, probs = _route_probs(x, router, top_k)
+    return weights, idx, _balance(idx, probs)
 
 
 def _grouping(flat, n_experts: int):
@@ -187,7 +198,7 @@ def moe_ffn_sharded(x, p: Dict[str, torch.Tensor], cfg: MoEConfig, mesh,
                     dp_axes: Tuple[str, ...], tp_axis: str,
                     capacity_factor: Optional[float] = None,
                     batch_replicated: bool = False,
-                    resident_experts: bool = False):
+                    resident_experts: bool = False, batch_aux: bool = False):
     """The MoE layer over a (dp..., tp) ``DeviceMesh``, on this rank's
     blocks: x (B_loc, S, D), its rows this rank's part of the batch over
     ``dp_axes`` (or the whole batch with ``batch_replicated``); ``p`` the
@@ -234,25 +245,39 @@ def moe_ffn_sharded(x, p: Dict[str, torch.Tensor], cfg: MoEConfig, mesh,
             out = out[dpi * T_loc:(dpi + 1) * T_loc]
         aux = col.pmean(aux, mesh, tp_axis)
         return out.reshape(x.shape).to(x.dtype), aux
-    weights, idx, aux = _route(xf, p["router"], K)
+    weights, idx, probs = _route_probs(xf, p["router"], K)
     C = capacity_for(T_loc, cfg, capacity_factor)
     slots, valid = _dispatch_indices(idx, E, C)
-    xe = _grouped_tokens(xf, slots, valid, K)                  # (E, C, D)
     if mode == "ep":
         # each expert's block to its owner; rows now hold my experts'
         # tokens from every source rank
-        xr = col.all_to_all(xe, mesh, tp_axis)
+        xe = _grouped_tokens(xf, slots, valid, K)              # (E, C, D)
+        xr = col.exchange(xe, mesh, tp_axis)
         e_loc = E // n_tp
         xr = xr.reshape(n_tp, e_loc, C, D).transpose(0, 1) \
                .reshape(e_loc, n_tp * C, D)
-        yr = _expert_ffn(xr, p["w_gate"], p["w_up"], p["w_down"])
+        w = [col.scale_grad(p[k], 1.0 / n_tp)
+             for k in ("w_gate", "w_up", "w_down")]
+        yr = _expert_ffn(xr, *w)
         yr = yr.reshape(e_loc, n_tp, C, D).transpose(0, 1).reshape(E, C, D)
-        ye = col.all_to_all(yr, mesh, tp_axis)
+        ye = col.exchange(yr, mesh, tp_axis)
     else:
-        ye = col.psum(_expert_ffn(xe, p["w_gate"], p["w_up"], p["w_down"]),
-                      mesh, tp_axis)             # reduce over F shards
+        xe = _grouped_tokens(col.copy_to(xf, mesh, tp_axis), slots, valid, K)
+        ye = col.reduce_from(_expert_ffn(xe, p["w_gate"], p["w_up"],
+                                         p["w_down"]),
+                             mesh, tp_axis)      # reduce over F shards
     out = _combine(ye.float(), weights, idx, E, C)
-    aux = col.pmean(aux, mesh, tp_axis)
-    for axn in dp_axes:
-        aux = col.pmean(aux, mesh, axn)
+    if batch_aux:
+        counts = F.one_hot(idx[:, 0], E).float().sum(dim=0)
+        prob_sum = probs.sum(dim=0)
+        T_all = T_loc
+        for axn in dp_axes:
+            counts = col.psum(counts, mesh, axn)
+            prob_sum = col.reduce_from(prob_sum, mesh, axn)
+            T_all *= col.axis_size(mesh, axn)
+        aux = E * torch.sum((counts / T_all) * (prob_sum / T_all))
+    else:
+        aux = col.pmean(_balance(idx, probs), mesh, tp_axis)
+        for axn in dp_axes:
+            aux = col.pmean(aux, mesh, axn)
     return out.reshape(x.shape).to(x.dtype), aux

@@ -37,20 +37,32 @@ super-block) with ``torch.utils.checkpoint``, as the reference's
 matrix products (``aten.mm``), as ``dots_with_no_batch_dims_saveable``
 does.
 
-On a device mesh (a :class:`MeshCtx`), :func:`decode_step` runs the
-dense and moe families, each rank on its own blocks (the layouts of
-:mod:`repro_torch.distributed.sharding`) over ``torch.distributed``,
-doing by hand what the reference's partitioner does from its specs: the
-embedding cut over the vocab (a local lookup, then ``psum``), attention
+On a device mesh (a :class:`MeshCtx`), :func:`decode_step` and
+:func:`forward` run the dense and moe families, each rank on its own
+blocks (the layouts of :mod:`repro_torch.distributed.sharding`) over
+``torch.distributed``, doing by hand what the reference's partitioner
+does from its specs: the embedding cut over the vocab (a local lookup,
+then ``psum``), the SwiGLU column- then row-parallel (then ``psum``), the
+MoE layer's ``moe_ffn_sharded``, the LM head cut over the vocab, norms
+replicated, batch rows over the dp axes.  Decode attends
 sequence-sharded through the kernel
 (:func:`repro_torch.distributed.decode.decode_attn_sharded`) when the
-model axis has more than one rank, the SwiGLU column- then row-parallel
-(then ``psum``), the MoE layer's ``moe_ffn_sharded``, the LM head cut
-over the vocab (its logits gathered), norms replicated, batch rows over
-the dp axes (or replicated).  The other families on a mesh, and a mesh in
-:func:`forward`, raise ``NotImplementedError``; so does the vlm family
-with ``kv_dtype="int8"`` (the reference's vlm decode loop passes no
-scales).
+model axis has more than one rank, and gathers its logits over the
+vocab.  The mesh forward (prefill and training) attends head-parallel:
+the ``wq`` / ``wk`` / ``wv`` column blocks give each rank ``H / n_tp``
+query heads over ``KV / n_tp`` KV heads, which it runs through the
+kernel, then the ``wo`` row block and a ``psum``; where the model axis
+cuts inside a head (``KV % n_tp != 0``) it gathers q / k / v over the
+model axis and attends over every head.  Its parameters may be stored
+under any spec (``MeshCtx.specs``: the train rules, or fully sharded);
+each is gathered, differentiably, to its compute spec
+(``MeshCtx.cspecs``) just before its layer uses it, inside the layer's
+remat.  Its logits stay cut over the vocab (this rank's block under
+``P(dp, None, tp)``); the collectives carry gradients
+(:mod:`repro_torch.distributed.collectives`).  The other families on a
+mesh raise ``NotImplementedError`` (``MESH_ITEM``); so does the vlm
+family with ``kv_dtype="int8"`` (the reference's vlm decode loop passes
+no scales).
 """
 
 from __future__ import annotations
@@ -74,15 +86,17 @@ from repro_torch.models.ssm import (init_ssm_params, ssd_decode_step,
 from repro_torch.torch_device import resolve
 
 ROADMAP_ITEM = "ROADMAP Queue A item 14"
-MESH_ITEM = "ROADMAP Queue A item 14d iii"
+MESH_ITEM = "ROADMAP Queue A item 14d iii-b"
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 MESH_FAMILIES = ("dense", "moe")
 
 
 @dataclass(frozen=True)
 class MeshCtx:
-    """Distribution context of a decode step on a device mesh (None: one
-    device): the ``DeviceMesh``, its dp axes and tp axis."""
+    """Distribution context of a step on a device mesh (None: one
+    device): the ``DeviceMesh``, its dp axes and tp axis; for the mesh
+    forward, the specs the parameters are stored under and their compute
+    specs (None: stored in the compute layout)."""
     mesh: Any
     dp_axes: Tuple[str, ...]
     tp_axis: str
@@ -92,15 +106,17 @@ class MeshCtx:
     # decode-time MoE layout: expert weights resident (tp x dp), tokens
     # gathered (repro_torch.models.moe.moe_ffn_sharded)
     resident_experts: bool = False
+    specs: Any = None
+    cspecs: Any = None
 
 
 def require_mesh_ported(cfg: ArchConfig) -> None:
-    """Refuse the families whose decode on a mesh is not ported."""
+    """Refuse the families that do not run on a mesh yet."""
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: decode of the {cfg.family} family on a device mesh "
-            f"is not ported yet ({MESH_ITEM}); the dense and moe families "
-            "run on a mesh")
+            f"{cfg.name}: the {cfg.family} family on a device mesh (decode, "
+            f"forward, training) is not ported yet ({MESH_ITEM}); the dense "
+            "and moe families run on a mesh")
 
 
 def require_ported(cfg: ArchConfig) -> None:
@@ -273,20 +289,24 @@ def _embed(params, cfg: ArchConfig, tokens, ctx: Optional[MeshCtx] = None):
     local = tokens - col.axis_index(ctx.mesh, ctx.tp_axis) * v_loc
     inside = (local >= 0) & (local < v_loc)
     rows = L.embed_tokens(table, torch.clamp(local, 0, v_loc - 1))
-    return col.psum(torch.where(inside[..., None], rows, 0.0), ctx.mesh,
-                    ctx.tp_axis)
+    return col.reduce_from(torch.where(inside[..., None], rows, 0.0),
+                           ctx.mesh, ctx.tp_axis)
 
 
-def _unembed(params, cfg: ArchConfig, x, ctx: Optional[MeshCtx] = None):
+def _unembed(params, cfg: ArchConfig, x, ctx: Optional[MeshCtx] = None,
+             gather: bool = True):
     """Logits.  On a mesh whose head is cut over the vocab, each rank's
-    columns, gathered along the vocab."""
+    columns, gathered along the vocab (this rank's columns alone when
+    not ``gather``)."""
     if cfg.n_codebooks:
         return torch.einsum("bsd,qdv->bsqv", x, params["lm_head"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head
     if ctx is None or head.shape[-1] == cfg.padded_vocab:
-        return logits
+        return x @ head
     from repro_torch.distributed import collectives as col
+    logits = col.copy_to(x, ctx.mesh, ctx.tp_axis) @ head
+    if not gather:
+        return logits
     return col.all_gather(logits, ctx.mesh, ctx.tp_axis, logits.dim() - 1)
 
 
@@ -336,26 +356,30 @@ def _cross_attn_forward(x, blk, cfg: ArchConfig, frontend):
     return x + torch.tanh(blk["gate"]) * o
 
 
-def _ffn_forward(x, blk, cfg: ArchConfig, ctx: Optional[MeshCtx] = None):
+def _ffn_forward(x, blk, cfg: ArchConfig, ctx: Optional[MeshCtx] = None,
+                 batch_aux: bool = False):
     """The block's FFN on x (B, S, D): the MoE layer, SwiGLU, or nothing.
-    Returns (y, aux).  On a mesh: ``moe_ffn_sharded``, or the SwiGLU on
-    this rank's hidden columns (``w_gate`` / ``w_up`` column blocks,
-    ``w_down`` a row block) summed over the model axis."""
+    Returns (y, aux).  On a mesh: ``moe_ffn_sharded`` (its balance loss
+    over the whole batch with ``batch_aux``), or the SwiGLU on this
+    rank's hidden columns (``w_gate`` / ``w_up`` column blocks, ``w_down``
+    a row block) summed over the model axis."""
     if cfg.moe is not None:
         if ctx is not None:
             return moe_ffn_sharded(x, blk["moe"], cfg.moe, ctx.mesh,
                                    ctx.dp_axes, ctx.tp_axis,
                                    batch_replicated=ctx.batch_replicated,
-                                   resident_experts=ctx.resident_experts)
+                                   resident_experts=ctx.resident_experts,
+                                   batch_aux=batch_aux)
         B, S, D = x.shape
         y, aux = moe_ffn_local(x.reshape(-1, D), blk["moe"], cfg.moe)
         return y.reshape(B, S, D), aux
     if cfg.d_ff:
-        y = L.swiglu(x, blk["w_gate"], blk["w_up"], blk["w_down"])
-        if ctx is not None and blk["w_down"].shape[-2] != cfg.d_ff:
-            from repro_torch.distributed import collectives as col
-            y = col.psum(y, ctx.mesh, ctx.tp_axis)
-        return y, 0.0
+        if ctx is None or blk["w_down"].shape[-2] == cfg.d_ff:
+            return L.swiglu(x, blk["w_gate"], blk["w_up"], blk["w_down"]), 0.0
+        from repro_torch.distributed import collectives as col
+        y = L.swiglu(col.copy_to(x, ctx.mesh, ctx.tp_axis), blk["w_gate"],
+                     blk["w_up"], blk["w_down"])
+        return col.reduce_from(y, ctx.mesh, ctx.tp_axis), 0.0
     return torch.zeros_like(x), 0.0
 
 
@@ -365,19 +389,98 @@ def _mix(a, s, blk, cfg: ArchConfig):
                   + L.rms_norm(s, blk["norm_ssm"], cfg.norm_eps))
 
 
-def _block_forward(x, blk, cfg: ArchConfig, positions):
+def _attn_mesh(x, blk, cfg: ArchConfig, positions, ctx: MeshCtx):
+    """One attention layer of the mesh forward on this rank's blocks (see
+    the module's docstring): replicated weights attend as on one device;
+    column blocks that hold whole KV heads attend head-parallel; column
+    blocks cut inside a head gather q / k / v over the model axis."""
+    from repro_torch.distributed import collectives as col
+
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mesh, tp = ctx.mesh, ctx.tp_axis
+    cols = blk["wq"].shape[-1]
+    if cols == H * hd:
+        return _attn_forward(x, blk, cfg, positions)
+    n_tp = col.axis_size(mesh, tp)
+    if n_tp * cols != H * hd:
+        raise ValueError(f"{cfg.name}: wq column block {cols} is not 1/{n_tp} "
+                         f"of {H * hd}")
+    xt = col.copy_to(x, mesh, tp)
+    if KV % n_tp == 0:                          # whole heads: head-parallel
+        q = (xt @ blk["wq"]).reshape(B, S, H // n_tp, hd)
+        k = (xt @ blk["wk"]).reshape(B, S, KV // n_tp, hd)
+        v = (xt @ blk["wv"]).reshape(B, S, KV // n_tp, hd)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        o = L.flash_attention(q, k, v, causal=True, window=cfg.swa_window)
+        o = o.reshape(B, S, cols)
+    else:                                       # the cut falls in a head
+        parts = [blk["wq"].shape[-1], blk["wk"].shape[-1],
+                 blk["wv"].shape[-1]]
+        mine = torch.cat([xt @ blk["wq"], xt @ blk["wk"], xt @ blk["wv"]],
+                         dim=-1)
+        full = col.gather(mine.reshape(B, S, 1, sum(parts)), mesh, tp, 2)
+        q, k, v = (t.reshape(B, S, -1) for t in
+                   torch.split(full, parts, dim=3))
+        q = L.apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
+        k = L.apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+        o = L.flash_attention(q, k, v.reshape(B, S, KV, hd), causal=True,
+                              window=cfg.swa_window)
+        tpi = col.axis_index(mesh, tp)
+        o = o.reshape(B, S, H * hd)[..., tpi * cols:(tpi + 1) * cols]
+    return col.reduce_from(o @ blk["wo"], mesh, tp)
+
+
+def _block_forward(x, blk, cfg: ArchConfig, positions,
+                   ctx: Optional[MeshCtx] = None):
     """One decoder block (attention / SSM / both, then the FFN).  Returns
-    (x, aux)."""
+    (x, aux).  With a ``MeshCtx`` (dense and moe families): this rank's
+    blocks, gathered to their compute specs first."""
+    if ctx is not None:
+        blk = _compute_layout(blk, ctx, "blocks")
     h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         return x + ssd_forward(h, blk["ssm"], cfg.ssm), 0.0
-    a = _attn_forward(h, blk, cfg, positions)
+    if ctx is not None:
+        a = _attn_mesh(h, blk, cfg, positions, ctx)
+    else:
+        a = _attn_forward(h, blk, cfg, positions)
     if cfg.family == "hybrid":
         a = _mix(a, ssd_forward(h, blk["ssm"], cfg.ssm), blk, cfg)
     x = x + a
     h2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-    y, aux = _ffn_forward(h2, blk, cfg)
+    y, aux = _ffn_forward(h2, blk, cfg, ctx, batch_aux=True)
     return x + y, aux
+
+
+def _layer_spec(spec):
+    """A stacked leaf's spec without its layer axis, which the mesh
+    forward takes uncut."""
+    from repro_torch.distributed.sharding import P
+    if len(spec) and spec[0] is not None:
+        raise ValueError(f"a spec that cuts the layer axis ({spec}) is not "
+                         "supported by the mesh forward")
+    return P(*tuple(spec)[1:])
+
+
+def _compute_layout(tree, ctx: MeshCtx, key: Optional[str] = None):
+    """``tree`` (a layer's blocks when ``key`` is ``"blocks"``, else the
+    parameters' top-level leaf ``key``) gathered from ``ctx.specs`` to
+    ``ctx.cspecs``; as it is when the context holds no specs."""
+    if ctx.specs is None:
+        return tree
+    from repro_torch.distributed.sharding import regather
+
+    if key != "blocks":
+        return regather(tree, ctx.specs[key], ctx.cspecs[key], ctx.mesh)
+
+    def walk(t, s, c):
+        return {k: walk(v, s[k], c[k]) if isinstance(v, dict) else
+                regather(v, _layer_spec(s[k]), _layer_spec(c[k]), ctx.mesh)
+                for k, v in t.items()}
+
+    return walk(tree, ctx.specs["blocks"], ctx.cspecs["blocks"])
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -424,11 +527,21 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     without experts.  ``remat`` checkpoints each block (and each vlm
     super-block) for the backward pass; ``unroll`` (the reference's
     Python loop in place of ``lax.scan``) changes nothing here, where the
-    layers are a Python loop."""
+    layers are a Python loop.
+
+    With a :class:`MeshCtx` (dense and moe families) every argument and
+    result is this rank's block: the batch its dp rows, the parameters
+    stored under ``ctx.specs`` (gathered to ``ctx.cspecs`` layer by
+    layer), the logits ``(B_loc, S, V_loc)`` its block under ``P(dp,
+    None, tp)``; ``aux`` is the balance loss of the whole batch (every
+    rank holds it)."""
     require_ported(cfg)
     if ctx is not None:
-        raise NotImplementedError(
-            f"a forward on a device mesh is not ported yet ({MESH_ITEM})")
+        require_mesh_ported(cfg)
+        if not isinstance(ctx, MeshCtx):
+            raise TypeError(f"ctx must be a MeshCtx (a mesh's distribution "
+                            f"context), got a {type(ctx).__name__}")
+        return _forward_mesh(params, cfg, batch, ctx, remat, remat_policy)
     x = _embed(params, cfg, batch["tokens"].long())
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     body = _remat(lambda x, blk: _block_forward(x, blk, cfg, positions),
@@ -457,6 +570,23 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), aux
+
+
+def _forward_mesh(params, cfg: ArchConfig, batch, ctx: MeshCtx, remat: bool,
+                  remat_policy: Optional[str]):
+    """:func:`forward` on a mesh (dense and moe families)."""
+    top = {k: _compute_layout(params[k], ctx, k)
+           for k in ("embed", "lm_head", "final_norm") if k in params}
+    x = _embed(top, cfg, batch["tokens"].long(), ctx)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    body = _remat(lambda x, blk: _block_forward(x, blk, cfg, positions, ctx),
+                  remat, remat_policy)
+    aux = 0.0
+    for i in range(cfg.n_layers):
+        x, a = body(x, layer(params["blocks"], i))
+        aux = aux + a
+    x = L.rms_norm(x, top["final_norm"], cfg.norm_eps)
+    return _unembed(top, cfg, x, ctx, gather=False), aux
 
 
 # --------------------------------------------------------------- decode

@@ -15,6 +15,16 @@ float32, but writes the new parameters and moments **in place** into the
 given tensors (the reference returns new trees): at minicpm-2b's 3.0 B
 parameters a second copy of parameters and float32 moments would be 36 GB
 more than one card holds beside them.  It returns the same trees.
+
+On a device mesh (``mesh=``, with the parameters' ``specs`` and the
+moments' ``opt_specs`` from ``opt_state_specs``) every tree holds this
+rank's blocks and the update is the one-device update of those blocks:
+a moment that ZeRO-1 cuts over the dp axes updates this rank's dp piece
+of its parameter, which is then gathered over the dp axes into the
+parameter's block; :func:`global_norm` counts every element once (each
+leaf's sum of squares summed over the axes that cut it, not over those it
+is replicated on); an int8 moment's row scale takes the largest value
+over the axes that cut its last dimension.
 """
 
 from __future__ import annotations
@@ -45,8 +55,10 @@ def _q8_init(p):
             torch.zeros(shape[:-1], dtype=torch.float16, device=p.device))
 
 
-def _q8_encode_signed(x):
-    scale = torch.clamp(x.abs().amax(dim=-1), min=1e-20) / 127.0
+def _q8_encode_signed(x, row_max=None):
+    m = x.abs().amax(dim=-1)
+    m = m if row_max is None else row_max(m)
+    scale = torch.clamp(m, min=1e-20) / 127.0
     q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale.to(torch.float16)
 
@@ -55,9 +67,11 @@ def _q8_decode_signed(q, scale):
     return q.float() * scale.float()[..., None]
 
 
-def _q8_encode_unsigned(x):
+def _q8_encode_unsigned(x, row_max=None):
     """nu >= 0: the int8 range as [0, 254], for a bit more resolution."""
-    scale = torch.clamp(x.amax(dim=-1), min=1e-20) / 254.0
+    m = x.amax(dim=-1)
+    m = m if row_max is None else row_max(m)
+    scale = torch.clamp(m, min=1e-20) / 254.0
     q = torch.clamp(torch.round(x / scale[..., None]), 0, 254) - 127
     return q.to(torch.int8), scale.to(torch.float16)
 
@@ -84,19 +98,58 @@ def adamw_init(params, moment_dtype: str = "f32") -> dict:
             "count": count}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
-    total = sum(g.float().square().sum() for g in tree_leaves(tree))
+def global_norm(tree, *, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares.  On a mesh
+    (``tree`` this rank's blocks under ``specs``) each leaf's sum is
+    summed over the axes its spec cuts."""
+    if mesh is None:
+        total = sum(g.float().square().sum() for g in tree_leaves(tree))
+        return torch.sqrt(total)
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import spec_axes
+
+    groups: dict = {}
+    for g, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        key = spec_axes(spec)
+        groups[key] = groups.get(key, 0.0) + g.float().square().sum()
+    total = 0.0
+    for axes, part in groups.items():
+        for a in axes:
+            part = col.psum(part, mesh, a)
+        total = total + part
     return torch.sqrt(total)
 
 
-def adamw_update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()
+def _zero_dim(spec, ospec, ndim: int):
+    """The dimension that ZeRO-1 cuts over the dp axes in ``ospec`` and
+    ``spec`` leaves whole, with those axes; ``(None, ())`` when the two
+    agree."""
+    from repro_torch.distributed.sharding import _axes, _entries
+
+    s, o = _entries(spec, ndim), _entries(ospec, ndim)
+    for d, (a, b) in enumerate(zip(s, o)):
+        if a != b:
+            if a is not None:
+                raise ValueError(f"moment spec {ospec} is not parameter "
+                                 f"spec {spec} with one more dp cut")
+            return d, _axes(b)
+    return None, ()
+
+
+def adamw_update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig(),
+                 *, mesh=None, specs=None, opt_specs=None
                  ) -> Tuple[Any, dict]:
     """One AdamW step at learning rate ``lr`` (a float or a 0-d tensor).
-    Updates ``params`` and ``state`` in place and returns them."""
+    Updates ``params`` and ``state`` in place and returns them.  On a
+    mesh, ``specs`` / ``opt_specs`` lay out this rank's blocks (see the
+    module's docstring)."""
+    if (mesh is None) != (specs is None) or (mesh is None) != (
+            opt_specs is None):
+        raise ValueError("a mesh update needs mesh, specs and opt_specs "
+                         "together")
     count = state["count"] + 1
     dev = tree_leaves(params)[0].device
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh=mesh, specs=specs)
     clip = None
     if cfg.grad_clip > 0:
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -117,27 +170,68 @@ def adamw_update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()
         p.copy_((p32 - lr * (step + cfg.weight_decay * p32)).to(p.dtype))
         return mu, nu
 
-    def f32(p, g, mu, nu):
+    def zero(p, g, ospec, spec):
+        """``p`` and ``g`` cut to this rank's ZeRO-1 piece, and a function
+        that gathers the updated piece back into ``p``."""
+        if mesh is None:
+            return p, g, lambda: None
+        dim, axes = _zero_dim(spec, ospec, p.dim())
+        if dim is None:
+            return p, g, lambda: None
+        from repro_torch.distributed.sharding import (P, shard_leaf,
+                                                      unshard_leaf)
+
+        cut = P(*(None,) * dim, axes)
+        p_piece = shard_leaf(p, cut, mesh)
+        return (p_piece, shard_leaf(g, cut, mesh),
+                lambda: p.copy_(unshard_leaf(p_piece, cut, mesh)))
+
+    def row_max(ospec, ndim):
+        """The pmax of a row maximum over the axes cutting the last
+        dimension of a moment under ``ospec``."""
+        if mesh is None:
+            return None
+        from repro_torch.distributed import collectives as col
+        from repro_torch.distributed.sharding import _axes, _entries
+
+        axes = _axes(_entries(ospec, max(ndim, 1))[-1])
+
+        def reduce(m):
+            for a in axes:
+                m = col.pmax(m, mesh, a)
+            return m
+
+        return reduce
+
+    def f32(p, g, mu, nu, ospec=None, spec=None):
+        p, g, back = zero(p, g, ospec, spec)
         new_mu, new_nu = moments(p, g, mu, nu)
         mu.copy_(new_mu)
         nu.copy_(new_nu)
+        back()
 
-    def int8(p, g, mu_q, mu_s, nu_q, nu_s):
+    def int8(p, g, mu_q, mu_s, nu_q, nu_s, ospec=None, spec=None):
+        p, g, back = zero(p, g, ospec, spec)
         mu, nu = moments(p, g,
                          _q8_decode_signed(mu_q, mu_s).reshape(p.shape),
                          _q8_decode_unsigned(nu_q, nu_s).reshape(p.shape))
+        rm = row_max(ospec, p.dim())
         for q, s, (codes, scales) in (
-                (mu_q, mu_s, _q8_encode_signed(mu if mu.dim() else mu[None])),
+                (mu_q, mu_s, _q8_encode_signed(mu if mu.dim() else mu[None],
+                                               rm)),
                 (nu_q, nu_s, _q8_encode_unsigned(nu if nu.dim()
-                                                 else nu[None]))):
+                                                 else nu[None], rm))):
             q.copy_(codes)
             s.copy_(scales)
+        back()
 
     with torch.no_grad():
         if cfg.moment_dtype == "int8":
+            extra = (() if mesh is None else (opt_specs["mu_q"], specs))
             tree_map(int8, params, grads, state["mu_q"], state["mu_s"],
-                     state["nu_q"], state["nu_s"])
+                     state["nu_q"], state["nu_s"], *extra)
         else:
-            tree_map(f32, params, grads, state["mu"], state["nu"])
+            extra = (() if mesh is None else (opt_specs["mu"], specs))
+            tree_map(f32, params, grads, state["mu"], state["nu"], *extra)
     state["count"] = count
     return params, state

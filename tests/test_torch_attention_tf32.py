@@ -46,6 +46,20 @@ MODES = {"causal": (256, 256, True, 0), "window": (320, 320, True, 100),
          "edge": (129, 129, True, 0), "cross_edge": (65, 129, False, 0)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The models issue many small tensor ops; across several test
+    processes on one machine, torch's intra-op thread pool then spends
+    far more time waiting on its threads than computing (the file takes
+    19 s alone and took 17 minutes beside five other test processes), so
+    this module runs them on one thread and gives the process its setting
+    back afterwards."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # --------------------------------------------------------------- numerics
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """``cvt.rna.tf32.f32`` on float32 ``x``: the magnitude rounded to 10

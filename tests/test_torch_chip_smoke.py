@@ -860,8 +860,8 @@ def test_the_families_phase_takes_its_models(smoke):
     runs = dict(smoke.FAMILY_RUNS)
     assert {get_arch(a).family for a in runs} == {"ssm", "hybrid", "audio",
                                                   "moe"}
-    assert runs == {"mamba2-2_7b": None, "hymba-1_5b": None,
-                    "musicgen-large": None, "mixtral-8x7b": 4}
+    assert runs == {"mamba2-2_7b": 32, "hymba-1_5b": 16,
+                    "musicgen-large": 24, "mixtral-8x7b": 4}
     assert smoke.FAMILY_SERVE["prompt_len"] + smoke.FAMILY_SERVE["gen"] == \
         smoke.PARITY_TOKENS == 64
     path, line = smoke.INT8_REPLACES.split(":")

@@ -1556,3 +1556,44 @@ def test_sharded_serve_on_one_card_matches_the_one_device_decode(card, arch,
     for (d, t), r in ranks.items():
         pairs = sum(shard_fill(c, ring, 2, t) >= 1 for c in range(steps))
         assert r["launches"]["flash_decode"] == pairs * cfg.n_layers
+
+
+def test_mesh_train_on_one_card_matches_the_one_device_step(card, tmp_path):
+    """``[mesh-train]`` (a) at two layers: four ranks on the one card
+    (gloo, data 2 x model 2) train reduced minicpm-2b through the
+    ``lse`` instance and the backward kernels on each rank's heads: step
+    1's gathered gradients within 1e-4 of each leaf's largest |value| of
+    the one-device gradients, three steps' losses within 1e-5 relative,
+    ``lse`` 2 and each backward kernel 1 launch a layer a step a rank."""
+    import torch_mesh_ranks as R
+    from repro_torch.distributed import step as S
+    from repro_torch.launch.mesh import run_local_ranks
+    from repro_torch.optim import adamw as A
+    from repro_torch.optim.schedules import wsd_schedule
+    from repro_torch.tree import tree_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steps = 3
+    cfg = R.case_config("minicpm-2b")
+    params = init_params(cfg, 0)
+    batch = {k: v.cuda() for k, v in R.pod_batch(cfg).items()}
+    _, grads = S.make_grad_fn(cfg)(params, batch)
+    step = S.make_train_step(cfg, lr_fn=wsd_schedule(1e-3, 2, 5, 5))
+    opt, losses = A.adamw_init(params), []
+    for t in range(steps):
+        params, opt, loss = step(params, opt, batch, t)
+        losses.append(float(loss))
+    ranks = run_local_ranks(R.train_card, 4, tmp_path, args=(steps,),
+                            timeout_s=300)
+    for r in ranks:
+        for (path, g), (_, w) in zip(tree_paths(r["grads"]),
+                                     tree_paths(grads)):
+            tol = 1e-4 * float(w.abs().max())
+            assert float((g - w.cpu()).abs().max()) <= tol, path
+        np.testing.assert_allclose(r["losses"], losses, rtol=1e-5, atol=0)
+        per = steps * cfg.n_layers
+        assert r["launches"] == {"flash_attention": 0,
+                                 "flash_attention_lse": 2 * per,
+                                 "flash_attention_bwd_delta": per,
+                                 "flash_attention_bwd_dkdv": per,
+                                 "flash_attention_bwd_dq": per}

@@ -12,8 +12,12 @@ runs in-process (it needs one device); the JAX package's whole sharded
 serve step is not a reference (its vocab-sharded embedding gather raises
 on the installed JAX).
 
-The families the port does not run on a mesh yet, and a mesh in prefill,
-training and restore, are refused naming the item that brings them."""
+The families the port does not run on a mesh yet are refused naming the
+item that brings them (14d iii-b), in decode, prefill, training and the
+forward; prefill, training and the elastic restore of the dense and moe
+families run on a mesh (``tests/test_torch_mesh_train.py``,
+``tests/test_torch_pipeline.py``), and a malformed mesh or specs are
+refused."""
 
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.convert import decode_state_from_jax, params_from_jax
 from repro_torch.distributed import step as S
+from repro_torch.distributed.sharding import P
 from repro_torch.models import transformer as T
 
 ARCHS = sorted({arch for arch, _, _ in R.SERVE_CASES.values()})
@@ -155,11 +160,11 @@ MESH = _FakeMesh({"data": 2, "model": 2})
                                   "musicgen-large", "llama-3_2-vision-90b"])
 def test_families_not_ported_to_a_mesh_are_refused(arch):
     cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="item 14d iii"):
+    with pytest.raises(NotImplementedError, match="item 14d iii-b"):
         S.make_serve_step(cfg, MESH)
-    with pytest.raises(NotImplementedError, match="item 14d iii"):
+    with pytest.raises(NotImplementedError, match="item 14d iii-b"):
         S.serve_param_specs(cfg, MESH)
-    with pytest.raises(NotImplementedError, match="item 14d iii"):
+    with pytest.raises(NotImplementedError, match="item 14d iii-b"):
         S.init_local_decode_state(cfg, MESH, 4, 8, torch_device="cpu")
     params = T.init_params(cfg, 0, torch_device="cpu")
     frontend = (torch.zeros(1, 8, cfg.d_model) if cfg.cross_attn_every
@@ -167,26 +172,45 @@ def test_families_not_ported_to_a_mesh_are_refused(arch):
     state = T.init_decode_state(params, cfg, 1, 8, frontend=frontend)
     tokens = torch.zeros((1, cfg.n_codebooks) if cfg.n_codebooks else (1,),
                          dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 14d iii"):
+    with pytest.raises(NotImplementedError, match="item 14d iii-b"):
         T.decode_step(params, cfg, state, tokens,
                       ctx=S.make_mesh_ctx(MESH))
 
 
 def test_prefill_training_and_restore_on_a_mesh_are_refused(tmp_path):
-    cfg = get_arch("h2o-danube-3-4b").reduced()
-    for make in (lambda: S.make_prefill_step(cfg, MESH, torch_device="cpu"),
-                 lambda: S.make_train_step(cfg, MESH, lr_fn=lambda s: 1e-3),
-                 lambda: S.make_loss_fn(cfg, S.make_mesh_ctx(MESH))):
-        with pytest.raises(NotImplementedError, match="item 14d iii"):
-            make()
-    params = T.init_params(cfg, 0, torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14d iii"):
-        T.forward(params, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                  ctx=S.make_mesh_ctx(MESH))
+    """Prefill, training, the loss and the forward on a mesh run for the
+    dense and moe families (``tests/test_torch_mesh_train.py``) and still
+    refuse the four other families, naming item 14d iii-b; the elastic
+    restore runs (``tests/test_torch_pipeline.py``) and refuses specs
+    without a mesh, and a mesh that is not one."""
+    dense = get_arch("h2o-danube-3-4b").reduced()
+    assert S.make_loss_fn(dense, S.make_mesh_ctx(MESH)) is not None
+    assert S.train_param_specs(dense, MESH)["blocks"]["wq"] == \
+        P(None, None, "model")
+    for arch in ("mamba2-2_7b", "hymba-1_5b", "musicgen-large",
+                 "llama-3_2-vision-90b"):
+        cfg = get_arch(arch).reduced()
+        for make in (
+                lambda: S.make_prefill_step(cfg, MESH, torch_device="cpu"),
+                lambda: S.make_train_step(cfg, MESH, lr_fn=lambda s: 1e-3),
+                lambda: S.make_loss_fn(cfg, S.make_mesh_ctx(MESH)),
+                lambda: S.train_param_specs(cfg, MESH)):
+            with pytest.raises(NotImplementedError, match="item 14d iii-b"):
+                make()
+        with pytest.raises(NotImplementedError, match="item 14d iii-b"):
+            T.forward({}, cfg, {"tokens": torch.zeros((1, 4),
+                                                      dtype=torch.long)},
+                      ctx=S.make_mesh_ctx(MESH))
+    params = T.init_params(dense, 0, torch_device="cpu")
+    with pytest.raises(TypeError, match="MeshCtx"):
+        T.forward(params, dense,
+                  {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+                  ctx=MESH)
     mgr = CheckpointManager(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 14d iii"):
-        mgr.restore({"w": torch.zeros(2)}, mesh=MESH)
-    with pytest.raises(NotImplementedError, match="item 14d iii"):
+    mgr.save(1, {"w": torch.zeros(2)})
+    with pytest.raises(TypeError, match="not a device mesh"):
+        mgr.restore({"w": torch.zeros(2)}, mesh=object())
+    with pytest.raises(ValueError, match="mesh="):
         mgr.restore_latest_good({"w": torch.zeros(2)}, specs={"w": None})
 
 

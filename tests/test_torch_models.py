@@ -263,14 +263,20 @@ def test_int8_kv_and_a_mesh_are_refused():
     vlm = get_arch("llama-3_2-vision-90b").reduced()
     with pytest.raises(NotImplementedError, match="int8.*ROADMAP"):
         T.param_shapes(dataclasses.replace(vlm, kv_dtype="int8"))
-    with pytest.raises(NotImplementedError, match="mesh.*item 14d iii"):
+    with pytest.raises(NotImplementedError, match="mesh.*item 14d iii-b"):
         make_serve_step(vlm, mesh=_FakeMesh())
     params = T.init_params(vlm, 0, torch_device="cpu")
     state = T.init_decode_state(params, vlm, 1, 8,
                                 frontend=torch.zeros(1, 8, vlm.d_model))
-    with pytest.raises(NotImplementedError, match="mesh.*item 14d iii"):
+    ctx = T.MeshCtx(_FakeMesh(), ("data",), "model")
+    with pytest.raises(NotImplementedError, match="mesh.*item 14d iii-b"):
         T.decode_step(params, vlm, state, torch.zeros(1, dtype=torch.int32),
-                      ctx=T.MeshCtx(_FakeMesh(), ("data",), "model"))
+                      ctx=ctx)
+    with pytest.raises(NotImplementedError, match="mesh.*item 14d iii-b"):
+        T.forward(params, vlm, {"tokens": torch.zeros((1, 4),
+                                                      dtype=torch.int32),
+                                "frontend": torch.zeros(1, 8, vlm.d_model)},
+                  ctx=ctx)
 
 
 def test_decode_on_a_one_rank_mesh_is_the_one_device_decode(tmp_path):

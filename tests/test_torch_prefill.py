@@ -196,19 +196,30 @@ def test_forward_refuses_other_families(arch):
 
 
 def test_prefill_refuses_a_mesh_remat_and_cross_attention():
-    """A mesh is refused; ``remat=True`` runs (it changes nothing without
-    a backward pass) and an unknown remat policy is refused; a vlm batch
+    """Prefill on a mesh runs for the dense and moe families
+    (``tests/test_torch_mesh_train.py``); a mesh that is not one, a
+    context that is not a ``MeshCtx`` and a family not yet ported to a
+    mesh are refused; ``remat=True`` runs (it changes nothing without a
+    backward pass) and an unknown remat policy is refused; a vlm batch
     needs its frontend."""
     _, _, cfg, params = _reduced()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         make_prefill_step(cfg, mesh=object(), torch_device="cpu")
+
+    class Mesh:
+        shape = {"data": 2, "model": 2}
+        axis_names = ("data", "model")
+
+    with pytest.raises(NotImplementedError, match="mesh.*item 14d iii-b"):
+        make_prefill_step(get_arch("mamba2-2_7b").reduced(), mesh=Mesh(),
+                          torch_device="cpu")
     batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
     with torch.no_grad():
         assert torch.equal(T.forward(params, cfg, batch, remat=True)[0],
                            T.forward(params, cfg, batch)[0])
     with pytest.raises(ValueError, match="remat_policy"):
         T.forward(params, cfg, batch, remat=True, remat_policy="everything")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="MeshCtx"):
         T.forward(params, cfg, batch, ctx=object())
     vlm = get_arch("llama-3_2-vision-90b").reduced()
     with pytest.raises(KeyError, match="frontend"):

@@ -192,8 +192,12 @@ def test_checkpoint_skips_torn_steps_and_refuses_remesh(tmp_path):
     (tmp_path / "step_00000003.tmp").mkdir()       # a crash mid-save
     _, _, step = mgr.restore_latest_good()
     assert step == 1
-    with pytest.raises(NotImplementedError, match="14d"):
+    # the elastic restore runs (tests/test_torch_pipeline.py); a mesh
+    # that is not one, and specs without a mesh, are refused
+    with pytest.raises(TypeError, match="not a device mesh"):
         mgr.restore(TREE, mesh=object())
+    with pytest.raises(ValueError, match="mesh="):
+        mgr.restore(TREE, specs={})
     with pytest.raises(FileNotFoundError):
         CheckpointManager(tmp_path / "none").restore_latest_good()
 

@@ -246,9 +246,21 @@ def test_train_steps_match_jax(arch, moments, compress):
 
 
 def test_train_step_refuses_a_mesh_and_uneven_microbatches():
+    """The train step runs on a mesh for the dense and moe families
+    (``tests/test_torch_mesh_train.py``); a mesh that is not one, and a
+    family not yet ported to a mesh, are refused; so are microbatches
+    that do not split the batch."""
     _, cfg, _, params = models("minicpm-2b")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         STEP.make_train_step(cfg, object(), lr_fn=lambda s: 1e-3)
+
+    class Mesh:
+        shape = {"data": 2, "model": 2}
+        axis_names = ("data", "model")
+
+    with pytest.raises(NotImplementedError, match="mesh.*item 14d iii-b"):
+        STEP.make_train_step(get_arch("hymba-1_5b").reduced(), Mesh(),
+                             lr_fn=lambda s: 1e-3)
     step = STEP.make_train_step(cfg, lr_fn=lambda s: 1e-3, accum_steps=3)
     with pytest.raises(ValueError, match="microbatches"):
         step(params, A.adamw_init(params), batch_for(cfg, 0), 0)
